@@ -1,0 +1,26 @@
+"""Functional interfaces between networks and the search
+(``muax_tpu/search/types.py``). All fields are batched on the leading axis B.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass
+class RootFnOutput:
+  """Output of root inference: repr -> pred on the current observation."""
+  prior_logits: torch.Tensor   # [B, A]
+  value: torch.Tensor          # [B]
+  embedding: Any               # [B, ...]
+
+
+@dataclasses.dataclass
+class RecurrentFnOutput:
+  """Output of one dynamics+prediction step inside the search."""
+  reward: torch.Tensor         # [B]
+  discount: torch.Tensor       # [B]
+  prior_logits: torch.Tensor   # [B, A]
+  value: torch.Tensor          # [B]

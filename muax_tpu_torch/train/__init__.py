@@ -1,0 +1,5 @@
+"""The actor (self-play rollout), inference closures and schedules."""
+
+from muax_tpu_torch.train.actor import make_rollout_fn, make_policy_fn
+from muax_tpu_torch.train.inference import make_root_fn, make_recurrent_fn
+from muax_tpu_torch.train import temperature

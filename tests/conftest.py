@@ -16,3 +16,8 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402  (import after env setup)
 
 jax.config.update("jax_platform_name", "cpu")
+
+
+def pytest_configure(config):
+  config.addinivalue_line(
+      "markers", "gpu: needs a CUDA card; the test skips where there is none")
