@@ -1,0 +1,670 @@
+// Fused MuZero learner: the K-step unrolled loss and its hand-derived
+// backward for a batch of windows, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel muax_tpu/models/fused_learner.py `_make_kernel`
+// in raw mode with the MLP spec (elu towers, h-support heads), which
+// `_run_kernel` launches through pl.pallas_call
+// (muax_tpu/models/fused_learner.py:665). The plain PyTorch version of the
+// same function is autograd over `muzero_loss`
+// (`fused_muzero_grad_raw_reference` in
+// muax_tpu_torch/models/fused_learner.py).
+//
+// What it computes, per window: the representation of the start
+// observation, K steps of prediction and dynamics (the dynamics input is
+// concat(s, one_hot(a))), the three cross-entropies against two-hot targets
+// built here from the raw scalar rows, and the backward pass: softmax minus
+// target for each head, the min-max normaliser's tie-splitting subgradient,
+// and the gradient into the hidden state scaled by `gradient_scale` where it
+// enters the dynamics. Weight gradients are summed over the batch with each
+// window's `coef` = weight / denom / B, and L2 (`l2_coef * p`) is added.
+//
+// What bounds it on this card. Per window the forward is about 9,000
+// multiply-adds at the flagship widths and the backward about twice that,
+// so a launch of 4,096 windows is about 0.22 GFLOP: 3.3 us at the f32 peak.
+// It reads well under a megabyte. So the bound is by operations. The real
+// limit of this first version is latency: every layer is a dependent step
+// on a few dozen values, done by one warp.
+//
+// What the design does about it. One warp owns one window at a time, its
+// lanes over the output features of each layer. The weights (about 8.4 KB)
+// are staged once per block in shared memory; each warp keeps its window's
+// forward activations (about 700 floats at K = 5) and its own weight-gradient
+// accumulator in shared memory, so nothing but the raw rows, the weights and
+// the per-block sums touches device memory. On the TPU the grid runs in
+// order and the gradient accumulates in VMEM across tiles; on Hopper the
+// blocks run in parallel, so each block writes its sum to one row of a
+// [G, n_weights] scratch and a second kernel adds the G rows in a fixed
+// order, then `l2_coef * p`. Nothing uses float atomics, so two launches on
+// the same inputs give bit-identical gradients.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kMaxLayers = 8;
+constexpr int kMaxLin = 3 * kMaxLayers + 5;
+constexpr int kWarps = 8;           // windows in flight per block
+constexpr int kWindowsPerWarp = 2;  // windows each warp takes in turn
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kHEps = 1e-3f;
+constexpr float kMMEps = 1e-8f;
+
+struct Args {
+  int B, ld, O, E, A, S41, support, K;
+  int n_repr, n_pred, n_dyn;
+  // Linear l: weight [dout, din] at off[l], bias [dout] right after it.
+  // Order: repr hidden, repr head, pred hidden, value, policy, dyn hidden,
+  // reward, next state (the modules' parameters() order).
+  int off[kMaxLin], din[kMaxLin], dout[kMaxLin];
+  // Offset of hidden layer l's activation inside its tower's stash.
+  int hoff[kMaxLin];
+  int r_obs, r_action, r_reward, r_rn, r_pi, r_mask;
+  int n_weights, w_stride, warp_floats, step_floats, max_w;
+  int o_obs, o_repr, o_spre0, o_steps, o_scratch;  // inside a warp's slice
+  int so_s, so_pred, so_v, so_p, so_dyn, so_r, so_spre;  // inside a step
+  float gradient_scale;
+};
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float elu(float x) {
+  return x > 0.f ? x : expf(x) - 1.f;
+}
+
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+}
+
+// h^-1 of muax_tpu/ops/support.py (eps 1e-3).
+__device__ __forceinline__ float inv_value_transform(float x) {
+  const float t =
+      (sqrtf(4.f * kHEps * (fabsf(x) + 1.f + kHEps) + 1.f) - 1.f) /
+      (2.f * kHEps);
+  return sign_of(x) * (t * t - 1.f);
+}
+
+// Two-hot of h(x) over the bins -S..S (ops/support.py scalar_to_support).
+struct TwoHot {
+  float low, high, ph;
+  int support;
+  __device__ float operator()(int j) const {
+    const float bin = static_cast<float>(j - support);
+    return (bin == low ? 1.f - ph : 0.f) + (bin == high ? ph : 0.f);
+  }
+};
+
+__device__ TwoHot two_hot(float x, int support) {
+  const float S = static_cast<float>(support);
+  float y = sign_of(x) * (sqrtf(fabsf(x) + 1.f) - 1.f) + kHEps * x;
+  y = fminf(fmaxf(y, -S), S);
+  const float low = floorf(y);
+  return TwoHot{low, fminf(low + 1.f, S), y - low, support};
+}
+
+// y[o] = W[o, :] . x + b[o], then elu if `act`; lanes over outputs.
+__device__ void dense(const float* W, const float* x, float* y, int in,
+                      int out, bool act, int lane) {
+  const float* b = W + in * out;
+  for (int o = lane; o < out; o += 32) {
+    const float* row = W + o * in;
+    float acc = 0.f;
+    for (int k = 0; k < in; ++k) acc = fmaf(row[k], x[k], acc);
+    acc += b[o];
+    y[o] = act ? elu(acc) : acc;
+  }
+  __syncwarp();
+}
+
+// The dynamics' first layer on concat(s [E], one_hot(a) [A]), then elu.
+__device__ void dense_sa(const float* W, const float* s, int a, float* y,
+                         int E, int A, int out, int lane) {
+  const int in = E + A;
+  const float* b = W + in * out;
+  const bool has_a = a >= 0 && a < A;
+  for (int o = lane; o < out; o += 32) {
+    const float* row = W + o * in;
+    float acc = 0.f;
+    for (int k = 0; k < E; ++k) acc = fmaf(row[k], s[k], acc);
+    if (has_a) acc += row[E + a];
+    acc += b[o];
+    y[o] = elu(acc);
+  }
+  __syncwarp();
+}
+
+// dx[k] (+)= sum_o W[o, k] dz[o] for k < n; lanes over k.
+__device__ void dense_t(const float* W, const float* dz, float* dx, int in,
+                        int out, int n, bool accumulate, int lane) {
+  for (int k = lane; k < n; k += 32) {
+    float acc = accumulate ? dx[k] : 0.f;
+    for (int o = 0; o < out; ++o) acc = fmaf(W[o * in + k], dz[o], acc);
+    dx[k] = acc;
+  }
+  __syncwarp();
+}
+
+// dW[o, k] += dz[o] x[k], db[o] += dz[o]; each element owned by one lane.
+__device__ void acc_outer(float* dW, const float* dz, const float* x, int in,
+                          int out, int lane) {
+  for (int idx = lane; idx < out * in; idx += 32) {
+    const int o = idx / in;
+    dW[idx] += dz[o] * x[idx - o * in];
+  }
+  float* db = dW + in * out;
+  for (int o = lane; o < out; o += 32) db[o] += dz[o];
+  __syncwarp();
+}
+
+// acc_outer with x = concat(s [E], one_hot(a) [A]).
+__device__ void acc_outer_sa(float* dW, const float* dz, const float* s,
+                             int a, int E, int A, int out, int lane) {
+  const int in = E + A;
+  for (int idx = lane; idx < out * in; idx += 32) {
+    const int o = idx / in;
+    const int k = idx - o * in;
+    const float x = k < E ? s[k] : (k - E == a ? 1.f : 0.f);
+    dW[idx] += dz[o] * x;
+  }
+  float* db = dW + in * out;
+  for (int o = lane; o < out; o += 32) db[o] += dz[o];
+  __syncwarp();
+}
+
+// y = (x - min) / max(max - min, 1e-8).
+__device__ void minmax(const float* x, float* y, int n, int lane) {
+  float lo = INFINITY, hi = -INFINITY;
+  for (int j = lane; j < n; j += 32) {
+    lo = fminf(lo, x[j]);
+    hi = fmaxf(hi, x[j]);
+  }
+  lo = warp_min(lo);
+  hi = warp_max(hi);
+  const float d = fmaxf(hi - lo, kMMEps);
+  for (int j = lane; j < n; j += 32) y[j] = (x[j] - lo) / d;
+  __syncwarp();
+}
+
+// Subgradient of minmax at x for the output gradient dy, as jax.grad gives
+// it: the gradient of the min (max) is split evenly over tied entries, and
+// the range gets none while the 1e-8 floor binds.
+__device__ void minmax_bwd(const float* x, const float* dy, float* dx, int n,
+                           int lane) {
+  float lo = INFINITY, hi = -INFINITY;
+  for (int j = lane; j < n; j += 32) {
+    lo = fminf(lo, x[j]);
+    hi = fmaxf(hi, x[j]);
+  }
+  lo = warp_min(lo);
+  hi = warp_max(hi);
+  const float range = hi - lo;
+  const float d = fmaxf(range, kMMEps);
+  float n_lo = 0.f, n_hi = 0.f, sg = 0.f, sgy = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    n_lo += x[j] == lo ? 1.f : 0.f;
+    n_hi += x[j] == hi ? 1.f : 0.f;
+    sg += dy[j];
+    sgy += dy[j] * ((x[j] - lo) / d);
+  }
+  n_lo = warp_sum(n_lo);
+  n_hi = warp_sum(n_hi);
+  sg = warp_sum(sg);
+  sgy = warp_sum(sgy);
+  const float active = range > kMMEps ? 1.f : 0.f;
+  for (int j = lane; j < n; j += 32) {
+    const float m = (x[j] == lo ? 1.f : 0.f) / n_lo;
+    const float mm = (x[j] == hi ? 1.f : 0.f) / n_hi;
+    dx[j] = (dy[j] - m * sg - active * sgy * (mm - m)) / d;
+  }
+  __syncwarp();
+}
+
+// Logits z[n] -> softmax probabilities in place; returns the cross-entropy
+// -sum_j t(j) log_softmax(z)_j (the same on every lane).
+template <typename Target>
+__device__ float softmax_ce(float* z, int n, const Target& t, int lane) {
+  float m = -INFINITY;
+  for (int j = lane; j < n; j += 32) m = fmaxf(m, z[j]);
+  m = warp_max(m);
+  float s = 0.f;
+  for (int j = lane; j < n; j += 32) s += expf(z[j] - m);
+  const float log_s = logf(warp_sum(s));
+  float ce = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    const float ls = (z[j] - m) - log_s;
+    ce -= t(j) * ls;
+    z[j] = expf(ls);
+  }
+  ce = warp_sum(ce);
+  __syncwarp();
+  return ce;
+}
+
+// Forward and backward of one window; adds its weight gradients to dW.
+__device__ void run_window(const Args& g, const float* Wt, float* dW,
+                           float* sl, const float* __restrict__ raw,
+                           const float* __restrict__ coef,
+                           float* __restrict__ met, int w, int lane) {
+  const size_t ld = static_cast<size_t>(g.ld);
+  const int E = g.E, A = g.A, S41 = g.S41, K = g.K;
+  const int l_repr_out = g.n_repr;
+  const int l_pred0 = g.n_repr + 1;
+  const int l_value = l_pred0 + g.n_pred, l_policy = l_value + 1;
+  const int l_dyn0 = l_policy + 1;
+  const int l_reward = l_dyn0 + g.n_dyn, l_state = l_reward + 1;
+  auto rawv = [&](int row) { return raw[row * ld + w]; };
+  auto Wl = [&](int l) { return Wt + g.off[l]; };
+  auto dWl = [&](int l) { return dW + g.off[l]; };
+
+  float* obs = sl + g.o_obs;
+  float* repr = sl + g.o_repr;
+  float* spre0 = sl + g.o_spre0;
+  float* steps = sl + g.o_steps;
+  float* DS = sl + g.o_scratch;   // gradient into the current state [E]
+  float* T1 = DS + E;             // gradient into a pre-norm state [E]
+  float* DD = T1 + E;             // gradient into s from the dynamics [E]
+  float* H1 = DD + E;
+  float* H2 = H1 + g.max_w;
+  float* bufs[2] = {H2 + g.max_w, H2 + 2 * g.max_w};
+
+  // ---- forward ------------------------------------------------------------
+  for (int f = lane; f < g.O; f += 32) obs[f] = rawv(g.r_obs + f);
+  __syncwarp();
+  const float* x = obs;
+  int in = g.O;
+  for (int l = 0; l < g.n_repr; ++l) {
+    float* y = repr + g.hoff[l];
+    dense(Wl(l), x, y, in, g.dout[l], true, lane);
+    x = y;
+    in = g.dout[l];
+  }
+  const float* repr_last = x;
+  const int repr_last_w = in;
+  dense(Wl(l_repr_out), x, spre0, in, E, false, lane);
+  minmax(spre0, steps + g.so_s, E, lane);
+
+  float v_sum = 0.f, p_sum = 0.f, r_sum = 0.f, v0 = 0.f;
+  for (int i = 0; i < K; ++i) {
+    float* st = steps + i * g.step_floats;
+    const float* s = st + g.so_s;
+    const float mask = rawv(g.r_mask + i);
+    // prediction
+    x = s;
+    in = E;
+    for (int l = 0; l < g.n_pred; ++l) {
+      float* y = st + g.so_pred + g.hoff[l_pred0 + l];
+      dense(Wl(l_pred0 + l), x, y, in, g.dout[l_pred0 + l], true, lane);
+      x = y;
+      in = g.dout[l_pred0 + l];
+    }
+    float* vz = st + g.so_v;
+    dense(Wl(l_value), x, vz, in, S41, false, lane);
+    const float ce_v =
+        softmax_ce(vz, S41, two_hot(rawv(g.r_rn + i), g.support), lane);
+    if (i == 0) {
+      float ev = 0.f;
+      for (int j = lane; j < S41; j += 32)
+        ev += vz[j] * static_cast<float>(j - g.support);
+      v0 = inv_value_transform(warp_sum(ev));
+    }
+    float* pz = st + g.so_p;
+    dense(Wl(l_policy), x, pz, in, A, false, lane);
+    const int pi_row = g.r_pi + i * A;
+    const float ce_p =
+        softmax_ce(pz, A, [&](int j) { return rawv(pi_row + j); }, lane);
+    v_sum += mask * ce_v;
+    p_sum += mask * ce_p;
+    // dynamics
+    const int a = static_cast<int>(rawv(g.r_action + i));
+    float* y = st + g.so_dyn + g.hoff[l_dyn0];
+    dense_sa(Wl(l_dyn0), s, a, y, E, A, g.dout[l_dyn0], lane);
+    x = y;
+    in = g.dout[l_dyn0];
+    for (int l = 1; l < g.n_dyn; ++l) {
+      y = st + g.so_dyn + g.hoff[l_dyn0 + l];
+      dense(Wl(l_dyn0 + l), x, y, in, g.dout[l_dyn0 + l], true, lane);
+      x = y;
+      in = g.dout[l_dyn0 + l];
+    }
+    float* rz = st + g.so_r;
+    dense(Wl(l_reward), x, rz, in, S41, false, lane);
+    r_sum += mask * softmax_ce(rz, S41, two_hot(rawv(g.r_reward + i),
+                                                g.support), lane);
+    float* spre = st + g.so_spre;
+    dense(Wl(l_state), x, spre, in, E, false, lane);
+    if (i + 1 < K) minmax(spre, st + g.step_floats + g.so_s, E, lane);
+  }
+  if (lane == 0) {
+    met[w] = v_sum;
+    met[g.B + w] = p_sum;
+    met[2 * g.B + w] = r_sum;
+    met[3 * g.B + w] = v0;
+  }
+
+  // ---- backward -----------------------------------------------------------
+  const float c = coef[w];
+  for (int j = lane; j < E; j += 32) DS[j] = 0.f;
+  __syncwarp();
+  for (int i = K - 1; i >= 0; --i) {
+    float* st = steps + i * g.step_floats;
+    const float* s = st + g.so_s;
+    const float cm = c * rawv(g.r_mask + i);
+    // dynamics branch: reward head, next-state head through the normaliser
+    minmax_bwd(st + g.so_spre, DS, T1, E, lane);
+    const TwoHot rt = two_hot(rawv(g.r_reward + i), g.support);
+    const float* rz = st + g.so_r;
+    for (int j = lane; j < S41; j += 32) H1[j] = cm * (rz[j] - rt(j));
+    __syncwarp();
+    const int last_d = l_dyn0 + g.n_dyn - 1;
+    const float* gd = st + g.so_dyn + g.hoff[last_d];
+    const int hd = g.dout[last_d];
+    acc_outer(dWl(l_reward), H1, gd, hd, S41, lane);
+    acc_outer(dWl(l_state), T1, gd, hd, E, lane);
+    float* dy = bufs[0];
+    float* dx = bufs[1];
+    dense_t(Wl(l_reward), H1, dy, hd, S41, hd, false, lane);
+    dense_t(Wl(l_state), T1, dy, hd, E, hd, true, lane);
+    const int a = static_cast<int>(rawv(g.r_action + i));
+    for (int l = g.n_dyn - 1; l >= 0; --l) {
+      const int L = l_dyn0 + l;
+      const float* y = st + g.so_dyn + g.hoff[L];
+      for (int o = lane; o < g.dout[L]; o += 32)
+        dy[o] *= y[o] > 0.f ? 1.f : y[o] + 1.f;
+      __syncwarp();
+      if (l > 0) {
+        const float* xin = st + g.so_dyn + g.hoff[L - 1];
+        acc_outer(dWl(L), dy, xin, g.din[L], g.dout[L], lane);
+        dense_t(Wl(L), dy, dx, g.din[L], g.dout[L], g.din[L], false, lane);
+        float* t = dy;
+        dy = dx;
+        dx = t;
+      } else {
+        acc_outer_sa(dWl(L), dy, s, a, E, A, g.dout[L], lane);
+        dense_t(Wl(L), dy, DD, g.din[L], g.dout[L], E, false, lane);
+      }
+    }
+    // prediction branch: value and policy heads
+    const TwoHot vt = two_hot(rawv(g.r_rn + i), g.support);
+    const float* vz = st + g.so_v;
+    const float* pz = st + g.so_p;
+    const int pi_row = g.r_pi + i * A;
+    for (int j = lane; j < S41; j += 32) H1[j] = cm * (vz[j] - vt(j));
+    for (int j = lane; j < A; j += 32) H2[j] = cm * (pz[j] - rawv(pi_row + j));
+    __syncwarp();
+    const int last_p = l_pred0 + g.n_pred - 1;
+    const float* hp = st + g.so_pred + g.hoff[last_p];
+    const int wp = g.dout[last_p];
+    acc_outer(dWl(l_value), H1, hp, wp, S41, lane);
+    acc_outer(dWl(l_policy), H2, hp, wp, A, lane);
+    dy = bufs[0];
+    dx = bufs[1];
+    dense_t(Wl(l_value), H1, dy, wp, S41, wp, false, lane);
+    dense_t(Wl(l_policy), H2, dy, wp, A, wp, true, lane);
+    for (int l = g.n_pred - 1; l >= 0; --l) {
+      const int L = l_pred0 + l;
+      const float* y = st + g.so_pred + g.hoff[L];
+      for (int o = lane; o < g.dout[L]; o += 32)
+        dy[o] *= y[o] > 0.f ? 1.f : y[o] + 1.f;
+      __syncwarp();
+      const float* xin = l > 0 ? st + g.so_pred + g.hoff[L - 1] : s;
+      acc_outer(dWl(L), dy, xin, g.din[L], g.dout[L], lane);
+      dense_t(Wl(L), dy, dx, g.din[L], g.dout[L], g.din[L], false, lane);
+      float* t = dy;
+      dy = dx;
+      dx = t;
+    }
+    // s feeds prediction as is and the dynamics through scale_gradient.
+    for (int j = lane; j < E; j += 32)
+      DS[j] = dy[j] + g.gradient_scale * DD[j];
+    __syncwarp();
+  }
+
+  // representation: head through the normaliser, then the hidden layers
+  minmax_bwd(spre0, DS, T1, E, lane);
+  acc_outer(dWl(l_repr_out), T1, repr_last, repr_last_w, E, lane);
+  if (g.n_repr > 0) {
+    float* dy = bufs[0];
+    float* dx = bufs[1];
+    dense_t(Wl(l_repr_out), T1, dy, repr_last_w, E, repr_last_w, false, lane);
+    for (int l = g.n_repr - 1; l >= 0; --l) {
+      const float* y = repr + g.hoff[l];
+      for (int o = lane; o < g.dout[l]; o += 32)
+        dy[o] *= y[o] > 0.f ? 1.f : y[o] + 1.f;
+      __syncwarp();
+      const float* xin = l > 0 ? repr + g.hoff[l - 1] : obs;
+      acc_outer(dWl(l), dy, xin, g.din[l], g.dout[l], lane);
+      if (l > 0) {
+        dense_t(Wl(l), dy, dx, g.din[l], g.dout[l], g.din[l], false, lane);
+        float* t = dy;
+        dy = dx;
+        dx = t;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32 * kWarps)
+fused_muzero_grad_kernel(const float* __restrict__ raw,
+                         const float* __restrict__ coef,
+                         const float* __restrict__ weights,
+                         float* __restrict__ partial, float* __restrict__ met,
+                         const Args args) {
+  extern __shared__ __align__(16) float smem[];
+  for (int i = threadIdx.x; i < args.n_weights; i += blockDim.x)
+    smem[i] = weights[i];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* slice = smem + args.w_stride + warp * args.warp_floats;
+  float* dW = slice;  // the warp's gradient sum, in the weights' layout
+  for (int i = lane; i < args.n_weights; i += 32) dW[i] = 0.f;
+  __syncthreads();
+
+  for (int k = 0; k < kWindowsPerWarp; ++k) {
+    const int w = (blockIdx.x * kWarps + warp) * kWindowsPerWarp + k;
+    if (w >= args.B) break;
+    run_window(args, smem, dW, slice, raw, coef, met, w, lane);
+  }
+  __syncthreads();
+
+  // The block's sum, warps added in a fixed order.
+  for (int i = threadIdx.x; i < args.n_weights; i += blockDim.x) {
+    float s = 0.f;
+    for (int v = 0; v < kWarps; ++v)
+      s += smem[args.w_stride + v * args.warp_floats + i];
+    partial[static_cast<size_t>(blockIdx.x) * args.n_weights + i] = s;
+  }
+}
+
+constexpr int kFinishThreads = 256;
+
+// grads[k] = l2_coef * w[k] + sum_g partial[g, k] (g in order); the last
+// block computes l2 = 0.5 * l2_coef * sum w^2 with a fixed-order reduction.
+__global__ void __launch_bounds__(kFinishThreads)
+finish_grads_kernel(const float* __restrict__ partial, int G, int n,
+                    const float* __restrict__ weights, float l2_coef,
+                    float* __restrict__ grads, float* __restrict__ l2) {
+  if (blockIdx.x + 1 < gridDim.x) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= n) return;
+    float acc = 0.f;
+    for (int b = 0; b < G; ++b) acc += partial[static_cast<size_t>(b) * n + k];
+    grads[k] = l2_coef * weights[k] + acc;
+    return;
+  }
+  __shared__ float red[kFinishThreads];
+  float s = 0.f;
+  for (int k = threadIdx.x; k < n; k += blockDim.x)
+    s = fmaf(weights[k], weights[k], s);
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int half = kFinishThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) l2[0] = 0.5f * l2_coef * red[0];
+}
+
+}  // namespace
+
+#define MZ_ERR_SHAPE (-1)
+#define MZ_ERR_SCRATCH (-2)
+
+extern "C" {
+
+// Blocks of a launch over B windows: the rows of the scratch `partial`.
+int mz_fused_grad_blocks(int B) {
+  const int per_block = kWarps * kWindowsPerWarp;
+  return (B + per_block - 1) / per_block;
+}
+
+// Launch the learner on `stream`. raw: the fused sampler's rows, row r of
+// window w at raw[r * ld + w] (ld >= B); coef [B]; weights: the flat
+// parameters in the modules' order (per linear W [out, in] then b; towers
+// representation, prediction, dynamics, heads as in the Args comment).
+// Outputs: grads [n_weights] in the same layout, met [4, B] (value, policy
+// and reward cross-entropy sums over the valid steps, and the decoded value
+// at step 0), l2 [1]. partial is scratch of [mz_fused_grad_blocks(B),
+// n_weights]. Returns a cudaError_t, MZ_ERR_SHAPE or MZ_ERR_SCRATCH.
+int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
+                         const float* weights, int n_weights, float* grads,
+                         float* met, float* l2, float* partial,
+                         int partial_rows, int B, int O, int E, int A,
+                         int S41, int support, int K, int n_repr,
+                         const int* repr_w, int n_pred, const int* pred_w,
+                         int n_dyn, const int* dyn_w, int r_obs, int r_action,
+                         int r_reward, int r_rn, int r_pi, int r_mask,
+                         float gradient_scale, float l2_coef, int device,
+                         void* stream) {
+  if (B < 1 || ld < B || O < 1 || E < 1 || A < 1 || S41 < 1 || K < 1 ||
+      n_repr < 0 || n_repr > kMaxLayers || n_pred < 1 ||
+      n_pred > kMaxLayers || n_dyn < 1 || n_dyn > kMaxLayers)
+    return MZ_ERR_SHAPE;
+  if (partial_rows < mz_fused_grad_blocks(B)) return MZ_ERR_SCRATCH;
+  Args g;
+  g.B = B;
+  g.ld = ld;
+  g.O = O;
+  g.E = E;
+  g.A = A;
+  g.S41 = S41;
+  g.support = support;
+  g.K = K;
+  g.n_repr = n_repr;
+  g.n_pred = n_pred;
+  g.n_dyn = n_dyn;
+  g.r_obs = r_obs;
+  g.r_action = r_action;
+  g.r_reward = r_reward;
+  g.r_rn = r_rn;
+  g.r_pi = r_pi;
+  g.r_mask = r_mask;
+  g.gradient_scale = gradient_scale;
+
+  // The linear table, in the modules' parameter order.
+  int n_lin = 0, off = 0, max_w = S41;
+  if (E > max_w) max_w = E;
+  if (A > max_w) max_w = A;
+  auto add = [&](int in, int out, int* stash, bool hidden) {
+    g.off[n_lin] = off;
+    g.din[n_lin] = in;
+    g.dout[n_lin] = out;
+    g.hoff[n_lin] = hidden ? *stash : 0;
+    if (hidden) *stash += out;
+    if (out > max_w) max_w = out;
+    off += in * out + out;
+    ++n_lin;
+  };
+  int repr_floats = 0, pred_floats = 0, dyn_floats = 0, in = O;
+  for (int l = 0; l < n_repr; ++l) {
+    add(in, repr_w[l], &repr_floats, true);
+    in = repr_w[l];
+  }
+  add(in, E, nullptr, false);
+  in = E;
+  for (int l = 0; l < n_pred; ++l) {
+    add(in, pred_w[l], &pred_floats, true);
+    in = pred_w[l];
+  }
+  add(in, S41, nullptr, false);
+  add(in, A, nullptr, false);
+  in = E + A;
+  for (int l = 0; l < n_dyn; ++l) {
+    add(in, dyn_w[l], &dyn_floats, true);
+    in = dyn_w[l];
+  }
+  add(in, S41, nullptr, false);
+  add(in, E, nullptr, false);
+  if (off != n_weights) return MZ_ERR_SHAPE;
+  g.n_weights = n_weights;
+  g.w_stride = (n_weights + 3) / 4 * 4;
+  g.max_w = max_w;
+
+  // A step's stash: s, prediction activations, value probs, policy probs,
+  // dynamics activations, reward probs, pre-norm next state.
+  g.so_s = 0;
+  g.so_pred = g.so_s + E;
+  g.so_v = g.so_pred + pred_floats;
+  g.so_p = g.so_v + S41;
+  g.so_dyn = g.so_p + A;
+  g.so_r = g.so_dyn + dyn_floats;
+  g.so_spre = g.so_r + S41;
+  g.step_floats = g.so_spre + E;
+  // A warp's slice: gradient sum, obs, representation activations, pre-norm
+  // s0, K steps, scratch (3 state vectors and 4 layer-wide buffers).
+  g.o_obs = g.w_stride;
+  g.o_repr = g.o_obs + O;
+  g.o_spre0 = g.o_repr + repr_floats;
+  g.o_steps = g.o_spre0 + E;
+  g.o_scratch = g.o_steps + K * g.step_floats;
+  g.warp_floats = (g.o_scratch + 3 * E + 4 * max_w + 3) / 4 * 4;
+
+  const size_t smem =
+      (static_cast<size_t>(g.w_stride) +
+       static_cast<size_t>(kWarps) * g.warp_floats) * sizeof(float);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  if (smem > static_cast<size_t>(max_smem)) return MZ_ERR_SHAPE;
+  err = cudaFuncSetAttribute(fused_muzero_grad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+
+  const int G = mz_fused_grad_blocks(B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fused_muzero_grad_kernel<<<G, 32 * kWarps, smem, st>>>(raw, coef, weights,
+                                                         partial, met, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int grid2 = (n_weights + kFinishThreads - 1) / kFinishThreads + 1;
+  finish_grads_kernel<<<grid2, kFinishThreads, 0, st>>>(
+      partial, G, n_weights, weights, l2_coef, grads, l2);
+  return cudaGetLastError();
+}
+
+const char* mz_learner_error_string(int code) {
+  if (code == MZ_ERR_SHAPE)
+    return "shapes do not fit the fused learner kernel";
+  if (code == MZ_ERR_SCRATCH)
+    return "the scratch of block sums has too few rows";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

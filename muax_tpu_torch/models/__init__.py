@@ -1,4 +1,5 @@
-"""Network families and parameter conversion."""
+"""Network families, the loss, the optimizer, the fused learner and
+parameter conversion."""
 
 from muax_tpu_torch.models.networks import (
     MZNetworks,
@@ -6,3 +7,5 @@ from muax_tpu_torch.models.networks import (
     make_mlp_networks,
 )
 from muax_tpu_torch.models.convert import mlp_params_from_numpy
+from muax_tpu_torch.models.losses import LossMetrics, muzero_loss
+from muax_tpu_torch.models.optimizers import muzero_optimizer

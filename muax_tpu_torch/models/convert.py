@@ -1,4 +1,6 @@
-"""Haiku parameter trees, given as numpy arrays, into the port's modules.
+"""Haiku parameter trees and replay rings, given as numpy arrays, into the
+port's modules and tensors, and the port's gradients back into haiku's
+names.
 
 The tree has the JAX package's layout::
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
+from muax_tpu_torch.replay.buffer import ReplayState
 
 _TOWERS = ("representation", "prediction", "dynamic")
 
@@ -63,3 +66,44 @@ def mlp_params_from_numpy(tree: Mapping, networks: MZNetworks,
         target.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
         target.bias.copy_(torch.from_numpy(b))
   return params
+
+
+def _module_name(i: int) -> str:
+  return "linear" if i == 0 else f"linear_{i}"
+
+
+def mlp_grads_to_numpy(params: MZParams, flat_grads: torch.Tensor) -> dict:
+  """A flat gradient in the order of ``params.parameters()`` (what the
+  port's learner returns) as a numpy haiku tree: ``{tower: {'linear',
+  'linear_1', ...: {'w': [in, out], 'b': [out]}}}``."""
+  flat = flat_grads.detach().cpu().numpy()
+  tree, offset = {}, 0
+  for name in _TOWERS:
+    tree[name] = {}
+    for i, layer in enumerate(getattr(params, name).linears()):
+      out_dim, in_dim = layer.weight.shape
+      w = flat[offset:offset + out_dim * in_dim].reshape(out_dim, in_dim)
+      offset += out_dim * in_dim
+      b = flat[offset:offset + out_dim]
+      offset += out_dim
+      tree[name][_module_name(i)] = {"w": np.ascontiguousarray(w.T),
+                                     "b": b.copy()}
+  if offset != flat.size:
+    raise ValueError(f"gradient of {flat.size} floats does not fit params "
+                     f"of {offset}")
+  return tree
+
+
+_RING_FIELDS = ("obs", "action", "reward", "done", "rn", "value", "pi",
+                "step_priorities", "target_step")
+
+
+def replay_state_from_numpy(ring, device="cpu") -> ReplayState:
+  """The JAX package's ``ReplayState`` with numpy leaves as the port's ring
+  on ``device``."""
+  def tensor(name):
+    return torch.from_numpy(np.array(getattr(ring, name))).to(device)
+
+  return ReplayState(**{name: tensor(name) for name in _RING_FIELDS},
+                     cursor=int(ring.cursor),
+                     total_added=int(ring.total_added))

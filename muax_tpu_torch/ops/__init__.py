@@ -15,3 +15,4 @@ from muax_tpu_torch.ops.returns import (
     segment_n_step_returns,
 )
 from muax_tpu_torch.ops.normalize import min_max_normalize
+from muax_tpu_torch.ops.gradients import scale_gradient

@@ -1,0 +1,142 @@
+"""The port's ``fit`` loop on the CPU: a smoke run as ``tests/test_e2e.py``
+runs the JAX one, a bit-exact resume as ``tests/test_checkpoint.py:84-115``,
+the resume guards, the checkpoint round trip, the fused-status report and
+the parts that raise until their ROADMAP items are ported."""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from muax_tpu_torch.config import (MuZeroConfig, ReplayConfig, SearchConfig,
+                                   TrainConfig)
+from muax_tpu_torch.envs import AutoResetWrapper, CartPole
+from muax_tpu_torch.fused_status import format_fused_status, fused_status
+from muax_tpu_torch.models import make_mlp_networks
+from muax_tpu_torch.models.optimizers import muzero_optimizer
+from muax_tpu_torch.replay import replay_init
+from muax_tpu_torch.train.checkpoint import (load_checkpoint, save_checkpoint,
+                                             save_pytree)
+from muax_tpu_torch.train.fit import fit
+from muax_tpu_torch.train.learner import TrainState
+
+
+def _config(**train):
+  kwargs = dict(num_envs=8, collect_steps=6, batch_size=8,
+                updates_per_iteration=2, unroll_steps=2, n_bootstrap=3)
+  kwargs.update(train)
+  return MuZeroConfig(search=SearchConfig(num_simulations=4),
+                      replay=ReplayConfig(capacity=64, min_fill=8),
+                      train=TrainConfig(**kwargs))
+
+
+def _networks():
+  return make_mlp_networks(num_actions=2, embedding_dim=4, support_size=5,
+                           device="cpu")
+
+
+def _fit(tmp, **kwargs):
+  args = dict(eval_every=2, log_every=2, log_fn=lambda s: None, seed=11,
+              model_dir=str(tmp))
+  args.update(kwargs)
+  config = args.pop("config", None) or _config()
+  optimizer = args.pop("optimizer", None) or muzero_optimizer(warmup_steps=2)
+  return fit(CartPole(), _networks(), config, optimizer, **args)
+
+
+def test_cartpole_smoke(tmp_path):
+  state, results = _fit(tmp_path, num_iterations=4)
+  assert state.step == 8
+  assert len(results["history"]) == 3  # iterations 1, 2 and 4
+  assert results["model_path"] is not None
+  assert os.path.exists(results["model_path"])
+  assert np.isfinite(results["best_reward"])
+  for row in results["history"]:
+    for k, v in row.items():
+      assert np.isfinite(v), (k, v)
+
+
+def test_resume_is_bit_exact(tmp_path):
+  """Resuming the iteration-2 snapshot of a 4-iteration run reproduces the
+  uninterrupted run bit for bit (parameters, optimizer state, history)."""
+  state_a, results_a = _fit(tmp_path, num_iterations=4, checkpoint_every=2,
+                            save_best=False)
+  mid = os.path.join(str(tmp_path), "ckpt_it000002.pkl")
+  assert load_checkpoint(
+      os.path.join(str(tmp_path), "ckpt_latest.pkl"))["iteration"] == 4
+  state_b, results_b = _fit(tmp_path / "resumed", num_iterations=4,
+                            resume_from=mid, save_best=False)
+  for (name, a), b in zip(state_a.params.state_dict().items(),
+                          state_b.params.state_dict().values()):
+    assert torch.equal(a, b), name
+  assert torch.equal(state_a.opt_state.mu, state_b.opt_state.mu)
+  assert state_a.step == state_b.step
+  drop = ("env_steps_per_s",)
+  assert [{k: v for k, v in row.items() if k not in drop}
+          for row in results_a["history"]] == [
+              {k: v for k, v in row.items() if k not in drop}
+              for row in results_b["history"]]
+
+
+def test_resume_guards(tmp_path):
+  _fit(tmp_path, num_iterations=1, checkpoint_every=1, save_best=False)
+  latest = os.path.join(str(tmp_path), "ckpt_latest.pkl")
+  with pytest.raises(ValueError, match="config hash"):
+    _fit(tmp_path, num_iterations=2, resume_from=latest,
+         config=_config(samples_per_insert=99.0))
+  ckpt = load_checkpoint(latest)
+  ckpt["train_state"].opt_state = ckpt["train_state"].opt_state._replace(
+      mu=np.zeros(3, np.float32))
+  bad = os.path.join(str(tmp_path), "bad.pkl")
+  save_pytree(bad, {**ckpt, "generator": ckpt["generator"].numpy()})
+  with pytest.raises(ValueError, match="optimizer"):
+    _fit(tmp_path, num_iterations=2, resume_from=bad)
+
+
+def test_spi_gate_limits_updates(tmp_path):
+  # One warm-up iteration inserts 48 steps. Iteration 1: budget
+  # 0.25 * 96 * 1.1 = 26.4 windows -> 3 updates of 8; iteration 2:
+  # 0.25 * 144 * 1.1 = 39.6 -> 1 more.
+  state, results = _fit(tmp_path, num_iterations=2, save_best=False,
+                        config=_config(samples_per_insert=0.25,
+                                       updates_per_iteration=4))
+  assert state.step == 4
+
+
+def test_checkpoint_roundtrip(tmp_path):
+  net = _networks()
+  params = net.init_params((4,), torch.Generator().manual_seed(0))
+  opt = muzero_optimizer()
+  ts = TrainState(params, opt.init(params), step=7)
+  rs = replay_init(16, 4, (4,), 2, device="cpu")
+  env = AutoResetWrapper(CartPole())
+  gen = torch.Generator().manual_seed(3)
+  carry = env.reset(gen, 4)
+  path = str(tmp_path / "full.pkl")
+  save_checkpoint(path, train_state=ts, replay_state=rs, env_carry=carry,
+                  generator=gen, iteration=12, counters={"best_reward": 1.5})
+  ckpt = load_checkpoint(path, device="cpu")
+  assert ckpt["iteration"] == 12 and ckpt["counters"]["best_reward"] == 1.5
+  assert ckpt["train_state"].step == 7
+  assert ckpt["replay_state"].capacity == 16
+  torch.testing.assert_close(ckpt["env_carry"].obs, carry.obs)
+  assert torch.equal(ckpt["generator"], gen.get_state())
+  for name, value in params.state_dict().items():
+    torch.testing.assert_close(ckpt["train_state"].params[name], value)
+
+
+def test_fused_status_report():
+  net = _networks()
+  params = net.init_params((4,), torch.Generator().manual_seed(0))
+  rs = replay_init(16, 6, (4,), 2, device="cpu")
+  assert format_fused_status(fused_status(net, _config(), params, rs)) == (
+      "fused: search=on learner=on sampler=on")
+  off = fused_status(net, _config(fused_sampler=False), params)
+  assert off["fused_sampler"]["reason"].startswith("indeterminate")
+
+
+def test_unported_parts_raise(tmp_path):
+  with pytest.raises(NotImplementedError, match="A.11"):
+    fit("CartPole-v1", _networks(), _config(), num_iterations=1)
+  with pytest.raises(NotImplementedError, match="A.5"):
+    _fit(tmp_path, num_iterations=1, reanalyze_every=1)

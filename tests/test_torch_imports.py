@@ -18,13 +18,23 @@ banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "haiku", "flax",
                                        "optax", "muax_tpu"))
 print(len(names), banned)
+print(" ".join(names))
 """
+
+# The modules of the training slice, besides those of self-play.
+TRAINING = ("ops.gradients", "models.losses", "models.optimizers",
+            "models.fused_learner", "replay.buffer", "replay.fused_sampler",
+            "utils.debug", "train.learner", "train.checkpoint", "train.fit",
+            "fused_status")
 
 
 def test_port_imports_no_jax():
   out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
   assert out.returncode == 0, out.stderr
-  count, banned = out.stdout.strip().split(" ", 1)
-  assert int(count) >= 15, out.stdout  # every module of the slice was loaded
+  head, names = out.stdout.strip().splitlines()
+  count, banned = head.split(" ", 1)
+  assert int(count) >= 35, out.stdout  # every module of the port was loaded
+  for name in TRAINING:
+    assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned
