@@ -26,6 +26,20 @@ Phase 6 drives the training iteration (rollout -> ``replay_add`` ->
 each kernel. Phase 7 runs ``fit`` through its normal entry for 3 iterations
 with evaluation and checkpoints.
 
+Phases 8 to 11 drive Gumbel MuZero and the generic search engine. Phase 8
+holds the search kernel's Gumbel mode against its plain version at 8192
+envs x 64 simulations (A = 2, at most 16 considered actions) and at an edge
+shape (1003 envs, A = 4 with one invalid action, so 3 considered, depth cap
+2, towers (16, 16)), and checks that the policy's action agrees. Phase 9
+drives ``make_rollout_fn`` with ``policy="gumbel"`` at ``bench.py``'s
+``gumbel_mlp`` (8192 envs x 64 simulations x 20 steps): exactly 20 Gumbel
+launches and no MuZero launch per rollout. Phase 10 drives the training
+iteration at ``gumbel_training`` (1024 envs, batch 4096, samples per insert
+32, presample 16): exactly 20 + 10 + 160 launches. Phase 11 runs one policy
+step of the generic engine (``search.fused=False``) for each policy at 1024
+envs x 64 simulations on the card: no kernel launch, and visits within 2 of
+the kernel's.
+
 Every failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or without the package beside it, it fails the same way.
 The line before the last lists every kernel with its launches, error, times
@@ -87,11 +101,12 @@ def time_ms(fn, reps):
   return start.elapsed_time(end) / reps
 
 
-def search_bound_ms(batch, sims, weights, with_invalid):
+def search_bound_ms(batch, sims, weights, with_invalid, gumbel=False):
   """Least time for one search launch: the larger of its operations over
   the f32 peak and its bytes over the memory rate. Operations are the two
   towers' multiply-adds, once per expansion (batch x sims expansions); bytes
-  are each input read once and each output written once."""
+  are each input read once and each output written once. The Gumbel mode
+  also reads the root score [B, A] and the schedule [B, sims]."""
   macs = sum(w.shape[0] * w.shape[1] for w, _ in weights.layers())
   flops = 2.0 * macs * batch * sims
   num_actions = weights.pred_policy[0].shape[1]
@@ -100,6 +115,7 @@ def search_bound_ms(batch, sims, weights, with_invalid):
   floats += batch * num_actions * with_invalid     # invalid mask
   floats += weights.flat().numel()
   floats += batch * (2 * num_actions + 1)          # visits, value, q
+  floats += batch * (num_actions + sims) * gumbel  # root score, schedule
   t_ops = flops / PEAK_F32_FLOPS * 1e3
   t_bytes = 4.0 * floats / PEAK_BYTES_PER_S * 1e3
   return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -170,12 +186,75 @@ def kernel_against_plain(device, num_actions, layers, batch, sims,
   return compare_search(out, ref, sims, invalid)
 
 
-def drive_main_path(device):
-  """Phase 3: make_rollout_fn at the main path's size. Returns the launch
-  count of the run, its figures and the search inputs of its last state."""
+def gumbel_kernel_against_plain(device, num_actions, layers, batch, sims,
+                                max_depth=None, with_invalid=False,
+                                max_considered=16):
+  """Phase 8: the Gumbel mode of the kernel against its plain version on
+  the same inputs (roots from random CartPole observations, Gumbel noise
+  from SEED), as compare_search; then the policy's action from either
+  output, which must agree on at least 99 % of envs."""
+  from muax_tpu_torch.envs import CartPole
+  from muax_tpu_torch.models import make_mlp_networks
+  from muax_tpu_torch.replay.buffer import gumbel_noise
+  from muax_tpu_torch.search import fused
+  from muax_tpu_torch.search.policies import _mask_invalid
+  from muax_tpu_torch.train.inference import make_root_fn
+
+  net = make_mlp_networks(num_actions, embedding_dim=EMBED,
+                          support_size=SUPPORT, pred_layers=layers,
+                          dyn_layers=layers, device=device)
+  params = net.init_params((4,), torch.Generator().manual_seed(SEED))
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  _, obs = CartPole().reset(gen, batch)
+  invalid = None
+  if with_invalid:
+    pick = torch.randint(0, num_actions, (batch,), generator=gen,
+                         device=device)
+    invalid = torch.nn.functional.one_hot(pick, num_actions).float()
+  with torch.no_grad():
+    root = make_root_fn(net)(params, obs)
+  logits = _mask_invalid(root.prior_logits, invalid).contiguous()
+  gumbel = gumbel_noise(gen, (batch, num_actions), device)
+  root_score, schedule = fused.gumbel_root_inputs(
+      logits, gumbel, invalid, max_num_considered_actions=max_considered,
+      num_simulations=sims)
+  args = (root.embedding.contiguous(), logits, root.value.contiguous(),
+          fused.extract_fused_weights(net, params))
+  kwargs = dict(num_simulations=sims, support_size=SUPPORT, discount=0.997,
+                invalid_actions=invalid, max_depth=max_depth)
+  before = (fused.launches, fused.gumbel_launches)
+  out = fused.fused_gumbel_search(*args, gumbel=gumbel,
+                                  max_num_considered_actions=max_considered,
+                                  **kwargs)
+  torch.cuda.synchronize()
+  check((fused.launches, fused.gumbel_launches)
+        == (before[0], before[1] + 1), "the wrapper launched the Gumbel mode")
+  ref = fused.fused_gumbel_search_reference(
+      *args, root_score=root_score, schedule=schedule, **kwargs)
+  figures = compare_search(out, ref, sims, invalid)
+  action, _ = fused.gumbel_action(out[0], out[2], gumbel, logits, invalid)
+  ref_action, _ = fused.gumbel_action(ref[0], ref[2], gumbel, logits,
+                                      invalid)
+  same = float((action == ref_action).float().mean())
+  check(same >= 0.99, f"{same:.4f} of envs take the plain version's action "
+        "(need 0.99)")
+  if invalid is not None:
+    check(not bool(invalid[torch.arange(batch, device=device),
+                           action.long()].any()),
+          "no env takes an invalid action")
+  figures["same_action"] = same
+  return figures
+
+
+def drive_main_path(device, policy="muzero"):
+  """Phase 3 (MuZero) or 9 (Gumbel): make_rollout_fn at the main path's
+  size. Every rollout launches the kernel in ``policy``'s mode once per
+  step and the other mode never. Returns the launch count of the run, its
+  figures and the kernel's inputs on its last state."""
   from muax_tpu_torch.config import MuZeroConfig, SearchConfig, TrainConfig
   from muax_tpu_torch.envs import AutoResetWrapper, CartPole
   from muax_tpu_torch.models import make_mlp_networks
+  from muax_tpu_torch.replay.buffer import gumbel_noise
   from muax_tpu_torch.search import fused
   from muax_tpu_torch.train import make_rollout_fn
   from muax_tpu_torch.train.inference import make_root_fn
@@ -186,22 +265,27 @@ def drive_main_path(device):
   params = net.init_params(env.spec.observation_shape,
                            torch.Generator().manual_seed(SEED))
   config = MuZeroConfig(
-      search=SearchConfig(num_simulations=MAIN_SIMS),
+      search=SearchConfig(policy=policy, num_simulations=MAIN_SIMS),
       train=TrainConfig(num_envs=MAIN_ENVS, collect_steps=MAIN_STEPS))
   rollout = make_rollout_fn(net, env, config, device=device)
   gen = torch.Generator(device=device).manual_seed(SEED)
   carry = env.reset(gen, MAIN_ENVS)
+  gumbel = policy == "gumbel"
+
+  def counts():
+    return (fused.launches, fused.gumbel_launches)
 
   def one(carry):
-    before = fused.launches
+    before = counts()
     carry, seg, prio, metrics = rollout(params, carry, gen,
                                         params.temperature)
-    check(fused.launches - before == MAIN_STEPS,
-          f"{fused.launches - before} kernel launches in a rollout of "
-          f"{MAIN_STEPS} steps")
+    got = tuple(a - b for a, b in zip(counts(), before))
+    want = (0, MAIN_STEPS) if gumbel else (MAIN_STEPS, 0)
+    check(got == want, f"(muzero, gumbel) kernel launches {got} in a "
+          f"{policy} rollout of {MAIN_STEPS} steps, not {want}")
     return carry, seg, prio, metrics
 
-  fused.launches = 0
+  fused.launches = fused.gumbel_launches = 0
   finished = 0
   for _ in range(WARMUP_ROLLOUTS):
     carry, seg, prio, metrics = one(carry)
@@ -215,7 +299,7 @@ def drive_main_path(device):
     finished += int(metrics["episodes_finished"])
   end.record()
   end.synchronize()
-  launches = fused.launches
+  launches = counts()[1 if gumbel else 0]
   rollout_ms = start.elapsed_time(end) / TIMED_ROLLOUTS
 
   B, T = MAIN_ENVS, MAIN_STEPS
@@ -237,23 +321,32 @@ def drive_main_path(device):
 
   with torch.no_grad():
     root = make_root_fn(net)(params, carry.obs)
+  kwargs = dict(num_simulations=MAIN_SIMS, support_size=SUPPORT,
+                discount=config.train.discount)
+  if gumbel:
+    logits = root.prior_logits.contiguous()
+    kwargs.update(invalid_actions=None, max_depth=None)
+    kwargs["root_score"], kwargs["schedule"] = fused.gumbel_root_inputs(
+        logits, gumbel_noise(gen, logits.shape, device), None,
+        max_num_considered_actions=config.search.max_num_considered_actions,
+        num_simulations=MAIN_SIMS)
+  else:
     logits = fused.noised_root_logits(gen, root.prior_logits)
   search_in = ((root.embedding.contiguous(), logits, root.value.contiguous(),
-                fused.extract_fused_weights(net, params)),
-               dict(num_simulations=MAIN_SIMS, support_size=SUPPORT,
-                    discount=config.train.discount))
+                fused.extract_fused_weights(net, params)), kwargs)
   figures = {"rollout_ms": rollout_ms,
              "env_steps_per_s": B * T / (rollout_ms / 1e3),
              "episodes_finished": finished, "launches": launches}
   return launches, figures, search_in
 
 
-def training_config():
-  """bench.py's training_regime (bench.py:463-467, run_config)."""
+def training_config(policy="muzero"):
+  """bench.py's training_regime (bench.py:463-467, run_config), or with
+  ``policy="gumbel"`` its gumbel_training (bench.py:306-309)."""
   from muax_tpu_torch.config import (MuZeroConfig, ReplayConfig,
                                      SearchConfig, TrainConfig)
   return MuZeroConfig(
-      search=SearchConfig(num_simulations=MAIN_SIMS),
+      search=SearchConfig(policy=policy, num_simulations=MAIN_SIMS),
       replay=ReplayConfig(capacity=TRAIN_CAPACITY, min_fill=64),
       train=TrainConfig(num_envs=TRAIN_ENVS, collect_steps=MAIN_STEPS,
                         batch_size=TRAIN_BATCH,
@@ -262,7 +355,7 @@ def training_config():
                         presample_updates=TRAIN_PRESAMPLE))
 
 
-def training_setup(device):
+def training_setup(device, policy="muzero"):
   """The training regime built from the port's entry points, with random
   weights from SEED: networks, rollout, learner, ring, env carry."""
   from types import SimpleNamespace
@@ -273,7 +366,7 @@ def training_setup(device):
   from muax_tpu_torch.train import (TrainState, make_multi_update_fn,
                                     make_rollout_fn)
 
-  config = training_config()
+  config = training_config(policy)
   env = AutoResetWrapper(CartPole())
   net = make_mlp_networks(num_actions=2, embedding_dim=EMBED,
                           support_size=SUPPORT, device=device)
@@ -308,6 +401,19 @@ def compare_raw(raw, ref, lay):
   return {"same_start": share, "max_abs_err": err}
 
 
+def fill_ring(t):
+  """Two rollouts of the port fill the ring (2048 segments); returns the
+  last segments and priorities."""
+  from muax_tpu_torch.replay import replay_add
+
+  for _ in range(2):
+    t.carry, seg, prio, _ = t.rollout(t.ts.params, t.carry, t.gen,
+                                      t.ts.params.temperature)
+    replay_add(t.rs, seg, prio, step=t.ts.step)
+  check(t.rs.size == TRAIN_CAPACITY, "two rollouts fill the ring")
+  return seg, prio
+
+
 def sampler_against_plain(device, t):
   """Phase 4: fill the ring with two rollouts of the port (2048 segments),
   draw W = 16 x 4096 windows as the learner does, kernel against plain;
@@ -316,11 +422,7 @@ def sampler_against_plain(device, t):
   from muax_tpu_torch.replay.buffer import gumbel_noise
   from muax_tpu_torch.types import Transition
 
-  for _ in range(2):
-    t.carry, seg, prio, _ = t.rollout(t.ts.params, t.carry, t.gen,
-                                      t.ts.params.temperature)
-    replay_add(t.rs, seg, prio, step=t.ts.step)
-  check(t.rs.size == TRAIN_CAPACITY, "two rollouts fill the ring")
+  seg, prio = fill_ring(t)
 
   def one(state, W):
     seg_idx = fused_sampler.draw_segments(state, t.gen, W)
@@ -484,20 +586,28 @@ def profile_iteration(one):
 
 
 def drive_training(device, t):
-  """Phase 6: the training iteration, rollout -> replay_add ->
-  make_multi_update_fn, 2 warm-up and 3 timed iterations. Every iteration
-  launches exactly 20 searches, 10 samplers and 160 learners."""
+  """Phase 6 (MuZero) or 10 (Gumbel): the training iteration, rollout ->
+  replay_add -> make_multi_update_fn, 2 warm-up and 3 timed iterations.
+  Every iteration launches exactly 20 searches in the config's mode (and
+  none in the other), 10 samplers and 160 learners."""
   from muax_tpu_torch.models import fused_learner
   from muax_tpu_torch.replay import fused_sampler, replay_add
   from muax_tpu_torch.search import fused
 
-  modules = (fused, fused_sampler, fused_learner)
-  expected = (MAIN_STEPS, TRAIN_UPDATES // TRAIN_GROUP, TRAIN_UPDATES)
+  gumbel = t.config.search.policy == "gumbel"
+  # Launch counters: search in this mode, sampler, learner, the other mode.
+  counters = [(fused, "gumbel_launches" if gumbel else "launches"),
+              (fused_sampler, "launches"), (fused_learner, "launches"),
+              (fused, "launches" if gumbel else "gumbel_launches")]
+  expected = (MAIN_STEPS, TRAIN_UPDATES // TRAIN_GROUP, TRAIN_UPDATES, 0)
+
+  def read():
+    return tuple(getattr(module, name) for module, name in counters)
 
   marks = []  # per timed iteration: events before, between and after
 
   def one(timed=False):
-    before = [m.launches for m in modules]
+    before = read()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     events[0].record()
     t.carry, seg, prio, _ = t.rollout(t.ts.params, t.carry, t.gen,
@@ -508,13 +618,13 @@ def drive_training(device, t):
     events[2].record()
     if timed:
       marks.append(events)
-    got = tuple(m.launches - b for m, b in zip(modules, before))
-    check(got == expected, f"launches (search, sampler, learner) {got} in "
-          f"one iteration, not {expected}")
+    got = tuple(a - b for a, b in zip(read(), before))
+    check(got == expected, f"launches (search, sampler, learner, other "
+          f"search mode) {got} in one iteration, not {expected}")
     return metrics
 
-  for m in modules:
-    m.launches = 0
+  for module, name in counters:
+    setattr(module, name, 0)
   runs = [one() for _ in range(WARMUP_ITERATIONS)]
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
@@ -523,7 +633,7 @@ def drive_training(device, t):
   runs += [one(timed=True) for _ in range(TIMED_ITERATIONS)]
   end.record()
   end.synchronize()
-  launches = [m.launches for m in modules]
+  launches = list(read()[:3])
   iteration_ms = start.elapsed_time(end) / TIMED_ITERATIONS
   profile = profile_iteration(one)
   for metrics in runs:
@@ -592,6 +702,79 @@ def drive_fit(device, root):
           "launches": dict(zip(("search", "sampler", "learner"), launches)),
           "test_G": last["test_G"] if "test_G" in last else None,
           "loss": last["loss"], "best_reward": results["best_reward"]}
+
+
+def generic_engine(device):
+  """Phase 11: the generic engine (``search.fused=False``) on the card, one
+  policy step of ``make_policy_fn`` for each policy at 1024 envs x 64
+  simulations, timed, with no kernel launch; then the generic policy's
+  visits against the kernel's on the same roots (no Dirichlet noise; for
+  Gumbel the same noise): within 2 visits on at least 99 % of envs (PUCT's
+  random tie-break and the network's own matmul against the kernel's FMAs
+  may move a visit)."""
+  from muax_tpu_torch.config import MuZeroConfig, SearchConfig
+  from muax_tpu_torch.envs import CartPole
+  from muax_tpu_torch.models import make_mlp_networks
+  from muax_tpu_torch.replay.buffer import gumbel_noise
+  from muax_tpu_torch.search import fused, policies
+  from muax_tpu_torch.train import make_policy_fn
+  from muax_tpu_torch.train.inference import make_recurrent_fn, make_root_fn
+
+  B, discount = TRAIN_ENVS, 0.997
+  net = make_mlp_networks(2, embedding_dim=EMBED, support_size=SUPPORT,
+                          device=device)
+  params = net.init_params((4,), torch.Generator().manual_seed(SEED))
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  _, obs = CartPole().reset(gen, B)
+  weights = fused.extract_fused_weights(net, params)
+  recurrent_fn = make_recurrent_fn(net, discount)
+  with torch.no_grad():
+    root = make_root_fn(net)(params, obs)
+  emb, value = root.embedding.contiguous(), root.value.contiguous()
+  figures = {}
+  for policy in ("muzero", "gumbel"):
+    config = MuZeroConfig(search=SearchConfig(
+        policy=policy, num_simulations=MAIN_SIMS, fused=False))
+    policy_fn = make_policy_fn(net, config, discount, device=device)
+    outs = []
+    before = (fused.launches, fused.gumbel_launches)
+    step_ms = time_ms(lambda: outs.append(policy_fn(params, gen, obs, 1.0)),
+                      2)
+    check((fused.launches, fused.gumbel_launches) == before,
+          f"the generic {policy} policy launched no search kernel")
+    action, pi, root_value = outs[-1]
+    check(tuple(action.shape) == (B,) and bool(
+        ((action >= 0) & (action < 2)).all()), "generic actions valid")
+    check(torch.allclose(pi.sum(-1), torch.ones(B, device=device),
+                         atol=1e-5), "generic pi rows sum to 1")
+    check(bool(torch.isfinite(root_value).all()), "generic values finite")
+
+    if policy == "muzero":
+      out = policies.muzero_policy(params, gen, root, recurrent_fn,
+                                   MAIN_SIMS, dirichlet_fraction=0.0)
+      kernel = fused.fused_muzero_search(
+          emb, fused.noised_root_logits(gen, root.prior_logits,
+                                        dirichlet_fraction=0.0),
+          value, weights, num_simulations=MAIN_SIMS, support_size=SUPPORT,
+          discount=discount)
+    else:
+      g = gumbel_noise(gen, root.prior_logits.shape, device)
+      out = policies.gumbel_muzero_policy(params, gen, root, recurrent_fn,
+                                          MAIN_SIMS, gumbel=g)
+      kernel = fused.fused_gumbel_search(
+          emb, root.prior_logits.contiguous(), value, weights, gumbel=g,
+          max_num_considered_actions=16, num_simulations=MAIN_SIMS,
+          support_size=SUPPORT, discount=discount)
+    visits = out.search_tree.summary().visit_counts
+    check(bool((visits.sum(-1) == MAIN_SIMS).all()),
+          "generic visits sum to num_simulations")
+    dv = (visits - kernel[0]).abs().amax(-1)
+    share = float((dv <= 2).float().mean())
+    check(share >= 0.99, f"{share:.4f} of envs within 2 visits of the "
+          f"{policy} kernel (need 0.99)")
+    figures[policy] = {"step_ms": step_ms, "within_2_visits": share,
+                       "exact_visits": float((dv == 0).float().mean())}
+  return figures
 
 
 def run(device):
@@ -699,6 +882,47 @@ def run(device):
   print(f"phase 7 fit, 3 iterations, eval_every=2, checkpoint_every=2: "
         f"{json.dumps(fit_figures)} ({time.perf_counter() - t0:.1f} s)")
 
+  # ---- Gumbel MuZero and the generic engine ------------------------------
+  t0 = time.perf_counter()
+  gumbel_main = gumbel_kernel_against_plain(device, 2, (16,), MAIN_ENVS,
+                                            MAIN_SIMS)
+  gumbel_edge = gumbel_kernel_against_plain(device, 4, (16, 16), EDGE_ENVS,
+                                            MAIN_SIMS, max_depth=2,
+                                            with_invalid=True)
+  print(f"phase 8 Gumbel kernel vs plain, B={MAIN_ENVS} sims={MAIN_SIMS} "
+        f"A=2 max_considered=16 H=(16,): {json.dumps(gumbel_main)}; "
+        f"B={EDGE_ENVS} A=4 with one invalid action (3 considered), "
+        f"max_depth=2, H=(16, 16): {json.dumps(gumbel_edge)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  _, gumbel_figures, (args, kwargs) = drive_main_path(device, "gumbel")
+  gumbel_figures["search_ms"] = time_ms(
+      lambda: fused._fused_search_cuda(*args, **kwargs), 10)
+  gumbel_figures["plain_search_ms"] = time_ms(
+      lambda: fused.fused_gumbel_search_reference(*args, **kwargs), 1)
+  gumbel_bound, gumbel_by = search_bound_ms(MAIN_ENVS, MAIN_SIMS, args[3],
+                                            False, gumbel=True)
+  gumbel_figures["bound_ms"] = gumbel_bound
+  print(f"phase 9 Gumbel rollout, {MAIN_ENVS} envs x {MAIN_SIMS} sims x "
+        f"{MAIN_STEPS} steps: {json.dumps(gumbel_figures)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  tg = training_setup(device, "gumbel")
+  fill_ring(tg)
+  gumbel_train_launches, gumbel_train = drive_training(device, tg)
+  print(f"phase 10 Gumbel training iteration, {TRAIN_ENVS} envs x "
+        f"{MAIN_SIMS} sims x {MAIN_STEPS} steps, {TRAIN_UPDATES} updates of "
+        f"{TRAIN_BATCH} in groups of {TRAIN_GROUP}: {json.dumps(gumbel_train)}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  generic = generic_engine(device)
+  print(f"phase 11 generic engine (search.fused=False), {TRAIN_ENVS} envs x "
+        f"{MAIN_SIMS} sims, one policy step: {json.dumps(generic)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
   kernels = [{
       "name": "fused_muzero_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",
@@ -722,6 +946,15 @@ def run(device):
       "max_abs_err": learner_main["max_abs_err"],
       "ms": train["learner_kernel_ms"], "plain_ms": train["plain_learner_ms"],
       "bound_ms": learner_bound, "bound_by": learner_by, "library_ms": None,
+  }, {
+      "name": "fused_gumbel_search", "route": "cuda",
+      "source": "muax_tpu_torch/csrc/fused_search.cu",
+      "replaces": 'muax_tpu/search/fused.py:759 (policy="gumbel")',
+      "launches": gumbel_train_launches[0],
+      "max_abs_err": gumbel_main["max_abs_err"],
+      "ms": gumbel_figures["search_ms"],
+      "plain_ms": gumbel_figures["plain_search_ms"],
+      "bound_ms": gumbel_bound, "bound_by": gumbel_by, "library_ms": None,
   }]
   print(card)
   print(json.dumps({"kernels": kernels}))

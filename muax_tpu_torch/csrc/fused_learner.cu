@@ -35,7 +35,10 @@
 // blocks run in parallel, so each block writes its sum to one row of a
 // [G, n_weights] scratch and a second kernel adds the G rows in a fixed
 // order, then `l2_coef * p`. Nothing uses float atomics, so two launches on
-// the same inputs give bit-identical gradients.
+// the same inputs give bit-identical gradients. A block always takes 16
+// windows; when eight warps' slices do not fit its shared memory (towers
+// wider than the flagship's, such as the (64, 64, 16) of the CartPole notebook
+// config), fewer warps share them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,8 +48,9 @@ namespace {
 
 constexpr int kMaxLayers = 8;
 constexpr int kMaxLin = 3 * kMaxLayers + 5;
-constexpr int kWarps = 8;           // windows in flight per block
-constexpr int kWindowsPerWarp = 2;  // windows each warp takes in turn
+constexpr int kWarps = 8;           // most warps (windows in flight) per block
+constexpr int kWindowsPerWarp = 2;  // windows each of kWarps warps takes
+constexpr int kBlockWindows = kWarps * kWindowsPerWarp;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kHEps = 1e-3f;
 constexpr float kMMEps = 1e-8f;
@@ -62,6 +66,7 @@ struct Args {
   int hoff[kMaxLin];
   int r_obs, r_action, r_reward, r_rn, r_pi, r_mask;
   int n_weights, w_stride, warp_floats, step_floats, max_w;
+  int warps;  // warps per block: kWarps, or fewer when their slices don't fit
   int o_obs, o_repr, o_spre0, o_steps, o_scratch;  // inside a warp's slice
   int so_s, so_pred, so_v, so_p, so_dyn, so_r, so_spre;  // inside a step
   float gradient_scale;
@@ -473,9 +478,13 @@ fused_muzero_grad_kernel(const float* __restrict__ raw,
   for (int i = lane; i < args.n_weights; i += 32) dW[i] = 0.f;
   __syncthreads();
 
-  for (int k = 0; k < kWindowsPerWarp; ++k) {
-    const int w = (blockIdx.x * kWarps + warp) * kWindowsPerWarp + k;
-    if (w >= args.B) break;
+  // A block takes kBlockWindows windows whatever its warps; each warp takes
+  // a run of them in turn.
+  const int per_warp = (kBlockWindows + args.warps - 1) / args.warps;
+  for (int k = 0; k < per_warp; ++k) {
+    const int local = warp * per_warp + k;
+    const int w = blockIdx.x * kBlockWindows + local;
+    if (local >= kBlockWindows || w >= args.B) break;
     run_window(args, smem, dW, slice, raw, coef, met, w, lane);
   }
   __syncthreads();
@@ -483,7 +492,7 @@ fused_muzero_grad_kernel(const float* __restrict__ raw,
   // The block's sum, warps added in a fixed order.
   for (int i = threadIdx.x; i < args.n_weights; i += blockDim.x) {
     float s = 0.f;
-    for (int v = 0; v < kWarps; ++v)
+    for (int v = 0; v < args.warps; ++v)
       s += smem[args.w_stride + v * args.warp_floats + i];
     partial[static_cast<size_t>(blockIdx.x) * args.n_weights + i] = s;
   }
@@ -527,8 +536,7 @@ extern "C" {
 
 // Blocks of a launch over B windows: the rows of the scratch `partial`.
 int mz_fused_grad_blocks(int B) {
-  const int per_block = kWarps * kWindowsPerWarp;
-  return (B + per_block - 1) / per_block;
+  return (B + kBlockWindows - 1) / kBlockWindows;
 }
 
 // Launch the learner on `stream`. raw: the fused sampler's rows, row r of
@@ -632,16 +640,23 @@ int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
   g.o_scratch = g.o_steps + K * g.step_floats;
   g.warp_floats = (g.o_scratch + 3 * E + 4 * max_w + 3) / 4 * 4;
 
-  const size_t smem =
-      (static_cast<size_t>(g.w_stride) +
-       static_cast<size_t>(kWarps) * g.warp_floats) * sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  if (smem > static_cast<size_t>(max_smem)) return MZ_ERR_SHAPE;
+  // Each warp's slice holds a whole gradient sum, so wide towers fit fewer
+  // warps: take as many as fit, down to one.
+  auto smem_for = [&](int warps) {
+    return (static_cast<size_t>(g.w_stride) +
+            static_cast<size_t>(warps) * g.warp_floats) * sizeof(float);
+  };
+  g.warps = kWarps;
+  while (g.warps > 0 && smem_for(g.warps) > static_cast<size_t>(max_smem))
+    --g.warps;
+  if (g.warps == 0) return MZ_ERR_SHAPE;
+  const size_t smem = smem_for(g.warps);
   err = cudaFuncSetAttribute(fused_muzero_grad_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -649,8 +664,8 @@ int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
 
   const int G = mz_fused_grad_blocks(B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_muzero_grad_kernel<<<G, 32 * kWarps, smem, st>>>(raw, coef, weights,
-                                                         partial, met, g);
+  fused_muzero_grad_kernel<<<G, 32 * g.warps, smem, st>>>(raw, coef, weights,
+                                                          partial, met, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int grid2 = (n_weights + kFinishThreads - 1) / kFinishThreads + 1;

@@ -1,7 +1,7 @@
 """Which fused kernels a setup takes, and why not (``muax_tpu/fused_status.py``).
 
-One report over the port's three kernels: the search, the learner and the
-sampler. The learner and sampler entries reuse the learner's own dispatch
+One report over the port's three kernels: the search (in its MuZero or
+Gumbel mode), the learner and the sampler. The learner and sampler entries reuse the learner's own dispatch
 (``make_multi_update_fn``'s ``fused_group_status``), so the report cannot
 drift from what the learner does. ``fit`` logs it once.
 
@@ -20,12 +20,13 @@ from muax_tpu_torch.train.learner import TrainState, make_multi_update_fn
 
 def _search_status(config) -> dict:
   search = config.search
-  if search.policy != "muzero":
+  if search.policy not in ("muzero", "gumbel"):
     return {"active": False,
             "reason": f"policy {search.policy!r} is not ported yet"}
   if not search.fused:
     return {"active": False, "reason": "disabled by config (search.fused)"}
-  return {"active": True, "reason": "MLP triplet search kernel"}
+  return {"active": True,
+          "reason": f"MLP triplet search kernel ({search.policy} mode)"}
 
 
 def fused_status(networks, config, params,

@@ -1,10 +1,27 @@
-"""Batched search: the fused MuZero search kernel and its policy."""
+"""Batched search: the generic engine with its MuZero and Gumbel MuZero
+policies, and the fused search kernel in both modes with its policies."""
 
-from muax_tpu_torch.search.types import RootFnOutput, RecurrentFnOutput
+from muax_tpu_torch.search.types import (
+    RootFnOutput,
+    RecurrentFnOutput,
+    PolicyOutput,
+)
+from muax_tpu_torch.search.tree import Tree, SearchSummary, ROOT_INDEX
+from muax_tpu_torch.search.core import search
+from muax_tpu_torch.search.policies import (
+    muzero_policy,
+    gumbel_muzero_policy,
+)
+from muax_tpu_torch.search import qtransforms
+from muax_tpu_torch.search import seq_halving
+from muax_tpu_torch.search import action_selection
 from muax_tpu_torch.search.fused import (
     FusedMLPWeights,
     extract_fused_weights,
     fused_muzero_search,
     fused_muzero_search_reference,
     fused_mlp_muzero_policy,
+    fused_gumbel_search,
+    fused_gumbel_search_reference,
+    fused_mlp_gumbel_policy,
 )

@@ -4,9 +4,11 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, Generic, TypeVar
 
 import torch
+
+T = TypeVar("T")
 
 
 @dataclasses.dataclass
@@ -24,3 +26,17 @@ class RecurrentFnOutput:
   discount: torch.Tensor       # [B]
   prior_logits: torch.Tensor   # [B, A]
   value: torch.Tensor          # [B]
+
+
+@dataclasses.dataclass
+class PolicyOutput(Generic[T]):
+  """What a search policy returns to the actor."""
+  action: torch.Tensor          # [B] int32
+  action_weights: torch.Tensor  # [B, A]
+  search_tree: T
+
+
+# recurrent_fn(params, generator, action [B], embedding) ->
+# (RecurrentFnOutput, next_embedding)
+RecurrentFn = Callable[[Any, torch.Generator, torch.Tensor, Any],
+                       tuple[RecurrentFnOutput, Any]]

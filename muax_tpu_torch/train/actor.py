@@ -1,10 +1,13 @@
 """The vectorized actor: {search -> env.step -> write} over T steps of B envs
 (``muax_tpu/train/actor.py``).
 
-Self-play goes through the fused MuZero search: on the card its CUDA
-kernel, on the CPU its plain version. Paths of the JAX actor that the port
-does not have yet raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+Self-play searches with MuZero or Gumbel MuZero. With ``search.fused`` (the
+default) it goes through the fused search: on the card its CUDA kernel, on
+the CPU its plain version. With ``search.fused=False`` it goes through the
+generic engine (``search/core.py``) on whichever device the caller chose;
+the caller asked for that route, so it is not a fallback. Paths of the JAX
+actor that the port does not have yet raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -16,15 +19,15 @@ from muax_tpu_torch.envs.base import AutoResetState, AutoResetWrapper
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
 from muax_tpu_torch.ops import segment_n_step_returns
 from muax_tpu_torch.search.fused import (extract_fused_weights,
+                                         fused_mlp_gumbel_policy,
                                          fused_mlp_muzero_policy)
-from muax_tpu_torch.train.inference import make_root_fn
+from muax_tpu_torch.search.policies import (gumbel_muzero_policy,
+                                            muzero_policy)
+from muax_tpu_torch.train.inference import make_recurrent_fn, make_root_fn
 from muax_tpu_torch.types import Transition
 
 _NOT_PORTED = {
-    "gumbel": "Gumbel MuZero is not ported yet (ROADMAP.md A.2)",
     "stochastic": "Stochastic MuZero is not ported yet (ROADMAP.md A.4)",
-    "unfused": ("the generic search engine (search.fused=False) is not "
-                "ported yet (ROADMAP.md A.2)"),
     "legal": ("legal-action masks come with the board environments "
               "(ROADMAP.md A.7)"),
 }
@@ -35,18 +38,53 @@ def make_policy_fn(networks: MZNetworks, config: MuZeroConfig,
   """(params, generator, obs, temperature, invalid_actions=None) ->
   (action [B] int32, pi [B, A], root_value [B]).
 
-  ``eval_mode`` disables the Dirichlet exploration noise on the root prior.
-  ``obs`` must lie on ``device``; ``generator`` on the same device.
+  ``eval_mode`` disables the Dirichlet exploration noise on the MuZero root
+  prior. ``obs`` must lie on ``device``; ``generator`` on the same device.
   """
   device = resolve_device(device)
   search = config.search
-  if search.policy != "muzero":
+  if search.policy not in ("muzero", "gumbel"):
     raise NotImplementedError(_NOT_PORTED.get(
         search.policy, f"unknown search policy {search.policy!r}"))
-  if not search.fused:
-    raise NotImplementedError(_NOT_PORTED["unfused"])
   dirichlet_fraction = 0.0 if eval_mode else search.dirichlet_fraction
   root_fn = make_root_fn(networks)
+  recurrent_fn = make_recurrent_fn(networks, discount)
+
+  def fused(params, generator, root, temperature):
+    weights = extract_fused_weights(networks, params)
+    common = dict(num_simulations=search.num_simulations,
+                  support_size=networks.support_size, discount=discount,
+                  max_depth=search.max_depth)
+    if search.policy == "gumbel":
+      return fused_mlp_gumbel_policy(
+          params, generator, root, weights,
+          max_num_considered_actions=search.max_num_considered_actions,
+          gumbel_scale=search.gumbel_scale, **common)
+    return fused_mlp_muzero_policy(
+        params, generator, root, weights,
+        dirichlet_fraction=dirichlet_fraction,
+        dirichlet_alpha=search.dirichlet_alpha, pb_c_init=search.pb_c_init,
+        pb_c_base=search.pb_c_base, temperature=temperature, **common)
+
+  def generic(params, generator, root, temperature):
+    common = dict(num_simulations=search.num_simulations,
+                  max_depth=search.max_depth)
+    if search.policy == "gumbel":
+      out = gumbel_muzero_policy(
+          params, generator, root, recurrent_fn,
+          max_num_considered_actions=search.max_num_considered_actions,
+          gumbel_scale=search.gumbel_scale, **common)
+    else:
+      out = muzero_policy(
+          params, generator, root, recurrent_fn,
+          dirichlet_fraction=dirichlet_fraction,
+          dirichlet_alpha=search.dirichlet_alpha,
+          pb_c_init=search.pb_c_init, pb_c_base=search.pb_c_base,
+          temperature=temperature, **common)
+    return (out.action, out.action_weights,
+            out.search_tree.summary().value)
+
+  run = fused if search.fused else generic
 
   @torch.no_grad()
   def policy_fn(params: MZParams, generator: torch.Generator,
@@ -55,18 +93,7 @@ def make_policy_fn(networks: MZNetworks, config: MuZeroConfig,
       raise NotImplementedError(_NOT_PORTED["legal"])
     if obs.device != device:
       raise ValueError(f"obs lies on {obs.device}, the policy on {device}")
-    root = root_fn(params, obs)
-    return fused_mlp_muzero_policy(
-        params, generator, root, extract_fused_weights(networks, params),
-        num_simulations=search.num_simulations,
-        support_size=networks.support_size,
-        discount=discount,
-        max_depth=search.max_depth,
-        dirichlet_fraction=dirichlet_fraction,
-        dirichlet_alpha=search.dirichlet_alpha,
-        pb_c_init=search.pb_c_init,
-        pb_c_base=search.pb_c_base,
-        temperature=temperature)
+    return run(params, generator, root_fn(params, obs), temperature)
 
   return policy_fn
 

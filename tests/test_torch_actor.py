@@ -1,5 +1,5 @@
-"""The slice as a whole: the port's self-play rollout against a loop built
-from the JAX package's pieces.
+"""The slice as a whole: the port's self-play rollout, MuZero and Gumbel,
+against loops built from the JAX package's pieces, and the policy routes.
 
 The port runs ``make_rollout_fn`` on the CPU (plain search, no Dirichlet
 noise, temperature 0). The reference loop, written here, runs JAX
@@ -136,15 +136,120 @@ def test_entry_points_need_cuda_by_default():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(policy="gumbel"), "A.2"),
     (dict(policy="stochastic"), "A.4"),
-    (dict(fused=False), "A.2"),
+    (dict(policy="stochastic", fused=False), "A.4"),
 ])
 def test_unported_branches_raise(change, match):
   net = make_mlp_networks(2, device="cpu")
   config = MuZeroConfig(search=SearchConfig(**change))
   with pytest.raises(NotImplementedError, match=match):
     make_policy_fn(net, config, DISCOUNT, device="cpu")
+
+
+@pytest.mark.parametrize("policy,fused_search", [
+    ("gumbel", True), ("gumbel", False), ("muzero", False)])
+def test_policy_routes(policy, fused_search, monkeypatch):
+  """Gumbel through the fused search, and both policies through the
+  generic engine: the fused route reaches the Gumbel plain version (no
+  kernel on the CPU), the generic route no fused search at all."""
+  net = make_mlp_networks(3, device="cpu")
+  params = net.init_params((4,), torch.Generator().manual_seed(0))
+  config = MuZeroConfig(search=SearchConfig(
+      policy=policy, fused=fused_search, num_simulations=6))
+  policy_fn = make_policy_fn(net, config, DISCOUNT, device="cpu")
+  calls = []
+  for fn in (fused.fused_gumbel_search_reference,
+             fused.fused_muzero_search_reference):
+    def counted(*args, _fn=fn, **kwargs):
+      calls.append(_fn.__name__)
+      return _fn(*args, **kwargs)
+    monkeypatch.setattr(fused, fn.__name__, counted)
+  obs = torch.randn(5, 4, generator=torch.Generator().manual_seed(1))
+  action, pi, value = policy_fn(params, torch.Generator().manual_seed(2),
+                                obs, 1.0)
+  assert calls == (["fused_gumbel_search_reference"] if fused_search
+                   else [])
+  assert action.shape == (5,) and action.dtype == torch.int32
+  assert bool(((action >= 0) & (action < 3)).all())
+  torch.testing.assert_close(pi.sum(-1), torch.ones(5))
+  assert value.shape == (5,) and bool(torch.isfinite(value).all())
+
+
+def _gumbel_reference(j_net, j_params, start, noise):
+  """The Gumbel loop of the JAX pieces with the noise of each step given:
+  the Pallas ``fused_gumbel_search``, then the action and weights of
+  ``fused_mlp_gumbel_policy`` (muax_tpu/search/fused.py:923-930)."""
+  root_fn = jax.jit(j_root(j_net))
+  weights = jfused.extract_fused_weights(j_net, j_params)
+  step = jax.jit(jax.vmap(JCartPole().step))
+  state = JState(*(jnp.asarray(v) for v in start))
+  obs = jnp.asarray(start.T)
+  out = {k: [] for k in ("obs", "action", "reward", "done", "value", "pi")}
+  for t in range(T):
+    root = root_fn(j_params, obs)
+    g = jnp.asarray(noise[t])
+    visits, value, cq = jfused.fused_gumbel_search(
+        root.embedding, root.prior_logits, root.value, weights, gumbel=g,
+        max_num_considered_actions=16, num_simulations=SIMS,
+        support_size=SUPPORT, discount=DISCOUNT)
+    score = jnp.where(visits == visits.max(-1, keepdims=True),
+                      g + root.prior_logits + cq, -jnp.inf)
+    action = jnp.argmax(score, -1).astype(jnp.int32)
+    out["obs"].append(obs)
+    out["action"].append(action)
+    out["value"].append(value)
+    out["pi"].append(jax.nn.softmax(root.prior_logits + cq, -1))
+    state, obs, reward, done = step(state, action)
+    out["reward"].append(reward)
+    out["done"].append(done)
+  return {k: np.stack([np.asarray(x) for x in v]) for k, v in out.items()}
+
+
+def test_gumbel_rollout_matches_jax_loop(monkeypatch):
+  """``make_rollout_fn`` with ``policy="gumbel"`` on the CPU against the
+  JAX loop, the same Gumbel noise injected at every step. Weights within
+  rtol 1e-4 / atol 1e-5 as ``tests/test_fused.py:196-202``."""
+  j_net = j_make(2, embedding_dim=8, support_size=SUPPORT)
+  j_params = j_net.init_params(jax.random.PRNGKey(0), jnp.zeros((1, 4)))
+  tree = {name: jax.tree.map(np.asarray, getattr(j_params, name))
+          for name in ("representation", "prediction", "dynamic")}
+  net = make_mlp_networks(2, embedding_dim=8, support_size=SUPPORT,
+                          device="cpu")
+  params = mlp_params_from_numpy(tree, net)
+  noise = np.random.default_rng(4).gumbel(size=(T, B, 2)).astype(np.float32)
+  steps = iter(noise)
+  monkeypatch.setattr(fused, "gumbel_noise", lambda generator, shape,
+                      device: torch.from_numpy(next(steps)))
+
+  start = _start_states()
+  state = CartPoleState(*(torch.from_numpy(v.copy()) for v in start))
+  carry = AutoResetState(state, CartPole._obs(state),
+                         torch.zeros(B, dtype=torch.int32), torch.zeros(B))
+  config = MuZeroConfig(
+      search=SearchConfig(policy="gumbel", num_simulations=SIMS),
+      train=TrainConfig(num_envs=B, collect_steps=T, discount=DISCOUNT))
+  rollout = make_rollout_fn(net, AutoResetWrapper(CartPole()), config,
+                            device="cpu")
+  before = (fused.launches, fused.gumbel_launches)
+  carry, seg, prio, _ = rollout(params, carry,
+                                torch.Generator().manual_seed(1), 1.0)
+  assert (fused.launches, fused.gumbel_launches) == before
+  assert prio.shape == (B, T) and bool(torch.isfinite(prio).all())
+
+  ref = _gumbel_reference(j_net, j_params, start, noise)
+  done = ref["done"].T  # [B, T]
+  assert done[:3].any(axis=1).all()
+  for b in range(B):
+    n = int(np.argmax(done[b])) + 1 if done[b].any() else T
+    np.testing.assert_allclose(seg.obs[b, :n].numpy(), ref["obs"][:n, b],
+                               atol=1e-5)
+    np.testing.assert_array_equal(seg.action[b, :n].numpy(),
+                                  ref["action"][:n, b])
+    np.testing.assert_array_equal(seg.done[b, :n].numpy(), done[b, :n])
+    np.testing.assert_allclose(seg.value[b, :n].numpy(), ref["value"][:n, b],
+                               atol=5e-4, rtol=1e-4)
+    np.testing.assert_allclose(seg.pi[b, :n].numpy(), ref["pi"][:n, b],
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_legal_action_masks_raise():

@@ -1,5 +1,7 @@
-"""The port's ``fit`` loop on the CPU: a smoke run as ``tests/test_e2e.py``
-runs the JAX one, a bit-exact resume as ``tests/test_checkpoint.py:84-115``,
+"""The port's ``fit`` loop on the CPU: smoke runs as ``tests/test_e2e.py``
+runs the JAX one (MuZero and Gumbel, through the fused search and through
+the generic engine), a bit-exact resume as
+``tests/test_checkpoint.py:84-115``,
 the resume guards, the checkpoint round trip, the fused-status report and
 the parts that raise until their ROADMAP items are ported."""
 import os
@@ -21,11 +23,12 @@ from muax_tpu_torch.train.fit import fit
 from muax_tpu_torch.train.learner import TrainState
 
 
-def _config(**train):
+def _config(search=None, **train):
   kwargs = dict(num_envs=8, collect_steps=6, batch_size=8,
                 updates_per_iteration=2, unroll_steps=2, n_bootstrap=3)
   kwargs.update(train)
-  return MuZeroConfig(search=SearchConfig(num_simulations=4),
+  return MuZeroConfig(search=SearchConfig(num_simulations=4,
+                                          **(search or {})),
                       replay=ReplayConfig(capacity=64, min_fill=8),
                       train=TrainConfig(**kwargs))
 
@@ -56,16 +59,41 @@ def test_cartpole_smoke(tmp_path):
       assert np.isfinite(v), (k, v)
 
 
+@pytest.mark.parametrize("search", [dict(policy="gumbel"),
+                                    dict(fused=False),
+                                    dict(policy="gumbel", fused=False)])
+def test_cartpole_smoke_other_searches(tmp_path, search):
+  """``fit`` with Gumbel MuZero (the fused search's Gumbel mode) and with
+  the generic engine (``search.fused=False``)."""
+  state, results = _fit(tmp_path, num_iterations=2,
+                        config=_config(search=search))
+  assert state.step == 4
+  assert results["model_path"] is not None
+  for row in results["history"]:
+    for k, v in row.items():
+      assert np.isfinite(v), (k, v)
+
+
 def test_resume_is_bit_exact(tmp_path):
   """Resuming the iteration-2 snapshot of a 4-iteration run reproduces the
   uninterrupted run bit for bit (parameters, optimizer state, history)."""
+  _check_resume(tmp_path, _config())
+
+
+def test_gumbel_resume_is_bit_exact(tmp_path):
+  """The same with Gumbel MuZero, whose root noise comes from the
+  checkpointed generator."""
+  _check_resume(tmp_path, _config(search=dict(policy="gumbel")))
+
+
+def _check_resume(tmp_path, config):
   state_a, results_a = _fit(tmp_path, num_iterations=4, checkpoint_every=2,
-                            save_best=False)
+                            save_best=False, config=config)
   mid = os.path.join(str(tmp_path), "ckpt_it000002.pkl")
   assert load_checkpoint(
       os.path.join(str(tmp_path), "ckpt_latest.pkl"))["iteration"] == 4
   state_b, results_b = _fit(tmp_path / "resumed", num_iterations=4,
-                            resume_from=mid, save_best=False)
+                            resume_from=mid, save_best=False, config=config)
   for (name, a), b in zip(state_a.params.state_dict().items(),
                           state_b.params.state_dict().values()):
     assert torch.equal(a, b), name
@@ -133,6 +161,15 @@ def test_fused_status_report():
       "fused: search=on learner=on sampler=on")
   off = fused_status(net, _config(fused_sampler=False), params)
   assert off["fused_sampler"]["reason"].startswith("indeterminate")
+  gumbel = fused_status(net, _config(search=dict(policy="gumbel")), params)
+  assert gumbel["fused_search"] == {
+      "active": True, "reason": "MLP triplet search kernel (gumbel mode)"}
+  unfused = fused_status(net, _config(search=dict(fused=False)), params)
+  assert unfused["fused_search"] == {
+      "active": False, "reason": "disabled by config (search.fused)"}
+  stochastic = fused_status(net, _config(search=dict(policy="stochastic")),
+                            params)
+  assert not stochastic["fused_search"]["active"]
 
 
 def test_unported_parts_raise(tmp_path):

@@ -1,0 +1,104 @@
+"""The Gumbel mode of the fused search's CUDA kernel against its plain
+PyTorch version, on the card. Every test here needs a CUDA card (and
+``nvcc`` to build the kernel) and skips without one; the file imports
+nothing of the JAX package, so it runs on a machine with a card:
+
+  python -m pytest tests/test_torch_fused_gumbel_kernel.py -m gpu -q
+
+Checks as in ``tests/test_fused.py``: visits sum to the simulation count,
+at most 2 visits apart, root value and completed q rtol = atol = 1e-3 where
+the visits agree. A score tie that f32 rounding (the kernel contracts
+multiply-adds into FMAs) breaks the other way moves a visit.
+"""
+import pytest
+import torch
+
+from muax_tpu_torch.envs import CartPole
+from muax_tpu_torch.models import make_mlp_networks
+from muax_tpu_torch.replay.buffer import gumbel_noise
+from muax_tpu_torch.search import fused
+from muax_tpu_torch.train.inference import make_root_fn
+
+pytestmark = pytest.mark.gpu
+SUPPORT = 20
+
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+  return torch.device("cuda", torch.cuda.current_device())
+
+
+def _inputs(device, num_actions, layers, batch, invalid_kind):
+  net = make_mlp_networks(num_actions, embedding_dim=8, support_size=SUPPORT,
+                          pred_layers=layers, dyn_layers=layers,
+                          device=device)
+  params = net.init_params((4,), torch.Generator().manual_seed(0))
+  gen = torch.Generator(device=device).manual_seed(1)
+  _, obs = CartPole().reset(gen, batch)
+  with torch.no_grad():
+    root = make_root_fn(net)(params, obs * 20)  # spread the roots
+  logits = root.prior_logits
+  invalid = None
+  if invalid_kind == "one":
+    pick = torch.randint(0, num_actions, (batch,), generator=gen,
+                         device=device)
+    invalid = torch.nn.functional.one_hot(pick, num_actions).float()
+  elif invalid_kind == "all":
+    invalid = torch.ones((batch, num_actions), device=device)
+  if invalid is not None:
+    logits = torch.where(invalid > 0, -1e9, logits)
+  return ((root.embedding.contiguous(), logits.contiguous(),
+           root.value.contiguous(), fused.extract_fused_weights(net, params)),
+          invalid, gumbel_noise(gen, (batch, num_actions), device))
+
+
+@pytest.mark.parametrize(
+    "num_actions,layers,batch,sims,max_depth,invalid,m", [
+        (2, (16,), 2048, 64, None, None, 16),
+        (4, (16, 16), 1003, 40, 2, "one", 16),
+        (5, (32,), 77, 17, None, "one", 4),
+        (3, (16,), 64, 12, None, "all", 16),
+    ])
+def test_kernel_matches_plain(cuda, num_actions, layers, batch, sims,
+                              max_depth, invalid, m):
+  args, invalid, gumbel = _inputs(cuda, num_actions, layers, batch, invalid)
+  kwargs = dict(num_simulations=sims, support_size=SUPPORT, discount=0.997,
+                invalid_actions=invalid, max_depth=max_depth)
+  root_score, schedule = fused.gumbel_root_inputs(
+      args[1], gumbel, invalid, max_num_considered_actions=m,
+      num_simulations=sims)
+  before = (fused.launches, fused.gumbel_launches)
+  visits, value, q = fused.fused_gumbel_search(
+      *args, gumbel=gumbel, max_num_considered_actions=m, **kwargs)
+  torch.cuda.synchronize()
+  assert (fused.launches, fused.gumbel_launches) == (before[0],
+                                                     before[1] + 1)
+  ref_visits, ref_value, ref_q = fused.fused_gumbel_search_reference(
+      *args, root_score=root_score, schedule=schedule, **kwargs)
+  assert bool((visits.sum(-1) == sims).all())
+  assert float((visits - ref_visits).abs().max()) <= 2
+  torch.testing.assert_close(value, ref_value, rtol=1e-3, atol=1e-3)
+  same = (visits == ref_visits).all(-1)
+  torch.testing.assert_close(q[same], ref_q[same], rtol=1e-3, atol=1e-3)
+  if invalid is not None and not bool(invalid.all()):
+    assert float(visits[invalid > 0].abs().max()) == 0.0
+  if invalid is not None and bool(invalid.all()):
+    # No root score is eligible: every simulation takes action 0.
+    assert bool((visits[:, 0] == sims).all())
+
+
+def test_wrapper_rejects_bad_schedule(cuda):
+  args, _, gumbel = _inputs(cuda, 2, (16,), 64, None)
+  kwargs = dict(num_simulations=8, support_size=SUPPORT, discount=0.997,
+                invalid_actions=None, max_depth=None)
+  root_score, schedule = fused.gumbel_root_inputs(
+      args[1], gumbel, None, max_num_considered_actions=16,
+      num_simulations=8)
+  with pytest.raises(ValueError, match="schedule"):
+    fused._fused_search_cuda(*args, root_score=root_score,
+                             schedule=schedule[:, :4].contiguous(), **kwargs)
+  with pytest.raises(ValueError, match="root_score"):
+    fused._fused_search_cuda(*args, root_score=root_score.double(),
+                             schedule=schedule, **kwargs)

@@ -66,6 +66,8 @@ def check_close(grads, metrics, ref_grads, ref_metrics):
     (2, (16,), (16,), 20, 4096, 5),     # the training regime
     (4, (16,), (16, 16), 10, 1000, 5),  # an edge shape
     (3, (), (12,), 5, 77, 3),
+    # The CartPole notebook towers: too wide for eight warps per block.
+    (2, (), (64, 64, 16), 20, 256, 11),
 ])
 def test_raw_mode_matches_plain(cuda, A, repr_layers, layers, support, B, K):
   net, params, batch = _setup(cuda, A, repr_layers, layers, support, B, K)

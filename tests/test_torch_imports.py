@@ -21,11 +21,15 @@ print(len(names), banned)
 print(" ".join(names))
 """
 
-# The modules of the training slice, besides those of self-play.
+# The modules of the training slice and of the generic search engine,
+# besides those of self-play.
 TRAINING = ("ops.gradients", "models.losses", "models.optimizers",
             "models.fused_learner", "replay.buffer", "replay.fused_sampler",
             "utils.debug", "train.learner", "train.checkpoint", "train.fit",
             "fused_status")
+ENGINE = ("search.seq_halving", "search.tree", "search.qtransforms",
+          "search.action_selection", "search.core", "search.policies",
+          "examples.parity_cartpole")
 
 
 def test_port_imports_no_jax():
@@ -34,7 +38,7 @@ def test_port_imports_no_jax():
   assert out.returncode == 0, out.stderr
   head, names = out.stdout.strip().splitlines()
   count, banned = head.split(" ", 1)
-  assert int(count) >= 35, out.stdout  # every module of the port was loaded
-  for name in TRAINING:
+  assert int(count) >= 42, out.stdout  # every module of the port was loaded
+  for name in TRAINING + ENGINE:
     assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned
