@@ -40,6 +40,23 @@ step of the generic engine (``search.fused=False``) for each policy at 1024
 envs x 64 simulations on the card: no kernel launch, and visits within 2 of
 the kernel's.
 
+Phases 12 to 15 drive the acme categorical family (``bench.py``'s
+``make_networks("categorical")``: embedding 64, LayerNormMLP towers (256,
+256, 256), 51 linear bins over +-150) through the categorical modes of the
+search kernel and the categorical learner kernel. Phase 12 holds both
+policy modes of the search kernel against their plain version at
+``muzero_categorical``'s shape (2048 envs x 64 simulations, A = 2) and at an
+edge shape (1003 envs, A = 3 with an invalid action, depth cap 2, towers
+(48, 32), 21 bins). Phase 13 drives ``make_rollout_fn`` at
+``muzero_categorical`` (2048 envs x 64 simulations x 20 steps) in each
+policy: exactly 20 launches of that mode and none of the others per
+rollout. Phase 14 holds the categorical learner kernel against autograd
+over the categorical ``muzero_loss`` on 1024 windows sampled from a ring of
+the family's own rollouts, and at an edge shape, with bit-identical
+repeats. Phase 15 drives one training iteration at ``categorical_training``
+(512 envs x 64 simulations x 20 steps, batch 1024, samples per insert 32,
+presample 16): exactly 20 + 20 + 320 launches, timed and profiled.
+
 Every failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or without the package beside it, it fails the same way.
 The line before the last lists every kernel with its launches, error, times
@@ -68,6 +85,16 @@ TRAIN_CAPACITY, TRAIN_UNROLL, TRAIN_NSTEP = 2048, 5, 10
 TRAIN_UPDATES = -(-int(TRAIN_SPI) * TRAIN_ENVS * MAIN_STEPS // TRAIN_BATCH)
 TRAIN_GROUP = 16  # gcd(160, 16)
 WARMUP_ITERATIONS, TIMED_ITERATIONS = 2, 3
+# The acme categorical family: bench.py's make_networks("categorical") and
+# its muzero_categorical (bench.py:310-313) and categorical_training
+# (bench.py:351-354) regimes.
+CAT_NET = dict(embedding_dim=64, layer_sizes=(256, 256, 256), num_bins=51,
+               vmin=-150.0, vmax=150.0)
+CAT_EDGE_NET = dict(embedding_dim=16, layer_sizes=(48, 32), num_bins=21,
+                    vmin=-10.0, vmax=10.0)
+CAT_ENVS = 2048
+CAT_TRAIN_ENVS, CAT_BATCH = 512, 1024
+CAT_UPDATES = -(-int(TRAIN_SPI) * CAT_TRAIN_ENVS * MAIN_STEPS // CAT_BATCH)
 # Published peaks of the H100 SXM (NVIDIA's data sheet): f32 outside the
 # tensor cores, and HBM3.
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -101,14 +128,25 @@ def time_ms(fn, reps):
   return start.elapsed_time(end) / reps
 
 
+def search_macs(weights):
+  """Multiply-adds of one expansion: every linear of both towers, for the
+  MLP triplet's weights or a categorical FusedNetSpec."""
+  if hasattr(weights, "layers"):
+    linears = [w for w, _ in weights.layers()]
+  else:
+    linears = [ts[0] for _, ts in weights.dyn_layers + weights.pred_layers]
+    linears += [weights.dyn_reward[0], weights.dyn_state[0],
+                weights.pred_value[0], weights.pred_policy[0]]
+  return sum(w.shape[0] * w.shape[1] for w in linears)
+
+
 def search_bound_ms(batch, sims, weights, with_invalid, gumbel=False):
   """Least time for one search launch: the larger of its operations over
   the f32 peak and its bytes over the memory rate. Operations are the two
   towers' multiply-adds, once per expansion (batch x sims expansions); bytes
   are each input read once and each output written once. The Gumbel mode
   also reads the root score [B, A] and the schedule [B, sims]."""
-  macs = sum(w.shape[0] * w.shape[1] for w, _ in weights.layers())
-  flops = 2.0 * macs * batch * sims
+  flops = 2.0 * search_macs(weights) * batch * sims
   num_actions = weights.pred_policy[0].shape[1]
   embed = weights.dyn_state[0].shape[1]
   floats = batch * (embed + num_actions + 1)       # roots
@@ -149,60 +187,55 @@ def compare_search(out, ref, sims, invalid=None):
       exact.float().mean()), "max_abs_err": err}
 
 
-def kernel_against_plain(device, num_actions, layers, batch, sims,
-                         max_depth=None, with_invalid=False):
-  """Phase 1 or 2: seeded weights, roots from random CartPole observations
-  through make_root_fn, the kernel and the plain version on the same
-  inputs."""
-  from muax_tpu_torch.envs import CartPole
-  from muax_tpu_torch.models import make_mlp_networks
+def make_net(device, family="mlp", num_actions=2, **widths):
+  """The flagship MLP triplet (bench.py:69-71) or the acme categorical
+  family (bench.py:72-75) on ``device``; ``widths`` replace the towers."""
+  from muax_tpu_torch.models import (make_categorical_mlp_networks,
+                                     make_mlp_networks)
+  if family == "categorical":
+    return make_categorical_mlp_networks(num_actions, device=device,
+                                         **(widths or CAT_NET))
+  return make_mlp_networks(num_actions, embedding_dim=EMBED,
+                           support_size=SUPPORT, device=device, **widths)
+
+
+def search_counts():
+  """Launches of the search kernel by mode: MLP MuZero, MLP Gumbel,
+  categorical MuZero, categorical Gumbel."""
   from muax_tpu_torch.search import fused
-  from muax_tpu_torch.train.inference import make_root_fn
-
-  net = make_mlp_networks(num_actions, embedding_dim=EMBED,
-                          support_size=SUPPORT, pred_layers=layers,
-                          dyn_layers=layers, device=device)
-  params = net.init_params((4,), torch.Generator().manual_seed(SEED))
-  gen = torch.Generator(device=device).manual_seed(SEED)
-  _, obs = CartPole().reset(gen, batch)
-  invalid = None
-  if with_invalid:
-    pick = torch.randint(0, num_actions, (batch,), generator=gen,
-                         device=device)
-    invalid = torch.nn.functional.one_hot(pick, num_actions).float()
-  with torch.no_grad():
-    root = make_root_fn(net)(params, obs)
-    logits = fused.noised_root_logits(gen, root.prior_logits, invalid)
-  weights = fused.extract_fused_weights(net, params)
-  args = (root.embedding.contiguous(), logits, root.value.contiguous(),
-          weights)
-  kwargs = dict(num_simulations=sims, support_size=SUPPORT, discount=0.997,
-                invalid_actions=invalid, max_depth=max_depth)
-  before = fused.launches
-  out = fused.fused_muzero_search(*args, **kwargs)
-  torch.cuda.synchronize()
-  check(fused.launches == before + 1, "the wrapper launched the kernel")
-  ref = fused.fused_muzero_search_reference(*args, **kwargs)
-  return compare_search(out, ref, sims, invalid)
+  return (fused.launches, fused.gumbel_launches, fused.categorical_launches,
+          fused.categorical_gumbel_launches)
 
 
-def gumbel_kernel_against_plain(device, num_actions, layers, batch, sims,
-                                max_depth=None, with_invalid=False,
-                                max_considered=16):
-  """Phase 8: the Gumbel mode of the kernel against its plain version on
-  the same inputs (roots from random CartPole observations, Gumbel noise
-  from SEED), as compare_search; then the policy's action from either
-  output, which must agree on at least 99 % of envs."""
+def reset_counts():
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.replay import fused_sampler
+  from muax_tpu_torch.search import fused
+  fused.launches = fused.gumbel_launches = 0
+  fused.categorical_launches = fused.categorical_gumbel_launches = 0
+  fused_sampler.launches = 0
+  fused_learner.launches = fused_learner.categorical_launches = 0
+
+
+def search_mode(policy, family):
+  """The index of ``search_counts`` that a rollout of this kind moves."""
+  return (2 if family == "categorical" else 0) + (policy == "gumbel")
+
+
+def search_against_plain(device, policy, family, num_actions, batch,
+                         widths=None, with_invalid=False, max_depth=None):
+  """Phases 1-2, 8 and 12: one mode of the search kernel against its plain
+  version on the same inputs (seeded weights, roots from random CartPole
+  observations, Dirichlet or Gumbel noise from SEED), as compare_search;
+  in the Gumbel modes the policy's action must also agree on at least 99 %
+  of envs, and no env may take an invalid action."""
   from muax_tpu_torch.envs import CartPole
-  from muax_tpu_torch.models import make_mlp_networks
   from muax_tpu_torch.replay.buffer import gumbel_noise
   from muax_tpu_torch.search import fused
   from muax_tpu_torch.search.policies import _mask_invalid
   from muax_tpu_torch.train.inference import make_root_fn
 
-  net = make_mlp_networks(num_actions, embedding_dim=EMBED,
-                          support_size=SUPPORT, pred_layers=layers,
-                          dyn_layers=layers, device=device)
+  net = make_net(device, family, num_actions, **(widths or {}))
   params = net.init_params((4,), torch.Generator().manual_seed(SEED))
   gen = torch.Generator(device=device).manual_seed(SEED)
   _, obs = CartPole().reset(gen, batch)
@@ -213,96 +246,108 @@ def gumbel_kernel_against_plain(device, num_actions, layers, batch, sims,
     invalid = torch.nn.functional.one_hot(pick, num_actions).float()
   with torch.no_grad():
     root = make_root_fn(net)(params, obs)
-  logits = _mask_invalid(root.prior_logits, invalid).contiguous()
-  gumbel = gumbel_noise(gen, (batch, num_actions), device)
-  root_score, schedule = fused.gumbel_root_inputs(
-      logits, gumbel, invalid, max_num_considered_actions=max_considered,
-      num_simulations=sims)
-  args = (root.embedding.contiguous(), logits, root.value.contiguous(),
-          fused.extract_fused_weights(net, params))
-  kwargs = dict(num_simulations=sims, support_size=SUPPORT, discount=0.997,
+  weights = fused.extract_search_weights(net, params)
+  kwargs = dict(num_simulations=MAIN_SIMS, discount=0.997,
+                support_size=getattr(net, "support_size", None),
                 invalid_actions=invalid, max_depth=max_depth)
-  before = (fused.launches, fused.gumbel_launches)
-  out = fused.fused_gumbel_search(*args, gumbel=gumbel,
-                                  max_num_considered_actions=max_considered,
-                                  **kwargs)
+  mode = search_mode(policy, family)
+  before = search_counts()
+  if policy == "gumbel":
+    logits = _mask_invalid(root.prior_logits, invalid).contiguous()
+    gumbel = gumbel_noise(gen, (batch, num_actions), device)
+    args = (root.embedding.contiguous(), logits, root.value.contiguous(),
+            weights)
+    out = fused.fused_gumbel_search(*args, gumbel=gumbel,
+                                    max_num_considered_actions=16, **kwargs)
+    root_score, schedule = fused.gumbel_root_inputs(
+        logits, gumbel, invalid, max_num_considered_actions=16,
+        num_simulations=MAIN_SIMS)
+    ref = fused.fused_gumbel_search_reference(
+        *args, root_score=root_score, schedule=schedule, **kwargs)
+  else:
+    logits = fused.noised_root_logits(gen, root.prior_logits, invalid)
+    args = (root.embedding.contiguous(), logits, root.value.contiguous(),
+            weights)
+    out = fused.fused_muzero_search(*args, **kwargs)
+    ref = fused.fused_muzero_search_reference(*args, **kwargs)
   torch.cuda.synchronize()
-  check((fused.launches, fused.gumbel_launches)
-        == (before[0], before[1] + 1), "the wrapper launched the Gumbel mode")
-  ref = fused.fused_gumbel_search_reference(
-      *args, root_score=root_score, schedule=schedule, **kwargs)
-  figures = compare_search(out, ref, sims, invalid)
-  action, _ = fused.gumbel_action(out[0], out[2], gumbel, logits, invalid)
-  ref_action, _ = fused.gumbel_action(ref[0], ref[2], gumbel, logits,
-                                      invalid)
-  same = float((action == ref_action).float().mean())
-  check(same >= 0.99, f"{same:.4f} of envs take the plain version's action "
-        "(need 0.99)")
-  if invalid is not None:
-    check(not bool(invalid[torch.arange(batch, device=device),
-                           action.long()].any()),
-          "no env takes an invalid action")
-  figures["same_action"] = same
+  got = tuple(a - b for a, b in zip(search_counts(), before))
+  check(got == tuple(int(i == mode) for i in range(4)),
+        f"the wrapper launched the {family} {policy} mode once, not {got}")
+  figures = compare_search(out, ref, MAIN_SIMS, invalid)
+  if policy == "gumbel":
+    action, _ = fused.gumbel_action(out[0], out[2], gumbel, logits, invalid)
+    ref_action, _ = fused.gumbel_action(ref[0], ref[2], gumbel, logits,
+                                        invalid)
+    same = float((action == ref_action).float().mean())
+    check(same >= 0.99, f"{same:.4f} of envs take the plain version's "
+          "action (need 0.99)")
+    if invalid is not None:
+      check(not bool(invalid[torch.arange(batch, device=device),
+                             action.long()].any()),
+            "no env takes an invalid action")
+    figures["same_action"] = same
   return figures
 
 
-def drive_main_path(device, policy="muzero"):
-  """Phase 3 (MuZero) or 9 (Gumbel): make_rollout_fn at the main path's
-  size. Every rollout launches the kernel in ``policy``'s mode once per
-  step and the other mode never. Returns the launch count of the run, its
-  figures and the kernel's inputs on its last state."""
+def drive_main_path(device, policy="muzero", family="mlp"):
+  """Phase 3 (MuZero) or 9 (Gumbel) on the MLP triplet, 13 on the
+  categorical family: make_rollout_fn at the path's size. Every rollout
+  launches the kernel in its mode once per step and the other modes never.
+  Returns the launch count of the run, its figures and the kernel's inputs
+  on its last state."""
   from muax_tpu_torch.config import MuZeroConfig, SearchConfig, TrainConfig
   from muax_tpu_torch.envs import AutoResetWrapper, CartPole
-  from muax_tpu_torch.models import make_mlp_networks
   from muax_tpu_torch.replay.buffer import gumbel_noise
   from muax_tpu_torch.search import fused
   from muax_tpu_torch.train import make_rollout_fn
   from muax_tpu_torch.train.inference import make_root_fn
 
+  categorical = family == "categorical"
+  envs = CAT_ENVS if categorical else MAIN_ENVS
+  warmup, timed = (1, 2) if categorical else (WARMUP_ROLLOUTS,
+                                              TIMED_ROLLOUTS)
   env = AutoResetWrapper(CartPole())
-  net = make_mlp_networks(num_actions=2, embedding_dim=EMBED,
-                          support_size=SUPPORT, device=device)
+  net = make_net(device, family)
   params = net.init_params(env.spec.observation_shape,
                            torch.Generator().manual_seed(SEED))
   config = MuZeroConfig(
       search=SearchConfig(policy=policy, num_simulations=MAIN_SIMS),
-      train=TrainConfig(num_envs=MAIN_ENVS, collect_steps=MAIN_STEPS))
+      train=TrainConfig(num_envs=envs, collect_steps=MAIN_STEPS))
   rollout = make_rollout_fn(net, env, config, device=device)
   gen = torch.Generator(device=device).manual_seed(SEED)
-  carry = env.reset(gen, MAIN_ENVS)
+  carry = env.reset(gen, envs)
   gumbel = policy == "gumbel"
-
-  def counts():
-    return (fused.launches, fused.gumbel_launches)
+  mode = search_mode(policy, family)
+  want = tuple(MAIN_STEPS if i == mode else 0 for i in range(4))
 
   def one(carry):
-    before = counts()
+    before = search_counts()
     carry, seg, prio, metrics = rollout(params, carry, gen,
                                         params.temperature)
-    got = tuple(a - b for a, b in zip(counts(), before))
-    want = (0, MAIN_STEPS) if gumbel else (MAIN_STEPS, 0)
-    check(got == want, f"(muzero, gumbel) kernel launches {got} in a "
+    got = tuple(a - b for a, b in zip(search_counts(), before))
+    check(got == want, f"search launches by mode {got} in a {family} "
           f"{policy} rollout of {MAIN_STEPS} steps, not {want}")
     return carry, seg, prio, metrics
 
-  fused.launches = fused.gumbel_launches = 0
+  reset_counts()
   finished = 0
-  for _ in range(WARMUP_ROLLOUTS):
+  for _ in range(warmup):
     carry, seg, prio, metrics = one(carry)
     finished += int(metrics["episodes_finished"])
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   start.record()
-  for _ in range(TIMED_ROLLOUTS):
+  for _ in range(timed):
     carry, seg, prio, metrics = one(carry)
     finished += int(metrics["episodes_finished"])
   end.record()
   end.synchronize()
-  launches = counts()[1 if gumbel else 0]
-  rollout_ms = start.elapsed_time(end) / TIMED_ROLLOUTS
+  launches = search_counts()[mode]
+  rollout_ms = start.elapsed_time(end) / timed
 
-  B, T = MAIN_ENVS, MAIN_STEPS
+  B, T = envs, MAIN_STEPS
   shapes = {"obs": (B, T, 4), "action": (B, T), "reward": (B, T),
             "done": (B, T), "rn": (B, T), "value": (B, T),
             "pi": (B, T, 2), "weight": (B,), "mask": (B, T)}
@@ -321,11 +366,11 @@ def drive_main_path(device, policy="muzero"):
 
   with torch.no_grad():
     root = make_root_fn(net)(params, carry.obs)
-  kwargs = dict(num_simulations=MAIN_SIMS, support_size=SUPPORT,
-                discount=config.train.discount)
+  kwargs = dict(num_simulations=MAIN_SIMS, discount=config.train.discount,
+                support_size=getattr(net, "support_size", None),
+                invalid_actions=None, max_depth=None)
   if gumbel:
     logits = root.prior_logits.contiguous()
-    kwargs.update(invalid_actions=None, max_depth=None)
     kwargs["root_score"], kwargs["schedule"] = fused.gumbel_root_inputs(
         logits, gumbel_noise(gen, logits.shape, device), None,
         max_num_considered_actions=config.search.max_num_considered_actions,
@@ -333,53 +378,62 @@ def drive_main_path(device, policy="muzero"):
   else:
     logits = fused.noised_root_logits(gen, root.prior_logits)
   search_in = ((root.embedding.contiguous(), logits, root.value.contiguous(),
-                fused.extract_fused_weights(net, params)), kwargs)
+                fused.extract_search_weights(net, params)), kwargs)
   figures = {"rollout_ms": rollout_ms,
              "env_steps_per_s": B * T / (rollout_ms / 1e3),
              "episodes_finished": finished, "launches": launches}
   return launches, figures, search_in
 
 
-def training_config(policy="muzero"):
+def training_config(policy="muzero", family="mlp"):
   """bench.py's training_regime (bench.py:463-467, run_config), or with
-  ``policy="gumbel"`` its gumbel_training (bench.py:306-309)."""
+  ``policy="gumbel"`` its gumbel_training (bench.py:306-309), or with
+  ``family="categorical"`` its categorical_training (bench.py:351-354)."""
   from muax_tpu_torch.config import (MuZeroConfig, ReplayConfig,
                                      SearchConfig, TrainConfig)
+  categorical = family == "categorical"
   return MuZeroConfig(
       search=SearchConfig(policy=policy, num_simulations=MAIN_SIMS),
       replay=ReplayConfig(capacity=TRAIN_CAPACITY, min_fill=64),
-      train=TrainConfig(num_envs=TRAIN_ENVS, collect_steps=MAIN_STEPS,
-                        batch_size=TRAIN_BATCH,
-                        updates_per_iteration=TRAIN_UPDATES,
-                        unroll_steps=TRAIN_UNROLL, n_bootstrap=TRAIN_NSTEP,
-                        presample_updates=TRAIN_PRESAMPLE))
+      train=TrainConfig(
+          num_envs=CAT_TRAIN_ENVS if categorical else TRAIN_ENVS,
+          collect_steps=MAIN_STEPS,
+          batch_size=CAT_BATCH if categorical else TRAIN_BATCH,
+          updates_per_iteration=CAT_UPDATES if categorical
+          else TRAIN_UPDATES,
+          unroll_steps=TRAIN_UNROLL, n_bootstrap=TRAIN_NSTEP,
+          presample_updates=TRAIN_PRESAMPLE))
 
 
-def training_setup(device, policy="muzero"):
+def training_setup(device, policy="muzero", family="mlp"):
   """The training regime built from the port's entry points, with random
   weights from SEED: networks, rollout, learner, ring, env carry."""
+  import math
   from types import SimpleNamespace
 
   from muax_tpu_torch.envs import AutoResetWrapper, CartPole
-  from muax_tpu_torch.models import make_mlp_networks, muzero_optimizer
+  from muax_tpu_torch.models import muzero_optimizer
   from muax_tpu_torch.replay import replay_init
   from muax_tpu_torch.train import (TrainState, make_multi_update_fn,
                                     make_rollout_fn)
 
-  config = training_config(policy)
+  config = training_config(policy, family)
+  tcfg = config.train
   env = AutoResetWrapper(CartPole())
-  net = make_mlp_networks(num_actions=2, embedding_dim=EMBED,
-                          support_size=SUPPORT, device=device)
+  net = make_net(device, family)
   params = net.init_params((4,), torch.Generator().manual_seed(SEED))
   optimizer = muzero_optimizer()
   gen = torch.Generator(device=device).manual_seed(SEED)
   return SimpleNamespace(
-      config=config, env=env, net=net, gen=gen,
+      config=config, env=env, net=net, gen=gen, family=family,
+      envs=tcfg.num_envs, batch=tcfg.batch_size,
+      updates=tcfg.updates_per_iteration,
+      group=math.gcd(tcfg.updates_per_iteration, tcfg.presample_updates),
       rollout=make_rollout_fn(net, env, config, device=device),
       multi_update=make_multi_update_fn(net, optimizer, config),
       ts=TrainState(params, optimizer.init(params), 0),
       rs=replay_init(TRAIN_CAPACITY, MAIN_STEPS, (4,), 2, device=device),
-      carry=env.reset(gen, TRAIN_ENVS))
+      carry=env.reset(gen, tcfg.num_envs))
 
 
 def loss_kwargs(config):
@@ -402,15 +456,17 @@ def compare_raw(raw, ref, lay):
 
 
 def fill_ring(t):
-  """Two rollouts of the port fill the ring (2048 segments); returns the
-  last segments and priorities."""
+  """Two rollouts of the port fill the ring (2048 segments; 1024 of the
+  categorical regime's 512 envs); returns the last segments and
+  priorities."""
   from muax_tpu_torch.replay import replay_add
 
   for _ in range(2):
     t.carry, seg, prio, _ = t.rollout(t.ts.params, t.carry, t.gen,
                                       t.ts.params.temperature)
     replay_add(t.rs, seg, prio, step=t.ts.step)
-  check(t.rs.size == TRAIN_CAPACITY, "two rollouts fill the ring")
+  check(t.rs.size == min(TRAIN_CAPACITY, 2 * t.envs),
+        "two rollouts fill the ring")
   return seg, prio
 
 
@@ -522,6 +578,64 @@ def learner_against_plain(device, t, raw, lay):
   return main, edge
 
 
+def categorical_learner_against_plain(device, t, raw, lay):
+  """Phase 14: the categorical learner kernel against autograd over the
+  categorical muzero_loss on the first 1024 of W sampled windows of a ring
+  of the family's rollouts (bench widths), and on a seeded batch of 300
+  windows with masks (A = 3, towers (48, 32), 21 bins); gradients rtol 5e-4
+  / atol 1e-6, loss metrics rtol 1e-5, priorities rtol 1e-4
+  (tests/test_fused_learner.py:156-162); two launches on the same inputs
+  give bit-identical gradients."""
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.types import Transition
+
+  kw = loss_kwargs(t.config)
+
+  def one(net, params, raw_b, coef, lay):
+    spec = fused_learner.extract_categorical_learner_spec(net, params)
+    before = fused_learner.categorical_launches
+    grads, metrics = fused_learner.fused_muzero_grad_raw(
+        params, raw_b, coef, lay, net, spec, **kw)
+    again, _ = fused_learner.fused_muzero_grad_raw(params, raw_b, coef, lay,
+                                                   net, spec, **kw)
+    torch.cuda.synchronize()
+    check(fused_learner.categorical_launches == before + 2,
+          "the categorical learner launched")
+    check(torch.equal(grads, again), "a repeated launch gives bit-identical "
+          "gradients")
+    ref_grads, ref_metrics = fused_learner.fused_muzero_grad_raw_reference(
+        params, raw_b, coef, lay, net, **kw)
+    err, used = grads_close(grads, ref_grads, 5e-4, 1e-6)
+    metrics_close(metrics, ref_metrics)
+    return {"max_abs_err": err, "tolerance_used": used}
+
+  B = t.batch
+  raw_b = raw[:, :B]
+  w_raw = raw_b[lay.weight]
+  coef = (w_raw / torch.clamp(w_raw.mean(), min=1e-9) / raw_b[lay.denom]
+          / B).contiguous()
+  main = one(t.net, t.ts.params, raw_b, coef, lay)
+
+  A, Be, K = 3, 300, TRAIN_UNROLL
+  net = make_net(device, "categorical", A, **CAT_EDGE_NET)
+  params = net.init_params((4,), torch.Generator().manual_seed(SEED + 1))
+  gen = torch.Generator(device=device).manual_seed(SEED + 1)
+  lengths = torch.randint(1, K + 1, (Be,), generator=gen, device=device)
+  batch = Transition(
+      obs=torch.randn((Be, K, 4), generator=gen, device=device),
+      action=torch.randint(0, A, (Be, K), generator=gen, device=device),
+      reward=torch.randn((Be, K), generator=gen, device=device) * 3,
+      done=torch.zeros((Be, K), dtype=torch.bool, device=device),
+      rn=torch.randn((Be, K), generator=gen, device=device) * 8,
+      value=torch.zeros((Be, K), device=device),
+      pi=torch.softmax(torch.randn((Be, K, A), generator=gen,
+                                   device=device), -1),
+      weight=torch.rand((Be,), generator=gen, device=device) + 0.5,
+      mask=(torch.arange(K, device=device)[None] < lengths[:, None]).float())
+  edge = one(net, params, *fused_learner.raw_from_batch(batch, K))
+  return main, edge
+
+
 def sampler_bound_ms(lay, W, L):
   """Least time for one sampler launch: per window its index (8 bytes),
   num_starts Gumbels and priorities, the start observation, K actions,
@@ -541,7 +655,13 @@ def learner_bound_ms(net, lay, B, n_weights):
   forward's multiply-adds (representation, then K x prediction and
   dynamics) and twice as many for the backward; bytes: the raw rows, coef
   and weights read once, gradients, metrics and l2 written once."""
-  E, A, S41 = net.embedding_dim, net.num_actions, net.full_support
+  E, A = net.embedding_dim, net.num_actions
+  if hasattr(net, "num_bins"):
+    bins = net.num_bins
+    repr_h = pred_h = dyn_h = net.layer_sizes
+  else:
+    bins = net.full_support
+    repr_h, pred_h, dyn_h = net.repr_layers, net.pred_layers, net.dyn_layers
 
   def tower(in_dim, hidden, heads):
     macs = 0
@@ -550,9 +670,9 @@ def learner_bound_ms(net, lay, B, n_weights):
       in_dim = h
     return macs + in_dim * sum(heads)
 
-  fwd = (tower(lay.O, net.repr_layers, (E,))
-         + lay.K * (tower(E, net.pred_layers, (S41, A))
-                    + tower(E + A, net.dyn_layers, (S41, E))))
+  fwd = (tower(lay.O, repr_h, (E,))
+         + lay.K * (tower(E, pred_h, (bins, A))
+                    + tower(E + A, dyn_h, (bins, E))))
   t_ops = 2.0 * 3.0 * fwd * B / PEAK_F32_FLOPS * 1e3
   floats = lay.rows * B + B + 2 * n_weights + 4 * B + 1
   t_bytes = 4.0 * floats / PEAK_BYTES_PER_S * 1e3
@@ -586,24 +706,26 @@ def profile_iteration(one):
 
 
 def drive_training(device, t):
-  """Phase 6 (MuZero) or 10 (Gumbel): the training iteration, rollout ->
-  replay_add -> make_multi_update_fn, 2 warm-up and 3 timed iterations.
-  Every iteration launches exactly 20 searches in the config's mode (and
-  none in the other), 10 samplers and 160 learners."""
+  """Phase 6 (MuZero), 10 (Gumbel) or 15 (categorical): the training
+  iteration, rollout -> replay_add -> make_multi_update_fn, 2 warm-up and 3
+  timed iterations. Every iteration launches exactly 20 searches in the
+  config's mode, updates / group samplers and one learner per update in the
+  family's mode, and no search or learner in any other mode."""
   from muax_tpu_torch.models import fused_learner
   from muax_tpu_torch.replay import fused_sampler, replay_add
-  from muax_tpu_torch.search import fused
 
-  gumbel = t.config.search.policy == "gumbel"
-  # Launch counters: search in this mode, sampler, learner, the other mode.
-  counters = [(fused, "gumbel_launches" if gumbel else "launches"),
-              (fused_sampler, "launches"), (fused_learner, "launches"),
-              (fused, "launches" if gumbel else "gumbel_launches")]
-  expected = (MAIN_STEPS, TRAIN_UPDATES // TRAIN_GROUP, TRAIN_UPDATES, 0)
+  mode = search_mode(t.config.search.policy, t.family)
+  categorical = t.family == "categorical"
+  learner_names = ("launches", "categorical_launches")
 
   def read():
-    return tuple(getattr(module, name) for module, name in counters)
+    searches = search_counts()
+    learners = [getattr(fused_learner, n) for n in learner_names]
+    return (searches[mode], fused_sampler.launches, learners[categorical],
+            sum(searches) - searches[mode] + learners[not categorical])
 
+  # Launches (search, sampler, learner, any other mode) per iteration.
+  expected = (MAIN_STEPS, t.updates // t.group, t.updates, 0)
   marks = []  # per timed iteration: events before, between and after
 
   def one(timed=False):
@@ -620,11 +742,10 @@ def drive_training(device, t):
       marks.append(events)
     got = tuple(a - b for a, b in zip(read(), before))
     check(got == expected, f"launches (search, sampler, learner, other "
-          f"search mode) {got} in one iteration, not {expected}")
+          f"modes) {got} in one iteration, not {expected}")
     return metrics
 
-  for module, name in counters:
-    setattr(module, name, 0)
+  reset_counts()
   runs = [one() for _ in range(WARMUP_ITERATIONS)]
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
@@ -637,15 +758,14 @@ def drive_training(device, t):
   iteration_ms = start.elapsed_time(end) / TIMED_ITERATIONS
   profile = profile_iteration(one)
   for metrics in runs:
-    check(metrics["updates_done"] == TRAIN_UPDATES,
-          f"{metrics['updates_done']} updates, not {TRAIN_UPDATES}")
+    check(metrics["updates_done"] == t.updates,
+          f"{metrics['updates_done']} updates, not {t.updates}")
     for k, v in metrics.items():
       check(math.isfinite(float(v)), f"metric {k} = {float(v)} is finite")
   figures = {
       "iteration_ms": iteration_ms,
-      "env_steps_per_s": TRAIN_ENVS * MAIN_STEPS / (iteration_ms / 1e3),
-      "learner_windows_per_s": TRAIN_UPDATES * TRAIN_BATCH
-                               / (iteration_ms / 1e3),
+      "env_steps_per_s": t.envs * MAIN_STEPS / (iteration_ms / 1e3),
+      "learner_windows_per_s": t.updates * t.batch / (iteration_ms / 1e3),
       "rollout_ms": sum(a.elapsed_time(b) for a, b, _ in marks)
                     / TIMED_ITERATIONS,
       "learner_ms": sum(b.elapsed_time(c) for _, b, c in marks)
@@ -796,14 +916,16 @@ def run(device):
       "cuda": torch.version.cuda}))
 
   t0 = time.perf_counter()
-  main_cmp = kernel_against_plain(device, 2, (16,), MAIN_ENVS, MAIN_SIMS)
+  mlp = dict(pred_layers=(16,), dyn_layers=(16,))
+  mlp_edge = dict(pred_layers=(16, 16), dyn_layers=(16, 16))
+  main_cmp = search_against_plain(device, "muzero", "mlp", 2, MAIN_ENVS, mlp)
   print(f"phase 1 kernel vs plain, B={MAIN_ENVS} sims={MAIN_SIMS} A=2 "
         f"E={EMBED} S={SUPPORT} H=(16,): {json.dumps(main_cmp)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
   t0 = time.perf_counter()
-  edge_cmp = kernel_against_plain(device, 4, (16, 16), EDGE_ENVS, MAIN_SIMS,
-                                  max_depth=2, with_invalid=True)
+  edge_cmp = search_against_plain(device, "muzero", "mlp", 4, EDGE_ENVS,
+                                  mlp_edge, with_invalid=True, max_depth=2)
   print(f"phase 2 kernel vs plain, B={EDGE_ENVS} sims={MAIN_SIMS} A=4 with "
         f"one invalid action, max_depth=2, H=(16, 16): "
         f"{json.dumps(edge_cmp)} ({time.perf_counter() - t0:.1f} s)")
@@ -884,11 +1006,11 @@ def run(device):
 
   # ---- Gumbel MuZero and the generic engine ------------------------------
   t0 = time.perf_counter()
-  gumbel_main = gumbel_kernel_against_plain(device, 2, (16,), MAIN_ENVS,
-                                            MAIN_SIMS)
-  gumbel_edge = gumbel_kernel_against_plain(device, 4, (16, 16), EDGE_ENVS,
-                                            MAIN_SIMS, max_depth=2,
-                                            with_invalid=True)
+  gumbel_main = search_against_plain(device, "gumbel", "mlp", 2, MAIN_ENVS,
+                                     mlp)
+  gumbel_edge = search_against_plain(device, "gumbel", "mlp", 4, EDGE_ENVS,
+                                     mlp_edge, with_invalid=True,
+                                     max_depth=2)
   print(f"phase 8 Gumbel kernel vs plain, B={MAIN_ENVS} sims={MAIN_SIMS} "
         f"A=2 max_considered=16 H=(16,): {json.dumps(gumbel_main)}; "
         f"B={EDGE_ENVS} A=4 with one invalid action (3 considered), "
@@ -923,6 +1045,81 @@ def run(device):
         f"{MAIN_SIMS} sims, one policy step: {json.dumps(generic)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
+  # ---- the acme categorical family ---------------------------------------
+  t0 = time.perf_counter()
+  cat_cmp = {}
+  for policy in ("muzero", "gumbel"):
+    cat_cmp[policy] = {
+        "main": search_against_plain(device, policy, "categorical", 2,
+                                     CAT_ENVS, CAT_NET),
+        "edge": search_against_plain(device, policy, "categorical", 3,
+                                     EDGE_ENVS, CAT_EDGE_NET,
+                                     with_invalid=True, max_depth=2)}
+  print(f"phase 12 categorical search kernel vs plain, B={CAT_ENVS} "
+        f"sims={MAIN_SIMS} A=2 E=64 H=(256, 256, 256) 51 bins +-150; "
+        f"B={EDGE_ENVS} A=3 with one invalid action, max_depth=2, H=(48, "
+        f"32), 21 bins: {json.dumps(cat_cmp)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  cat_roll = {}
+  for policy in ("muzero", "gumbel"):
+    _, cat_figures, (args, kwargs) = drive_main_path(device, policy,
+                                                     "categorical")
+    gumbel = policy == "gumbel"
+    plain = (fused.fused_gumbel_search_reference if gumbel
+             else fused.fused_muzero_search_reference)
+    cat_figures["search_ms"] = time_ms(
+        lambda: fused._fused_search_cuda(*args, **kwargs), 5)
+    cat_figures["plain_search_ms"] = time_ms(lambda: plain(*args, **kwargs),
+                                             1)
+    cat_figures["bound_ms"], cat_figures["bound_by"] = search_bound_ms(
+        CAT_ENVS, MAIN_SIMS, args[3], False, gumbel=gumbel)
+    cat_figures["macs_per_expansion"] = search_macs(args[3])
+    cat_roll[policy] = cat_figures
+  print(f"phase 13 categorical rollout, {CAT_ENVS} envs x {MAIN_SIMS} sims x "
+        f"{MAIN_STEPS} steps, each policy: {json.dumps(cat_roll)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  tc = training_setup(device, "muzero", "categorical")
+  fill_ring(tc)
+  W = TRAIN_PRESAMPLE * CAT_BATCH
+  seg_idx = fused_sampler.draw_segments(tc.rs, tc.gen, W)
+  gumbel = gumbel_noise(tc.gen, (MAIN_STEPS, W), device)
+  raw, lay = fused_sampler.fused_sample_group(tc.rs, seg_idx, gumbel,
+                                              TRAIN_UNROLL)
+  cat_learn_main, cat_learn_edge = categorical_learner_against_plain(
+      device, tc, raw, lay)
+  raw_b = raw[:, :CAT_BATCH]
+  w_raw = raw_b[lay.weight]
+  coef = (w_raw / torch.clamp(w_raw.mean(), min=1e-9) / raw_b[lay.denom]
+          / CAT_BATCH).contiguous()
+  spec = fused_learner.extract_categorical_learner_spec(tc.net, tc.ts.params)
+  kw = loss_kwargs(tc.config)
+  cat_learner = {
+      "main": cat_learn_main, "edge": cat_learn_edge,
+      "kernel_ms": time_ms(lambda: fused_learner._grad_cuda(
+          spec, raw_b, coef, lay, l2_coef=kw["l2_coef"],
+          gradient_scale=kw["gradient_scale"]), 10),
+      "plain_ms": time_ms(
+          lambda: fused_learner.fused_muzero_grad_raw_reference(
+              tc.ts.params, raw_b, coef, lay, tc.net, **kw), 3),
+      "n_weights": spec.flat.numel()}
+  cat_learner["bound_ms"], cat_learner["bound_by"] = learner_bound_ms(
+      tc.net, lay, CAT_BATCH, spec.flat.numel())
+  print(f"phase 14 categorical learner vs plain, B={CAT_BATCH} on sampled "
+        f"windows (bench widths), B=300 A=3 H=(48, 32) with masks; repeated "
+        f"launches bit-identical: {json.dumps(cat_learner)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  cat_train_launches, cat_train = drive_training(device, tc)
+  print(f"phase 15 categorical training iteration, {CAT_TRAIN_ENVS} envs x "
+        f"{MAIN_SIMS} sims x {MAIN_STEPS} steps, {CAT_UPDATES} updates of "
+        f"{CAT_BATCH} in groups of {tc.group}: {json.dumps(cat_train)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
   kernels = [{
       "name": "fused_muzero_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",
@@ -955,6 +1152,37 @@ def run(device):
       "ms": gumbel_figures["search_ms"],
       "plain_ms": gumbel_figures["plain_search_ms"],
       "bound_ms": gumbel_bound, "bound_by": gumbel_by, "library_ms": None,
+  }, {
+      "name": "fused_categorical_search", "route": "cuda",
+      "source": "muax_tpu_torch/csrc/fused_search.cu",
+      "replaces": 'muax_tpu/search/fused.py:759 (decode="linear", ln_tanh)',
+      "launches": cat_train_launches[0],
+      "max_abs_err": cat_cmp["muzero"]["main"]["max_abs_err"],
+      "ms": cat_roll["muzero"]["search_ms"],
+      "plain_ms": cat_roll["muzero"]["plain_search_ms"],
+      "bound_ms": cat_roll["muzero"]["bound_ms"],
+      "bound_by": cat_roll["muzero"]["bound_by"], "library_ms": None,
+  }, {
+      "name": "fused_categorical_gumbel_search", "route": "cuda",
+      "source": "muax_tpu_torch/csrc/fused_search.cu",
+      "replaces": 'muax_tpu/search/fused.py:759 (decode="linear", ln_tanh, '
+                  'policy="gumbel")',
+      "launches": cat_roll["gumbel"]["launches"],
+      "max_abs_err": cat_cmp["gumbel"]["main"]["max_abs_err"],
+      "ms": cat_roll["gumbel"]["search_ms"],
+      "plain_ms": cat_roll["gumbel"]["plain_search_ms"],
+      "bound_ms": cat_roll["gumbel"]["bound_ms"],
+      "bound_by": cat_roll["gumbel"]["bound_by"], "library_ms": None,
+  }, {
+      "name": "fused_categorical_grad_raw", "route": "cuda",
+      "source": "muax_tpu_torch/csrc/fused_learner.cu",
+      "replaces": "muax_tpu/models/fused_learner.py:665 (categorical "
+                  "LearnerSpec)",
+      "launches": cat_train_launches[2],
+      "max_abs_err": cat_learner["main"]["max_abs_err"],
+      "ms": cat_learner["kernel_ms"], "plain_ms": cat_learner["plain_ms"],
+      "bound_ms": cat_learner["bound_ms"],
+      "bound_by": cat_learner["bound_by"], "library_ms": None,
   }]
   print(card)
   print(json.dumps({"kernels": kernels}))

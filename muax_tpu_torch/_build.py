@@ -3,8 +3,8 @@
 Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. Libraries
 land in ``build/kernels/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged one
-is not. ``build_all`` starts one ``nvcc`` per source, all at once.
+the source, the headers beside it and the flags, so an edited source or
+header is rebuilt and an unchanged one is not. ``build_all`` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
   source = (_CSRC / f"{name}.cu").read_bytes()
-  digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+  headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+  digest = hashlib.sha256(source + headers + " ".join(NVCC_FLAGS).encode())
   return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

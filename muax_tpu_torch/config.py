@@ -86,6 +86,25 @@ class MuZeroConfig:
       self.replay.segment_length = self.train.collect_steps
 
 
+def acme_defaults(num_envs: int = 128, collect_steps: int = 20,
+                  **train_overrides) -> MuZeroConfig:
+  """The reference acme-jax MuZero data regime: 50 simulations, batch 32 x 8
+  gradient steps per learner step, unroll 5, n-step 10, discount 0.99, a
+  50/50 offline/online table mix, and the samples-per-insert gate at 32
+  with 10 % tolerance (``muax_tpu/config.py`` ``acme_defaults``)."""
+  train = dict(num_envs=num_envs, collect_steps=collect_steps,
+               batch_size=32, updates_per_iteration=8, unroll_steps=5,
+               n_bootstrap=10, discount=0.99, samples_per_insert=32.0,
+               spi_tolerance=0.1)
+  train.update(train_overrides)
+  return MuZeroConfig(
+      search=SearchConfig(policy="muzero", num_simulations=50),
+      replay=ReplayConfig(capacity=8192, min_fill=num_envs,
+                          priority_alpha=1.0, offline_fraction=0.5,
+                          online_queue_size=1024),
+      train=TrainConfig(**train))
+
+
 def config_hash(config: MuZeroConfig) -> str:
   """Deterministic 16-hex digest of the config tree (the same digest the
   JAX package computes for an equal config)."""

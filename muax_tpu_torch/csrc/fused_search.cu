@@ -1,5 +1,10 @@
 // Fused search: every simulation of every environment in one launch, for
-// Hopper (sm_90a), in the two policy modes of the TPU kernel.
+// Hopper (sm_90a), in the two policy modes of the TPU kernel, for the MLP
+// triplet (fused_search_kernel: one warp per environment, everything in
+// shared memory) and for the acme categorical family
+// (fused_search_tiled_kernel, entry mz_fused_tiled_search: LayerNorm-tanh
+// layers and the linear two-hot decode, `decode="linear"` with ln_tanh
+// towers in the TPU kernel; its design is described at the kernel).
 //
 // Replaces the TPU kernel muax_tpu/search/fused.py `_make_kernel` with
 // decode="h_support" and elu towers, which `_fused_search` launches through
@@ -55,6 +60,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "tile_gemm.cuh"
 
 // Returned when the shapes do not fit the kernel (too many layers, or one
 // environment's tree does not fit the shared memory of a block).
@@ -348,6 +355,116 @@ __device__ int select_gumbel_interior(const Forest& f, int cur, int A,
   return warp_argmax(best, best_a);
 }
 
+// ---- the tree walk, shared by both kernels --------------------------------
+
+// Resets one environment's forest: node 0 with one visit and the root value,
+// every index -1, every statistic 0. The warp's lanes split the arrays.
+template <bool kGumbel>
+__device__ __forceinline__ void init_forest(const Forest& f, int N, int A,
+                                            float rv, int lane) {
+  for (int i = lane; i < N; i += 32) {
+    f.nvis[i] = i == 0 ? 1.f : 0.f;
+    f.nval[i] = i == 0 ? rv : 0.f;
+    if (kGumbel) f.nraw[i] = i == 0 ? rv : 0.f;
+    f.npar[i] = -1;
+    f.nact[i] = -1;
+  }
+  for (int i = lane; i < N * A; i += 32) {
+    f.cidx[i] = -1;
+    f.cpri[i] = 0.f;
+    f.cvis[i] = 0.f;
+    f.crew[i] = 0.f;
+    f.cval[i] = 0.f;
+  }
+}
+
+// One descent from the root to the edge it stops at: an unexpanded child,
+// or max_depth. `sched` is this simulation's schedule entry (Gumbel mode).
+template <bool kGumbel>
+__device__ __forceinline__ void descend(const Forest& f, int A,
+                                        float discount, float pb_c_init,
+                                        float pb_c_base, int max_depth,
+                                        const float* inval,
+                                        const float* rscore, float sched,
+                                        int lane, int* parent_out,
+                                        int* act_out) {
+  int cur = 0, parent = -1, act = -1, depth = 0;
+  while (true) {
+    int best_a;
+    if (!kGumbel) {
+      best_a = select_puct(f, cur, depth, A, discount, pb_c_init, pb_c_base,
+                           inval, lane);
+    } else if (depth == 0) {
+      best_a = select_gumbel_root(f, A, discount, rscore, sched, inval, lane);
+    } else {
+      best_a = select_gumbel_interior(f, cur, A, discount, lane);
+    }
+    const int child = f.cidx[cur * A + best_a];
+    parent = cur;
+    act = best_a;
+    cur = child;
+    ++depth;
+    if (child < 0 || depth >= max_depth) break;
+  }
+  *parent_out = parent;
+  *act_out = act;
+}
+
+// Install of the expanded node (running mean; a re-evaluated node's raw
+// value is replaced) and the backup along parent pointers from the raw
+// network value, as in the TPU kernel. One lane runs it.
+template <bool kGumbel>
+__device__ __forceinline__ void install_and_backup(const Forest& f, int A,
+                                                   float discount, int slot,
+                                                   int parent, int act,
+                                                   float value,
+                                                   float reward) {
+  const int edge = parent * A + act;
+  const float count = f.nvis[slot];
+  f.nval[slot] = (f.nval[slot] * count + value) / (count + 1.f);
+  f.nvis[slot] = count + 1.f;
+  if (kGumbel) f.nraw[slot] = value;
+  f.npar[slot] = parent;
+  f.nact[slot] = act;
+  f.crew[edge] = reward;
+  f.cidx[edge] = slot;
+  int idx = slot;
+  float v = value;
+  while (idx != 0) {
+    const int par = f.npar[idx];
+    const int e = par * A + f.nact[idx];
+    const float cnt = f.nvis[par];
+    const float vnew = f.crew[e] + discount * v;
+    f.nval[par] = (f.nval[par] * cnt + vnew) / (cnt + 1.f);
+    f.nvis[par] = cnt + 1.f;
+    f.cval[e] = f.nval[idx];
+    f.cvis[e] += 1.f;
+    v = vnew;
+    idx = par;
+  }
+}
+
+// The root summary: visits, value, and r + discount v (MuZero) or the
+// completed sigma(q) (Gumbel).
+template <bool kGumbel>
+__device__ __forceinline__ void write_summary(const Forest& f, int A,
+                                              float discount, size_t env,
+                                              float* out_visits,
+                                              float* out_value, float* out_q,
+                                              int lane) {
+  if (kGumbel) {
+    const MixValue m = mix_value(f, 0, A, discount, lane);
+    for (int a = lane; a < A; a += 32) out_q[env * A + a] = m.cq(a);
+  } else {
+    for (int a = lane; a < A; a += 32)
+      out_q[env * A + a] = f.crew[a] + discount * f.cval[a];
+  }
+  for (int a = lane; a < A; a += 32) out_visits[env * A + a] = f.cvis[a];
+  if (lane == 0) out_value[env] = f.nval[0];
+}
+
+// ---- MLP modes: one warp per environment, everything in shared memory ----
+
 template <bool kGumbel>
 __global__ void __launch_bounds__(32 * kMaxEnvsPerBlock)
 fused_search_kernel(const float* __restrict__ root_emb,
@@ -390,31 +507,9 @@ fused_search_kernel(const float* __restrict__ root_emb,
   float* inval = bufs[1] + args.act_width;
   f.nraw = inval + A;         // Gumbel mode: [N]
   float* rscore = f.nraw + N;  // Gumbel mode: [A]
-  float* nvis = f.nvis;
-  float* nval = f.nval;
-  int* npar = f.npar;
-  int* nact = f.nact;
-  int* cidx = f.cidx;
-  float* cvis = f.cvis;
-  float* crew = f.crew;
-  float* cval = f.cval;
 
   // ---- forest init ------------------------------------------------------
-  const float rv = root_value[env];
-  for (int i = lane; i < N; i += 32) {
-    nvis[i] = i == 0 ? 1.f : 0.f;
-    nval[i] = i == 0 ? rv : 0.f;
-    if (kGumbel) f.nraw[i] = i == 0 ? rv : 0.f;
-    npar[i] = -1;
-    nact[i] = -1;
-  }
-  for (int i = lane; i < NA; i += 32) {
-    cidx[i] = -1;
-    f.cpri[i] = 0.f;
-    cvis[i] = 0.f;
-    crew[i] = 0.f;
-    cval[i] = 0.f;
-  }
+  init_forest<kGumbel>(f, N, A, root_value[env], lane);
   for (int j = lane; j < E; j += 32)
     emb[j] = root_emb[static_cast<size_t>(env) * E + j];
   for (int a = lane; a < A; a += 32) {
@@ -425,30 +520,16 @@ fused_search_kernel(const float* __restrict__ root_emb,
 
   for (int sim = 0; sim < args.num_simulations; ++sim) {
     // ---- descent ----------------------------------------------------------
-    int cur = 0, parent = -1, act = -1, depth = 0;
-    while (true) {
-      int best_a;
-      if (!kGumbel) {
-        best_a = select_puct(f, cur, depth, A, discount, args.pb_c_init,
-                             args.pb_c_base, inval, lane);
-      } else if (depth == 0) {
-        const float sched =
-            schedule[static_cast<size_t>(env) * args.num_simulations + sim];
-        best_a = select_gumbel_root(f, A, discount, rscore, sched, inval,
-                                    lane);
-      } else {
-        best_a = select_gumbel_interior(f, cur, A, discount, lane);
-      }
-      const int child = cidx[cur * A + best_a];
-      parent = cur;
-      act = best_a;
-      cur = child;
-      ++depth;
-      if (child < 0 || depth >= args.max_depth) break;
-    }
+    const float sched =
+        kGumbel
+            ? schedule[static_cast<size_t>(env) * args.num_simulations + sim]
+            : 0.f;
+    int parent, act;
+    descend<kGumbel>(f, A, discount, args.pb_c_init, args.pb_c_base,
+                     args.max_depth, inval, rscore, sched, lane, &parent,
+                     &act);
     // Fresh node sim+1, unless the depth cap stopped on an existing child.
-    const int edge = parent * A + act;
-    const int existing = cidx[edge];
+    const int existing = f.cidx[parent * A + act];
     const int slot = existing < 0 ? sim + 1 : existing;
 
     // ---- expansion: dynamics on concat(s, one_hot(a)), then prediction --
@@ -486,46 +567,298 @@ fused_search_kernel(const float* __restrict__ root_emb,
     softmax_into(bufs[k], f.cpri + slot * A, A, lane);
 
     // ---- install (running mean) and backup along parent pointers -------
-    if (lane == 0) {
-      const float count = nvis[slot];
-      nval[slot] = (nval[slot] * count + value) / (count + 1.f);
-      nvis[slot] = count + 1.f;
-      if (kGumbel) f.nraw[slot] = value;  // replaced on re-evaluation
-      npar[slot] = parent;
-      nact[slot] = act;
-      crew[edge] = reward;
-      cidx[edge] = slot;
-      int idx = slot;
-      float v = value;  // the raw network value, as in the TPU kernel
-      while (idx != 0) {
-        const int par = npar[idx];
-        const int e = par * A + nact[idx];
-        const float cnt = nvis[par];
-        const float vnew = crew[e] + discount * v;
-        nval[par] = (nval[par] * cnt + vnew) / (cnt + 1.f);
-        nvis[par] = cnt + 1.f;
-        cval[e] = nval[idx];
-        cvis[e] += 1.f;
-        v = vnew;
-        idx = par;
-      }
-    }
+    if (lane == 0)
+      install_and_backup<kGumbel>(f, A, discount, slot, parent, act, value,
+                                  reward);
     __syncwarp();
   }
 
-  // ---- root summary: visits, value, and r + discount v (MuZero) or the
-  // completed sigma(q) (Gumbel) -------------------------------------------
-  if (kGumbel) {
-    const MixValue m = mix_value(f, 0, A, discount, lane);
-    for (int a = lane; a < A; a += 32)
-      out_q[static_cast<size_t>(env) * A + a] = m.cq(a);
-  } else {
-    for (int a = lane; a < A; a += 32)
-      out_q[static_cast<size_t>(env) * A + a] = crew[a] + discount * cval[a];
+  write_summary<kGumbel>(f, A, discount, static_cast<size_t>(env),
+                         out_visits, out_value, out_q, lane);
+}
+
+// ---- categorical modes: a tile of environments per block ------------------
+//
+// The towers of the categorical family (about 338 K weights at the widths of
+// bench.py's muzero_categorical) cannot stay in shared memory, so this kernel
+// turns the expansion around: a block owns kTileEnvs environments, its warps
+// walk their trees (kept in device memory, where L1 and L2 hold them), and
+// after a block-wide barrier every environment of the tile expands at once,
+// layer by layer, as one [tile, in] x [in, out] product whose weight chunks
+// are read from device memory (L2-resident) once per tile (tile_gemm.cuh).
+// Each layer's epilogue (ELU, or LayerNorm then tanh), the decodes, the
+// next-state normaliser and the policy softmax run one warp per environment.
+
+constexpr int kTileEnvs = 16;
+constexpr int kTileWarps = mz_tile::kThreads / 32;
+
+struct TiledArgs {
+  int B, A, E, bins, support, linear;
+  float vmin, bin_step;
+  int num_simulations, max_depth, num_nodes;
+  float discount, pb_c_init, pb_c_base;
+  int n_dyn, n_pred;
+  int dyn_width[kMaxLayers], dyn_kind[kMaxLayers], dyn_off[kMaxLayers];
+  int pred_width[kMaxLayers], pred_kind[kMaxLayers], pred_off[kMaxLayers];
+  int reward_off, state_off, value_off, policy_off;
+  int ld;           // floats per activation row
+  long env_floats;  // floats of device scratch per environment
+};
+
+// The forest of environment `env` in the device scratch.
+__device__ __forceinline__ Forest tiled_forest(float* scratch, int env,
+                                               const TiledArgs& g,
+                                               float** emb) {
+  const int N = g.num_nodes, NA = N * g.A;
+  float* base = scratch + env * g.env_floats;
+  Forest f;
+  f.nvis = base;
+  f.nval = base + N;
+  f.nraw = base + 2 * N;
+  f.npar = reinterpret_cast<int*>(base + 3 * N);
+  f.nact = reinterpret_cast<int*>(base + 4 * N);
+  f.cidx = reinterpret_cast<int*>(base + 5 * N);
+  f.cpri = base + 5 * N + NA;
+  f.cvis = base + 5 * N + 2 * NA;
+  f.crew = base + 5 * N + 3 * NA;
+  f.cval = base + 5 * N + 4 * NA;
+  *emb = base + 5 * N + 5 * NA;
+  return f;
+}
+
+// softmax over a row of n logits (overwritten) and its expectation over the
+// bins: vmin + j * step (linear), or j - S then h^-1. Every lane returns it.
+__device__ float decode_row(float* logits, int n, const TiledArgs& g,
+                            int lane) {
+  if (!g.linear) return decode_support(logits, n, g.support, lane);
+  float m = -INFINITY;
+  for (int j = lane; j < n; j += 32) m = fmaxf(m, logits[j]);
+  m = warp_max(m);
+  float s = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    const float e = expf(logits[j] - m);
+    logits[j] = e;
+    s += e;
   }
-  for (int a = lane; a < A; a += 32)
-    out_visits[static_cast<size_t>(env) * A + a] = cvis[a];
-  if (lane == 0) out_value[env] = nval[0];
+  s = warp_sum(s);
+  float x = 0.f;
+  for (int j = lane; j < n; j += 32)
+    x += (logits[j] / s) * (g.vmin + static_cast<float>(j) * g.bin_step);
+  x = warp_sum(x);
+  __syncwarp();
+  return x;
+}
+
+// A hidden layer's epilogue on one row of `out` pre-activations: ELU, or
+// LayerNorm (eps 1e-5, scale, offset) then tanh.
+__device__ void finish_row(float* y, int out, int kind, const float* scale,
+                           const float* offset, int lane) {
+  if (kind == 0) {
+    for (int j = lane; j < out; j += 32) y[j] = elu(y[j]);
+  } else {
+    float s = 0.f;
+    for (int j = lane; j < out; j += 32) s += y[j];
+    const float mean = warp_sum(s) / static_cast<float>(out);
+    float v = 0.f;
+    for (int j = lane; j < out; j += 32) {
+      const float d = y[j] - mean;
+      v += d * d;
+    }
+    const float inv =
+        rsqrtf(warp_sum(v) / static_cast<float>(out) + 1e-5f);
+    for (int j = lane; j < out; j += 32)
+      y[j] = tanhf((y[j] - mean) * inv * scale[j] + offset[j]);
+  }
+  __syncwarp();
+}
+
+// The hidden layers of one tower over the tile: x (rows of width `in`) into
+// the other buffer and back. Returns the buffer holding the last layer's
+// activations and leaves its width in *width.
+__device__ float* tile_tower(const float* weights, const int* offs,
+                             const int* widths, const int* kinds, int n,
+                             int in, float* x, float* other,
+                             const TiledArgs& g, float* gsm, int warp,
+                             int lane, int* width) {
+  for (int l = 0; l < n; ++l) {
+    const int out = widths[l];
+    const float* W = weights + offs[l];
+    const float* b = W + in * out;
+    mz_tile::gemm(kTileEnvs, out, in, x, g.ld, 1, W, out, 1, other, g.ld, 1,
+                  b, false, gsm);
+    __syncthreads();
+    for (int i = warp; i < kTileEnvs; i += kTileWarps)
+      finish_row(other + i * g.ld, out, kinds[l], b + out, b + 2 * out,
+                 lane);
+    __syncthreads();
+    float* t = x;
+    x = other;
+    other = t;
+    in = out;
+  }
+  *width = in;
+  return x;
+}
+
+template <bool kGumbel>
+__global__ void __launch_bounds__(mz_tile::kThreads)
+fused_search_tiled_kernel(const float* __restrict__ root_emb,
+                          const float* __restrict__ root_logits,
+                          const float* __restrict__ root_value,
+                          const float* __restrict__ invalid,
+                          const float* __restrict__ root_score,
+                          const float* __restrict__ schedule,
+                          const float* __restrict__ weights,
+                          float* __restrict__ scratch,
+                          float* __restrict__ out_visits,
+                          float* __restrict__ out_value,
+                          float* __restrict__ out_q, const TiledArgs g) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int T = kTileEnvs;
+  float* gsm = smem;
+  float* bufs[2] = {smem + mz_tile::kSmemFloats,
+                    smem + mz_tile::kSmemFloats + T * g.ld};
+  float* inval = bufs[1] + T * g.ld;  // [T, A]
+  int* s_parent = reinterpret_cast<int*>(inval + T * g.A);
+  int* s_act = s_parent + T;
+  int* s_slot = s_act + T;
+  float* s_reward = reinterpret_cast<float*>(s_slot + T);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int A = g.A, E = g.E, N = g.num_nodes, bins = g.bins;
+  const int env0 = blockIdx.x * T;
+
+  for (int i = warp; i < T; i += kTileWarps) {
+    const int env = env0 + i;
+    for (int a = lane; a < A; a += 32)
+      inval[i * A + a] =
+          (env < g.B && invalid) ? invalid[static_cast<size_t>(env) * A + a]
+                                 : 0.f;
+    if (env >= g.B) continue;
+    float* emb;
+    const Forest f = tiled_forest(scratch, env, g, &emb);
+    init_forest<kGumbel>(f, N, A, root_value[env], lane);
+    for (int j = lane; j < E; j += 32)
+      emb[j] = root_emb[static_cast<size_t>(env) * E + j];
+    softmax_into(root_logits + static_cast<size_t>(env) * A, f.cpri, A,
+                 lane);
+  }
+
+  for (int sim = 0; sim < g.num_simulations; ++sim) {
+    // ---- descent, and the dynamics input concat(s, one_hot(a)) ----------
+    for (int i = warp; i < T; i += kTileWarps) {
+      const int env = env0 + i;
+      float* x = bufs[0] + i * g.ld;
+      if (env >= g.B) {
+        for (int j = lane; j < E + A; j += 32) x[j] = 0.f;
+        if (lane == 0) s_slot[i] = -1;
+        continue;
+      }
+      float* emb;
+      const Forest f = tiled_forest(scratch, env, g, &emb);
+      const float sched =
+          kGumbel ? schedule[static_cast<size_t>(env) * g.num_simulations +
+                             sim]
+                  : 0.f;
+      int parent, act;
+      descend<kGumbel>(f, A, g.discount, g.pb_c_init, g.pb_c_base,
+                       g.max_depth, inval + i * A,
+                       kGumbel ? root_score + static_cast<size_t>(env) * A
+                               : nullptr,
+                       sched, lane, &parent, &act);
+      const int existing = f.cidx[parent * A + act];
+      for (int j = lane; j < E + A; j += 32)
+        x[j] = j < E ? emb[parent * E + j] : (j - E == act ? 1.f : 0.f);
+      if (lane == 0) {
+        s_parent[i] = parent;
+        s_act[i] = act;
+        s_slot[i] = existing < 0 ? sim + 1 : existing;
+      }
+    }
+    __syncthreads();
+
+    // ---- dynamics: hidden layers, reward head, next-state head ----------
+    int hw;
+    float* h = tile_tower(weights, g.dyn_off, g.dyn_width, g.dyn_kind,
+                          g.n_dyn, E + A, bufs[0], bufs[1], g, gsm, warp,
+                          lane, &hw);
+    float* y = h == bufs[0] ? bufs[1] : bufs[0];
+    const float* W = weights + g.reward_off;
+    mz_tile::gemm(T, bins, hw, h, g.ld, 1, W, bins, 1, y, g.ld, 1,
+                  W + hw * bins, false, gsm);
+    __syncthreads();
+    for (int i = warp; i < T; i += kTileWarps) {
+      const float r = decode_row(y + i * g.ld, bins, g, lane);
+      if (lane == 0) s_reward[i] = r;
+    }
+    __syncthreads();
+    W = weights + g.state_off;
+    mz_tile::gemm(T, E, hw, h, g.ld, 1, W, E, 1, y, g.ld, 1, W + hw * E,
+                  false, gsm);
+    __syncthreads();
+    for (int i = warp; i < T; i += kTileWarps) {
+      float* ns = y + i * g.ld;
+      float lo = INFINITY, hi = -INFINITY;
+      for (int j = lane; j < E; j += 32) {
+        lo = fminf(lo, ns[j]);
+        hi = fmaxf(hi, ns[j]);
+      }
+      lo = warp_min(lo);
+      hi = warp_max(hi);
+      const float span = fmaxf(hi - lo, 1e-8f);
+      const int env = env0 + i;
+      float* emb = nullptr;
+      if (env < g.B) tiled_forest(scratch, env, g, &emb);
+      for (int j = lane; j < E; j += 32) {
+        ns[j] = (ns[j] - lo) / span;
+        if (emb) emb[s_slot[i] * E + j] = ns[j];
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+
+    // ---- prediction: hidden layers, value head, policy head -------------
+    float* p = tile_tower(weights, g.pred_off, g.pred_width, g.pred_kind,
+                          g.n_pred, E, y, h, g, gsm, warp, lane, &hw);
+    y = p == bufs[0] ? bufs[1] : bufs[0];
+    W = weights + g.value_off;
+    mz_tile::gemm(T, bins, hw, p, g.ld, 1, W, bins, 1, y, g.ld, 1,
+                  W + hw * bins, false, gsm);
+    __syncthreads();
+    float value[(T + kTileWarps - 1) / kTileWarps];
+    for (int i = warp, r = 0; i < T; i += kTileWarps, ++r)
+      value[r] = decode_row(y + i * g.ld, bins, g, lane);
+    __syncthreads();
+    W = weights + g.policy_off;
+    mz_tile::gemm(T, A, hw, p, g.ld, 1, W, A, 1, y, g.ld, 1, W + hw * A,
+                  false, gsm);
+    __syncthreads();
+
+    // ---- install and backup, one warp per environment --------------------
+    for (int i = warp, r = 0; i < T; i += kTileWarps, ++r) {
+      const int env = env0 + i;
+      if (env >= g.B) continue;
+      float* emb;
+      const Forest f = tiled_forest(scratch, env, g, &emb);
+      const int slot = s_slot[i];
+      softmax_into(y + i * g.ld, f.cpri + slot * A, A, lane);
+      if (lane == 0)
+        install_and_backup<kGumbel>(f, A, g.discount, slot, s_parent[i],
+                                    s_act[i], value[r], s_reward[i]);
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+
+  for (int i = warp; i < T; i += kTileWarps) {
+    const int env = env0 + i;
+    if (env >= g.B) continue;
+    float* emb;
+    const Forest f = tiled_forest(scratch, env, g, &emb);
+    write_summary<kGumbel>(f, A, g.discount, static_cast<size_t>(env),
+                           out_visits, out_value, out_q, lane);
+  }
 }
 
 // Sizes the shared memory from `args`' shapes and launches one mode.
@@ -620,6 +953,47 @@ int make_args(Args* args, int B, int A, int E, int S41, int support_size,
   return 0;
 }
 
+
+// Sizes the tile's shared memory and launches one categorical mode.
+template <bool kGumbel>
+int launch_tiled(const TiledArgs& g, const float* root_emb,
+                 const float* root_logits, const float* root_value,
+                 const float* invalid, const float* root_score,
+                 const float* schedule, const float* weights, float* scratch,
+                 float* out_visits, float* out_value, float* out_q,
+                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const size_t smem =
+      (static_cast<size_t>(mz_tile::kSmemFloats) +
+       2 * static_cast<size_t>(kTileEnvs) * g.ld +
+       static_cast<size_t>(kTileEnvs) * g.A + 4 * kTileEnvs) *
+      sizeof(float);
+  if (smem > static_cast<size_t>(max_smem)) return kErrShape;
+  err = cudaFuncSetAttribute(fused_search_tiled_kernel<kGumbel>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int grid = (g.B + kTileEnvs - 1) / kTileEnvs;
+  fused_search_tiled_kernel<kGumbel>
+      <<<grid, mz_tile::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          root_emb, root_logits, root_value, invalid, root_score, schedule,
+          weights, scratch, out_visits, out_value, out_q, g);
+  return cudaGetLastError();
+}
+
+// Floats of device scratch per environment of the tiled kernel: node arrays
+// (visits, values, raw values, parents, actions), edge arrays (children,
+// priors, visits, rewards, values) and the embeddings.
+long tiled_env_floats(int A, int E, int num_simulations) {
+  const long N = num_simulations + 1;
+  return 5 * N + 5 * N * A + N * E;
+}
+
 }  // namespace
 
 extern "C" {
@@ -676,6 +1050,103 @@ int mz_fused_gumbel_search(const float* root_emb, const float* root_logits,
   return launch<true>(args, root_emb, root_logits, root_value, invalid,
                       root_score, schedule, weights, out_visits, out_value,
                       out_q, device, stream);
+}
+
+// Floats of device scratch the tiled (categorical) search needs for B
+// environments.
+long mz_tiled_scratch_floats(int B, int A, int E, int num_simulations) {
+  return static_cast<long>(B) * tiled_env_floats(A, E, num_simulations);
+}
+
+// Launch the tiled search (the categorical modes) on `stream`: MuZero when
+// root_score and schedule are NULL, Gumbel otherwise (inputs as
+// mz_fused_gumbel_search). weights: per hidden layer W [in, out], b [out]
+// and, for an ln_tanh layer (kind 1; kind 0 is elu), its LayerNorm scale
+// [out] and offset [out]; the dynamics' hidden layers, reward head and
+// next-state head, then the prediction's hidden layers, value head and
+// policy head. The value convention is linear (vmin + j (vmax - vmin) /
+// (bins - 1)) or, with linear = 0, the h-support of `support`. scratch holds
+// mz_tiled_scratch_floats(B, A, E, num_simulations) floats. Returns a
+// cudaError_t, or MZ_ERR_SHAPE.
+int mz_fused_tiled_search(const float* root_emb, const float* root_logits,
+                          const float* root_value, const float* invalid,
+                          const float* root_score, const float* schedule,
+                          const float* weights, int n_weights, float* scratch,
+                          long scratch_floats, float* out_visits,
+                          float* out_value, float* out_q, int B, int A, int E,
+                          int bins, int linear, int support, float vmin,
+                          float vmax, int num_simulations, int max_depth,
+                          float discount, float pb_c_init, float pb_c_base,
+                          int n_dyn, const int* dyn_width,
+                          const int* dyn_kind, int n_pred,
+                          const int* pred_width, const int* pred_kind,
+                          int device, void* stream) {
+  if (n_dyn < 1 || n_dyn > kMaxLayers || n_pred < 1 || n_pred > kMaxLayers ||
+      B < 1 || A < 1 || E < 1 || bins < 2 || num_simulations < 1 ||
+      (root_score == nullptr) != (schedule == nullptr) ||
+      scratch_floats < mz_tiled_scratch_floats(B, A, E, num_simulations))
+    return kErrShape;
+  TiledArgs g;
+  g.B = B;
+  g.A = A;
+  g.E = E;
+  g.bins = bins;
+  g.support = support;
+  g.linear = linear;
+  g.vmin = vmin;
+  g.bin_step = static_cast<float>((static_cast<double>(vmax) - vmin) /
+                                  (bins - 1));
+  g.num_simulations = num_simulations;
+  g.max_depth = max_depth;
+  g.num_nodes = num_simulations + 1;
+  g.discount = discount;
+  g.pb_c_init = pb_c_init;
+  g.pb_c_base = pb_c_base;
+  g.n_dyn = n_dyn;
+  g.n_pred = n_pred;
+  int ld = E + A;
+  if (bins > ld) ld = bins;
+  long off = 0;
+  int in = E + A;
+  for (int l = 0; l < n_dyn; ++l) {
+    if (dyn_kind[l] != 0 && dyn_kind[l] != 1) return kErrShape;
+    g.dyn_width[l] = dyn_width[l];
+    g.dyn_kind[l] = dyn_kind[l];
+    g.dyn_off[l] = static_cast<int>(off);
+    off += static_cast<long>(in) * dyn_width[l] + dyn_width[l] +
+           (dyn_kind[l] ? 2 * dyn_width[l] : 0);
+    if (dyn_width[l] > ld) ld = dyn_width[l];
+    in = dyn_width[l];
+  }
+  g.reward_off = static_cast<int>(off);
+  off += static_cast<long>(in) * bins + bins;
+  g.state_off = static_cast<int>(off);
+  off += static_cast<long>(in) * E + E;
+  in = E;
+  for (int l = 0; l < n_pred; ++l) {
+    if (pred_kind[l] != 0 && pred_kind[l] != 1) return kErrShape;
+    g.pred_width[l] = pred_width[l];
+    g.pred_kind[l] = pred_kind[l];
+    g.pred_off[l] = static_cast<int>(off);
+    off += static_cast<long>(in) * pred_width[l] + pred_width[l] +
+           (pred_kind[l] ? 2 * pred_width[l] : 0);
+    if (pred_width[l] > ld) ld = pred_width[l];
+    in = pred_width[l];
+  }
+  g.value_off = static_cast<int>(off);
+  off += static_cast<long>(in) * bins + bins;
+  g.policy_off = static_cast<int>(off);
+  off += static_cast<long>(in) * A + A;
+  if (off != n_weights) return kErrShape;
+  g.ld = (ld + 3) / 4 * 4;
+  g.env_floats = tiled_env_floats(A, E, num_simulations);
+  if (root_score != nullptr)
+    return launch_tiled<true>(g, root_emb, root_logits, root_value, invalid,
+                              root_score, schedule, weights, scratch,
+                              out_visits, out_value, out_q, device, stream);
+  return launch_tiled<false>(g, root_emb, root_logits, root_value, invalid,
+                             nullptr, nullptr, weights, scratch, out_visits,
+                             out_value, out_q, device, stream);
 }
 
 const char* mz_error_string(int code) {

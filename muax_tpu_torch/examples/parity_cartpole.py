@@ -6,14 +6,22 @@ n-step 10, peak lr 2e-2; 8 envs x 20 steps per iteration), run through
 ``fit`` with ``log_every=1`` so that every iteration's finished episodes
 count. It writes a JSON of the episodes it took until a greedy evaluation
 first returned 500 (the reference needs about 500, README.md:141-143), the
-wall time and the card. From the root of a checkout, on the card:
+wall time and the card, one entry per seed. From the root of a checkout,
+on the card:
 
   python -m muax_tpu_torch.examples.parity_cartpole --policy gumbel \
-      --out build/parity_cartpole_gumbel.json
+      --seeds 42,7 --route fused --out build/parity_cartpole_gumbel.json
+
+``--route`` picks the search and learner paths: ``fused`` (the default:
+the search kernel, the fused sampler and the fused learner), ``generic``
+(``search.fused=False`` and ``train.fused_sampler=False``: the generic
+engine and the generic learner) or ``sampler`` (the generic search engine
+with the fused sampler and learner).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -29,17 +37,24 @@ from muax_tpu_torch.models import make_mlp_networks, muzero_optimizer
 from muax_tpu_torch.train.fit import fit
 
 TARGET = 500.0
+ROUTES = ("fused", "generic", "sampler")
 
 
-def parity_config(policy: str) -> MuZeroConfig:
+def parity_config(policy: str, route: str = "fused") -> MuZeroConfig:
   """The notebook config (examples/run_cartpole.py defaults), episode-frugal:
-  8 envs x 20 steps per iteration with a minimal warm-up."""
-  return MuZeroConfig(
-      search=SearchConfig(policy=policy, num_simulations=50),
+  8 envs x 20 steps per iteration with a minimal warm-up, on ``route``."""
+  if route not in ROUTES:
+    raise ValueError(f"route {route!r} is not one of {ROUTES}")
+  config = MuZeroConfig(
+      search=SearchConfig(policy=policy, num_simulations=50,
+                          fused=route == "fused"),
       replay=ReplayConfig(capacity=2048, min_fill=8, priority_alpha=0.5),
       train=TrainConfig(num_envs=8, collect_steps=20, batch_size=256,
                         updates_per_iteration=64, unroll_steps=10,
                         n_bootstrap=10, discount=0.997))
+  return dataclasses.replace(
+      config, train=dataclasses.replace(config.train,
+                                        fused_sampler=route != "generic"))
 
 
 def episodes_to_solve(results: dict) -> dict:
@@ -71,48 +86,58 @@ def card() -> str:
   return out.stdout.strip().splitlines()[0]
 
 
-def main():
-  p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  p.add_argument("--policy", choices=("muzero", "gumbel"), default="muzero")
-  p.add_argument("--seed", type=int, default=42)
-  p.add_argument("--num_iterations", type=int, default=800)
-  p.add_argument("--device", default="cuda")
-  p.add_argument("--out", default=None,
-                 help="JSON path (default build/parity_cartpole_<policy>"
-                      ".json)")
-  args = p.parse_args()
-  out_path = args.out or os.path.join("build",
-                                      f"parity_cartpole_{args.policy}.json")
-  os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-
+def solve(policy: str, route: str, seed: int, num_iterations: int,
+          device: str, model_dir: str) -> dict:
+  """One CartPole run of the notebook config; its entry of the JSON."""
   networks = make_mlp_networks(num_actions=2, embedding_dim=10,
                                support_size=20, repr_layers=(),
                                pred_layers=(64, 64, 16),
-                               dyn_layers=(64, 64, 16), device=args.device)
+                               dyn_layers=(64, 64, 16), device=device)
   optimizer = muzero_optimizer(peak_lr=2e-2, end_lr=1e-4, warmup_steps=2000,
                                transition_steps=10000, decay_rate=0.8)
   t0 = time.time()
-  with tempfile.TemporaryDirectory(dir=os.path.dirname(out_path) or ".") as d:
-    _, results = fit(CartPole(), networks, parity_config(args.policy),
-                     optimizer, num_iterations=args.num_iterations,
-                     seed=args.seed, eval_every=5, log_every=1,
+  with tempfile.TemporaryDirectory(dir=model_dir) as d:
+    _, results = fit(CartPole(), networks, parity_config(policy, route),
+                     optimizer, num_iterations=num_iterations,
+                     seed=seed, eval_every=5, log_every=1,
                      model_dir=d, target_reward=TARGET,
                      log_fn=lambda m: print(m, flush=True))
-  wall = time.time() - t0
+  return {"policy": policy, "route": route, "seed": seed,
+          **episodes_to_solve(results),
+          "warmup_episodes": int(results.get("warmup_episodes", 0)),
+          "best_test_G": results["best_reward"],
+          "wall_seconds": time.time() - t0}
+
+
+def main():
+  p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  p.add_argument("--policy", choices=("muzero", "gumbel"), default="muzero")
+  p.add_argument("--route", choices=ROUTES, default="fused")
+  p.add_argument("--seeds", default="42",
+                 help="comma-separated seeds, run one after the other")
+  p.add_argument("--num_iterations", type=int, default=800)
+  p.add_argument("--device", default="cuda")
+  p.add_argument("--out", default=None,
+                 help="JSON path (default build/parity_cartpole_<policy>_"
+                      "<route>.json)")
+  args = p.parse_args()
+  out_path = args.out or os.path.join(
+      "build", f"parity_cartpole_{args.policy}_{args.route}.json")
+  os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
   out = {
       "claim": "CartPole-v1 test_G=500 within <=500 episodes "
                "(reference ~500 episodes, README.md:141-143)",
       "config": "notebook config: embed 10, support 20, towers (64,64,16), "
                 "50 sims, unroll 10, n-step 10, peak lr 2e-2",
-      "policy": args.policy, "seed": args.seed,
-      **episodes_to_solve(results),
-      "warmup_episodes": int(results.get("warmup_episodes", 0)),
-      "best_test_G": results["best_reward"],
-      "wall_seconds": wall, "device": card(),
-  }
-  with open(out_path, "w") as f:
-    json.dump(out, f, indent=1)
-  print(json.dumps({k: v for k, v in out.items() if k != "eval_curve"}))
+      "device": card() if args.device != "cpu" else "cpu", "runs": []}
+  for seed in (int(s) for s in args.seeds.split(",")):
+    run = solve(args.policy, args.route, seed, args.num_iterations,
+                args.device, os.path.dirname(out_path) or ".")
+    out["runs"].append(run)
+    with open(out_path, "w") as f:  # rewritten after each seed
+      json.dump(out, f, indent=1)
+    print(json.dumps({k: v for k, v in run.items() if k != "eval_curve"}),
+          flush=True)
 
 
 if __name__ == "__main__":

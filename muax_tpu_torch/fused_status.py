@@ -1,7 +1,9 @@
 """Which fused kernels a setup takes, and why not (``muax_tpu/fused_status.py``).
 
 One report over the port's three kernels: the search (in its MuZero or
-Gumbel mode), the learner and the sampler. The learner and sampler entries reuse the learner's own dispatch
+Gumbel mode, for the MLP triplet or the acme categorical family), the
+learner and the sampler. The search entry reuses the actor's dispatch
+(``uses_fused_search``), the learner and sampler entries the learner's own
 (``make_multi_update_fn``'s ``fused_group_status``), so the report cannot
 drift from what the learner does. ``fit`` logs it once.
 
@@ -13,20 +15,27 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-from muax_tpu_torch.models.fused_learner import extract_learner_weights
+from muax_tpu_torch.models.fused_learner import (LearnerSpec,
+                                                 extract_learner)
 from muax_tpu_torch.models.optimizers import muzero_optimizer
+from muax_tpu_torch.train.actor import uses_fused_search
 from muax_tpu_torch.train.learner import TrainState, make_multi_update_fn
 
 
-def _search_status(config) -> dict:
+def _search_status(networks, config) -> dict:
   search = config.search
   if search.policy not in ("muzero", "gumbel"):
     return {"active": False,
             "reason": f"policy {search.policy!r} is not ported yet"}
   if not search.fused:
     return {"active": False, "reason": "disabled by config (search.fused)"}
+  if not uses_fused_search(networks, config):
+    return {"active": False,
+            "reason": "network family has no search kernel (the fc-resnet "
+                      "runs the generic engine)"}
+  kind = "acme categorical" if hasattr(networks, "num_bins") else "MLP triplet"
   return {"active": True,
-          "reason": f"MLP triplet search kernel ({search.policy} mode)"}
+          "reason": f"{kind} search kernel ({search.policy} mode)"}
 
 
 def fused_status(networks, config, params,
@@ -39,15 +48,18 @@ def fused_status(networks, config, params,
   ``replay_state`` is needed for the sampler entry (its gate reads the
   segment length); without it the entry says so.
   """
+  lw = extract_learner(networks, params) if config.train.fused_learner else None
   if not config.train.fused_learner:
     learner = {"active": False, "reason": "disabled by config (fused_learner)"}
-  elif extract_learner_weights(networks, params) is None:
+  elif lw is None:
     learner = {"active": False,
                "reason": "network family has no learner kernel (the "
-                         "categorical LearnerSpec, ROADMAP.md A.3)"}
+                         "fc-resnet takes autograd over muzero_loss)"}
   else:
-    learner = {"active": True, "reason": "loss+backward kernel"}
-  report = {"fused_search": _search_status(config), "fused_learner": learner}
+    learner = {"active": True, "reason": "loss+backward kernel" + (
+        " (categorical LearnerSpec)" if isinstance(lw, LearnerSpec) else "")}
+  report = {"fused_search": _search_status(networks, config),
+            "fused_learner": learner}
   if replay_state is None:
     report["fused_sampler"] = {
         "active": False,

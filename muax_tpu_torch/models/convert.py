@@ -5,14 +5,15 @@ names.
 The tree has the JAX package's layout::
 
   {'representation' | 'prediction' | 'dynamic':
-      {'linear', 'linear_1', ...: {'w': [in, out], 'b': [out]}}}
+      {'linear', 'linear_1', ...: {'w': [in, out], 'b': [out]},
+       'layer_norm', 'block_0/layer_norm', ...: {'scale': [d], 'offset': [d]}}}
 
-with each tower's linears in haiku's creation order (``linear`` first, then
-``linear_1``, ...): representation is hidden layers then the embedding head,
-prediction is hidden layers then the value and policy heads, dynamic is
-hidden layers then the reward and next-state heads. Weights are transposed
-into ``nn.Linear``'s [out, in]. Only numpy arrays cross this boundary; turning
-JAX parameters into numpy is the caller's business.
+Each tower names its modules as haiku does (``haiku_modules()`` of the
+port's towers, in creation order): the MLP triplet has linears only, the
+acme families add LayerNorms (``models/acme_networks.py``). Linear weights
+are transposed into ``nn.Linear``'s [out, in]; a LayerNorm's scale and
+offset are its weight and bias. Only numpy arrays cross this boundary;
+turning JAX parameters into numpy is the caller's business.
 """
 from __future__ import annotations
 
@@ -20,77 +21,73 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-from muax_tpu_torch.models.networks import MZNetworks, MZParams
+from muax_tpu_torch.models.networks import MZParams
 from muax_tpu_torch.replay.buffer import ReplayState
 
 _TOWERS = ("representation", "prediction", "dynamic")
 
 
-def _creation_order(module_tree: Mapping) -> list:
-  def index(key: str) -> int:
-    if key == "linear":
-      return 0
-    if key.startswith("linear_") and key[len("linear_"):].isdigit():
-      return int(key[len("linear_"):])
-    raise ValueError(f"unexpected module {key!r} in an MLP tower")
-  keys = sorted(module_tree, key=index)
-  return [module_tree[k] for k in keys]
+def _leaves(module: nn.Module):
+  """(haiku key, port tensor, transpose) for one module's parameters."""
+  if isinstance(module, nn.LayerNorm):
+    return (("scale", module.weight, False), ("offset", module.bias, False))
+  return (("w", module.weight, True), ("b", module.bias, False))
 
 
-def mlp_params_from_numpy(tree: Mapping, networks: MZNetworks,
+def mlp_params_from_numpy(tree: Mapping, networks,
                           temperature: float = 1.0) -> MZParams:
-  """Build ``MZParams`` on ``networks.device`` from a numpy haiku tree.
+  """Build ``MZParams`` on ``networks.device`` from a numpy haiku tree, for
+  the MLP triplet or an acme family.
 
-  Raises ``ValueError`` when the tree's layers do not fit ``networks``.
+  Raises ``ValueError`` when the tree's modules do not fit ``networks``.
   """
-  obs_dim = np.asarray(
-      _creation_order(tree["representation"])[0]["w"]).shape[0]
+  obs_dim = np.asarray(tree["representation"]["linear"]["w"]).shape[0]
   params = networks.init_params((obs_dim,))
   params.temperature.fill_(temperature)
   for name in _TOWERS:
-    layers = _creation_order(tree[name])
-    targets = getattr(params, name).linears()
-    if len(layers) != len(targets):
-      raise ValueError(f"{name}: tree has {len(layers)} linears, the "
-                       f"networks have {len(targets)}")
-    for i, (layer, target) in enumerate(zip(layers, targets)):
-      w = np.array(layer["w"], np.float32)  # copies: the tree may be read-only
-      b = np.array(layer["b"], np.float32)
-      if w.shape != (target.in_features, target.out_features) or b.shape != (
-          target.out_features,):
-        raise ValueError(
-            f"{name} linear {i}: w {w.shape}, b {b.shape} do not fit "
-            f"[{target.in_features}, {target.out_features}]")
-      with torch.no_grad():
-        target.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
-        target.bias.copy_(torch.from_numpy(b))
+    mods = getattr(params, name).haiku_modules()
+    if set(tree[name]) != {key for key, _ in mods}:
+      raise ValueError(f"{name}: tree has modules {sorted(tree[name])}, the "
+                       f"networks {sorted(key for key, _ in mods)}")
+    for key, module in mods:
+      for leaf, target, transpose in _leaves(module):
+        # np.array copies: the tree may be read-only.
+        value = np.array(tree[name][key][leaf], np.float32)
+        if transpose:
+          value = value.T
+        if value.shape != tuple(target.shape):
+          raise ValueError(f"{name}/{key}/{leaf}: shape {value.shape} does "
+                           f"not fit {tuple(target.shape)}")
+        with torch.no_grad():
+          target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
   return params
-
-
-def _module_name(i: int) -> str:
-  return "linear" if i == 0 else f"linear_{i}"
 
 
 def mlp_grads_to_numpy(params: MZParams, flat_grads: torch.Tensor) -> dict:
   """A flat gradient in the order of ``params.parameters()`` (what the
-  port's learner returns) as a numpy haiku tree: ``{tower: {'linear',
-  'linear_1', ...: {'w': [in, out], 'b': [out]}}}``."""
+  port's learner returns) as a numpy haiku tree with the names of
+  ``mlp_params_from_numpy``'s input."""
   flat = flat_grads.detach().cpu().numpy()
-  tree, offset = {}, 0
-  for name in _TOWERS:
-    tree[name] = {}
-    for i, layer in enumerate(getattr(params, name).linears()):
-      out_dim, in_dim = layer.weight.shape
-      w = flat[offset:offset + out_dim * in_dim].reshape(out_dim, in_dim)
-      offset += out_dim * in_dim
-      b = flat[offset:offset + out_dim]
-      offset += out_dim
-      tree[name][_module_name(i)] = {"w": np.ascontiguousarray(w.T),
-                                     "b": b.copy()}
+  where = {}
+  offset = 0
+  for p in params.parameters():
+    where[id(p)] = (offset, tuple(p.shape))
+    offset += p.numel()
   if offset != flat.size:
     raise ValueError(f"gradient of {flat.size} floats does not fit params "
                      f"of {offset}")
+  tree = {}
+  for name in _TOWERS:
+    tree[name] = {}
+    for key, module in getattr(params, name).haiku_modules():
+      tree[name][key] = {}
+      for leaf, p, transpose in _leaves(module):
+        start, shape = where[id(p)]
+        value = flat[start:start + p.numel()].reshape(shape)
+        tree[name][key][leaf] = np.ascontiguousarray(
+            value.T if transpose else value)
   return tree
 
 

@@ -1,5 +1,7 @@
 """Fused MuZero learner: the K-step unrolled loss and its backward as one
-kernel (``muax_tpu/models/fused_learner.py``, MLP triplet).
+kernel (``muax_tpu/models/fused_learner.py``): the MLP triplet
+(``LearnerWeights``) and the acme categorical family (``LearnerSpec``:
+LayerNorm-tanh first layers, linear [vmin, vmax] two-hot heads).
 
 ``fused_muzero_grad_raw`` reads the fused sampler's raw rows (the mode the
 grouped learner takes) and ``fused_muzero_grad`` a ``Transition`` batch,
@@ -11,11 +13,12 @@ the ``LossMetrics`` of ``muzero_loss``, with the semantics of autograd over
 ``muzero_loss``.
 
 On CUDA tensors they launch the hand-written kernel
-``csrc/fused_learner.cu``; on CPU tensors they run the plain version,
-autograd over ``models/losses.py`` ``muzero_loss`` on the equivalent batch.
-The kernel returns gradients directly and is never called under autograd.
-The categorical ``LearnerSpec`` of the JAX package (LayerNorm-tanh towers,
-linear two-hot heads) comes with the acme families (ROADMAP.md A.3).
+``csrc/fused_learner.cu`` (its MLP kernel, or its tiled categorical
+kernel); on CPU tensors they run the plain version, autograd over
+``models/losses.py`` ``muzero_loss`` on the equivalent batch. The kernel
+returns gradients directly and is never called under autograd. The
+fc-resnet family has no kernel, as in the JAX package: its residual
+blocks' backward is not hand-derived.
 """
 from __future__ import annotations
 
@@ -25,14 +28,16 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from muax_tpu_torch import _build
+from muax_tpu_torch.models.acme_networks import CategoricalMZNetworks
 from muax_tpu_torch.models.losses import LossMetrics, muzero_grad
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
 from muax_tpu_torch.models.optimizers import flat_parameters
 from muax_tpu_torch.replay.fused_sampler import RawLayout, make_raw_layout
 from muax_tpu_torch.types import Transition
 
-# Launches of the CUDA kernel; the plain version does not count.
-launches = 0
+# Launches of the CUDA kernel, by mode; the plain version does not count.
+launches = 0              # MLP triplet
+categorical_launches = 0  # categorical LearnerSpec
 
 
 class LearnerWeights(NamedTuple):
@@ -75,6 +80,63 @@ def extract_learner_weights(networks, params: MZParams
       dyn_layers=tuple(l.out_features for l in dyn[:-2]),
       obs_dim=rep[0].in_features, embedding_dim=E, num_actions=A,
       support_size=networks.support_size, flat=flat_parameters(params))
+
+
+class LearnerSpec(NamedTuple):
+  """The acme categorical family as the kernel reads it: per tower the
+  hidden layers' kinds ("ln_tanh" or "elu") and widths, and the flat
+  parameter buffer in the modules' parameter order (haiku's creation
+  order: per hidden layer W [out, in] and b, the first layer followed by
+  its LayerNorm's scale and offset; then the heads: representation's
+  embedding, prediction's policy and value, dynamics' reward and next
+  state)."""
+  repr_kinds: Tuple[str, ...]
+  repr_layers: Tuple[int, ...]
+  pred_kinds: Tuple[str, ...]
+  pred_layers: Tuple[int, ...]
+  dyn_kinds: Tuple[str, ...]
+  dyn_layers: Tuple[int, ...]
+  obs_dim: int
+  embedding_dim: int
+  num_actions: int
+  num_bins: int
+  vmin: float
+  vmax: float
+  flat: torch.Tensor
+
+
+def extract_categorical_learner_spec(networks, params: MZParams
+                                     ) -> Optional[LearnerSpec]:
+  """``LearnerSpec`` for the acme categorical family (LayerNormMLP towers
+  of at least one layer); None for any other family, the fc-resnet
+  included. Moves the parameters into one flat buffer."""
+  if not isinstance(networks, CategoricalMZNetworks) or (
+      networks.family != "mlp" or not networks.layer_sizes):
+    return None
+
+  def program(tower):
+    hidden = tower.hidden()
+    return (tuple(kind for kind, _ in hidden),
+            tuple(mods[0].out_features for _, mods in hidden))
+
+  repr_kinds, repr_layers = program(params.representation.tower)
+  pred_kinds, pred_layers = program(params.prediction.tower)
+  dyn_kinds, dyn_layers = program(params.dynamic.tower)
+  return LearnerSpec(
+      repr_kinds=repr_kinds, repr_layers=repr_layers,
+      pred_kinds=pred_kinds, pred_layers=pred_layers,
+      dyn_kinds=dyn_kinds, dyn_layers=dyn_layers,
+      obs_dim=params.representation.tower.hidden()[0][1][0].in_features,
+      embedding_dim=networks.embedding_dim,
+      num_actions=networks.num_actions, num_bins=networks.num_bins,
+      vmin=networks.vmin, vmax=networks.vmax, flat=flat_parameters(params))
+
+
+def extract_learner(networks, params: MZParams):
+  """The kernel's view of ``networks``: ``LearnerWeights`` (MLP triplet),
+  ``LearnerSpec`` (categorical family) or None (no kernel)."""
+  return (extract_learner_weights(networks, params)
+          or extract_categorical_learner_spec(networks, params))
 
 
 def _finish_metrics(met, l2, coef, denom, rn0, priority_alpha):
@@ -158,15 +220,22 @@ def _load_kernel():
     fn.restype = i32
     lib.mz_fused_grad_blocks.argtypes = [i32]
     lib.mz_fused_grad_blocks.restype = i32
+    lib.mz_fused_categorical_grad.argtypes = (
+        [ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ctypes.c_long]
+        + [i32] * 5 + [f32, f32, i32]
+        + [i32, ptr, ptr] * 3 + [i32] * 6 + [f32, f32, i32, ptr])
+    lib.mz_fused_categorical_grad.restype = i32
+    lib.mz_categorical_grad_blocks.argtypes = [i32]
+    lib.mz_categorical_grad_blocks.restype = i32
+    lib.mz_categorical_scratch_floats.argtypes = (
+        [i32] * 6 + [i32, ptr, ptr] * 3)
+    lib.mz_categorical_scratch_floats.restype = ctypes.c_long
     lib.mz_learner_error_string.argtypes = [i32]
     lib.mz_learner_error_string.restype = ctypes.c_char_p
   return lib
 
 
-def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
-               lay: RawLayout, *, l2_coef: float, gradient_scale: float):
-  """Launch the kernel; returns (grads [n], met [4, B], l2 [])."""
-  global launches
+def _check_raw(lw, raw: torch.Tensor, coef: torch.Tensor, lay: RawLayout):
   dev = raw.device
   B = raw.shape[1]
   if raw.dtype != torch.float32 or raw.dim() != 2 or raw.shape[0] != lay.rows:
@@ -182,6 +251,68 @@ def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
         or tuple(t.shape) != shape or not t.is_contiguous()):
       raise ValueError(f"{name}: expected contiguous float32 {shape} on "
                        f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _categorical_grad_cuda(spec: LearnerSpec, raw: torch.Tensor,
+                           coef: torch.Tensor, lay: RawLayout, *,
+                           l2_coef: float, gradient_scale: float):
+  """Launch the tiled categorical kernel; returns (grads [n], met [4, B],
+  l2 [])."""
+  global categorical_launches
+  _check_raw(spec, raw, coef, lay)
+  dev = raw.device
+  B = raw.shape[1]
+  lib = _load_kernel()
+  n = spec.flat.numel()
+  kind = {"elu": 0, "ln_tanh": 1}
+
+  def tower(kinds, widths):
+    return (len(widths), (ctypes.c_int * max(len(widths), 1))(*widths),
+            (ctypes.c_int * max(len(kinds), 1))(*(kind[k] for k in kinds)))
+
+  towers = (*tower(spec.repr_kinds, spec.repr_layers),
+            *tower(spec.pred_kinds, spec.pred_layers),
+            *tower(spec.dyn_kinds, spec.dyn_layers))
+  shapes = (lay.O, spec.embedding_dim, spec.num_actions, spec.num_bins,
+            lay.K)
+  G = lib.mz_categorical_grad_blocks(B)
+  n_scratch = lib.mz_categorical_scratch_floats(G, *shapes, *towers)
+  if n_scratch < 0:
+    raise RuntimeError("fused learner kernel: shapes do not fit the "
+                       "categorical kernel")
+  partial = torch.empty((G, n), dtype=torch.float32, device=dev)
+  scratch = torch.empty((max(n_scratch, 1),), dtype=torch.float32,
+                        device=dev)
+  grads = torch.empty((n,), dtype=torch.float32, device=dev)
+  met = torch.empty((4, B), dtype=torch.float32, device=dev)
+  l2 = torch.empty((1,), dtype=torch.float32, device=dev)
+  err = lib.mz_fused_categorical_grad(
+      raw.data_ptr(), raw.stride(0), coef.data_ptr(), spec.flat.data_ptr(),
+      n, grads.data_ptr(), met.data_ptr(), l2.data_ptr(), partial.data_ptr(),
+      G, scratch.data_ptr(), n_scratch, B, *shapes[:4], spec.vmin,
+      spec.vmax, lay.K, *towers,
+      lay.obs, lay.action, lay.reward, lay.rn, lay.pi, lay.mask,
+      gradient_scale, l2_coef,
+      dev.index if dev.index is not None else torch.cuda.current_device(),
+      torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError("fused learner kernel: "
+                       + lib.mz_learner_error_string(err).decode())
+  categorical_launches += 1
+  return grads, met, l2[0]
+
+
+def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
+               lay: RawLayout, *, l2_coef: float, gradient_scale: float):
+  """Launch the kernel in the mode of ``lw`` (``LearnerWeights`` or
+  ``LearnerSpec``); returns (grads [n], met [4, B], l2 [])."""
+  global launches
+  if isinstance(lw, LearnerSpec):
+    return _categorical_grad_cuda(lw, raw, coef, lay, l2_coef=l2_coef,
+                                  gradient_scale=gradient_scale)
+  _check_raw(lw, raw, coef, lay)
+  dev = raw.device
+  B = raw.shape[1]
   lib = _load_kernel()
   n = lw.flat.numel()
   G = lib.mz_fused_grad_blocks(B)
@@ -215,9 +346,10 @@ def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
 def _require(lw):
   if lw is None:
     raise NotImplementedError(
-        "this network family has no learner kernel in the port: the "
-        "categorical LearnerSpec comes with the acme families (ROADMAP.md "
-        "A.3)")
+        "this network family has no learner kernel: the MLP triplet and the "
+        "categorical LayerNormMLP have one; the fc-resnet takes the generic "
+        "learner (autograd over muzero_loss) until the fused sampler's "
+        "hybrid feed comes (ROADMAP.md A.4)")
 
 
 def fused_muzero_grad_raw(
@@ -226,7 +358,7 @@ def fused_muzero_grad_raw(
     coef: torch.Tensor,          # [B] = weight / denom / B
     raw_layout: RawLayout,
     networks,
-    lw: Optional[LearnerWeights],
+    lw,                          # LearnerWeights or LearnerSpec
     *,
     l2_coef: float = 1e-4,
     gradient_scale: float = 0.5,
@@ -277,7 +409,7 @@ def fused_muzero_grad(
     params: MZParams,
     batch: Transition,
     networks,
-    lw: Optional[LearnerWeights],
+    lw,                          # LearnerWeights or LearnerSpec
     *,
     l2_coef: float = 1e-4,
     gradient_scale: float = 0.5,

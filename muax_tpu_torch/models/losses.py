@@ -1,7 +1,8 @@
 """The k-step unrolled MuZero loss (``muax_tpu/models/losses.py``).
 
 Value and reward targets are cross-entropies against two-hot supports of
-h-transformed scalars, the policy target is the search's visit distribution,
+h-transformed scalars (the MLP family) or linear two-hots over [vmin, vmax]
+(the acme families, which carry ``num_bins``; ``_target_codec``), the policy target is the search's visit distribution,
 the hidden state's gradient is scaled by ``gradient_scale`` where it enters
 the dynamics, every target is detached, each window's loss is divided by its
 count of valid steps, the batch mean is weighted by the PER weights, and the
@@ -18,8 +19,20 @@ from typing import NamedTuple, Optional
 import torch
 
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
-from muax_tpu_torch.ops import scalar_to_support, scale_gradient, support_to_scalar
+from muax_tpu_torch.ops import (scalar_to_support, scalar_to_two_hot,
+                                scale_gradient, support_to_scalar,
+                                two_hot_to_scalar)
 from muax_tpu_torch.types import Transition
+
+
+def _target_codec(networks):
+  """(scalar -> probs, probs -> scalar) for either value-head convention."""
+  if hasattr(networks, "num_bins"):
+    return (lambda x: scalar_to_two_hot(x, networks.num_bins, networks.vmin,
+                                        networks.vmax),
+            lambda p: two_hot_to_scalar(p, networks.vmin, networks.vmax))
+  return (lambda x: scalar_to_support(x, networks.support_size),
+          lambda p: support_to_scalar(p, networks.support_size))
 
 
 class LossMetrics(NamedTuple):
@@ -56,13 +69,13 @@ def muzero_loss(
   The dynamics chain runs first and prediction runs once on the K stacked
   latents, as the JAX package's default ``batched_prediction`` does.
   """
-  support = networks.support_size
+  encode, decode = _target_codec(networks)
   num_steps = num_unroll_steps or batch.action.shape[1]
   batch_size = batch.action.shape[0]
 
   s = params.representation(batch.obs[:, 0])
-  value_targets = scalar_to_support(batch.rn[:, :num_steps], support)
-  reward_targets = scalar_to_support(batch.reward[:, :num_steps], support)
+  value_targets = encode(batch.rn[:, :num_steps])
+  reward_targets = encode(batch.reward[:, :num_steps])
   mask = batch.mask.to(torch.float32)
 
   reward_loss = torch.zeros(batch_size, device=s.device)
@@ -84,7 +97,7 @@ def muzero_loss(
                                                value_targets[:, i])
     policy_loss = policy_loss + mask[:, i] * _ce(policy_logits[i],
                                                  batch.pi[:, i])
-  first_value = support_to_scalar(torch.softmax(value_logits[0], -1), support)
+  first_value = decode(torch.softmax(value_logits[0], -1))
 
   denom = torch.clamp(torch.sum(mask, 1), min=1.0)
   reward_loss = reward_loss / denom

@@ -37,6 +37,12 @@ def _linear(in_dim: int, out_dim: int,
   return layer
 
 
+def _haiku_linears(linears):
+  """(haiku name, module) for linears in creation order."""
+  return [("linear" if i == 0 else f"linear_{i}", layer)
+          for i, layer in enumerate(linears)]
+
+
 def _elu_stack(in_dim: int, sizes: Sequence[int],
                generator) -> Tuple[nn.ModuleList, int]:
   layers = nn.ModuleList()
@@ -58,6 +64,9 @@ class Representation(nn.Module):
     """Linear layers in haiku's creation order."""
     return [*self.hidden, self.embedding]
 
+  def haiku_modules(self):
+    return _haiku_linears(self.linears())
+
   def forward(self, obs: torch.Tensor) -> torch.Tensor:
     h = obs.flatten(1)
     for layer in self.hidden:
@@ -77,6 +86,9 @@ class Prediction(nn.Module):
   def linears(self):
     """Linear layers in haiku's creation order."""
     return [*self.hidden, self.value, self.policy]
+
+  def haiku_modules(self):
+    return _haiku_linears(self.linears())
 
   def forward(self, s: torch.Tensor):
     h = s
@@ -99,6 +111,9 @@ class Dynamic(nn.Module):
   def linears(self):
     """Linear layers in haiku's creation order."""
     return [*self.hidden, self.reward, self.state]
+
+  def haiku_modules(self):
+    return _haiku_linears(self.linears())
 
   def forward(self, s: torch.Tensor, a: torch.Tensor):
     h = torch.cat([s, F.one_hot(a.long(), self.num_actions).to(s.dtype)], -1)

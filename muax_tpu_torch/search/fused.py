@@ -1,7 +1,9 @@
 """Fused search: every simulation of every environment as one kernel.
 
-The port of ``muax_tpu/search/fused.py`` for the MLP triplet, in its two
-policy modes: MuZero PUCT and Gumbel MuZero. On a CUDA tensor,
+The port of ``muax_tpu/search/fused.py`` for the MLP triplet and the acme
+categorical family (``FusedNetSpec``: LayerNorm-tanh first layers and a
+linear [vmin, vmax] two-hot decode), each in two policy modes: MuZero PUCT
+and Gumbel MuZero. On a CUDA tensor,
 ``fused_muzero_search`` and ``fused_gumbel_search`` launch the hand-written
 kernel ``csrc/fused_search.cu`` (built at first use by ``_build.py``); on a
 CPU tensor they run ``fused_muzero_search_reference`` and
@@ -18,7 +20,8 @@ interior softmax(log prior + sigma(q)) - n / (1 + sum n), both under
 ``completed_by_mix_value`` (which reads each node's raw network value), and
 the completed root q as the third output. Both: ties to the lowest action,
 descent capped at ``max_depth`` with in-place re-evaluation of an existing
-child, h-support decode, min-max normalized next states, running-mean
+child, h-support (MLP) or linear two-hot (categorical) decode, min-max
+normalized next states, running-mean
 install and backup. The backup starts from the raw network value of the
 expanded node, as the JAX kernel's does.
 """
@@ -31,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from muax_tpu_torch import _build
+from muax_tpu_torch.models.acme_networks import LN_EPS, CategoricalMZNetworks
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
 from muax_tpu_torch.ops import inv_value_transform
 from muax_tpu_torch.replay.buffer import gumbel_noise
@@ -45,8 +49,10 @@ _NEG = -1e30
 _VALUE_SCALE, _MAXVISIT_INIT = 0.1, 50.0
 
 # Launches of the CUDA kernel, by mode; the plain version does not count.
-launches = 0         # policy="muzero"
-gumbel_launches = 0  # policy="gumbel"
+launches = 0                     # MLP triplet, policy="muzero"
+gumbel_launches = 0              # MLP triplet, policy="gumbel"
+categorical_launches = 0         # categorical family, policy="muzero"
+categorical_gumbel_launches = 0  # categorical family, policy="gumbel"
 
 Linear = Tuple[torch.Tensor, torch.Tensor]  # (W [in, out], b [out])
 
@@ -83,17 +89,103 @@ def extract_fused_weights(networks: MZNetworks,
       pred_hidden=tuple(p_hidden), pred_value=p_value, pred_policy=p_policy)
 
 
+class FusedNetSpec(NamedTuple):
+  """The towers as a layer program (``muax_tpu/search/fused.py``
+  ``FusedNetSpec``). ``dyn_layers`` / ``pred_layers``: tuples of
+  ("elu", (W [in, out], b)) or ("ln_tanh", (W, b, scale, offset)) hidden
+  layers; the heads are (W, b) pairs. ``decode``: "h_support" (integer
+  h-transform two-hot over 2S+1 bins) or "linear" (``num_bins`` bins over
+  [vmin, vmax])."""
+  dyn_layers: tuple
+  pred_layers: tuple
+  dyn_reward: Linear
+  dyn_state: Linear
+  pred_value: Linear
+  pred_policy: Linear
+  decode: str
+  num_bins: int
+  support_size: int
+  vmin: float
+  vmax: float
+
+  def flat(self) -> torch.Tensor:
+    """One contiguous f32 buffer, the kernel's: per hidden layer W, b (and
+    scale, offset for ln_tanh), then the heads; dynamics first (reward,
+    next state), then prediction (value, policy)."""
+    parts = [t for _, ts in self.dyn_layers for t in ts]
+    parts += [*self.dyn_reward, *self.dyn_state]
+    parts += [t for _, ts in self.pred_layers for t in ts]
+    parts += [*self.pred_value, *self.pred_policy]
+    return torch.cat([t.reshape(-1) for t in parts])
+
+
+def _mlp_weights_to_spec(weights: FusedMLPWeights,
+                         support_size: int) -> FusedNetSpec:
+  return FusedNetSpec(
+      dyn_layers=tuple(("elu", pair) for pair in weights.dyn_hidden),
+      pred_layers=tuple(("elu", pair) for pair in weights.pred_hidden),
+      dyn_reward=weights.dyn_reward, dyn_state=weights.dyn_state,
+      pred_value=weights.pred_value, pred_policy=weights.pred_policy,
+      decode="h_support", num_bins=2 * support_size + 1,
+      support_size=support_size, vmin=0.0, vmax=0.0)
+
+
+def extract_categorical_fused_weights(networks,
+                                      params: MZParams
+                                      ) -> Optional[FusedNetSpec]:
+  """The ``FusedNetSpec`` of the acme categorical family (LayerNormMLP
+  towers, linear two-hot heads), detached; None for any other family (the
+  fc-resnet's residual towers have no kernel)."""
+  if not isinstance(networks, CategoricalMZNetworks) or (
+      networks.family != "mlp" or not networks.layer_sizes):
+    return None
+
+  def pair(layer):
+    return (layer.weight.detach().t().contiguous(), layer.bias.detach())
+
+  def program(tower):
+    out = []
+    for kind, mods in tower.hidden():
+      ts = pair(mods[0])
+      if kind == "ln_tanh":
+        ts += (mods[1].weight.detach(), mods[1].bias.detach())
+      out.append((kind, ts))
+    return tuple(out)
+
+  reward, state = params.dynamic.tower.heads()
+  policy, value = params.prediction.tower.heads()
+  return FusedNetSpec(
+      dyn_layers=program(params.dynamic.tower),
+      pred_layers=program(params.prediction.tower),
+      dyn_reward=pair(reward), dyn_state=pair(state),
+      pred_value=pair(value), pred_policy=pair(policy),
+      decode="linear", num_bins=networks.num_bins, support_size=0,
+      vmin=networks.vmin, vmax=networks.vmax)
+
+
+def extract_search_weights(networks, params: MZParams):
+  """The kernel's weights for ``networks``: ``FusedMLPWeights`` for the MLP
+  triplet, a ``FusedNetSpec`` for the categorical family, else None."""
+  if isinstance(networks, MZNetworks):
+    return extract_fused_weights(networks, params)
+  return extract_categorical_fused_weights(networks, params)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
 
-def _decode(logits: torch.Tensor, support_size: int) -> torch.Tensor:
-  """[B, 2S+1] logits -> softmax expectation over -S..S -> h^-1."""
+def _decode(logits: torch.Tensor, spec: FusedNetSpec) -> torch.Tensor:
+  """[B, bins] logits -> softmax expectation over the bins: -S..S then h^-1
+  ("h_support"), or vmin + j (vmax - vmin) / (bins - 1) ("linear")."""
   probs = torch.softmax(logits, dim=-1)
-  bins = torch.arange(-support_size, support_size + 1, dtype=logits.dtype,
-                      device=logits.device)
-  return inv_value_transform(torch.sum(probs * bins, dim=-1))
+  idx = torch.arange(spec.num_bins, dtype=logits.dtype, device=logits.device)
+  if spec.decode == "linear":
+    bins = spec.vmin + idx * ((spec.vmax - spec.vmin) / (spec.num_bins - 1))
+    return torch.sum(probs * bins, dim=-1)
+  return inv_value_transform(
+      torch.sum(probs * (idx - spec.support_size), dim=-1))
 
 
 def _elu(x: torch.Tensor) -> torch.Tensor:
@@ -122,11 +214,19 @@ def _completed_q(cur, rows, nraw, cvis, cpri, crew, cval, discount):
   return (_MAXVISIT_INIT + maxvisit) * _VALUE_SCALE * completed, cv, sum_visits
 
 
+def _as_spec(weights, support_size) -> FusedNetSpec:
+  if isinstance(weights, FusedNetSpec):
+    return weights
+  if support_size is None:
+    raise ValueError("support_size is required with FusedMLPWeights")
+  return _mlp_weights_to_spec(weights, support_size)
+
+
 def _plain_search(root_embedding, root_prior_logits, root_value,
-                  weights: FusedMLPWeights, *, num_simulations, support_size,
-                  discount, invalid_actions, max_depth, pb_c_init=1.25,
+                  spec: FusedNetSpec, *, num_simulations, discount,
+                  invalid_actions, max_depth, pb_c_init=1.25,
                   pb_c_base=19652.0, root_score=None, schedule=None):
-  """Both modes of the plain version, batched over [B, N] and [B, N, A]
+  """Every mode of the plain version, batched over [B, N] and [B, N, A]
   tensors with a lockstep descent. ``root_score`` and ``schedule`` select
   the Gumbel mode."""
   gumbel = root_score is not None
@@ -194,9 +294,16 @@ def _plain_search(root_embedding, root_prior_logits, root_value,
     probs = e / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
     return probs - cv / (1.0 + sum_visits)
 
-  def tower(x, hidden):
-    for w, b in hidden:
-      x = _elu(x @ w + b)
+  def tower(x, layers):
+    for kind, ts in layers:
+      h = x @ ts[0] + ts[1]
+      if kind == "elu":
+        x = _elu(h)
+      else:  # ln_tanh: Linear -> LayerNorm -> tanh
+        mean = h.mean(-1, keepdim=True)
+        var = torch.square(h - mean).mean(-1, keepdim=True)
+        x = torch.tanh((h - mean) * torch.rsqrt(var + LN_EPS) * ts[2]
+                       + ts[3])
     return x
 
   for s in range(num_simulations):
@@ -229,17 +336,15 @@ def _plain_search(root_embedding, root_prior_logits, root_value,
 
     # Expansion.
     x = torch.cat([embs[rows, parent], F.one_hot(act, A).to(f32)], -1)
-    h = tower(x, weights.dyn_hidden)
-    reward = _decode(h @ weights.dyn_reward[0] + weights.dyn_reward[1],
-                     support_size)
-    ns = h @ weights.dyn_state[0] + weights.dyn_state[1]
+    h = tower(x, spec.dyn_layers)
+    reward = _decode(h @ spec.dyn_reward[0] + spec.dyn_reward[1], spec)
+    ns = h @ spec.dyn_state[0] + spec.dyn_state[1]
     ns_min = ns.amin(-1, keepdim=True)
     ns_max = ns.amax(-1, keepdim=True)
     ns = (ns - ns_min) / torch.clamp(ns_max - ns_min, min=1e-8)
-    g = tower(ns, weights.pred_hidden)
-    value = _decode(g @ weights.pred_value[0] + weights.pred_value[1],
-                    support_size)
-    pol = torch.softmax(g @ weights.pred_policy[0] + weights.pred_policy[1],
+    g = tower(ns, spec.pred_layers)
+    value = _decode(g @ spec.pred_value[0] + spec.pred_value[1], spec)
+    pol = torch.softmax(g @ spec.pred_policy[0] + spec.pred_policy[1],
                         dim=-1)
 
     # Install (running mean; a re-evaluated node's raw value is replaced).
@@ -283,21 +388,22 @@ def fused_muzero_search_reference(
     root_embedding: torch.Tensor,      # [B, E]
     root_prior_logits: torch.Tensor,   # [B, A] (noise/masking applied)
     root_value: torch.Tensor,          # [B]
-    weights: FusedMLPWeights,
+    weights,                           # FusedMLPWeights or FusedNetSpec
     *,
     num_simulations: int,
-    support_size: int,
     discount: float,
+    support_size: Optional[int] = None,
     invalid_actions: Optional[torch.Tensor] = None,
     max_depth: Optional[int] = None,
     pb_c_init: float = 1.25,
     pb_c_base: float = 19652.0,
 ):
   """Plain PyTorch version of the fused MuZero search. Returns
-  (visit_counts [B, A], root_value [B], root_qvalues [B, A]), all f32."""
+  (visit_counts [B, A], root_value [B], root_qvalues [B, A]), all f32.
+  ``support_size`` is needed with ``FusedMLPWeights`` only."""
   return _plain_search(root_embedding, root_prior_logits, root_value,
-                       weights, num_simulations=num_simulations,
-                       support_size=support_size, discount=discount,
+                       _as_spec(weights, support_size),
+                       num_simulations=num_simulations, discount=discount,
                        invalid_actions=invalid_actions, max_depth=max_depth,
                        pb_c_init=pb_c_init, pb_c_base=pb_c_base)
 
@@ -306,13 +412,13 @@ def fused_gumbel_search_reference(
     root_embedding: torch.Tensor,      # [B, E]
     root_prior_logits: torch.Tensor,   # [B, A] masked logits, no noise
     root_value: torch.Tensor,          # [B]
-    weights: FusedMLPWeights,
+    weights,                           # FusedMLPWeights or FusedNetSpec
     *,
     root_score: torch.Tensor,          # [B, A] gumbel + masked logits
     schedule: torch.Tensor,            # [B, num_simulations] f32 visits
     num_simulations: int,
-    support_size: int,
     discount: float,
+    support_size: Optional[int] = None,
     invalid_actions: Optional[torch.Tensor] = None,
     max_depth: Optional[int] = None,
 ):
@@ -320,8 +426,8 @@ def fused_gumbel_search_reference(
   inputs: ``gumbel_root_inputs`` makes ``root_score`` and ``schedule``).
   Returns (visit_counts [B, A], root_value [B], root_completed_q [B, A])."""
   return _plain_search(root_embedding, root_prior_logits, root_value,
-                       weights, num_simulations=num_simulations,
-                       support_size=support_size, discount=discount,
+                       _as_spec(weights, support_size),
+                       num_simulations=num_simulations, discount=discount,
                        invalid_actions=invalid_actions, max_depth=max_depth,
                        root_score=root_score, schedule=schedule)
 
@@ -342,8 +448,16 @@ def _load_kernel():
     lib.mz_fused_gumbel_search.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, f32] + tail
-    lib.mz_fused_muzero_search.restype = i32
-    lib.mz_fused_gumbel_search.restype = i32
+    lib.mz_fused_tiled_search.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ctypes.c_long,
+        ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
+        i32, i32, f32, f32, f32,
+        i32, ptr, ptr, i32, ptr, ptr, i32, ptr]
+    lib.mz_tiled_scratch_floats.argtypes = [i32, i32, i32, i32]
+    lib.mz_tiled_scratch_floats.restype = ctypes.c_long
+    for fn in (lib.mz_fused_muzero_search, lib.mz_fused_gumbel_search,
+               lib.mz_fused_tiled_search):
+      fn.restype = i32
     lib.mz_error_string.argtypes = [i32]
     lib.mz_error_string.restype = ctypes.c_char_p
   return lib
@@ -360,18 +474,24 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device):
     raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def _ints(values):
+  return (ctypes.c_int * max(len(values), 1))(*values)
+
+
 def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
-                       weights: FusedMLPWeights, *, num_simulations,
-                       support_size, discount, invalid_actions, max_depth,
+                       weights, *, num_simulations, discount,
+                       invalid_actions, max_depth, support_size=None,
                        pb_c_init=1.25, pb_c_base=19652.0, root_score=None,
                        schedule=None):
-  """Launch either mode of the kernel; ``root_score`` and ``schedule``
-  select the Gumbel mode."""
+  """Launch one mode of the kernel: ``FusedMLPWeights`` take the MLP modes
+  (the towers staged in shared memory), a ``FusedNetSpec`` the categorical
+  modes (tiles of environments, weights streamed from device memory);
+  ``root_score`` and ``schedule`` select the Gumbel policy."""
   global launches, gumbel_launches
+  global categorical_launches, categorical_gumbel_launches
   device = root_embedding.device
   B, E = root_embedding.shape
   A = root_prior_logits.shape[-1]
-  S41 = 2 * support_size + 1
   _check("root_embedding", root_embedding, (B, E), device)
   _check("root_prior_logits", root_prior_logits, (B, A), device)
   _check("root_value", root_value, (B,), device)
@@ -381,43 +501,70 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
   if gumbel:
     _check("root_score", root_score, (B, A), device)
     _check("schedule", schedule, (B, num_simulations), device)
+  tiled = isinstance(weights, FusedNetSpec)
+  spec = _as_spec(weights, support_size)
   flat = weights.flat()
   _check("weights", flat, flat.shape, device)
-  dyn_width = [w.shape[1] for w, _ in weights.dyn_hidden]
-  pred_width = [w.shape[1] for w, _ in weights.pred_hidden]
-  if weights.dyn_hidden[0][0].shape[0] != E + A or (
-      weights.dyn_reward[0].shape[1] != S41
-      or weights.pred_value[0].shape[1] != S41
-      or weights.dyn_state[0].shape[1] != E
-      or weights.pred_policy[0].shape[1] != A):
+  dyn_width = [ts[0].shape[1] for _, ts in spec.dyn_layers]
+  pred_width = [ts[0].shape[1] for _, ts in spec.pred_layers]
+  bins = spec.num_bins
+  if not spec.dyn_layers or not spec.pred_layers or (
+      spec.dyn_layers[0][1][0].shape[0] != E + A
+      or spec.dyn_reward[0].shape[1] != bins
+      or spec.pred_value[0].shape[1] != bins
+      or spec.dyn_state[0].shape[1] != E
+      or spec.pred_policy[0].shape[1] != A):
     raise ValueError("weights do not fit the root shapes and support size")
 
   visits = torch.empty((B, A), dtype=torch.float32, device=device)
   value = torch.empty((B,), dtype=torch.float32, device=device)
   qvalues = torch.empty((B, A), dtype=torch.float32, device=device)
   lib = _load_kernel()
+  max_depth = num_simulations if max_depth is None else max_depth
   roots = (root_embedding.data_ptr(), root_prior_logits.data_ptr(),
            root_value.data_ptr(),
            None if invalid_actions is None else invalid_actions.data_ptr())
-  buffers = (flat.data_ptr(), flat.numel(), visits.data_ptr(),
-             value.data_ptr(), qvalues.data_ptr(),
-             B, A, E, S41, support_size, num_simulations,
-             num_simulations if max_depth is None else max_depth, discount)
-  tail = (len(dyn_width), (ctypes.c_int * len(dyn_width))(*dyn_width),
-          len(pred_width), (ctypes.c_int * len(pred_width))(*pred_width),
-          device.index if device.index is not None
-          else torch.cuda.current_device(),
-          torch.cuda.current_stream(device).cuda_stream)
-  if gumbel:
-    err = lib.mz_fused_gumbel_search(
-        *roots, root_score.data_ptr(), schedule.data_ptr(), *buffers, *tail)
+  dev_index = (device.index if device.index is not None
+               else torch.cuda.current_device())
+  stream = torch.cuda.current_stream(device).cuda_stream
+  if tiled:
+    kind = {"elu": 0, "ln_tanh": 1}
+    n_scratch = lib.mz_tiled_scratch_floats(B, A, E, num_simulations)
+    scratch = torch.empty((max(n_scratch, 1),), dtype=torch.float32,
+                          device=device)
+    err = lib.mz_fused_tiled_search(
+        *roots, root_score.data_ptr() if gumbel else None,
+        schedule.data_ptr() if gumbel else None,
+        flat.data_ptr(), flat.numel(), scratch.data_ptr(), n_scratch,
+        visits.data_ptr(), value.data_ptr(), qvalues.data_ptr(),
+        B, A, E, bins, int(spec.decode == "linear"), spec.support_size,
+        spec.vmin, spec.vmax, num_simulations, max_depth, discount,
+        pb_c_init, pb_c_base,
+        len(dyn_width), _ints(dyn_width),
+        _ints([kind[k] for k, _ in spec.dyn_layers]),
+        len(pred_width), _ints(pred_width),
+        _ints([kind[k] for k, _ in spec.pred_layers]), dev_index, stream)
   else:
-    err = lib.mz_fused_muzero_search(*roots, *buffers, pb_c_init, pb_c_base,
-                                     *tail)
+    buffers = (flat.data_ptr(), flat.numel(), visits.data_ptr(),
+               value.data_ptr(), qvalues.data_ptr(), B, A, E, bins,
+               spec.support_size, num_simulations, max_depth, discount)
+    tail = (len(dyn_width), _ints(dyn_width), len(pred_width),
+            _ints(pred_width), dev_index, stream)
+    if gumbel:
+      err = lib.mz_fused_gumbel_search(
+          *roots, root_score.data_ptr(), schedule.data_ptr(), *buffers,
+          *tail)
+    else:
+      err = lib.mz_fused_muzero_search(*roots, *buffers, pb_c_init,
+                                       pb_c_base, *tail)
   if err != 0:
     raise RuntimeError("fused search kernel: "
                        + lib.mz_error_string(err).decode())
-  if gumbel:
+  if tiled and gumbel:
+    categorical_gumbel_launches += 1
+  elif tiled:
+    categorical_launches += 1
+  elif gumbel:
     gumbel_launches += 1
   else:
     launches += 1
@@ -438,18 +585,19 @@ def fused_muzero_search(
     root_embedding: torch.Tensor,
     root_prior_logits: torch.Tensor,
     root_value: torch.Tensor,
-    weights: FusedMLPWeights,
+    weights,
     *,
     num_simulations: int,
-    support_size: int,
     discount: float,
+    support_size: Optional[int] = None,
     invalid_actions: Optional[torch.Tensor] = None,
     max_depth: Optional[int] = None,
     pb_c_init: float = 1.25,
     pb_c_base: float = 19652.0,
 ):
-  """Run the fused MuZero PUCT search. Returns (visit_counts [B, A] f32,
-  root_value [B], root_qvalues [B, A]).
+  """Run the fused MuZero PUCT search on ``FusedMLPWeights`` (with
+  ``support_size``) or a ``FusedNetSpec``. Returns (visit_counts [B, A]
+  f32, root_value [B], root_qvalues [B, A]).
 
   CUDA tensors go to the kernel (or the call raises); CPU tensors go to the
   plain version.
@@ -487,19 +635,20 @@ def fused_gumbel_search(
     root_embedding: torch.Tensor,
     root_prior_logits: torch.Tensor,   # masked original logits (no noise)
     root_value: torch.Tensor,
-    weights: FusedMLPWeights,
+    weights,
     *,
     gumbel: torch.Tensor,              # [B, A] scaled Gumbel noise
     max_num_considered_actions: int,
     num_simulations: int,
-    support_size: int,
     discount: float,
+    support_size: Optional[int] = None,
     invalid_actions: Optional[torch.Tensor] = None,
     max_depth: Optional[int] = None,
 ):
   """Run the fused Gumbel MuZero search (sequential-halving root,
-  improved-policy interior, completed_by_mix_value). Returns
-  (visit_counts [B, A], root_value [B], root_completed_q [B, A]).
+  improved-policy interior, completed_by_mix_value) on ``FusedMLPWeights``
+  (with ``support_size``) or a ``FusedNetSpec``. Returns (visit_counts
+  [B, A], root_value [B], root_completed_q [B, A]).
 
   CUDA tensors go to the kernel (or the call raises); CPU tensors go to the
   plain version.
@@ -537,11 +686,11 @@ def fused_mlp_muzero_policy(
     params: MZParams,
     generator: torch.Generator,
     root,                      # RootFnOutput from make_root_fn
-    weights: FusedMLPWeights,
+    weights,                   # FusedMLPWeights or FusedNetSpec
     *,
     num_simulations: int,
-    support_size: int,
     discount: float,
+    support_size: Optional[int] = None,
     invalid_actions: Optional[torch.Tensor] = None,
     max_depth: Optional[int] = None,
     dirichlet_fraction: float = 0.25,
@@ -580,11 +729,11 @@ def fused_mlp_gumbel_policy(
     params: MZParams,
     generator: torch.Generator,
     root,                      # RootFnOutput from make_root_fn
-    weights: FusedMLPWeights,
+    weights,                   # FusedMLPWeights or FusedNetSpec
     *,
     num_simulations: int,
-    support_size: int,
     discount: float,
+    support_size: Optional[int] = None,
     invalid_actions: Optional[torch.Tensor] = None,
     max_depth: Optional[int] = None,
     max_num_considered_actions: int = 16,

@@ -2,10 +2,14 @@
 (``muax_tpu/train/actor.py``).
 
 Self-play searches with MuZero or Gumbel MuZero. With ``search.fused`` (the
-default) it goes through the fused search: on the card its CUDA kernel, on
-the CPU its plain version. With ``search.fused=False`` it goes through the
-generic engine (``search/core.py``) on whichever device the caller chose;
-the caller asked for that route, so it is not a fallback. Paths of the JAX
+default) the MLP triplet and the acme categorical family go through the
+fused search: on the card its CUDA kernel (the categorical family in the
+kernel's categorical modes), on the CPU its plain version. With
+``search.fused=False``, and for a family the kernel does not take (the
+fc-resnet, as in the JAX package), it goes through the generic engine
+(``search/core.py``) on whichever device the caller chose; that route is
+picked from the configuration and the family, never as a fallback after a
+failure. Paths of the JAX
 actor that the port does not have yet raise ``NotImplementedError`` naming
 the ROADMAP item that brings them.
 """
@@ -18,7 +22,7 @@ from muax_tpu_torch.device import resolve_device
 from muax_tpu_torch.envs.base import AutoResetState, AutoResetWrapper
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
 from muax_tpu_torch.ops import segment_n_step_returns
-from muax_tpu_torch.search.fused import (extract_fused_weights,
+from muax_tpu_torch.search.fused import (extract_search_weights,
                                          fused_mlp_gumbel_policy,
                                          fused_mlp_muzero_policy)
 from muax_tpu_torch.search.policies import (gumbel_muzero_policy,
@@ -31,6 +35,16 @@ _NOT_PORTED = {
     "legal": ("legal-action masks come with the board environments "
               "(ROADMAP.md A.7)"),
 }
+
+
+def uses_fused_search(networks, config: MuZeroConfig) -> bool:
+  """Whether ``make_policy_fn`` takes the fused search: ``search.fused`` and
+  a family with a kernel (the MLP triplet, the categorical LayerNormMLP)."""
+  if not config.search.fused:
+    return False
+  return isinstance(networks, MZNetworks) or (
+      getattr(networks, "family", None) == "mlp"
+      and bool(networks.layer_sizes))
 
 
 def make_policy_fn(networks: MZNetworks, config: MuZeroConfig,
@@ -51,10 +65,10 @@ def make_policy_fn(networks: MZNetworks, config: MuZeroConfig,
   recurrent_fn = make_recurrent_fn(networks, discount)
 
   def fused(params, generator, root, temperature):
-    weights = extract_fused_weights(networks, params)
+    weights = extract_search_weights(networks, params)
     common = dict(num_simulations=search.num_simulations,
-                  support_size=networks.support_size, discount=discount,
-                  max_depth=search.max_depth)
+                  support_size=getattr(networks, "support_size", None),
+                  discount=discount, max_depth=search.max_depth)
     if search.policy == "gumbel":
       return fused_mlp_gumbel_policy(
           params, generator, root, weights,
@@ -84,7 +98,7 @@ def make_policy_fn(networks: MZNetworks, config: MuZeroConfig,
     return (out.action, out.action_weights,
             out.search_tree.summary().value)
 
-  run = fused if search.fused else generic
+  run = fused if uses_fused_search(networks, config) else generic
 
   @torch.no_grad()
   def policy_fn(params: MZParams, generator: torch.Generator,

@@ -3,13 +3,15 @@ refresh (``muax_tpu/train/learner.py``).
 
 Two group paths, chosen by ``fused_group_status`` from what the setup is:
 
-* the fused path (the default for the MLP triplet): per group of updates,
+* the fused path (the default for the MLP triplet and the acme
+  categorical family): per group of updates,
   ``draw_segments`` -> the interleave permutation -> the fused sampler
   kernel -> one fused learner kernel launch per update -> the optimizer ->
   one priority refresh for the group;
 * the generic path: ``replay_sample`` -> ``_interleave_chunks`` -> one
   gradient step per chunk (the fused learner in batch mode, or autograd
-  over ``muzero_loss`` when ``fused_learner`` is off).
+  over ``muzero_loss`` when ``fused_learner`` is off or the family has no
+  learner kernel, as the fc-resnet).
 
 On the card both kernels run; on the CPU the same fused path runs through
 the kernels' plain versions. Training state is updated in place: the
@@ -26,7 +28,7 @@ from typing import Optional
 import torch
 
 from muax_tpu_torch.config import MuZeroConfig
-from muax_tpu_torch.models.fused_learner import (extract_learner_weights,
+from muax_tpu_torch.models.fused_learner import (extract_learner,
                                                  fused_muzero_grad,
                                                  fused_muzero_grad_raw)
 from muax_tpu_torch.models.losses import muzero_grad
@@ -75,15 +77,17 @@ def _make_grad_step(networks, optimizer: GradientTransformation,
                     config: MuZeroConfig):
   """(train_state, batch) -> (train_state, priorities [B], metrics [6]):
   the fused learner in batch mode, or autograd over ``muzero_loss`` when
-  ``fused_learner`` is off."""
+  ``fused_learner`` is off or the family has no kernel (the fc-resnet, as
+  in the JAX package)."""
   tcfg = config.train
   _finish = _make_finish(optimizer)
   kwargs = dict(l2_coef=tcfg.l2_coef, gradient_scale=tcfg.gradient_scale,
                 priority_alpha=config.replay.priority_alpha)
 
   def grad_step(train_state: TrainState, batch: Transition):
-    if tcfg.fused_learner:
-      lw = extract_learner_weights(networks, train_state.params)
+    lw = (extract_learner(networks, train_state.params)
+          if tcfg.fused_learner else None)
+    if lw is not None:
       grads, metrics = fused_muzero_grad(train_state.params, batch, networks,
                                          lw, **kwargs)
     else:
@@ -186,10 +190,11 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
       return None, None, ("fused_learner off: the fused sampler's feed of "
                           "the generic gradient (per_step_obs) is not "
                           "ported (ROADMAP.md A.4)")
-    lw = extract_learner_weights(networks, train_state.params)
+    lw = extract_learner(networks, train_state.params)
     if lw is None:
       return None, None, ("network family has no learner kernel (the "
-                          "categorical LearnerSpec, ROADMAP.md A.3)")
+                          "fc-resnet takes the generic learner until the "
+                          "fused sampler's hybrid feed, ROADMAP.md A.4)")
     return "raw", lw, "active (raw)"
 
   def _executed(g: int, num_allowed: Optional[int]) -> int:
@@ -230,7 +235,7 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
     prios = torch.zeros((group, B), device=dev)
     for j in range(done):
       cols = slice(j * B, (j + 1) * B)
-      lw = extract_learner_weights(networks, ts.params)
+      lw = extract_learner(networks, ts.params)
       grads, metrics = fused_muzero_grad_raw(
           ts.params, raw[:, cols], coef[cols], lay, networks, lw,
           **loss_kwargs)

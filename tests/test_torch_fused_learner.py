@@ -103,5 +103,5 @@ def test_other_families_have_no_kernel():
   _, _, net, params = nets(NET_CONFIGS[0])
   assert fused_learner.extract_learner_weights(object(), params) is None
   batch = torch_batch(batch_numpy(0, B=4))
-  with pytest.raises(NotImplementedError, match="A.3"):
+  with pytest.raises(NotImplementedError, match="A.4"):
     fused_learner.fused_muzero_grad(params, batch, net, None)

@@ -30,6 +30,10 @@ TRAINING = ("ops.gradients", "models.losses", "models.optimizers",
 ENGINE = ("search.seq_halving", "search.tree", "search.qtransforms",
           "search.action_selection", "search.core", "search.policies",
           "examples.parity_cartpole")
+# The acme categorical slice's modules (the kernels' categorical modes live
+# in search.fused and models.fused_learner).
+ACME = ("models.acme_networks", "models.convert", "train.inference",
+        "config", "search.fused", "train.actor")
 
 
 def test_port_imports_no_jax():
@@ -38,7 +42,7 @@ def test_port_imports_no_jax():
   assert out.returncode == 0, out.stderr
   head, names = out.stdout.strip().splitlines()
   count, banned = head.split(" ", 1)
-  assert int(count) >= 42, out.stdout  # every module of the port was loaded
-  for name in TRAINING + ENGINE:
+  assert int(count) >= 43, out.stdout  # every module of the port was loaded
+  for name in TRAINING + ENGINE + ACME:
     assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned

@@ -23,13 +23,15 @@ from muax_tpu.config import ReplayConfig as JReplay
 from muax_tpu.config import SearchConfig as JSearch
 from muax_tpu.config import TrainConfig as JTrain
 from muax_tpu.models.optimizers import muzero_optimizer as j_optimizer
+from muax_tpu.replay.buffer import replay_add as j_replay_add
 from muax_tpu_torch.config import (MuZeroConfig, ReplayConfig, SearchConfig,
                                    TrainConfig)
 from muax_tpu_torch.models.convert import mlp_params_from_numpy
 from muax_tpu_torch.models.optimizers import muzero_optimizer
+from muax_tpu_torch.replay.buffer import replay_add
 from muax_tpu_torch.train import learner
-from tests.test_torch_parity import (TOWERS, jax_ring, nets, ring_numpy,
-                                     torch_ring)
+from tests.test_torch_parity import (TOWERS, jax_batch, jax_ring, nets,
+                                     ring_numpy, torch_batch, torch_ring)
 
 C, L, B, K = 32, 8, 64, 3
 NET = dict(num_actions=2, embedding_dim=8, support_size=20)
@@ -100,6 +102,73 @@ def test_one_fused_group_matches_jax(monkeypatch):
   assert changed.sum() > 20
   np.testing.assert_array_equal(new != prios_before.numpy(), changed)
   np.testing.assert_allclose(new, ref_new, rtol=1e-4)
+
+
+def _jax_group_draws(key, g, num_groups, W, L, window):
+  """The draws of group g of the JAX package's fused multi-update: the
+  call key splits into one key per group, each into (segments, Gumbel); the
+  segment key splits again into the uniforms and the online offsets."""
+  seg_rng, gum_rng = jax.random.split(jax.random.split(key, num_groups)[g])
+  u_rng, online_rng = jax.random.split(seg_rng)
+  uniforms = np.array(jax.random.uniform(u_rng, (W,)))
+  offsets = np.array(jax.random.randint(online_rng, (W // 2,), 1,
+                                        window + 1))
+  gumbel = np.array(jax.random.gumbel(gum_rng, (L, W), jnp.float32))
+  return (torch.from_numpy(uniforms), torch.from_numpy(offsets),
+          torch.from_numpy(gumbel))
+
+
+def test_fused_route_tracks_jax_across_iterations(monkeypatch):
+  """The fused sampler and learner route as ``fit`` drives it: three
+  iterations of two groups, with new segments entering both rings between
+  iterations, the JAX draws injected. Each iteration starts from the JAX
+  ring's priorities, so that a near-tie that f32 noise broke the other way
+  in an earlier level-1 draw does not change every later window. After
+  every iteration the priorities
+  each route leaves in the ring agree (the same windows refreshed, values
+  at rtol 1e-4 / atol 1e-3: a priority is |v0 - rn0|^0.5, whose slope
+  0.5 / |v0 - rn0|^0.5 turns the f32 noise of v0, about 1e-4 after h^-1,
+  into 5e-4 where v0 nearly equals rn0), and so do the parameters (rtol
+  1e-4 / atol 1e-6) and the updates' loss."""
+  monkeypatch.setattr(j_learner, "_ALLOW_FUSED_SAMPLER_ON_CPU", True)
+  train = dict(updates_per_iteration=4, presample_updates=2)
+  j_net, j_params, j_rs, net, params, ts, rs, mu = _setup(**train)
+  j_opt = j_optimizer(warmup_steps=2)
+  j_ts = j_learner.TrainState(params=j_params, opt_state=j_opt.init(j_params),
+                              step=jnp.asarray(0, jnp.int32))
+  j_mu = j_learner.make_multi_update_fn(
+      j_net, j_opt, _config(JConfig, JSearch, JReplay, JTrain, **train))
+  W = 2 * B
+  for it in range(3):
+    if it:  # new segments at the cursor, as each iteration's rollout adds
+      segs, prios = ring_numpy(10 + it, C, L, filled=6)
+      j_rs = j_replay_add(j_rs, jax_batch(segs), jnp.asarray(prios),
+                          step=int(j_ts.step))
+      replay_add(rs, torch_batch(segs), torch.from_numpy(prios), step=ts.step)
+    key = jax.random.PRNGKey(20 + it)
+    rs.step_priorities.copy_(torch.from_numpy(np.array(j_rs.step_priorities)))
+    before = rs.step_priorities.clone()
+    j_ts, j_rs, j_metrics = j_mu(j_ts, j_rs, key)
+    loss = 0.0
+    for g in range(2):
+      draws = _jax_group_draws(key, g, 2, W, L, min(8, rs.size))
+      ts, sums, done = mu.run_fused_group(ts, rs, g, *draws)
+      loss += float(sums[0]) / 4
+    assert ts.step == int(j_ts.step) == 4 * (it + 1)
+    np.testing.assert_allclose(loss, float(j_metrics["loss"]), rtol=1e-4)
+    ref_prios = np.asarray(j_rs.step_priorities)
+    np.testing.assert_array_equal(rs.step_priorities.numpy() != before.numpy(),
+                                  ref_prios != before.numpy())
+    np.testing.assert_allclose(rs.step_priorities.numpy(), ref_prios,
+                               rtol=1e-4, atol=1e-3)
+    ref = mlp_params_from_numpy(
+        {name: jax.tree.map(np.asarray, getattr(j_ts.params, name))
+         for name in TOWERS}, net)
+    for name, p in ts.params.named_parameters():
+      np.testing.assert_allclose(p.detach().numpy(),
+                                 dict(ref.named_parameters())[name].detach()
+                                 .numpy(), rtol=1e-4, atol=1e-6,
+                                 err_msg=f"iteration {it}: {name}")
 
 
 @pytest.mark.parametrize("fused", [True, False])
