@@ -95,6 +95,17 @@ CAT_EDGE_NET = dict(embedding_dim=16, layer_sizes=(48, 32), num_bins=21,
 CAT_ENVS = 2048
 CAT_TRAIN_ENVS, CAT_BATCH = 512, 1024
 CAT_UPDATES = -(-int(TRAIN_SPI) * CAT_TRAIN_ENVS * MAIN_STEPS // CAT_BATCH)
+# Stochastic MuZero: bench.py's make_networks("smz_mlp") (bench.py:80-83)
+# and its stochastic_200sims (bench.py:328-331) and smz_training
+# (bench.py:367-373) regimes.
+SMZ_NET = dict(num_chance_outcomes=32, embedding_dim=32, support_size=20,
+               hidden=(64,))
+SMZ_EDGE_NET = dict(num_chance_outcomes=4, embedding_dim=8, support_size=10,
+                    hidden=(16, 16))
+SMZ_ENVS, SMZ_SIMS, SMZ_EDGE_ENVS = 256, 200, 37
+SMZ_BATCH, SMZ_PRESAMPLE = 256, 64
+SMZ_PROFILE_UPDATES = 16
+SMZ_UPDATES = -(-int(TRAIN_SPI) * SMZ_ENVS * MAIN_STEPS // SMZ_BATCH)
 # Published peaks of the H100 SXM (NVIDIA's data sheet): f32 outside the
 # tensor cores, and HBM3.
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -188,23 +199,28 @@ def compare_search(out, ref, sims, invalid=None):
 
 
 def make_net(device, family="mlp", num_actions=2, **widths):
-  """The flagship MLP triplet (bench.py:69-71) or the acme categorical
-  family (bench.py:72-75) on ``device``; ``widths`` replace the towers."""
+  """The flagship MLP triplet (bench.py:69-71), the acme categorical family
+  (bench.py:72-75) or Stochastic MuZero's five nets (bench.py:80-83) on
+  ``device``; ``widths`` replace the towers."""
   from muax_tpu_torch.models import (make_categorical_mlp_networks,
-                                     make_mlp_networks)
+                                     make_mlp_networks,
+                                     make_stochastic_mlp_networks)
   if family == "categorical":
     return make_categorical_mlp_networks(num_actions, device=device,
                                          **(widths or CAT_NET))
+  if family == "smz":
+    return make_stochastic_mlp_networks(num_actions, device=device,
+                                        **(widths or SMZ_NET))
   return make_mlp_networks(num_actions, embedding_dim=EMBED,
                            support_size=SUPPORT, device=device, **widths)
 
 
 def search_counts():
-  """Launches of the search kernel by mode: MLP MuZero, MLP Gumbel,
-  categorical MuZero, categorical Gumbel."""
+  """Launches of the search kernels by mode: MLP MuZero, MLP Gumbel,
+  categorical MuZero, categorical Gumbel, Stochastic MuZero."""
   from muax_tpu_torch.search import fused
   return (fused.launches, fused.gumbel_launches, fused.categorical_launches,
-          fused.categorical_gumbel_launches)
+          fused.categorical_gumbel_launches, fused.smz_launches)
 
 
 def reset_counts():
@@ -213,12 +229,15 @@ def reset_counts():
   from muax_tpu_torch.search import fused
   fused.launches = fused.gumbel_launches = 0
   fused.categorical_launches = fused.categorical_gumbel_launches = 0
+  fused.smz_launches = 0
   fused_sampler.launches = 0
   fused_learner.launches = fused_learner.categorical_launches = 0
 
 
 def search_mode(policy, family):
   """The index of ``search_counts`` that a rollout of this kind moves."""
+  if family == "smz":
+    return 4
   return (2 if family == "categorical" else 0) + (policy == "gumbel")
 
 
@@ -272,7 +291,7 @@ def search_against_plain(device, policy, family, num_actions, batch,
     ref = fused.fused_muzero_search_reference(*args, **kwargs)
   torch.cuda.synchronize()
   got = tuple(a - b for a, b in zip(search_counts(), before))
-  check(got == tuple(int(i == mode) for i in range(4)),
+  check(got == tuple(int(i == mode) for i in range(len(got))),
         f"the wrapper launched the {family} {policy} mode once, not {got}")
   figures = compare_search(out, ref, MAIN_SIMS, invalid)
   if policy == "gumbel":
@@ -292,34 +311,36 @@ def search_against_plain(device, policy, family, num_actions, batch,
 
 def drive_main_path(device, policy="muzero", family="mlp"):
   """Phase 3 (MuZero) or 9 (Gumbel) on the MLP triplet, 13 on the
-  categorical family: make_rollout_fn at the path's size. Every rollout
-  launches the kernel in its mode once per step and the other modes never.
-  Returns the launch count of the run, its figures and the kernel's inputs
-  on its last state."""
+  categorical family, 17 on Stochastic MuZero: make_rollout_fn at the
+  path's size. Every rollout launches the kernel in its mode once per step
+  and the other modes never. Returns the launch count of the run, its
+  figures and the kernel's inputs on its last state."""
   from muax_tpu_torch.config import MuZeroConfig, SearchConfig, TrainConfig
   from muax_tpu_torch.envs import AutoResetWrapper, CartPole
   from muax_tpu_torch.replay.buffer import gumbel_noise
   from muax_tpu_torch.search import fused
   from muax_tpu_torch.train import make_rollout_fn
-  from muax_tpu_torch.train.inference import make_root_fn
+  from muax_tpu_torch.train.inference import make_root_fn, make_smz_fns
 
-  categorical = family == "categorical"
-  envs = CAT_ENVS if categorical else MAIN_ENVS
-  warmup, timed = (1, 2) if categorical else (WARMUP_ROLLOUTS,
-                                              TIMED_ROLLOUTS)
+  categorical, smz = family == "categorical", family == "smz"
+  envs = CAT_ENVS if categorical else SMZ_ENVS if smz else MAIN_ENVS
+  sims = SMZ_SIMS if smz else MAIN_SIMS
+  warmup, timed = (1, 2) if categorical or smz else (WARMUP_ROLLOUTS,
+                                                     TIMED_ROLLOUTS)
   env = AutoResetWrapper(CartPole())
   net = make_net(device, family)
   params = net.init_params(env.spec.observation_shape,
                            torch.Generator().manual_seed(SEED))
   config = MuZeroConfig(
-      search=SearchConfig(policy=policy, num_simulations=MAIN_SIMS),
+      search=SearchConfig(policy=policy, num_simulations=sims),
       train=TrainConfig(num_envs=envs, collect_steps=MAIN_STEPS))
   rollout = make_rollout_fn(net, env, config, device=device)
   gen = torch.Generator(device=device).manual_seed(SEED)
   carry = env.reset(gen, envs)
   gumbel = policy == "gumbel"
   mode = search_mode(policy, family)
-  want = tuple(MAIN_STEPS if i == mode else 0 for i in range(4))
+  want = tuple(MAIN_STEPS if i == mode else 0
+               for i in range(len(search_counts())))
 
   def one(carry):
     before = search_counts()
@@ -365,11 +386,15 @@ def drive_main_path(device, policy="muzero", family="mlp"):
   check(finished > 0, "at least one episode finished")
 
   with torch.no_grad():
-    root = make_root_fn(net)(params, carry.obs)
-  kwargs = dict(num_simulations=MAIN_SIMS, discount=config.train.discount,
+    root = (make_smz_fns(net, config.train.discount)[0] if smz
+            else make_root_fn(net))(params, carry.obs)
+  kwargs = dict(num_simulations=sims, discount=config.train.discount,
                 support_size=getattr(net, "support_size", None),
                 invalid_actions=None, max_depth=None)
-  if gumbel:
+  if smz:
+    logits = fused.noised_root_logits(gen, root.prior_logits)
+    weights = fused.extract_smz_fused_weights(net, params)
+  elif gumbel:
     logits = root.prior_logits.contiguous()
     kwargs["root_score"], kwargs["schedule"] = fused.gumbel_root_inputs(
         logits, gumbel_noise(gen, logits.shape, device), None,
@@ -377,8 +402,10 @@ def drive_main_path(device, policy="muzero", family="mlp"):
         num_simulations=MAIN_SIMS)
   else:
     logits = fused.noised_root_logits(gen, root.prior_logits)
+  if not smz:
+    weights = fused.extract_search_weights(net, params)
   search_in = ((root.embedding.contiguous(), logits, root.value.contiguous(),
-                fused.extract_search_weights(net, params)), kwargs)
+                weights), kwargs)
   figures = {"rollout_ms": rollout_ms,
              "env_steps_per_s": B * T / (rollout_ms / 1e3),
              "episodes_finished": finished, "launches": launches}
@@ -388,10 +415,20 @@ def drive_main_path(device, policy="muzero", family="mlp"):
 def training_config(policy="muzero", family="mlp"):
   """bench.py's training_regime (bench.py:463-467, run_config), or with
   ``policy="gumbel"`` its gumbel_training (bench.py:306-309), or with
-  ``family="categorical"`` its categorical_training (bench.py:351-354)."""
+  ``family="categorical"`` its categorical_training (bench.py:351-354), or
+  with ``family="smz"`` its smz_training (bench.py:367-373)."""
   from muax_tpu_torch.config import (MuZeroConfig, ReplayConfig,
                                      SearchConfig, TrainConfig)
   categorical = family == "categorical"
+  if family == "smz":
+    return MuZeroConfig(
+        search=SearchConfig(policy="stochastic", num_simulations=SMZ_SIMS),
+        replay=ReplayConfig(capacity=TRAIN_CAPACITY, min_fill=64),
+        train=TrainConfig(
+            num_envs=SMZ_ENVS, collect_steps=MAIN_STEPS,
+            batch_size=SMZ_BATCH, updates_per_iteration=SMZ_UPDATES,
+            unroll_steps=TRAIN_UNROLL, n_bootstrap=TRAIN_NSTEP,
+            presample_updates=SMZ_PRESAMPLE))
   return MuZeroConfig(
       search=SearchConfig(policy=policy, num_simulations=MAIN_SIMS),
       replay=ReplayConfig(capacity=TRAIN_CAPACITY, min_fill=64),
@@ -638,12 +675,13 @@ def categorical_learner_against_plain(device, t, raw, lay):
 
 def sampler_bound_ms(lay, W, L):
   """Least time for one sampler launch: per window its index (8 bytes),
-  num_starts Gumbels and priorities, the start observation, K actions,
-  rewards, returns and dones (one byte), K x A policy entries and the
-  target step read once, and the raw rows written once; against that the
-  log, add and compare of each valid start."""
+  num_starts Gumbels and priorities, the start observation (every step's
+  with per_step_obs), K actions, rewards, returns and dones (one byte),
+  K x A policy entries and the target step read once, and the raw rows
+  written once; against that the log, add and compare of each valid
+  start."""
   num_starts = L - lay.K + 1
-  per_window = (8 + 8 * num_starts + 4 * lay.O + 13 * lay.K
+  per_window = (8 + 8 * num_starts + 4 * lay.obs_rows + 13 * lay.K
                 + 4 * lay.K * lay.A + 4 + 4 * lay.rows)
   t_bytes = W * per_window / PEAK_BYTES_PER_S * 1e3
   t_ops = 3.0 * W * num_starts / PEAK_F32_FLOPS * 1e3
@@ -705,27 +743,35 @@ def profile_iteration(one):
                   for e in top]}
 
 
-def drive_training(device, t):
-  """Phase 6 (MuZero), 10 (Gumbel) or 15 (categorical): the training
-  iteration, rollout -> replay_add -> make_multi_update_fn, 2 warm-up and 3
-  timed iterations. Every iteration launches exactly 20 searches in the
-  config's mode, updates / group samplers and one learner per update in the
-  family's mode, and no search or learner in any other mode."""
+def drive_training(device, t, warmup=WARMUP_ITERATIONS,
+                   timed=TIMED_ITERATIONS, window_updates=None):
+  """Phase 6 (MuZero), 10 (Gumbel), 15 (categorical) or 19 (Stochastic
+  MuZero): the training iteration, rollout -> replay_add ->
+  make_multi_update_fn, ``warmup`` and ``timed`` iterations. Every
+  iteration launches exactly 20 searches in the config's mode, updates /
+  group samplers and one learner per update in the family's mode (none for
+  Stochastic MuZero, whose hybrid feed runs autograd), and no search or
+  learner in any other mode. The profile covers one more iteration, or
+  with ``window_updates`` a rollout and, apart, that many updates (an
+  iteration of Stochastic MuZero makes over a million launches, which the
+  profiler takes minutes to record): the iteration's idle share is then
+  the two windows' idle shares weighted by the rollout's and the updates'
+  time in the timed iterations."""
   from muax_tpu_torch.models import fused_learner
   from muax_tpu_torch.replay import fused_sampler, replay_add
 
   mode = search_mode(t.config.search.policy, t.family)
-  categorical = t.family == "categorical"
-  learner_names = ("launches", "categorical_launches")
+  smz = t.family == "smz"
 
   def read():
     searches = search_counts()
-    learners = [getattr(fused_learner, n) for n in learner_names]
-    return (searches[mode], fused_sampler.launches, learners[categorical],
-            sum(searches) - searches[mode] + learners[not categorical])
+    learners = (fused_learner.launches, fused_learner.categorical_launches)
+    mine = 0 if smz else learners[t.family == "categorical"]
+    return (searches[mode], fused_sampler.launches, mine,
+            sum(searches) - searches[mode] + sum(learners) - mine)
 
   # Launches (search, sampler, learner, any other mode) per iteration.
-  expected = (MAIN_STEPS, t.updates // t.group, t.updates, 0)
+  expected = (MAIN_STEPS, t.updates // t.group, 0 if smz else t.updates, 0)
   marks = []  # per timed iteration: events before, between and after
 
   def one(timed=False):
@@ -746,17 +792,43 @@ def drive_training(device, t):
     return metrics
 
   reset_counts()
-  runs = [one() for _ in range(WARMUP_ITERATIONS)]
+  runs = [one() for _ in range(warmup)]
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   start.record()
-  runs += [one(timed=True) for _ in range(TIMED_ITERATIONS)]
+  runs += [one(timed=True) for _ in range(timed)]
   end.record()
   end.synchronize()
   launches = list(read()[:3])
-  iteration_ms = start.elapsed_time(end) / TIMED_ITERATIONS
-  profile = profile_iteration(one)
+  iteration_ms = start.elapsed_time(end) / timed
+  rollout_ms = sum(a.elapsed_time(b) for a, b, _ in marks) / timed
+  learner_ms = sum(b.elapsed_time(c) for _, b, c in marks) / timed
+  if window_updates is None:
+    profile = profile_iteration(one)
+  else:
+    def rollout():
+      t.carry, seg, prio, _ = t.rollout(t.ts.params, t.carry, t.gen,
+                                        t.ts.params.temperature)
+      replay_add(t.rs, seg, prio, step=t.ts.step)
+
+    def updates():
+      t.ts, t.rs, _ = t.multi_update(t.ts, t.rs, t.gen, window_updates)
+
+    profile = {}
+    for name, fn in (("rollout", rollout), ("updates", updates)):
+      window_ms = time_ms(fn, 1)
+      profile[name] = profile_iteration(fn)
+      busy = profile[name]["device_busy_ms"]
+      profile[name]["idle_share"] = (None if busy is None
+                                     else 1.0 - busy / window_ms)
+    profile["updates"]["window"] = (f"{window_updates} of the {t.updates} "
+                                    "updates")
+    if None not in (profile["rollout"]["idle_share"],
+                    profile["updates"]["idle_share"]):
+      profile["device_idle_share"] = (
+          profile["rollout"]["idle_share"] * rollout_ms
+          + profile["updates"]["idle_share"] * learner_ms) / iteration_ms
   for metrics in runs:
     check(metrics["updates_done"] == t.updates,
           f"{metrics['updates_done']} updates, not {t.updates}")
@@ -766,52 +838,76 @@ def drive_training(device, t):
       "iteration_ms": iteration_ms,
       "env_steps_per_s": t.envs * MAIN_STEPS / (iteration_ms / 1e3),
       "learner_windows_per_s": t.updates * t.batch / (iteration_ms / 1e3),
-      "rollout_ms": sum(a.elapsed_time(b) for a, b, _ in marks)
-                    / TIMED_ITERATIONS,
-      "learner_ms": sum(b.elapsed_time(c) for _, b, c in marks)
-                    / TIMED_ITERATIONS,
+      "rollout_ms": rollout_ms,
+      "learner_ms": learner_ms,
       "launches": dict(zip(("search", "sampler", "learner"), launches)),
       "loss": float(runs[-1]["loss"]),
       "profile": profile,
   }
-  if profile["device_busy_ms"] is not None:
+  if profile.get("device_busy_ms") is not None:
     profile["device_idle_share"] = 1.0 - profile["device_busy_ms"] / (
         iteration_ms)
   return launches, figures
 
 
-def drive_fit(device, root):
-  """Phase 7: fit through its normal entry, 3 iterations of the training
-  regime with eval_every=2 and checkpoint_every=2, into a temporary
-  directory under build/."""
+def drive_fit(device, root, family="mlp"):
+  """Phase 7 (the triplet) or 20 (Stochastic MuZero): fit through its
+  normal entry, 3 iterations of the family's training regime with
+  eval_every=2 and checkpoint_every=2, into a temporary directory under
+  build/; for Stochastic MuZero also a resume from the iteration-2
+  checkpoint that runs the third iteration again."""
   import tempfile
 
   from muax_tpu_torch.envs import CartPole
-  from muax_tpu_torch.models import fused_learner, make_mlp_networks
+  from muax_tpu_torch.models import fused_learner
   from muax_tpu_torch.replay import fused_sampler
-  from muax_tpu_torch.search import fused
   from muax_tpu_torch.train.fit import fit
 
-  net = make_mlp_networks(num_actions=2, embedding_dim=EMBED,
-                          support_size=SUPPORT, device=device)
+  smz = family == "smz"
+  config = training_config(family=family)
+  tcfg = config.train
+  group = math.gcd(tcfg.updates_per_iteration, tcfg.presample_updates)
+  net = make_net(device, family)
+  mode = search_mode(config.search.policy, family)
   lines = []
-  modules = (fused, fused_sampler, fused_learner)
-  for m in modules:
-    m.launches = 0
+  reset_counts()
+
+  def counts():
+    return [search_counts()[mode], fused_sampler.launches,
+            fused_learner.launches + fused_learner.categorical_launches]
+
   os.makedirs(os.path.join(root, "build"), exist_ok=True)
   t0 = time.perf_counter()
+  resumed = None
   with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
-    _, results = fit(CartPole(), net, training_config(), num_iterations=3,
-                     seed=SEED, eval_every=2, log_every=1,
-                     checkpoint_every=2, model_dir=d, log_fn=lines.append)
+    state, results = fit(CartPole(), net, config, num_iterations=3,
+                         seed=SEED, eval_every=2, log_every=1,
+                         checkpoint_every=2, model_dir=d,
+                         log_fn=lines.append)
     check(results["model_path"] is not None
           and os.path.exists(results["model_path"]), "best model written")
     check(os.path.exists(os.path.join(d, "ckpt_latest.pkl")),
           "ckpt_latest.pkl written")
+    launches = counts()
+    if smz:
+      state_b, results_b = fit(
+          CartPole(), net, config, num_iterations=3, seed=SEED,
+          eval_every=2, log_every=1, model_dir=os.path.join(d, "resumed"),
+          resume_from=os.path.join(d, "ckpt_it000002.pkl"),
+          log_fn=lines.append)
+      check(state_b.step == state.step, f"the resumed run reached step "
+            f"{state_b.step}, the uninterrupted one {state.step}")
+      check([row["iteration"] for row in results_b["history"]] == [1, 2, 3],
+            "the resumed run logged iterations 1-3")
+      for k, v in results_b["history"][-1].items():
+        check(math.isfinite(v), f"resumed fit metric {k} = {v} is finite")
+      resumed = {"step": state_b.step,
+                 "loss": results_b["history"][-1]["loss"]}
   seconds = time.perf_counter() - t0
-  launches = [m.launches for m in modules]
-  check(launches[1] == 3 * TRAIN_UPDATES // TRAIN_GROUP
-        and launches[2] == 3 * TRAIN_UPDATES and launches[0] >= 4 * MAIN_STEPS,
+  updates = tcfg.updates_per_iteration
+  check(launches[1] == 3 * updates // group
+        and launches[2] == (0 if smz else 3 * updates)
+        and launches[0] >= 4 * MAIN_STEPS,
         f"fit launched (search, sampler, learner) {launches}")
   check(len(results["history"]) == 3, "three logged iterations")
   for row in results["history"]:
@@ -821,7 +917,8 @@ def drive_fit(device, root):
   return {"seconds": seconds, "status": lines[0],
           "launches": dict(zip(("search", "sampler", "learner"), launches)),
           "test_G": last["test_G"] if "test_G" in last else None,
-          "loss": last["loss"], "best_reward": results["best_reward"]}
+          "loss": last["loss"], "best_reward": results["best_reward"],
+          "resumed": resumed}
 
 
 def generic_engine(device):
@@ -897,6 +994,83 @@ def generic_engine(device):
   return figures
 
 
+def smz_macs(weights):
+  """Multiply-adds of one expansion of the Stochastic MuZero search, under
+  a decision parent (the decision tower) and under a chance parent (the
+  chance and prediction towers)."""
+  def macs(linears):
+    return sum(w.shape[0] * w.shape[1] for w, _ in linears)
+  decision = macs(weights.dec_layers) + macs(
+      (weights.dec_state, weights.dec_chance, weights.dec_value))
+  chance = macs(weights.ch_layers + weights.pred_layers) + macs(
+      (weights.ch_state, weights.ch_reward, weights.pred_policy,
+       weights.pred_value))
+  return decision, chance
+
+
+def smz_bound_ms(args, kwargs):
+  """Least time for one Stochastic MuZero search launch on these inputs:
+  the larger of its operations over the f32 peak and its bytes over the
+  memory rate. Operations are the branched towers' multiply-adds of the
+  expansions this run makes (the plain version, on the same inputs, counts
+  those under a chance parent); bytes are each input read once (roots,
+  invalid mask, weights) and each output written once."""
+  from muax_tpu_torch.search import fused
+
+  emb, logits, _, weights = args
+  B, A = logits.shape
+  sims = kwargs["num_simulations"]
+  chance = int(fused._plain_smz_search(
+      *args, pb_c_init=1.25, pb_c_base=19652.0, **kwargs)[3].sum())
+  dec_macs, ch_macs = smz_macs(weights)
+  flops = 2.0 * (dec_macs * (B * sims - chance) + ch_macs * chance)
+  floats = B * (emb.shape[1] + A + 1) + weights.flat().numel()
+  floats += B * A * (kwargs["invalid_actions"] is not None)
+  floats += B * (2 * A + 1)
+  t_ops = flops / PEAK_F32_FLOPS * 1e3
+  t_bytes = 4.0 * floats / PEAK_BYTES_PER_S * 1e3
+  return {"bound_ms": max(t_ops, t_bytes),
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "macs_decision_parent": dec_macs, "macs_chance_parent": ch_macs,
+          "chance_parent_share": chance / (B * sims)}
+
+
+def smz_against_plain(device, num_actions, batch, widths=None,
+                      with_invalid=False, max_depth=None):
+  """Phase 16: the Stochastic MuZero kernel against its plain version on
+  the same inputs (seeded weights, roots from random CartPole observations,
+  Dirichlet noise from SEED), as compare_search."""
+  from muax_tpu_torch.envs import CartPole
+  from muax_tpu_torch.search import fused
+  from muax_tpu_torch.train.inference import make_smz_fns
+
+  net = make_net(device, "smz", num_actions, **(widths or {}))
+  params = net.init_params((4,), torch.Generator().manual_seed(SEED))
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  _, obs = CartPole().reset(gen, batch)
+  invalid = None
+  if with_invalid:
+    pick = torch.randint(0, num_actions, (batch,), generator=gen,
+                         device=device)
+    invalid = torch.nn.functional.one_hot(pick, num_actions).float()
+  with torch.no_grad():
+    root = make_smz_fns(net, 0.997)[0](params, obs)
+  args = (root.embedding.contiguous(),
+          fused.noised_root_logits(gen, root.prior_logits, invalid),
+          root.value.contiguous(), fused.extract_smz_fused_weights(net, params))
+  kwargs = dict(num_simulations=SMZ_SIMS, discount=0.997,
+                support_size=net.support_size, invalid_actions=invalid,
+                max_depth=max_depth)
+  before = search_counts()
+  out = fused.fused_smz_search(*args, **kwargs)
+  torch.cuda.synchronize()
+  got = tuple(a - b for a, b in zip(search_counts(), before))
+  check(got == (0, 0, 0, 0, 1),
+        f"the wrapper launched the Stochastic MuZero kernel once, not {got}")
+  ref = fused.fused_smz_search_reference(*args, **kwargs)
+  return compare_search(out, ref, SMZ_SIMS, invalid)
+
+
 def run(device):
   from muax_tpu_torch import _build
   from muax_tpu_torch.replay.buffer import gumbel_noise
@@ -904,6 +1078,7 @@ def run(device):
 
   card = card_line()
   print(card)
+  t_start = time.perf_counter()
   t0 = time.perf_counter()
   logs = _build.build_all()
   build_s = time.perf_counter() - t0
@@ -1120,6 +1295,69 @@ def run(device):
         f"{CAT_BATCH} in groups of {tc.group}: {json.dumps(cat_train)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
+  # ---- Stochastic MuZero -------------------------------------------------
+  t0 = time.perf_counter()
+  smz_main = smz_against_plain(device, 2, SMZ_ENVS)
+  smz_edge = smz_against_plain(device, 3, SMZ_EDGE_ENVS, SMZ_EDGE_NET,
+                               with_invalid=True, max_depth=2)
+  print(f"phase 16 Stochastic MuZero kernel vs plain, B={SMZ_ENVS} "
+        f"sims={SMZ_SIMS} A=2 C=32 E=32 H=(64,) S=20: "
+        f"{json.dumps(smz_main)}; B={SMZ_EDGE_ENVS} A=3 C=4 E=8 H=(16, 16) "
+        f"S=10 with one invalid action, max_depth=2: {json.dumps(smz_edge)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  _, smz_roll, (args, kwargs) = drive_main_path(device, "stochastic", "smz")
+  smz_roll["search_ms"] = time_ms(lambda: fused.fused_smz_search(
+      *args, **kwargs), 10)
+  smz_roll["plain_search_ms"] = time_ms(
+      lambda: fused.fused_smz_search_reference(*args, **kwargs), 1)
+  smz_roll.update(smz_bound_ms(args, kwargs))
+  print(f"phase 17 Stochastic MuZero rollout, {SMZ_ENVS} envs x {SMZ_SIMS} "
+        f"sims x {MAIN_STEPS} steps: {json.dumps(smz_roll)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  ts = training_setup(device, family="smz")
+  fill_ring(ts)
+  W = SMZ_PRESAMPLE * SMZ_BATCH
+  seg_idx = fused_sampler.draw_segments(ts.rs, ts.gen, W)
+  gumbel = gumbel_noise(ts.gen, (MAIN_STEPS, W), device)
+  sample_args = (ts.rs, seg_idx, gumbel, TRAIN_UNROLL)
+  before = fused_sampler.launches
+  raw, lay = fused_sampler.fused_sample_group(*sample_args, per_step_obs=True)
+  torch.cuda.synchronize()
+  check(fused_sampler.launches == before + 1, "the sampler launched")
+  check(lay.obs_rows == 4 * TRAIN_UNROLL, "observation rows of every step")
+  smz_sampler = compare_raw(raw, fused_sampler.fused_sample_group_reference(
+      *sample_args, per_step_obs=True)[0], lay)
+  smz_sampler["kernel_ms"] = time_ms(lambda: fused_sampler.fused_sample_group(
+      *sample_args, per_step_obs=True), 20)
+  smz_sampler["plain_ms"] = time_ms(
+      lambda: fused_sampler.fused_sample_group_reference(
+          *sample_args, per_step_obs=True), 3)
+  smz_sampler["bound_ms"], smz_sampler["bound_by"] = sampler_bound_ms(
+      lay, W, MAIN_STEPS)
+  print(f"phase 18 sampler per_step_obs vs plain, C={TRAIN_CAPACITY} "
+        f"L={MAIN_STEPS} K={TRAIN_UNROLL} W={W} on a ring of Stochastic "
+        f"MuZero rollouts: {json.dumps(smz_sampler)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  smz_train_launches, smz_train = drive_training(
+      device, ts, warmup=0, timed=1, window_updates=SMZ_PROFILE_UPDATES)
+  print(f"phase 19 Stochastic MuZero training iteration, {SMZ_ENVS} envs x "
+        f"{SMZ_SIMS} sims x {MAIN_STEPS} steps, {SMZ_UPDATES} updates of "
+        f"{SMZ_BATCH} in groups of {ts.group} (hybrid feed): "
+        f"{json.dumps(smz_train)} ({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  smz_fit = drive_fit(device, os.path.dirname(os.path.abspath(__file__)),
+                      "smz")
+  print(f"phase 20 fit with Stochastic MuZero, 3 iterations, eval_every=2, "
+        f"checkpoint_every=2, and a resume: {json.dumps(smz_fit)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
   kernels = [{
       "name": "fused_muzero_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",
@@ -1183,7 +1421,26 @@ def run(device):
       "ms": cat_learner["kernel_ms"], "plain_ms": cat_learner["plain_ms"],
       "bound_ms": cat_learner["bound_ms"],
       "bound_by": cat_learner["bound_by"], "library_ms": None,
+  }, {
+      "name": "fused_smz_search", "route": "cuda",
+      "source": "muax_tpu_torch/csrc/fused_smz.cu",
+      "replaces": "muax_tpu/search/fused.py:1369",
+      "launches": smz_train_launches[0],
+      "max_abs_err": smz_main["max_abs_err"],
+      "ms": smz_roll["search_ms"], "plain_ms": smz_roll["plain_search_ms"],
+      "bound_ms": smz_roll["bound_ms"], "bound_by": smz_roll["bound_by"],
+      "library_ms": None,
+  }, {
+      "name": "fused_sample_group_per_step_obs", "route": "cuda",
+      "source": "muax_tpu_torch/csrc/fused_sampler.cu",
+      "replaces": "muax_tpu/replay/fused_sampler.py:280 (per_step_obs=True)",
+      "launches": smz_train_launches[1],
+      "max_abs_err": smz_sampler["max_abs_err"],
+      "ms": smz_sampler["kernel_ms"], "plain_ms": smz_sampler["plain_ms"],
+      "bound_ms": smz_sampler["bound_ms"],
+      "bound_by": smz_sampler["bound_by"], "library_ms": None,
   }]
+  print(f"total {time.perf_counter() - t_start:.1f} s")
   print(card)
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ import threading
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("fused_search", "fused_sampler", "fused_learner")
+SOURCES = ("fused_search", "fused_sampler", "fused_learner", "fused_smz")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,8 +2,11 @@
 // windows in one launch, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel muax_tpu/replay/fused_sampler.py
-// `_make_sampler_kernel` with per_step_obs=False, which `fused_sample_group`
-// launches through pl.pallas_call (muax_tpu/replay/fused_sampler.py:280).
+// `_make_sampler_kernel` in both its modes, which `fused_sample_group`
+// launches through pl.pallas_call (muax_tpu/replay/fused_sampler.py:280):
+// per_step_obs=False (the start observation, for the learner kernel) and
+// per_step_obs=True (the observation at every window step, row f*K + j, for
+// the hybrid feed of the families without a learner kernel).
 // The plain PyTorch version of the same function is
 // `fused_sample_group_reference` in muax_tpu_torch/replay/fused_sampler.py.
 //
@@ -12,8 +15,9 @@
 // priorities, the start observation, K actions, rewards, returns and dones,
 // K*A policy entries, the segment's target step, and 40 output rows), so it
 // is bound by bytes: about 28 MB per launch of 65,536 windows, 8 us at
-// 3.35 TB/s. The reads of the ring are scattered (each window lands in a
-// random segment); the writes are not.
+// 3.35 TB/s. With per_step_obs it also reads and writes K observations per
+// window (O*K more rows). The reads of the ring are scattered (each window
+// lands in a random segment); the writes are not.
 //
 // What the design does about it. One thread owns one window. The TPU kernel
 // keeps the whole ring in VMEM and gathers it with a one-hot matmul because
@@ -45,7 +49,7 @@ __global__ void fused_sample_group_kernel(
     const float* __restrict__ prios, const int* __restrict__ tstep,
     const int64_t* __restrict__ seg_idx, const float* __restrict__ gumbel,
     float* __restrict__ raw, int C, int L, int O, int A, int K, int W,
-    Layout lay) {
+    int per_step_obs, Layout lay) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
   const size_t ldw = static_cast<size_t>(W);
@@ -72,7 +76,13 @@ __global__ void fused_sample_group_kernel(
   }
   const size_t t0 = base + start;
 
-  for (int f = 0; f < O; ++f) out(lay.obs + f, obs[t0 * O + f]);
+  if (per_step_obs) {  // row f*K + j: feature f of step j
+    for (int f = 0; f < O; ++f)
+      for (int j = 0; j < K; ++j)
+        out(lay.obs + f * K + j, obs[(t0 + j) * O + f]);
+  } else {
+    for (int f = 0; f < O; ++f) out(lay.obs + f, obs[t0 * O + f]);
+  }
   float before = 0.f, denom = 0.f;
   for (int j = 0; j < K; ++j) {
     const size_t t = t0 + j;
@@ -102,16 +112,18 @@ extern "C" {
 // action [C, L] i32, reward and rn [C, L] f32, pi [C, L, A] f32, done
 // [C, L] bool (one byte), prios [C, L] f32, tstep [C] i32. seg_idx [W] i64,
 // gumbel [L, W] f32 (rows past num_starts are not read). raw [rows, W] f32
-// gets every row of the layout. Returns a cudaError_t, or MZ_ERR_SHAPE.
+// gets every row of the layout: O observation rows from r_obs, or O*K with
+// per_step_obs. Returns a cudaError_t, or MZ_ERR_SHAPE.
 int mz_fused_sample_group(const float* obs, const int* action,
                           const float* reward, const float* rn,
                           const float* pi, const uint8_t* done,
                           const float* prios, const int* tstep,
                           const int64_t* seg_idx, const float* gumbel,
                           float* raw, int C, int L, int O, int A, int K, int W,
-                          int r_obs, int r_action, int r_reward, int r_rn,
-                          int r_pi, int r_mask, int r_start, int r_weight,
-                          int r_denom, int r_tstep, int rows, void* stream) {
+                          int per_step_obs, int r_obs, int r_action,
+                          int r_reward, int r_rn, int r_pi, int r_mask,
+                          int r_start, int r_weight, int r_denom, int r_tstep,
+                          int rows, void* stream) {
   if (C < 1 || L < 1 || O < 1 || A < 1 || K < 1 || K > L || W < 1 ||
       rows <= r_tstep)
     return MZ_ERR_SHAPE;
@@ -122,7 +134,7 @@ int mz_fused_sample_group(const float* obs, const int* action,
   fused_sample_group_kernel<<<grid, threads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       obs, action, reward, rn, pi, done, prios, tstep, seg_idx, gumbel, raw,
-      C, L, O, A, K, W, lay);
+      C, L, O, A, K, W, per_step_obs, lay);
   return cudaGetLastError();
 }
 

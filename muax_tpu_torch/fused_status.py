@@ -1,8 +1,10 @@
 """Which fused kernels a setup takes, and why not (``muax_tpu/fused_status.py``).
 
-One report over the port's three kernels: the search (in its MuZero or
-Gumbel mode, for the MLP triplet or the acme categorical family), the
-learner and the sampler. The search entry reuses the actor's dispatch
+One report over the port's kernels: the search (in its MuZero or Gumbel
+mode, for the MLP triplet or the acme categorical family, or the Stochastic
+MuZero forest), the learner and the sampler (feeding the learner kernel, or
+in the hybrid mode the gradient step of a family without one). The search
+entry reuses the actor's dispatch
 (``uses_fused_search``), the learner and sampler entries the learner's own
 (``make_multi_update_fn``'s ``fused_group_status``), so the report cannot
 drift from what the learner does. ``fit`` logs it once.
@@ -18,17 +20,21 @@ from typing import Any, Optional
 from muax_tpu_torch.models.fused_learner import (LearnerSpec,
                                                  extract_learner)
 from muax_tpu_torch.models.optimizers import muzero_optimizer
+from muax_tpu_torch.models.stochastic_networks import SMZNetworks
 from muax_tpu_torch.train.actor import uses_fused_search
 from muax_tpu_torch.train.learner import TrainState, make_multi_update_fn
 
 
 def _search_status(networks, config) -> dict:
   search = config.search
-  if search.policy not in ("muzero", "gumbel"):
-    return {"active": False,
-            "reason": f"policy {search.policy!r} is not ported yet"}
   if not search.fused:
     return {"active": False, "reason": "disabled by config (search.fused)"}
+  if search.policy == "stochastic":
+    if not isinstance(networks, SMZNetworks):
+      return {"active": False,
+              "reason": "stochastic policy over a non-SMZ network family"}
+    return {"active": True,
+            "reason": "Stochastic MuZero forest search kernel"}
   if not uses_fused_search(networks, config):
     return {"active": False,
             "reason": "network family has no search kernel (the fc-resnet "
@@ -50,11 +56,13 @@ def fused_status(networks, config, params,
   """
   lw = extract_learner(networks, params) if config.train.fused_learner else None
   if not config.train.fused_learner:
-    learner = {"active": False, "reason": "disabled by config (fused_learner)"}
+    learner = {"active": False,
+               "reason": "disabled by config (fused_learner): autograd "
+                         "over the loss, hybrid feed"}
   elif lw is None:
     learner = {"active": False,
-               "reason": "network family has no learner kernel (the "
-                         "fc-resnet takes autograd over muzero_loss)"}
+               "reason": "network family has no learner kernel: autograd "
+                         "over its loss, hybrid feed"}
   else:
     learner = {"active": True, "reason": "loss+backward kernel" + (
         " (categorical LearnerSpec)" if isinstance(lw, LearnerSpec) else "")}

@@ -4,7 +4,9 @@ names.
 
 The tree has the JAX package's layout::
 
-  {'representation' | 'prediction' | 'dynamic':
+  {'representation' | 'prediction' | 'dynamic'
+   (Stochastic MuZero: 'encoder' | 'representation' | 'prediction' |
+   'decision' | 'chance'):
       {'linear', 'linear_1', ...: {'w': [in, out], 'b': [out]},
        'layer_norm', 'block_0/layer_norm', ...: {'scale': [d], 'offset': [d]}}}
 
@@ -24,6 +26,7 @@ import torch
 from torch import nn
 
 from muax_tpu_torch.models.networks import MZParams
+from muax_tpu_torch.models.stochastic_networks import SMZParams
 from muax_tpu_torch.replay.buffer import ReplayState
 
 _TOWERS = ("representation", "prediction", "dynamic")
@@ -36,17 +39,9 @@ def _leaves(module: nn.Module):
   return (("w", module.weight, True), ("b", module.bias, False))
 
 
-def mlp_params_from_numpy(tree: Mapping, networks,
-                          temperature: float = 1.0) -> MZParams:
-  """Build ``MZParams`` on ``networks.device`` from a numpy haiku tree, for
-  the MLP triplet or an acme family.
-
-  Raises ``ValueError`` when the tree's modules do not fit ``networks``.
-  """
-  obs_dim = np.asarray(tree["representation"]["linear"]["w"]).shape[0]
-  params = networks.init_params((obs_dim,))
-  params.temperature.fill_(temperature)
-  for name in _TOWERS:
+def _load_towers(params: nn.Module, tree: Mapping, towers) -> None:
+  """Copy every tower of a numpy haiku tree into ``params``' modules."""
+  for name in towers:
     mods = getattr(params, name).haiku_modules()
     if set(tree[name]) != {key for key, _ in mods}:
       raise ValueError(f"{name}: tree has modules {sorted(tree[name])}, the "
@@ -62,13 +57,38 @@ def mlp_params_from_numpy(tree: Mapping, networks,
                            f"not fit {tuple(target.shape)}")
         with torch.no_grad():
           target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+
+
+def mlp_params_from_numpy(tree: Mapping, networks,
+                          temperature: float = 1.0) -> MZParams:
+  """Build ``MZParams`` on ``networks.device`` from a numpy haiku tree, for
+  the MLP triplet or an acme family.
+
+  Raises ``ValueError`` when the tree's modules do not fit ``networks``.
+  """
+  obs_dim = np.asarray(tree["representation"]["linear"]["w"]).shape[0]
+  params = networks.init_params((obs_dim,))
+  params.temperature.fill_(temperature)
+  _load_towers(params, tree, _TOWERS)
   return params
 
 
-def mlp_grads_to_numpy(params: MZParams, flat_grads: torch.Tensor) -> dict:
-  """A flat gradient in the order of ``params.parameters()`` (what the
-  port's learner returns) as a numpy haiku tree with the names of
-  ``mlp_params_from_numpy``'s input."""
+def smz_params_from_numpy(tree: Mapping, networks,
+                          temperature: float = 1.0) -> SMZParams:
+  """Build ``SMZParams`` on ``networks.device`` from the numpy haiku trees
+  of the five nets (keys ``SMZParams.TOWERS``).
+
+  Raises ``ValueError`` when the tree's modules do not fit ``networks``.
+  """
+  obs_dim = np.asarray(tree["representation"]["linear"]["w"]).shape[0]
+  params = networks.init_params((obs_dim,))
+  params.temperature.fill_(temperature)
+  _load_towers(params, tree, SMZParams.TOWERS)
+  return params
+
+
+def _grads_to_numpy(params: nn.Module, flat_grads: torch.Tensor,
+                    towers) -> dict:
   flat = flat_grads.detach().cpu().numpy()
   where = {}
   offset = 0
@@ -79,7 +99,7 @@ def mlp_grads_to_numpy(params: MZParams, flat_grads: torch.Tensor) -> dict:
     raise ValueError(f"gradient of {flat.size} floats does not fit params "
                      f"of {offset}")
   tree = {}
-  for name in _TOWERS:
+  for name in towers:
     tree[name] = {}
     for key, module in getattr(params, name).haiku_modules():
       tree[name][key] = {}
@@ -91,11 +111,24 @@ def mlp_grads_to_numpy(params: MZParams, flat_grads: torch.Tensor) -> dict:
   return tree
 
 
+def mlp_grads_to_numpy(params: MZParams, flat_grads: torch.Tensor) -> dict:
+  """A flat gradient in the order of ``params.parameters()`` (what the
+  port's learner returns) as a numpy haiku tree with the names of
+  ``mlp_params_from_numpy``'s input."""
+  return _grads_to_numpy(params, flat_grads, _TOWERS)
+
+
+def smz_grads_to_numpy(params: SMZParams, flat_grads: torch.Tensor) -> dict:
+  """The same for the five nets, with the names of
+  ``smz_params_from_numpy``'s input."""
+  return _grads_to_numpy(params, flat_grads, SMZParams.TOWERS)
+
+
 _RING_FIELDS = ("obs", "action", "reward", "done", "rn", "value", "pi",
                 "step_priorities", "target_step")
 
 
-def replay_state_from_numpy(ring, device="cpu") -> ReplayState:
+def replay_state_from_numpy(ring, device) -> ReplayState:
   """The JAX package's ``ReplayState`` with numpy leaves as the port's ring
   on ``device``."""
   def tensor(name):

@@ -347,9 +347,9 @@ def _require(lw):
   if lw is None:
     raise NotImplementedError(
         "this network family has no learner kernel: the MLP triplet and the "
-        "categorical LayerNormMLP have one; the fc-resnet takes the generic "
-        "learner (autograd over muzero_loss) until the fused sampler's "
-        "hybrid feed comes (ROADMAP.md A.4)")
+        "categorical LayerNormMLP have one; the fc-resnet and Stochastic "
+        "MuZero take autograd over their loss, fed by the fused sampler's "
+        "per_step_obs rows (the learner's hybrid mode)")
 
 
 def fused_muzero_grad_raw(

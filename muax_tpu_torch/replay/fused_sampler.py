@@ -1,5 +1,5 @@
 """Fused replay sampling: window-start draw and window extraction as one
-kernel (``muax_tpu/replay/fused_sampler.py``, ``per_step_obs=False``).
+kernel (``muax_tpu/replay/fused_sampler.py``, both modes).
 
 For each of W windows, given its segment (drawn outside by
 ``draw_segments``, the level-1 draw of ``replay_sample``) and a column of
@@ -9,7 +9,11 @@ the start as the Gumbel-argmax over ``log(prio + 1e-9)`` of the valid starts
 [R, W] f32 tensor: the start observation, per-step actions, rewards, n-step
 returns, step-major policy targets, the validity mask, and the start, the
 start-step priority, the mask denominator and the segment's target step.
-That is what the fused learner kernel reads.
+That is what the fused learner kernel reads. With ``per_step_obs=True`` the
+observation rows hold the observation at every window step (row
+``f * K + j`` is feature f of step j), from which the learner rebuilds a
+[B, K, ...] ``Transition`` for the families without a learner kernel (the
+hybrid feed); every other row is the same.
 
 On a CUDA tensor ``fused_sample_group`` launches the hand-written kernel
 ``csrc/fused_sampler.cu``; on a CPU tensor it runs
@@ -90,11 +94,13 @@ def draw_segments(state: ReplayState, generator: torch.Generator, num: int,
   return segments_from_draws(state, uniforms, offsets)
 
 
-def _layout_of(state: ReplayState, k_steps: int) -> RawLayout:
+def _layout_of(state: ReplayState, k_steps: int,
+               per_step_obs: bool = False) -> RawLayout:
   obs_features = 1
   for d in state.obs.shape[2:]:
     obs_features *= d
-  return make_raw_layout(obs_features, k_steps, state.pi.shape[-1])
+  return make_raw_layout(obs_features, k_steps, state.pi.shape[-1],
+                         per_step_obs)
 
 
 # ---------------------------------------------------------------------------
@@ -103,10 +109,11 @@ def _layout_of(state: ReplayState, k_steps: int) -> RawLayout:
 
 
 def fused_sample_group_reference(state: ReplayState, seg_idx: torch.Tensor,
-                                 gumbel: torch.Tensor, k_steps: int):
+                                 gumbel: torch.Tensor, k_steps: int,
+                                 per_step_obs: bool = False):
   """Plain PyTorch version of the fused sampler. Returns ([R, W] raw,
   layout)."""
-  lay = _layout_of(state, k_steps)
+  lay = _layout_of(state, k_steps, per_step_obs)
   L, K = state.segment_length, k_steps
   num_starts = L - K + 1
   W = seg_idx.shape[0]
@@ -121,7 +128,11 @@ def fused_sample_group_reference(state: ReplayState, seg_idx: torch.Tensor,
   mask = _window_validity_mask(state.done[rows, t])
 
   raw = torch.zeros((lay.rows, W), dtype=torch.float32, device=dev)
-  raw[lay.obs:lay.obs + lay.O] = state.obs[seg, start].reshape(W, -1).T
+  if per_step_obs:  # row f*K + j: feature f of step j
+    raw[lay.obs:lay.obs + lay.obs_rows] = state.obs[rows, t].reshape(
+        W, K, lay.O).permute(2, 1, 0).reshape(lay.obs_rows, W)
+  else:
+    raw[lay.obs:lay.obs + lay.O] = state.obs[seg, start].reshape(W, -1).T
   raw[lay.action:lay.action + K] = state.action[rows, t].T.float()
   raw[lay.reward:lay.reward + K] = state.reward[rows, t].T
   raw[lay.rn:lay.rn + K] = state.rn[rows, t].T
@@ -144,7 +155,7 @@ def _load_kernel():
   fn = lib.mz_fused_sample_group
   if fn.argtypes is None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 11 + [i32] * 6 + [i32] * 11 + [ptr]
+    fn.argtypes = [ptr] * 11 + [i32] * 6 + [i32] * 12 + [ptr]
     fn.restype = i32
     lib.mz_sampler_error_string.argtypes = [i32]
     lib.mz_sampler_error_string.restype = ctypes.c_char_p
@@ -163,9 +174,9 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device):
 
 
 def _sample_cuda(state: ReplayState, seg_idx: torch.Tensor,
-                 gumbel: torch.Tensor, k_steps: int):
+                 gumbel: torch.Tensor, k_steps: int, per_step_obs: bool):
   global launches
-  lay = _layout_of(state, k_steps)
+  lay = _layout_of(state, k_steps, per_step_obs)
   dev = state.action.device
   C, L, K, O, A = state.capacity, state.segment_length, k_steps, lay.O, lay.A
   W = seg_idx.shape[0]
@@ -191,8 +202,8 @@ def _sample_cuda(state: ReplayState, seg_idx: torch.Tensor,
       state.step_priorities.data_ptr(), state.target_step.data_ptr(),
       seg_idx.data_ptr(), gumbel.data_ptr(), raw.data_ptr(),
       C, L, O, A, K, W,
-      lay.obs, lay.action, lay.reward, lay.rn, lay.pi, lay.mask, lay.start,
-      lay.weight, lay.denom, lay.tstep, lay.rows,
+      int(per_step_obs), lay.obs, lay.action, lay.reward, lay.rn, lay.pi,
+      lay.mask, lay.start, lay.weight, lay.denom, lay.tstep, lay.rows,
       torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError("fused sampler kernel: "
@@ -208,15 +219,13 @@ def fused_sample_group(state: ReplayState, seg_idx: torch.Tensor,
 
   ``seg_idx`` [W] int64 from ``draw_segments``, values in [0, capacity);
   ``gumbel`` [L, W] f32. The ring's live ``step_priorities`` and
-  ``target_step`` are read at the call. CUDA tensors go to the kernel (or
-  the call raises); CPU tensors go to the plain version.
+  ``target_step`` are read at the call. ``per_step_obs`` writes the
+  observation of every window step, not only the start's. CUDA tensors go
+  to the kernel (or the call raises); CPU tensors go to the plain version.
   """
-  if per_step_obs:
-    raise NotImplementedError(
-        "per_step_obs (the hybrid feed of families without a learner "
-        "kernel) is not ported yet (ROADMAP.md A.4)")
   if state.action.device.type == "cuda":
-    return _sample_cuda(state, seg_idx, gumbel, k_steps)
+    return _sample_cuda(state, seg_idx, gumbel, k_steps, per_step_obs)
   if state.action.device.type == "cpu":
-    return fused_sample_group_reference(state, seg_idx, gumbel, k_steps)
+    return fused_sample_group_reference(state, seg_idx, gumbel, k_steps,
+                                        per_step_obs)
   raise ValueError(f"no fused sampler for device {state.action.device}")

@@ -1,9 +1,13 @@
-"""Batched search: the generic engine with its MuZero and Gumbel MuZero
-policies, and the fused search kernel in both modes with its policies."""
+"""Batched search: the generic engine with its MuZero, Gumbel MuZero and
+Stochastic MuZero policies, the fused search kernel in its modes with its
+policies, and the Stochastic MuZero forest kernel with its policy."""
 
 from muax_tpu_torch.search.types import (
     RootFnOutput,
     RecurrentFnOutput,
+    DecisionRecurrentFnOutput,
+    ChanceRecurrentFnOutput,
+    StochasticRecurrentState,
     PolicyOutput,
 )
 from muax_tpu_torch.search.tree import Tree, SearchSummary, ROOT_INDEX
@@ -11,6 +15,7 @@ from muax_tpu_torch.search.core import search
 from muax_tpu_torch.search.policies import (
     muzero_policy,
     gumbel_muzero_policy,
+    stochastic_muzero_policy,
 )
 from muax_tpu_torch.search import qtransforms
 from muax_tpu_torch.search import seq_halving
@@ -24,4 +29,9 @@ from muax_tpu_torch.search.fused import (
     fused_gumbel_search,
     fused_gumbel_search_reference,
     fused_mlp_gumbel_policy,
+    FusedSMZWeights,
+    extract_smz_fused_weights,
+    fused_smz_search,
+    fused_smz_search_reference,
+    fused_smz_policy,
 )

@@ -54,7 +54,7 @@ def simulate(generator: torch.Generator, tree: Tree,
 
 def update_tree_node(tree: Tree, node_index: torch.Tensor,
                      prior_logits: torch.Tensor, value: torch.Tensor,
-                     embedding: torch.Tensor) -> Tree:
+                     embedding) -> Tree:
   """Batched node (re)initialization with running-mean value blending."""
   rows = batch_rows(node_index)
   count = tree.node_visits[rows, node_index].to(value.dtype)
@@ -64,7 +64,7 @@ def update_tree_node(tree: Tree, node_index: torch.Tensor,
   tree.node_visits[rows, node_index] += 1
   tree.node_raw_values[rows, node_index] = value
   tree.children_prior_logits[rows, node_index] = prior_logits
-  tree.embeddings[rows, node_index] = embedding
+  tree_lib.set_embedding(tree.embeddings, rows, node_index, embedding)
   return tree
 
 
@@ -73,7 +73,7 @@ def expand(params: Any, generator: torch.Generator, tree: Tree,
            action: torch.Tensor, next_node_index: torch.Tensor) -> Tree:
   """Evaluate the model once on the whole batch and install the new nodes."""
   rows = batch_rows(parent_index)
-  embedding = tree.embeddings[rows, parent_index]
+  embedding = tree_lib.gather_embedding(tree.embeddings, rows, parent_index)
   step, next_embedding = recurrent_fn(params, generator, action, embedding)
   update_tree_node(tree, next_node_index, step.prior_logits, step.value,
                    next_embedding)

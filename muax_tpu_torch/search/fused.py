@@ -24,6 +24,10 @@ child, h-support (MLP) or linear two-hot (categorical) decode, min-max
 normalized next states, running-mean
 install and backup. The backup starts from the raw network value of the
 expanded node, as the JAX kernel's does.
+
+Stochastic MuZero has its own kernel, ``csrc/fused_smz.cu``, behind
+``fused_smz_search`` (plain version ``fused_smz_search_reference``) and
+``fused_smz_policy``; its semantics are set out at the section's head below.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 from muax_tpu_torch import _build
 from muax_tpu_torch.models.acme_networks import LN_EPS, CategoricalMZNetworks
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
+from muax_tpu_torch.models.stochastic_networks import SMZNetworks, SMZParams
 from muax_tpu_torch.ops import inv_value_transform
 from muax_tpu_torch.replay.buffer import gumbel_noise
 from muax_tpu_torch.search import seq_halving
@@ -53,6 +58,7 @@ launches = 0                     # MLP triplet, policy="muzero"
 gumbel_launches = 0              # MLP triplet, policy="gumbel"
 categorical_launches = 0         # categorical family, policy="muzero"
 categorical_gumbel_launches = 0  # categorical family, policy="gumbel"
+smz_launches = 0                 # Stochastic MuZero forest (csrc/fused_smz.cu)
 
 Linear = Tuple[torch.Tensor, torch.Tensor]  # (W [in, out], b [out])
 
@@ -778,3 +784,396 @@ def gumbel_action(visit_counts: torch.Tensor, completed_q: torch.Tensor,
   action_weights = torch.softmax(
       _mask_invalid(masked_logits + completed_q, invalid_actions), dim=-1)
   return action.to(torch.int32), action_weights
+
+
+# ---------------------------------------------------------------------------
+# Stochastic MuZero: the decision/chance forest over A' = A + C
+# ---------------------------------------------------------------------------
+#
+# The port of the JAX package's second kernel (``fused_smz_search``,
+# ``_make_smz_kernel``): on a CUDA tensor ``fused_smz_search`` launches
+# ``csrc/fused_smz.cu``, on a CPU tensor it runs
+# ``fused_smz_search_reference``. Semantics (those of
+# ``policies.stochastic_muzero_policy`` up to tie-breaking): a node created
+# by a chance outcome (slot >= A), and the root, is a decision node, every
+# other node a chance node. Decision nodes score their A slots with PUCT
+# under the parent-and-siblings qtransform, q = r + gamma v; chance nodes
+# score their C slots by p(o) - n(o)/(1 + N). Invalid actions are masked at
+# depth 0, ties go to the first slot, the descent stops at an unexpanded
+# child or at ``max_depth`` (a depth-capped descent re-evaluates the existing
+# child in place). A decision parent expands through the decision tower
+# (afterstate, chance prior, afterstate value); a chance parent through the
+# chance tower (next state, reward) and the prediction tower (policy,
+# value). Rewards and the discount sit on chance edges only: decision edges
+# carry r = 0 and gamma = 1. Install is a running mean; the backup starts
+# from the raw network value.
+
+
+class FusedSMZWeights(NamedTuple):
+  """The decision, chance and prediction towers as (W [in, out], b [out])
+  pairs (``muax_tpu/search/fused.py`` ``FusedSMZWeights``)."""
+  dec_layers: Tuple[Linear, ...]   # ELU hidden; first W has in = E + A
+  dec_state: Linear                # W [H, E], the afterstate head
+  dec_chance: Linear               # W [H, C]
+  dec_value: Linear                # W [H, 2S+1]
+  ch_layers: Tuple[Linear, ...]    # first W has in = E + C
+  ch_state: Linear                 # W [H, E]
+  ch_reward: Linear                # W [H, 2S+1]
+  pred_layers: Tuple[Linear, ...]  # first W has in = E
+  pred_policy: Linear              # W [H, A]
+  pred_value: Linear               # W [H, 2S+1]
+
+  def layers(self):
+    """Every linear in the kernel's order."""
+    return (*self.dec_layers, self.dec_state, self.dec_chance,
+            self.dec_value, *self.ch_layers, self.ch_state, self.ch_reward,
+            *self.pred_layers, self.pred_policy, self.pred_value)
+
+  def flat(self) -> torch.Tensor:
+    """One contiguous f32 buffer: W then b for each linear of ``layers``."""
+    return torch.cat([t.reshape(-1) for pair in self.layers() for t in pair])
+
+
+def extract_smz_fused_weights(networks, params: SMZParams
+                              ) -> Optional[FusedSMZWeights]:
+  """The three interior towers of ``params`` in the kernel's layout
+  (detached); None for a family other than ``SMZNetworks``."""
+  if not isinstance(networks, SMZNetworks):
+    return None
+
+  def pairs(tower):
+    return [(layer.weight.detach().t().contiguous(), layer.bias.detach())
+            for layer in tower.linears()]
+
+  *d_hidden, d_state, d_chance, d_value = pairs(params.decision)
+  *c_hidden, c_state, c_reward = pairs(params.chance)
+  *p_hidden, p_policy, p_value = pairs(params.prediction)
+  return FusedSMZWeights(
+      dec_layers=tuple(d_hidden), dec_state=d_state, dec_chance=d_chance,
+      dec_value=d_value, ch_layers=tuple(c_hidden), ch_state=c_state,
+      ch_reward=c_reward, pred_layers=tuple(p_hidden), pred_policy=p_policy,
+      pred_value=p_value)
+
+
+def _plain_smz_search(root_embedding, root_prior_logits, root_value,
+                      weights: FusedSMZWeights, *, num_simulations: int,
+                      support_size: int, discount: float, invalid_actions,
+                      max_depth, pb_c_init: float, pb_c_base: float):
+  """The plain forest search, batched over [B, N] and [B, N, A'] tensors
+  with a lockstep descent; only the towers each env needs run. Returns
+  (visits [B, A], root value [B], decision q [B, A], the count [B] of
+  expansions under a chance node)."""
+  B, E = root_embedding.shape
+  A = root_prior_logits.shape[-1]
+  C = weights.dec_chance[0].shape[1]
+  AP, N = A + C, num_simulations + 1
+  if max_depth is None:
+    max_depth = num_simulations
+  dev = root_embedding.device
+  f32 = torch.float32
+  rows = torch.arange(B, device=dev)
+  dec_slot = torch.arange(AP, device=dev) < A
+  gamma = torch.where(dec_slot, 1.0, discount).to(f32)
+  invalid = torch.ones(B, AP, dtype=f32, device=dev)
+  invalid[:, :A] = (0.0 if invalid_actions is None
+                    else invalid_actions.to(f32))
+  bins = torch.arange(2 * support_size + 1, dtype=f32, device=dev)
+
+  def decode(logits):  # softmax expectation over -S..S, then h^-1
+    probs = torch.softmax(logits, dim=-1)
+    return inv_value_transform(torch.sum(probs * (bins - support_size), -1))
+
+  nvis = torch.zeros(B, N, dtype=f32, device=dev)
+  nvis[:, 0] = 1.0
+  nval = torch.zeros(B, N, dtype=f32, device=dev)
+  nval[:, 0] = root_value.to(f32)
+  npar = torch.full((B, N), -1, dtype=torch.long, device=dev)
+  nact = torch.full((B, N), -1, dtype=torch.long, device=dev)
+  cidx = torch.full((B, N, AP), -1, dtype=torch.long, device=dev)
+  cpri = torch.zeros(B, N, AP, dtype=f32, device=dev)
+  cpri[:, 0, :A] = torch.softmax(root_prior_logits.to(f32), dim=-1)
+  cvis = torch.zeros(B, N, AP, dtype=f32, device=dev)
+  crew = torch.zeros(B, N, AP, dtype=f32, device=dev)
+  cval = torch.zeros(B, N, AP, dtype=f32, device=dev)
+  embs = torch.zeros(B, N, E, dtype=f32, device=dev)
+  embs[:, 0] = root_embedding.to(f32)
+  chance_expansions = torch.zeros(B, dtype=torch.long, device=dev)
+
+  def is_decision(node):
+    return (nact[rows, node] >= A) | (node == 0)
+
+  def score(cur, depth):
+    fdec = is_decision(cur)[:, None]
+    nvisit = nvis[rows, cur][:, None]
+    nvalue = nval[rows, cur][:, None]
+    cv = cvis[rows, cur]
+    pri = cpri[rows, cur]
+    q = crew[rows, cur] + gamma * cval[rows, cur]
+    visited = cv > 0
+    safe_q = torch.where(visited, q, nvalue)
+    minv = torch.minimum(nvalue, safe_q.amin(-1, keepdim=True))
+    maxv = torch.maximum(nvalue, safe_q.amax(-1, keepdim=True))
+    completed = torch.where(visited, q, minv)
+    qn = (completed - minv) / torch.clamp(maxv - minv, min=1e-8)
+    pb_c = pb_c_init + torch.log((nvisit + pb_c_base + 1.0) / pb_c_base)
+    dec_score = qn + (torch.sqrt(nvisit) * pb_c) * pri / (cv + 1.0)
+    ch_score = pri - cv / (1.0 + cv.sum(-1, keepdim=True))
+    out = torch.where(fdec, dec_score, ch_score)
+    out = torch.where(dec_slot[None] == fdec, out, torch.full_like(out, _NEG))
+    if depth == 0:
+      out = torch.where(invalid > 0, torch.full_like(out, _NEG), out)
+    return out
+
+  def tower(x, layers):
+    for w, b in layers:
+      x = _elu(x @ w + b)
+    return x
+
+  def normalized(x):
+    lo = x.amin(-1, keepdim=True)
+    hi = x.amax(-1, keepdim=True)
+    return (x - lo) / torch.clamp(hi - lo, min=1e-8)
+
+  def head(h, linear):
+    return h @ linear[0] + linear[1]
+
+  for s in range(num_simulations):
+    cur = torch.zeros(B, dtype=torch.long, device=dev)
+    parent = torch.full((B,), -1, dtype=torch.long, device=dev)
+    act = torch.full((B,), -1, dtype=torch.long, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    depth = 0
+    while bool(active.any()):
+      at = cur.clamp(min=0)
+      a = torch.argmax(score(at, depth), dim=-1)  # first maximum
+      child = cidx[rows, at, a]
+      parent = torch.where(active, at, parent)
+      act = torch.where(active, a, act)
+      cur = torch.where(active, child, cur)
+      depth += 1
+      active = active & (child >= 0) & (depth < max_depth)
+
+    existing = cidx[rows, parent, act]
+    slot = torch.where(existing < 0, torch.full_like(existing, s + 1),
+                       existing)
+
+    # Expansion: the decision tower under a decision parent, the chance and
+    # prediction towers under a chance parent.
+    f = is_decision(parent)
+    pe = embs[rows, parent]
+    value = torch.zeros(B, dtype=f32, device=dev)
+    reward = torch.zeros(B, dtype=f32, device=dev)
+    prior = torch.zeros(B, AP, dtype=f32, device=dev)
+    new_emb = torch.zeros(B, E, dtype=f32, device=dev)
+    h = tower(torch.cat([pe[f], F.one_hot(act[f], A).to(f32)], -1),
+              weights.dec_layers)
+    new_emb[f] = normalized(head(h, weights.dec_state))
+    prior[f, A:] = torch.softmax(head(h, weights.dec_chance), -1)
+    value[f] = decode(head(h, weights.dec_value))
+    c = ~f
+    h = tower(torch.cat([pe[c], F.one_hot(act[c] - A, C).to(f32)], -1),
+              weights.ch_layers)
+    ns = normalized(head(h, weights.ch_state))
+    reward[c] = decode(head(h, weights.ch_reward))
+    g = tower(ns, weights.pred_layers)
+    new_emb[c] = ns
+    prior[c, :A] = torch.softmax(head(g, weights.pred_policy), -1)
+    value[c] = decode(head(g, weights.pred_value))
+    chance_expansions += c.long()
+
+    # Install (running mean; a re-evaluated node keeps its children).
+    count = nvis[rows, slot]
+    nval[rows, slot] = (nval[rows, slot] * count + value) / (count + 1.0)
+    nvis[rows, slot] = count + 1.0
+    npar[rows, slot] = parent
+    nact[rows, slot] = act
+    cpri[rows, slot] = prior
+    embs[rows, slot] = new_emb
+    crew[rows, parent, act] = reward
+    cidx[rows, parent, act] = slot
+
+    # Backup from the raw value with each edge's discount.
+    idx, v = slot, value
+    while bool((idx != 0).any()):
+      on = idx != 0
+      par = npar[rows, idx].clamp(min=0)
+      a_b = nact[rows, idx].clamp(min=0)
+      cnt = nvis[rows, par]
+      vnew = crew[rows, par, a_b] + gamma[a_b] * v
+      child_val = nval[rows, idx]
+      nval[rows, par] = torch.where(
+          on, (nval[rows, par] * cnt + vnew) / (cnt + 1.0), nval[rows, par])
+      nvis[rows, par] = torch.where(on, cnt + 1.0, cnt)
+      cval[rows, par, a_b] = torch.where(on, child_val, cval[rows, par, a_b])
+      cvis[rows, par, a_b] = cvis[rows, par, a_b] + on.to(f32)
+      v = torch.where(on, vnew, v)
+      idx = torch.where(on, par, idx)
+
+  # Decision-edge q is the afterstate's value (r = 0, gamma = 1).
+  return (cvis[:, 0, :A], nval[:, 0], cval[:, 0, :A], chance_expansions)
+
+
+def fused_smz_search_reference(
+    root_embedding: torch.Tensor,      # [B, E]
+    root_prior_logits: torch.Tensor,   # [B, A] decision logits (noised)
+    root_value: torch.Tensor,          # [B]
+    weights: FusedSMZWeights,
+    *,
+    num_simulations: int,
+    support_size: int,
+    discount: float,
+    invalid_actions: Optional[torch.Tensor] = None,
+    max_depth: Optional[int] = None,
+    pb_c_init: float = 1.25,
+    pb_c_base: float = 19652.0,
+):
+  """Plain PyTorch version of the fused Stochastic MuZero search. Returns
+  (decision visit_counts [B, A], root_value [B], decision q [B, A])."""
+  return _plain_smz_search(
+      root_embedding, root_prior_logits, root_value, weights,
+      num_simulations=num_simulations, support_size=support_size,
+      discount=discount, invalid_actions=invalid_actions,
+      max_depth=max_depth, pb_c_init=pb_c_init, pb_c_base=pb_c_base)[:3]
+
+
+def _load_smz_kernel():
+  lib = _build.load("fused_smz")
+  fn = lib.mz_fused_smz_search
+  if fn.argtypes is None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, ctypes.c_long, ptr,
+                   ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, f32,
+                   f32, f32, i32, ptr, i32, ptr, i32, ptr, i32, ptr]
+    fn.restype = i32
+    lib.mz_smz_scratch_floats.argtypes = [i32, i32, i32, i32, i32]
+    lib.mz_smz_scratch_floats.restype = ctypes.c_long
+    lib.mz_smz_error_string.argtypes = [i32]
+    lib.mz_smz_error_string.restype = ctypes.c_char_p
+  return lib
+
+
+def _fused_smz_search_cuda(root_embedding, root_prior_logits, root_value,
+                           weights: FusedSMZWeights, *, num_simulations,
+                           support_size, discount, invalid_actions,
+                           max_depth, pb_c_init, pb_c_base):
+  """Launch ``csrc/fused_smz.cu`` on the current stream."""
+  global smz_launches
+  device = root_embedding.device
+  B, E = root_embedding.shape
+  A = root_prior_logits.shape[-1]
+  C = weights.dec_chance[0].shape[1]
+  S41 = 2 * support_size + 1
+  _check("root_embedding", root_embedding, (B, E), device)
+  _check("root_prior_logits", root_prior_logits, (B, A), device)
+  _check("root_value", root_value, (B,), device)
+  if invalid_actions is not None:
+    _check("invalid_actions", invalid_actions, (B, A), device)
+  flat = weights.flat()
+  _check("weights", flat, flat.shape, device)
+  widths = [[w.shape[1] for w, _ in layers] for layers in (
+      weights.dec_layers, weights.ch_layers, weights.pred_layers)]
+  if not all(widths) or (
+      weights.dec_layers[0][0].shape[0] != E + A
+      or weights.ch_layers[0][0].shape[0] != E + C
+      or weights.pred_layers[0][0].shape[0] != E
+      or weights.dec_state[0].shape[1] != E
+      or weights.ch_state[0].shape[1] != E
+      or weights.pred_policy[0].shape[1] != A
+      or {weights.dec_value[0].shape[1], weights.ch_reward[0].shape[1],
+          weights.pred_value[0].shape[1]} != {S41}):
+    raise ValueError("weights do not fit the root shapes and support size")
+
+  lib = _load_smz_kernel()
+  visits = torch.empty((B, A), dtype=torch.float32, device=device)
+  value = torch.empty((B,), dtype=torch.float32, device=device)
+  qvalues = torch.empty((B, A), dtype=torch.float32, device=device)
+  n_scratch = lib.mz_smz_scratch_floats(B, A, C, E, num_simulations)
+  scratch = torch.empty((n_scratch,), dtype=torch.float32, device=device)
+  max_depth = num_simulations if max_depth is None else max_depth
+  err = lib.mz_fused_smz_search(
+      root_embedding.data_ptr(), root_prior_logits.data_ptr(),
+      root_value.data_ptr(),
+      None if invalid_actions is None else invalid_actions.data_ptr(),
+      flat.data_ptr(), flat.numel(), scratch.data_ptr(), n_scratch,
+      visits.data_ptr(), value.data_ptr(), qvalues.data_ptr(),
+      B, A, C, E, S41, support_size, num_simulations, max_depth, discount,
+      pb_c_init, pb_c_base,
+      len(widths[0]), _ints(widths[0]), len(widths[1]), _ints(widths[1]),
+      len(widths[2]), _ints(widths[2]),
+      device.index if device.index is not None
+      else torch.cuda.current_device(),
+      torch.cuda.current_stream(device).cuda_stream)
+  if err != 0:
+    raise RuntimeError("fused SMZ search kernel: "
+                       + lib.mz_smz_error_string(err).decode())
+  smz_launches += 1
+  return visits, value, qvalues
+
+
+def fused_smz_search(
+    root_embedding: torch.Tensor,      # [B, E]
+    root_prior_logits: torch.Tensor,   # [B, A] decision logits (noised)
+    root_value: torch.Tensor,          # [B]
+    weights: FusedSMZWeights,
+    *,
+    num_simulations: int,
+    support_size: int,
+    discount: float,
+    invalid_actions: Optional[torch.Tensor] = None,
+    max_depth: Optional[int] = None,
+    pb_c_init: float = 1.25,
+    pb_c_base: float = 19652.0,
+):
+  """Run the fused Stochastic MuZero search. Returns (decision
+  visit_counts [B, A] f32, root_value [B], decision q [B, A]).
+
+  CUDA tensors go to the kernel (or the call raises); CPU tensors go to the
+  plain version.
+  """
+  return _dispatch(_fused_smz_search_cuda, fused_smz_search_reference,
+                   root_embedding, root_prior_logits, root_value, weights,
+                   num_simulations=num_simulations,
+                   support_size=support_size, discount=discount,
+                   invalid_actions=invalid_actions, max_depth=max_depth,
+                   pb_c_init=pb_c_init, pb_c_base=pb_c_base)
+
+
+def fused_smz_policy(
+    params: SMZParams,
+    generator: torch.Generator,
+    root,                      # RootFnOutput of the decision root
+    weights: FusedSMZWeights,
+    *,
+    num_simulations: int,
+    support_size: int,
+    discount: float,
+    invalid_actions: Optional[torch.Tensor] = None,
+    max_depth: Optional[int] = None,
+    dirichlet_fraction: float = 0.25,
+    dirichlet_alpha: float = 0.3,
+    pb_c_init: float = 1.25,
+    pb_c_base: float = 19652.0,
+    temperature=1.0,
+):
+  """``policies.stochastic_muzero_policy`` on the fused search: the same
+  root noising, the decision visits as the action weights,
+  visit-count^(1/T) action. Returns (action [B] int32, action_weights
+  [B, A], root_value [B])."""
+  del params
+  noised_logits = noised_root_logits(
+      generator, root.prior_logits, invalid_actions,
+      dirichlet_fraction=dirichlet_fraction, dirichlet_alpha=dirichlet_alpha)
+  visit_counts, root_value, _ = fused_smz_search(
+      root.embedding.contiguous(), noised_logits, root.value.contiguous(),
+      weights, num_simulations=num_simulations, support_size=support_size,
+      discount=discount, invalid_actions=invalid_actions,
+      max_depth=max_depth, pb_c_init=pb_c_init, pb_c_base=pb_c_base)
+  total = torch.sum(visit_counts, dim=-1, keepdim=True)
+  action_weights = torch.where(
+      total > 0, visit_counts / torch.clamp(total, min=1.0),
+      torch.full_like(visit_counts, 1.0 / visit_counts.shape[-1]))
+  action_logits = _apply_temperature(_get_logits_from_probs(action_weights),
+                                     temperature)
+  action = torch.multinomial(torch.softmax(action_logits, dim=-1), 1,
+                             generator=generator)[:, 0]
+  return action.to(torch.int32), action_weights, root_value

@@ -8,6 +8,10 @@ in slot 0. Nodes are addressed with advanced indexing, ``x[rows, idx]`` with
 because the TPU has no fast per-row gather, and are not carried over. Index
 fields are int64 so that they index directly; visit counts are int32 as in
 JAX. The search updates a tree in place.
+
+An embedding is a tensor [B, ...] or a dataclass of such tensors (Stochastic
+MuZero's ``StochasticRecurrentState``: the latent and its node-type flag);
+the tree stores one [B, N, ...] tensor per field.
 """
 from __future__ import annotations
 
@@ -24,6 +28,34 @@ UNVISITED = -1
 def batch_rows(x: torch.Tensor) -> torch.Tensor:
   """arange(B) on ``x``'s device, the row index of a batched access."""
   return torch.arange(x.shape[0], device=x.device)
+
+
+def embedding_fields(embedding) -> list:
+  """The tensors of an embedding: itself, or each field of a dataclass."""
+  if isinstance(embedding, torch.Tensor):
+    return [embedding]
+  return [getattr(embedding, f.name) for f in dataclasses.fields(embedding)]
+
+
+def map_embedding(fn, embedding):
+  """``fn`` applied to every tensor of an embedding, keeping its structure."""
+  if isinstance(embedding, torch.Tensor):
+    return fn(embedding)
+  return dataclasses.replace(embedding, **{
+      f.name: fn(getattr(embedding, f.name))
+      for f in dataclasses.fields(embedding)})
+
+
+def gather_embedding(embeddings, rows: torch.Tensor, node_index: torch.Tensor):
+  """The [B, ...] embedding of node ``node_index`` [B] of each tree."""
+  return map_embedding(lambda x: x[rows, node_index], embeddings)
+
+
+def set_embedding(embeddings, rows: torch.Tensor, node_index: torch.Tensor,
+                  value) -> None:
+  """Write a [B, ...] embedding into node ``node_index`` of each tree."""
+  for store, v in zip(embedding_fields(embeddings), embedding_fields(value)):
+    store[rows, node_index] = v
 
 
 def qvalues_at(tree: "Tree", node_index: torch.Tensor) -> torch.Tensor:
@@ -58,7 +90,7 @@ class Tree:
   children_rewards: torch.Tensor       # [B, N, A] f32
   children_discounts: torch.Tensor     # [B, N, A] f32
   children_values: torch.Tensor        # [B, N, A] f32
-  embeddings: torch.Tensor             # [B, N, ...]
+  embeddings: Any                      # [B, N, ...] per embedding field
   root_invalid_actions: torch.Tensor   # [B, A] f32 (1 = invalid)
   extra_data: Any                      # policy-specific (root gumbel noise)
 
@@ -95,9 +127,10 @@ def instantiate_tree_from_root(root, num_simulations: int,
   def full(*shape, value):
     return torch.full(shape, value, dtype=torch.long, device=dev)
 
-  embeddings = zeros(batch_size, num_nodes, *root.embedding.shape[1:],
-                     dtype=root.embedding.dtype)
-  embeddings[:, ROOT_INDEX] = root.embedding
+  embeddings = map_embedding(
+      lambda x: zeros(batch_size, num_nodes, *x.shape[1:], dtype=x.dtype),
+      root.embedding)
+  set_embedding(embeddings, slice(None), ROOT_INDEX, root.embedding)
   tree = Tree(
       node_visits=zeros(batch_size, num_nodes, dtype=torch.int32),
       node_values=zeros(batch_size, num_nodes),

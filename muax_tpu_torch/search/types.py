@@ -29,6 +29,30 @@ class RecurrentFnOutput:
 
 
 @dataclasses.dataclass
+class DecisionRecurrentFnOutput:
+  """Stochastic MuZero decision step: (state, action) -> afterstate."""
+  chance_logits: torch.Tensor     # [B, C]
+  afterstate_value: torch.Tensor  # [B]
+
+
+@dataclasses.dataclass
+class ChanceRecurrentFnOutput:
+  """Stochastic MuZero chance step: (afterstate, outcome) -> next state."""
+  action_logits: torch.Tensor  # [B, A]
+  value: torch.Tensor          # [B]
+  reward: torch.Tensor         # [B]
+
+
+@dataclasses.dataclass
+class StochasticRecurrentState:
+  """Embedding of the interleaved decision/chance search: ``state`` is the
+  state or the afterstate latent, ``is_decision_node`` which of the two
+  each batch element holds. The search tree stores one tensor per field."""
+  state: torch.Tensor             # [B, ...]
+  is_decision_node: torch.Tensor  # [B] bool
+
+
+@dataclasses.dataclass
 class PolicyOutput(Generic[T]):
   """What a search policy returns to the actor."""
   action: torch.Tensor          # [B] int32
@@ -40,3 +64,11 @@ class PolicyOutput(Generic[T]):
 # (RecurrentFnOutput, next_embedding)
 RecurrentFn = Callable[[Any, torch.Generator, torch.Tensor, Any],
                        tuple[RecurrentFnOutput, Any]]
+# decision_recurrent_fn(params, generator, action [B], state) ->
+# (DecisionRecurrentFnOutput, afterstate)
+DecisionRecurrentFn = Callable[[Any, torch.Generator, torch.Tensor, Any],
+                               tuple[DecisionRecurrentFnOutput, Any]]
+# chance_recurrent_fn(params, generator, outcome [B], afterstate) ->
+# (ChanceRecurrentFnOutput, next_state)
+ChanceRecurrentFn = Callable[[Any, torch.Generator, torch.Tensor, Any],
+                             tuple[ChanceRecurrentFnOutput, Any]]

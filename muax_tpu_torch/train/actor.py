@@ -1,17 +1,18 @@
 """The vectorized actor: {search -> env.step -> write} over T steps of B envs
 (``muax_tpu/train/actor.py``).
 
-Self-play searches with MuZero or Gumbel MuZero. With ``search.fused`` (the
-default) the MLP triplet and the acme categorical family go through the
-fused search: on the card its CUDA kernel (the categorical family in the
-kernel's categorical modes), on the CPU its plain version. With
+Self-play searches with MuZero, Gumbel MuZero or Stochastic MuZero. With
+``search.fused`` (the default) the MLP triplet and the acme categorical
+family go through the fused search: on the card its CUDA kernel (the
+categorical family in the kernel's categorical modes), on the CPU its plain
+version; Stochastic MuZero's five nets go through the fused forest search
+(``csrc/fused_smz.cu`` on the card, its plain version on the CPU). With
 ``search.fused=False``, and for a family the kernel does not take (the
 fc-resnet, as in the JAX package), it goes through the generic engine
 (``search/core.py``) on whichever device the caller chose; that route is
 picked from the configuration and the family, never as a fallback after a
-failure. Paths of the JAX
-actor that the port does not have yet raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+failure. Paths of the JAX actor that the port does not have yet raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -21,17 +22,21 @@ from muax_tpu_torch.config import MuZeroConfig
 from muax_tpu_torch.device import resolve_device
 from muax_tpu_torch.envs.base import AutoResetState, AutoResetWrapper
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
+from muax_tpu_torch.models.stochastic_networks import SMZNetworks
 from muax_tpu_torch.ops import segment_n_step_returns
 from muax_tpu_torch.search.fused import (extract_search_weights,
+                                         extract_smz_fused_weights,
                                          fused_mlp_gumbel_policy,
-                                         fused_mlp_muzero_policy)
+                                         fused_mlp_muzero_policy,
+                                         fused_smz_policy)
 from muax_tpu_torch.search.policies import (gumbel_muzero_policy,
-                                            muzero_policy)
-from muax_tpu_torch.train.inference import make_recurrent_fn, make_root_fn
+                                            muzero_policy,
+                                            stochastic_muzero_policy)
+from muax_tpu_torch.train.inference import (make_recurrent_fn, make_root_fn,
+                                            make_smz_fns)
 from muax_tpu_torch.types import Transition
 
 _NOT_PORTED = {
-    "stochastic": "Stochastic MuZero is not ported yet (ROADMAP.md A.4)",
     "legal": ("legal-action masks come with the board environments "
               "(ROADMAP.md A.7)"),
 }
@@ -39,32 +44,64 @@ _NOT_PORTED = {
 
 def uses_fused_search(networks, config: MuZeroConfig) -> bool:
   """Whether ``make_policy_fn`` takes the fused search: ``search.fused`` and
-  a family with a kernel (the MLP triplet, the categorical LayerNormMLP)."""
+  a family with a kernel (the MLP triplet, the categorical LayerNormMLP,
+  Stochastic MuZero's five nets)."""
   if not config.search.fused:
     return False
-  return isinstance(networks, MZNetworks) or (
+  return isinstance(networks, (MZNetworks, SMZNetworks)) or (
       getattr(networks, "family", None) == "mlp"
       and bool(networks.layer_sizes))
 
 
-def make_policy_fn(networks: MZNetworks, config: MuZeroConfig,
-                   discount: float, eval_mode: bool = False, device="cuda"):
-  """(params, generator, obs, temperature, invalid_actions=None) ->
-  (action [B] int32, pi [B, A], root_value [B]).
-
-  ``eval_mode`` disables the Dirichlet exploration noise on the MuZero root
-  prior. ``obs`` must lie on ``device``; ``generator`` on the same device.
-  """
-  device = resolve_device(device)
+def _stochastic_policy(networks, config: MuZeroConfig, discount: float,
+                       dirichlet_fraction: float):
+  """(params, generator, obs, temperature) -> (action, pi, root value) for
+  Stochastic MuZero: the fused forest search under ``search.fused``, the
+  generic engine otherwise."""
+  if not isinstance(networks, SMZNetworks):
+    raise ValueError("policy 'stochastic' needs Stochastic MuZero networks "
+                     "(make_stochastic_mlp_networks)")
   search = config.search
-  if search.policy not in ("muzero", "gumbel"):
-    raise NotImplementedError(_NOT_PORTED.get(
-        search.policy, f"unknown search policy {search.policy!r}"))
-  dirichlet_fraction = 0.0 if eval_mode else search.dirichlet_fraction
+  root_fn, decision_fn, chance_fn = make_smz_fns(networks, discount)
+  common = dict(num_simulations=search.num_simulations,
+                max_depth=search.max_depth,
+                dirichlet_fraction=dirichlet_fraction,
+                dirichlet_alpha=search.dirichlet_alpha,
+                pb_c_init=search.pb_c_init, pb_c_base=search.pb_c_base)
+
+  def fused(params, generator, obs, temperature):
+    return fused_smz_policy(
+        params, generator, root_fn(params, obs),
+        extract_smz_fused_weights(networks, params),
+        support_size=networks.support_size, discount=discount,
+        temperature=temperature, **common)
+
+  def generic(params, generator, obs, temperature):
+    out = stochastic_muzero_policy(
+        params, generator, root_fn(params, obs), decision_fn, chance_fn,
+        num_chance_outcomes=networks.num_chance_outcomes,
+        temperature=temperature, discount=discount, **common)
+    return (out.action, out.action_weights,
+            out.search_tree.summary().value)
+
+  return fused if uses_fused_search(networks, config) else generic
+
+
+def _triplet_policy(networks, config: MuZeroConfig, discount: float,
+                    dirichlet_fraction: float):
+  """(params, generator, obs, temperature) -> (action, pi, root value) for
+  MuZero and Gumbel MuZero over a triplet family: the fused search for a
+  family with a kernel under ``search.fused``, the generic engine
+  otherwise."""
+  if isinstance(networks, SMZNetworks):
+    raise ValueError("Stochastic MuZero networks search with policy "
+                     "'stochastic'")
+  search = config.search
   root_fn = make_root_fn(networks)
   recurrent_fn = make_recurrent_fn(networks, discount)
 
-  def fused(params, generator, root, temperature):
+  def fused(params, generator, obs, temperature):
+    root = root_fn(params, obs)
     weights = extract_search_weights(networks, params)
     common = dict(num_simulations=search.num_simulations,
                   support_size=getattr(networks, "support_size", None),
@@ -80,7 +117,8 @@ def make_policy_fn(networks: MZNetworks, config: MuZeroConfig,
         dirichlet_alpha=search.dirichlet_alpha, pb_c_init=search.pb_c_init,
         pb_c_base=search.pb_c_base, temperature=temperature, **common)
 
-  def generic(params, generator, root, temperature):
+  def generic(params, generator, obs, temperature):
+    root = root_fn(params, obs)
     common = dict(num_simulations=search.num_simulations,
                   max_depth=search.max_depth)
     if search.policy == "gumbel":
@@ -98,16 +136,36 @@ def make_policy_fn(networks: MZNetworks, config: MuZeroConfig,
     return (out.action, out.action_weights,
             out.search_tree.summary().value)
 
-  run = fused if uses_fused_search(networks, config) else generic
+  return fused if uses_fused_search(networks, config) else generic
+
+
+def make_policy_fn(networks, config: MuZeroConfig, discount: float,
+                   eval_mode: bool = False, device="cuda"):
+  """(params, generator, obs, temperature, invalid_actions=None) ->
+  (action [B] int32, pi [B, A], root_value [B]).
+
+  ``eval_mode`` disables the Dirichlet exploration noise on the MuZero and
+  Stochastic MuZero root prior. ``obs`` must lie on ``device``;
+  ``generator`` on the same device.
+  """
+  device = resolve_device(device)
+  search = config.search
+  dirichlet_fraction = 0.0 if eval_mode else search.dirichlet_fraction
+  if search.policy == "stochastic":
+    run = _stochastic_policy(networks, config, discount, dirichlet_fraction)
+  elif search.policy in ("muzero", "gumbel"):
+    run = _triplet_policy(networks, config, discount, dirichlet_fraction)
+  else:
+    raise ValueError(f"unknown search policy {search.policy!r}")
 
   @torch.no_grad()
-  def policy_fn(params: MZParams, generator: torch.Generator,
-                obs: torch.Tensor, temperature, invalid_actions=None):
+  def policy_fn(params, generator: torch.Generator, obs: torch.Tensor,
+                temperature, invalid_actions=None):
     if invalid_actions is not None:
       raise NotImplementedError(_NOT_PORTED["legal"])
     if obs.device != device:
       raise ValueError(f"obs lies on {obs.device}, the policy on {device}")
-    return run(params, generator, root_fn(params, obs), temperature)
+    return run(params, generator, obs, temperature)
 
   return policy_fn
 

@@ -1,17 +1,21 @@
 """The learner: sample -> unrolled loss gradient -> optimizer -> priority
 refresh (``muax_tpu/train/learner.py``).
 
-Two group paths, chosen by ``fused_group_status`` from what the setup is:
+Group paths, chosen by ``fused_group_status`` from what the setup is:
 
-* the fused path (the default for the MLP triplet and the acme
-  categorical family): per group of updates,
-  ``draw_segments`` -> the interleave permutation -> the fused sampler
-  kernel -> one fused learner kernel launch per update -> the optimizer ->
-  one priority refresh for the group;
-* the generic path: ``replay_sample`` -> ``_interleave_chunks`` -> one
-  gradient step per chunk (the fused learner in batch mode, or autograd
-  over ``muzero_loss`` when ``fused_learner`` is off or the family has no
-  learner kernel, as the fc-resnet).
+* the fused path in mode "raw" (the default for the MLP triplet and the
+  acme categorical family): per group of updates, ``draw_segments`` -> the
+  interleave permutation -> the fused sampler kernel -> one fused learner
+  kernel launch per update -> the optimizer -> one priority refresh for the
+  group;
+* the fused path in mode "hybrid" (a family without a learner kernel:
+  Stochastic MuZero's five nets, the fc-resnet; or ``fused_learner`` off):
+  the same, with the sampler in its ``per_step_obs`` mode, whose rows
+  ``_transition_from_raw`` turns back into a [B, K, ...] batch for autograd
+  over the family's loss;
+* the generic path (``fused_sampler`` off, an ``observation_transform``):
+  ``replay_sample`` -> ``_interleave_chunks`` -> one gradient step per chunk
+  (the fused learner in batch mode, or autograd over the family's loss).
 
 On the card both kernels run; on the CPU the same fused path runs through
 the kernels' plain versions. Training state is updated in place: the
@@ -35,6 +39,8 @@ from muax_tpu_torch.models.losses import muzero_grad
 from muax_tpu_torch.models.networks import MZParams
 from muax_tpu_torch.models.optimizers import (GradientTransformation,
                                               OptState, apply_updates)
+from muax_tpu_torch.models.stochastic_losses import stochastic_muzero_grad
+from muax_tpu_torch.models.stochastic_networks import SMZNetworks
 from muax_tpu_torch.replay.buffer import (ReplayState, draw_level1,
                                           gumbel_noise, replay_sample,
                                           replay_update_priorities,
@@ -78,13 +84,18 @@ def _make_grad_step(networks, optimizer: GradientTransformation,
   """(train_state, batch) -> (train_state, priorities [B], metrics [6]):
   the fused learner in batch mode, or autograd over ``muzero_loss`` when
   ``fused_learner`` is off or the family has no kernel (the fc-resnet, as
-  in the JAX package)."""
+  in the JAX package), or over ``stochastic_muzero_loss`` for Stochastic
+  MuZero."""
   tcfg = config.train
   _finish = _make_finish(optimizer)
   kwargs = dict(l2_coef=tcfg.l2_coef, gradient_scale=tcfg.gradient_scale,
                 priority_alpha=config.replay.priority_alpha)
 
   def grad_step(train_state: TrainState, batch: Transition):
+    if isinstance(networks, SMZNetworks):
+      grads, metrics = stochastic_muzero_grad(train_state.params, batch,
+                                              networks, **kwargs)
+      return _finish(train_state, grads, metrics)
     lw = (extract_learner(networks, train_state.params)
           if tcfg.fused_learner else None)
     if lw is not None:
@@ -145,6 +156,30 @@ def _deinterleave_flat(per_chunk: torch.Tensor, B: int) -> torch.Tensor:
   return per_chunk.transpose(0, 1).reshape(-1)
 
 
+def _transition_from_raw(raw: torch.Tensor, lay, obs_shape,
+                         weight: torch.Tensor) -> Transition:
+  """A [R, B] block of the sampler's ``per_step_obs`` rows as the [B, K, ...]
+  ``Transition`` the losses take. ``done`` and ``value`` are not in the
+  rows; no loss reads them (validity is in ``mask``, priorities use
+  ``rn``)."""
+  B = raw.shape[1]
+  K, O, A = lay.K, lay.O, lay.A
+  dev = raw.device
+  obs = (raw[lay.obs:lay.obs + O * K].reshape(O, K, B).permute(2, 1, 0)
+         .reshape((B, K) + tuple(obs_shape)))
+  pi = raw[lay.pi:lay.pi + K * A].reshape(K, A, B).permute(2, 0, 1)
+  return Transition(
+      obs=obs,
+      action=raw[lay.action:lay.action + K].T.to(torch.int32),
+      reward=raw[lay.reward:lay.reward + K].T,
+      done=torch.zeros((B, K), dtype=torch.bool, device=dev),
+      rn=raw[lay.rn:lay.rn + K].T,
+      value=torch.zeros((B, K), dtype=torch.float32, device=dev),
+      pi=pi,
+      weight=weight,
+      mask=raw[lay.mask:lay.mask + K].T)
+
+
 def make_multi_update_fn(networks, optimizer: GradientTransformation,
                          config: MuZeroConfig):
   """N = ``updates_per_iteration`` updates per call, presampled in groups
@@ -177,8 +212,9 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
   def _fused_group_status(train_state: TrainState,
                           replay_state: ReplayState):
     """(mode, learner_weights, reason): mode "raw" takes the fused sampler
-    and the raw-input learner kernel, None the generic path, and the reason
-    says why (``fused_status`` reports it)."""
+    and the raw-input learner kernel, "hybrid" the fused sampler's
+    ``per_step_obs`` rows and the gradient step, None the generic path, and
+    the reason says why (``fused_status`` reports it)."""
     if not tcfg.fused_sampler:
       return None, None, "disabled by config (fused_sampler)"
     if tcfg.observation_transform is not None:
@@ -186,15 +222,10 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
     L = replay_state.segment_length
     if L - K + 1 < 1:
       return None, None, f"unroll {K} exceeds segment length {L}"
-    if not tcfg.fused_learner:
-      return None, None, ("fused_learner off: the fused sampler's feed of "
-                          "the generic gradient (per_step_obs) is not "
-                          "ported (ROADMAP.md A.4)")
-    lw = extract_learner(networks, train_state.params)
+    lw = (extract_learner(networks, train_state.params)
+          if tcfg.fused_learner else None)
     if lw is None:
-      return None, None, ("network family has no learner kernel (the "
-                          "fc-resnet takes the generic learner until the "
-                          "fused sampler's hybrid feed, ROADMAP.md A.4)")
+      return "hybrid", None, "active (hybrid)"
     return "raw", lw, "active (raw)"
 
   def _executed(g: int, num_allowed: Optional[int]) -> int:
@@ -210,20 +241,22 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
 
   def run_fused_group(ts: TrainState, rs: ReplayState, g: int,
                       uniforms: torch.Tensor, offsets, gumbel: torch.Tensor,
-                      num_allowed: Optional[int] = None):
-    """One group of the fused path on given draws (``draw_level1``'s
-    uniforms and offsets for W = group*B windows, Gumbel noise [L, W]).
-    Returns (train_state, summed metrics [7]: the six of ``METRIC_KEYS``
-    and the staleness, each summed over the updates that ran, and their
-    count)."""
+                      num_allowed: Optional[int] = None, mode: str = "raw"):
+    """One group of the fused path in ``mode`` ("raw" or "hybrid") on given
+    draws (``draw_level1``'s uniforms and offsets for W = group*B windows,
+    Gumbel noise [L, W]). Returns (train_state, summed metrics [7]: the six
+    of ``METRIC_KEYS`` and the staleness, each summed over the updates that
+    ran, and their count)."""
     dev = rs.action.device
+    hybrid = mode == "hybrid"
     # Lane q of the group holds mega-row perm[q]: chunk j (lanes
     # [j*B, (j+1)*B)) gets the rows i with i % group == j, as
     # _interleave_chunks gives them.
     p = torch.arange(W, device=dev)
     perm = (p % B) * group + p // B
     seg_idx = segments_from_draws(rs, uniforms, offsets)[perm]
-    raw, lay = fused_sample_group(rs, seg_idx, gumbel, K)
+    raw, lay = fused_sample_group(rs, seg_idx, gumbel, K,
+                                  per_step_obs=hybrid)
     starts = raw[lay.start].long()
     w_raw = raw[lay.weight]
     weight = w_raw / torch.clamp(torch.mean(w_raw), min=1e-9)
@@ -235,11 +268,16 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
     prios = torch.zeros((group, B), device=dev)
     for j in range(done):
       cols = slice(j * B, (j + 1) * B)
-      lw = extract_learner(networks, ts.params)
-      grads, metrics = fused_muzero_grad_raw(
-          ts.params, raw[:, cols], coef[cols], lay, networks, lw,
-          **loss_kwargs)
-      ts, prios[j], stacked = _finish(ts, grads, metrics)
+      if hybrid:
+        batch_j = _transition_from_raw(raw[:, cols], lay,
+                                       rs.obs.shape[2:], weight[cols])
+        ts, prios[j], stacked = grad_step(ts, batch_j)
+      else:
+        lw = extract_learner(networks, ts.params)
+        grads, metrics = fused_muzero_grad_raw(
+            ts.params, raw[:, cols], coef[cols], lay, networks, lw,
+            **loss_kwargs)
+        ts, prios[j], stacked = _finish(ts, grads, metrics)
       sums[:-1] += stacked
     sums[-1] = staleness * done
     # Chunks are contiguous lanes here, so [group, B] flattens to lane order.
@@ -282,7 +320,7 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
     total = torch.zeros(len(METRIC_KEYS) + 1, device=dev)
     updates_done = 0
     for g in range(num_groups):
-      if mode == "raw":
+      if mode is not None:
         uniforms, offsets = draw_level1(
             replay_state, generator, W, config.replay.offline_fraction,
             config.replay.online_queue_size)
@@ -290,7 +328,7 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
                               dev)
         train_state, sums, done = run_fused_group(
             train_state, replay_state, g, uniforms, offsets, gumbel,
-            num_allowed)
+            num_allowed, mode)
       else:
         train_state, sums, done = run_generic_group(
             train_state, replay_state, g, generator, num_allowed)

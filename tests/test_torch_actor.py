@@ -136,13 +136,16 @@ def test_entry_points_need_cuda_by_default():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(policy="stochastic"), "A.4"),
-    (dict(policy="stochastic", fused=False), "A.4"),
+    (dict(policy="stochastic"), "Stochastic MuZero networks"),
+    (dict(policy="stochastic", fused=False), "Stochastic MuZero networks"),
 ])
 def test_unported_branches_raise(change, match):
+  """Stochastic MuZero is ported (its routes are held against the JAX
+  package in tests/test_torch_smz_*.py); either route refuses a family
+  other than its five nets."""
   net = make_mlp_networks(2, device="cpu")
   config = MuZeroConfig(search=SearchConfig(**change))
-  with pytest.raises(NotImplementedError, match=match):
+  with pytest.raises(ValueError, match=match):
     make_policy_fn(net, config, DISCOUNT, device="cpu")
 
 

@@ -149,7 +149,8 @@ def test_dispatch_and_status():
       assert mode == "raw" and isinstance(lw, fused_learner.LearnerSpec)
       assert "categorical" in report["fused_learner"]["reason"]
     else:
-      assert mode is None and "A.4" in reason
+      assert (mode, lw, reason) == ("hybrid", None, "active (hybrid)")
+      assert report["fused_sampler"]["active"]
       assert not report["fused_search"]["active"]
       assert not report["fused_learner"]["active"]
 

@@ -14,7 +14,8 @@ from muax_tpu_torch.config import (MuZeroConfig, ReplayConfig, SearchConfig,
                                    TrainConfig)
 from muax_tpu_torch.envs import AutoResetWrapper, CartPole
 from muax_tpu_torch.fused_status import format_fused_status, fused_status
-from muax_tpu_torch.models import make_mlp_networks
+from muax_tpu_torch.models import (make_mlp_networks,
+                                   make_stochastic_mlp_networks)
 from muax_tpu_torch.models.optimizers import muzero_optimizer
 from muax_tpu_torch.replay import replay_init
 from muax_tpu_torch.train.checkpoint import (load_checkpoint, save_checkpoint,
@@ -167,9 +168,17 @@ def test_fused_status_report():
   unfused = fused_status(net, _config(search=dict(fused=False)), params)
   assert unfused["fused_search"] == {
       "active": False, "reason": "disabled by config (search.fused)"}
-  stochastic = fused_status(net, _config(search=dict(policy="stochastic")),
-                            params)
-  assert not stochastic["fused_search"]["active"]
+  smz = make_stochastic_mlp_networks(2, num_chance_outcomes=4,
+                                     embedding_dim=4, support_size=5,
+                                     hidden=(8,), device="cpu")
+  stochastic = fused_status(
+      smz, _config(search=dict(policy="stochastic")),
+      smz.init_params((4,), torch.Generator().manual_seed(0)), rs)
+  assert stochastic["fused_search"] == {
+      "active": True, "reason": "Stochastic MuZero forest search kernel"}
+  assert stochastic["fused_sampler"] == {"active": True,
+                                         "reason": "active (hybrid)"}
+  assert not stochastic["fused_learner"]["active"]
 
 
 def test_unported_parts_raise(tmp_path):

@@ -53,8 +53,26 @@ def test_raw_rows_equal_jax_kernel(C, L, K, W, filled, done_rate):
 
 
 def test_per_step_obs_is_not_ported():
+  """The per-step-observation mode runs (it was refused before Stochastic
+  MuZero was ported): row f*K + j holds feature f of window step j, and
+  every other row is that of the start-observation mode, shifted by the
+  extra observation rows (tests/test_fused_sampler.py:242-258). The JAX
+  kernel's rows are held in tests/test_torch_smz_learner.py."""
   segs, prios = ring_numpy(0)
   state = torch_ring(jax_ring(segs, prios, 16, 8, 4, 2))
-  with pytest.raises(NotImplementedError, match="A.4"):
-    fused_sample_group(state, torch.zeros(8, dtype=torch.int64),
-                       torch.zeros(8, 8), 3, per_step_obs=True)
+  K, W = 3, 64
+  seg_idx = torch.from_numpy(np.random.default_rng(5).integers(0, 12, W))
+  gumbel = torch.from_numpy(np.random.default_rng(6).gumbel(
+      size=(8, W)).astype(np.float32))
+  raw, lay = fused_sample_group(state, seg_idx, gumbel, K, per_step_obs=True)
+  assert lay == make_raw_layout(4, K, 2, per_step_obs=True)
+  start = raw[lay.start].long()
+  for f in range(4):
+    for j in range(K):
+      torch.testing.assert_close(raw[lay.obs + f * K + j],
+                                 state.obs[seg_idx, start + j, f],
+                                 rtol=0, atol=0)
+  plain, plain_lay = fused_sample_group(state, seg_idx, gumbel, K)
+  torch.testing.assert_close(raw[lay.action:lay.tstep + 1],
+                             plain[plain_lay.action:plain_lay.tstep + 1],
+                             rtol=0, atol=0)

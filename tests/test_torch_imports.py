@@ -34,6 +34,10 @@ ENGINE = ("search.seq_halving", "search.tree", "search.qtransforms",
 # in search.fused and models.fused_learner).
 ACME = ("models.acme_networks", "models.convert", "train.inference",
         "config", "search.fused", "train.actor")
+# Stochastic MuZero's modules (its kernel's wrapper lives in search.fused,
+# the sampler's per_step_obs mode in replay.fused_sampler).
+SMZ = ("models.stochastic_networks", "models.stochastic_losses",
+       "search.types", "search.policies", "train.learner", "fused_status")
 
 
 def test_port_imports_no_jax():
@@ -42,7 +46,7 @@ def test_port_imports_no_jax():
   assert out.returncode == 0, out.stderr
   head, names = out.stdout.strip().splitlines()
   count, banned = head.split(" ", 1)
-  assert int(count) >= 43, out.stdout  # every module of the port was loaded
-  for name in TRAINING + ENGINE + ACME:
+  assert int(count) >= 45, out.stdout  # every module of the port was loaded
+  for name in TRAINING + ENGINE + ACME + SMZ:
     assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned

@@ -218,18 +218,20 @@ def test_dispatch_reasons():
 
   assert status()[0] == "raw"
   assert status(fused_sampler=False)[2] == "disabled by config (fused_sampler)"
-  assert "A.4" in status(fused_learner=False)[2]
+  assert status(fused_learner=False) == ("hybrid", None, "active (hybrid)")
   assert "observation_transform" in status(
       observation_transform=lambda g, o: o)[2]
   assert "exceeds" in status(unroll_steps=L + 1)[2]
 
 
 def test_generic_paths_train():
-  """The generic group path with the fused learner in batch mode, and with
-  autograd (fused_learner off); and make_update_fn."""
-  for train in (dict(fused_sampler=False), dict(fused_learner=False)):
+  """The generic group path with the fused learner in batch mode; the
+  hybrid path (fused_learner off: the fused sampler's per-step rows feed
+  autograd over muzero_loss); and make_update_fn."""
+  for train, mode in ((dict(fused_sampler=False), None),
+                      (dict(fused_learner=False), "hybrid")):
     *_, ts, rs, mu = _setup(**train)
-    assert mu.fused_group_status(ts, rs)[0] is None
+    assert mu.fused_group_status(ts, rs)[0] == mode
     ts, rs, metrics = mu(ts, rs, torch.Generator().manual_seed(1))
     assert ts.step == 2 and metrics["updates_done"] == 2
     assert all(bool(torch.isfinite(v)) for k, v in metrics.items()

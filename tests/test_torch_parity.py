@@ -93,7 +93,8 @@ def jax_ring(segs, prios, C, L, O, A):
 
 def torch_ring(j_state, device="cpu"):
   """The port's ring holding exactly the JAX ring's numbers."""
-  return replay_state_from_numpy(jax.tree.map(np.asarray, j_state), device)
+  return replay_state_from_numpy(jax.tree.map(np.asarray, j_state),
+                                 device=device)
 
 
 def assert_trees_close(port_tree, jax_tree, rtol, atol):
