@@ -5,7 +5,8 @@ Run from the root of a checkout, with no arguments:
   python3 chip_smoke.py
 
 Phase 0 builds every CUDA kernel of the port from the sources in the
-checkout, one ``nvcc`` per source, all at once. Phases 1 and 2 hold the
+checkout, one ``nvcc`` per source, all at once, and prints each kernel's
+registers and spill bytes as ``ptxas`` reports them. Phases 1 and 2 hold the
 search kernel against its plain PyTorch version at the rollout's shapes and
 at edge shapes. Phase 3 drives self-play, MuZero on CartPole
 (``make_rollout_fn`` at 8192 envs x 64 simulations x 20 steps, the rollout
@@ -43,17 +44,21 @@ the kernel's.
 Phases 12 to 15 drive the acme categorical family (``bench.py``'s
 ``make_networks("categorical")``: embedding 64, LayerNormMLP towers (256,
 256, 256), 51 linear bins over +-150) through the categorical modes of the
-search kernel and the categorical learner kernel. Phase 12 holds both
-policy modes of the search kernel against their plain version at
-``muzero_categorical``'s shape (2048 envs x 64 simulations, A = 2) and at an
+search kernel and the categorical learner's two kernels (all on the
+tensor cores, 3xTF32). Phase 12 holds both policy modes of the search kernel
+against their plain version at ``muzero_categorical``'s shape (2048 envs x
+64 simulations, A = 2), at ``categorical_training``'s 512 envs and at an
 edge shape (1003 envs, A = 3 with an invalid action, depth cap 2, towers
-(48, 32), 21 bins). Phase 13 drives ``make_rollout_fn`` at
+(48, 32), 21 bins), and at 2048 envs with A = 18, whose trees the kernel
+keeps in the device scratch rather than in shared memory. Phase 13 drives ``make_rollout_fn`` at
 ``muzero_categorical`` (2048 envs x 64 simulations x 20 steps) in each
 policy: exactly 20 launches of that mode and none of the others per
-rollout. Phase 14 holds the categorical learner kernel against autograd
-over the categorical ``muzero_loss`` on 1024 windows sampled from a ring of
-the family's own rollouts, and at an edge shape, with bit-identical
-repeats. Phase 15 drives one training iteration at ``categorical_training``
+rollout; it times the kernel at 2048 and at 512 envs. Phase 14 holds the
+categorical learner (its per-tile pass and its weight-gradient pass)
+against autograd over the categorical ``muzero_loss`` on 1024 windows
+sampled from a ring of the family's own rollouts, and at an edge shape,
+with bit-identical repeats, and times the two kernels together and each
+alone. Phase 15 drives one training iteration at ``categorical_training``
 (512 envs x 64 simulations x 20 steps, batch 1024, samples per insert 32,
 presample 16): exactly 20 + 20 + 320 launches, timed and profiled.
 
@@ -66,6 +71,7 @@ and bound; the last line is
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -107,8 +113,17 @@ SMZ_BATCH, SMZ_PRESAMPLE = 256, 64
 SMZ_PROFILE_UPDATES = 16
 SMZ_UPDATES = -(-int(TRAIN_SPI) * SMZ_ENVS * MAIN_STEPS // SMZ_BATCH)
 # Published peaks of the H100 SXM (NVIDIA's data sheet): f32 outside the
-# tensor cores, and HBM3.
+# tensor cores, and HBM3; the categorical kernels' products run on the
+# tensor cores in TF32 three times over (3xTF32), so their f32 operations
+# bound at a third of the 495 TFLOP/s TF32 rate.
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
+# The acme categorical family's search at categorical_training's envs.
+CAT_SEARCH_SMALL_ENVS = 512
+# Actions at which eight trees of 64 simulations no longer fit a block's
+# shared memory beside the activation rows (an Atari-sized action set), so
+# that the search keeps its trees in the device scratch at CAT_ENVS.
+SCRATCH_TREE_ACTIONS = 18
 
 
 def check(cond, message):
@@ -151,9 +166,10 @@ def search_macs(weights):
   return sum(w.shape[0] * w.shape[1] for w in linears)
 
 
-def search_bound_ms(batch, sims, weights, with_invalid, gumbel=False):
+def search_bound_ms(batch, sims, weights, with_invalid, gumbel=False,
+                    peak=PEAK_F32_FLOPS):
   """Least time for one search launch: the larger of its operations over
-  the f32 peak and its bytes over the memory rate. Operations are the two
+  ``peak`` and its bytes over the memory rate. Operations are the two
   towers' multiply-adds, once per expansion (batch x sims expansions); bytes
   are each input read once and each output written once. The Gumbel mode
   also reads the root score [B, A] and the schedule [B, sims]."""
@@ -165,7 +181,7 @@ def search_bound_ms(batch, sims, weights, with_invalid, gumbel=False):
   floats += weights.flat().numel()
   floats += batch * (2 * num_actions + 1)          # visits, value, q
   floats += batch * (num_actions + sims) * gumbel  # root score, schedule
-  t_ops = flops / PEAK_F32_FLOPS * 1e3
+  t_ops = flops / peak * 1e3
   t_bytes = 4.0 * floats / PEAK_BYTES_PER_S * 1e3
   return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -688,11 +704,12 @@ def sampler_bound_ms(lay, W, L):
   return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def learner_bound_ms(net, lay, B, n_weights):
+def learner_bound_ms(net, lay, B, n_weights, peak=PEAK_F32_FLOPS):
   """Least time for one learner launch. Operations: per window the
   forward's multiply-adds (representation, then K x prediction and
-  dynamics) and twice as many for the backward; bytes: the raw rows, coef
-  and weights read once, gradients, metrics and l2 written once."""
+  dynamics) and twice as many for the backward, over ``peak``; bytes: the
+  raw rows, coef and weights read once, gradients, metrics and l2 written
+  once."""
   E, A = net.embedding_dim, net.num_actions
   if hasattr(net, "num_bins"):
     bins = net.num_bins
@@ -711,10 +728,51 @@ def learner_bound_ms(net, lay, B, n_weights):
   fwd = (tower(lay.O, repr_h, (E,))
          + lay.K * (tower(E, pred_h, (bins, A))
                     + tower(E + A, dyn_h, (bins, E))))
-  t_ops = 2.0 * 3.0 * fwd * B / PEAK_F32_FLOPS * 1e3
+  t_ops = 2.0 * 3.0 * fwd * B / peak * 1e3
   floats = lay.rows * B + B + 2 * n_weights + 4 * B + 1
   t_bytes = 4.0 * floats / PEAK_BYTES_PER_S * 1e3
   return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ptxas_figures(logs):
+  """Registers and spill bytes of every kernel, from nvcc's -Xptxas -v
+  output by source; kernel templates are labelled by their arguments."""
+  figures = {}
+  for source, log in logs.items():
+    entry = None
+    for line in log.splitlines():
+      found = re.search(r"Compiling entry function '([^']+)'", line)
+      if found:
+        sym = found.group(1)
+        name = re.search(r"([a-z_]+_kernel)(I.*?EE)?", sym)
+        args = re.findall(r"L([bi])(\d+)E", name.group(2) or "")
+        label = name.group(1) + "".join(
+            f"<{'true' if v == '1' else 'false'}>" if k == "b" else f"<{v}>"
+            for k, v in args)
+        entry = figures.setdefault(f"{source}:{label}", {})
+      elif entry is not None and "spill stores" in line:
+        stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+        entry.update(spill_stores=int(stores), spill_loads=int(loads))
+      elif entry is not None and "registers" in line:
+        entry["registers"] = int(re.search(r"Used (\d+) registers",
+                                           line).group(1))
+  return figures
+
+
+def kernel_device_ms(fn, reps):
+  """Device time per call of each kernel that ``fn`` launches
+  (torch.profiler), or None where the profiler records no device time."""
+  from torch.profiler import ProfilerActivity, profile
+
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  times = {e.key: e.self_device_time_total / 1e3 / reps
+           for e in prof.key_averages() if e.self_device_time_total > 0}
+  return times or None
 
 
 def profile_iteration(one):
@@ -1082,10 +1140,9 @@ def run(device):
   t0 = time.perf_counter()
   logs = _build.build_all()
   build_s = time.perf_counter() - t0
-  for name, log in logs.items():
-    for line in log.splitlines():
-      if "registers" in line or "spill" in line:
-        print(f"  nvcc {name}: {line.strip()}")
+  ptxas = ptxas_figures(logs)
+  for label, fig in ptxas.items():
+    print(f"  ptxas {label}: {json.dumps(fig)}")
   print("phase 0 build: " + json.dumps({
       "seconds": build_s, "sources": list(logs), "torch": torch.__version__,
       "cuda": torch.version.cuda}))
@@ -1227,14 +1284,26 @@ def run(device):
     cat_cmp[policy] = {
         "main": search_against_plain(device, policy, "categorical", 2,
                                      CAT_ENVS, CAT_NET),
+        "main_512": search_against_plain(device, policy, "categorical", 2,
+                                         CAT_SEARCH_SMALL_ENVS, CAT_NET),
         "edge": search_against_plain(device, policy, "categorical", 3,
                                      EDGE_ENVS, CAT_EDGE_NET,
-                                     with_invalid=True, max_depth=2)}
-  print(f"phase 12 categorical search kernel vs plain, B={CAT_ENVS} "
-        f"sims={MAIN_SIMS} A=2 E=64 H=(256, 256, 256) 51 bins +-150; "
-        f"B={EDGE_ENVS} A=3 with one invalid action, max_depth=2, H=(48, "
-        f"32), 21 bins: {json.dumps(cat_cmp)} "
-        f"({time.perf_counter() - t0:.1f} s)")
+                                     with_invalid=True, max_depth=2),
+        "trees_in_scratch": search_against_plain(
+            device, policy, "categorical", SCRATCH_TREE_ACTIONS, CAT_ENVS,
+            CAT_NET)}
+  widths = [CAT_NET["num_bins"], *CAT_NET["layer_sizes"] * 2]
+  plan = fused.tiled_plan(CAT_ENVS, SCRATCH_TREE_ACTIONS,
+                          CAT_NET["embedding_dim"], MAIN_SIMS, widths,
+                          fused.device_limits(device))
+  check(not plan.smem_trees, f"A={SCRATCH_TREE_ACTIONS} keeps its trees in "
+        "the device scratch")
+  print(f"phase 12 categorical search kernel vs plain, B={CAT_ENVS} and "
+        f"B={CAT_SEARCH_SMALL_ENVS} sims={MAIN_SIMS} A=2 E=64 H=(256, 256, "
+        f"256) 51 bins +-150; B={EDGE_ENVS} A=3 with one invalid action, "
+        f"max_depth=2, H=(48, 32), 21 bins; B={CAT_ENVS} "
+        f"A={SCRATCH_TREE_ACTIONS}, trees in the device scratch ({plan}): "
+        f"{json.dumps(cat_cmp)} ({time.perf_counter() - t0:.1f} s)")
 
   t0 = time.perf_counter()
   cat_roll = {}
@@ -1249,11 +1318,32 @@ def run(device):
     cat_figures["plain_search_ms"] = time_ms(lambda: plain(*args, **kwargs),
                                              1)
     cat_figures["bound_ms"], cat_figures["bound_by"] = search_bound_ms(
-        CAT_ENVS, MAIN_SIMS, args[3], False, gumbel=gumbel)
+        CAT_ENVS, MAIN_SIMS, args[3], False, gumbel=gumbel,
+        peak=PEAK_3XTF32_FLOPS)
+    cat_figures["bound_f32_fma_ms"] = search_bound_ms(
+        CAT_ENVS, MAIN_SIMS, args[3], False, gumbel=gumbel)[0]
     cat_figures["macs_per_expansion"] = search_macs(args[3])
+    # The same kernel at categorical_training's envs, on the first 512 of
+    # the rollout's roots.
+    small = CAT_SEARCH_SMALL_ENVS
+    args_s = tuple(a[:small].contiguous() for a in args[:3]) + (args[3],)
+    kwargs_s = dict(kwargs)
+    if gumbel:
+      kwargs_s["root_score"] = kwargs["root_score"][:small].contiguous()
+      kwargs_s["schedule"] = kwargs["schedule"][:small].contiguous()
+    cat_figures["search_ms_512"] = time_ms(
+        lambda: fused._fused_search_cuda(*args_s, **kwargs_s), 5)
+    cat_figures["plain_search_ms_512"] = time_ms(
+        lambda: plain(*args_s, **kwargs_s), 1)
+    cat_figures["bound_ms_512"] = search_bound_ms(
+        small, MAIN_SIMS, args[3], False, gumbel=gumbel,
+        peak=PEAK_3XTF32_FLOPS)[0]
+    cat_figures["bound_f32_fma_ms_512"] = search_bound_ms(
+        small, MAIN_SIMS, args[3], False, gumbel=gumbel)[0]
     cat_roll[policy] = cat_figures
   print(f"phase 13 categorical rollout, {CAT_ENVS} envs x {MAIN_SIMS} sims x "
-        f"{MAIN_STEPS} steps, each policy: {json.dumps(cat_roll)} "
+        f"{MAIN_STEPS} steps, each policy, and the kernel at "
+        f"{CAT_SEARCH_SMALL_ENVS} envs: {json.dumps(cat_roll)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
   t0 = time.perf_counter()
@@ -1272,17 +1362,25 @@ def run(device):
           / CAT_BATCH).contiguous()
   spec = fused_learner.extract_categorical_learner_spec(tc.net, tc.ts.params)
   kw = loss_kwargs(tc.config)
+  def learn():
+    return fused_learner._grad_cuda(spec, raw_b, coef, lay,
+                                    l2_coef=kw["l2_coef"],
+                                    gradient_scale=kw["gradient_scale"])
+
+  # The wrapper launches both kernels (the per-tile pass and the
+  # weight-gradient pass): its time is their sum.
   cat_learner = {
       "main": cat_learn_main, "edge": cat_learn_edge,
-      "kernel_ms": time_ms(lambda: fused_learner._grad_cuda(
-          spec, raw_b, coef, lay, l2_coef=kw["l2_coef"],
-          gradient_scale=kw["gradient_scale"]), 10),
+      "kernel_ms": time_ms(learn, 10),
+      "by_kernel_ms": kernel_device_ms(learn, 10),
       "plain_ms": time_ms(
           lambda: fused_learner.fused_muzero_grad_raw_reference(
               tc.ts.params, raw_b, coef, lay, tc.net, **kw), 3),
       "n_weights": spec.flat.numel()}
   cat_learner["bound_ms"], cat_learner["bound_by"] = learner_bound_ms(
-      tc.net, lay, CAT_BATCH, spec.flat.numel())
+      tc.net, lay, CAT_BATCH, spec.flat.numel(), peak=PEAK_3XTF32_FLOPS)
+  cat_learner["bound_f32_fma_ms"] = learner_bound_ms(
+      tc.net, lay, CAT_BATCH, spec.flat.numel())[0]
   print(f"phase 14 categorical learner vs plain, B={CAT_BATCH} on sampled "
         f"windows (bench widths), B=300 A=3 H=(48, 32) with masks; repeated "
         f"launches bit-identical: {json.dumps(cat_learner)} "

@@ -19,6 +19,8 @@ import threading
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
+# The sources of the package's paths; ``load`` also builds any other source
+# under ``csrc/`` on demand (``tc_tile_check``, for the GPU tests).
 SOURCES = ("fused_search", "fused_sampler", "fused_learner", "fused_smz")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -71,7 +73,8 @@ def _finish(name: str, job) -> str:
 
 
 def build_all() -> dict:
-  """Build every kernel source in parallel; returns nvcc's output by name."""
+  """Build every source in ``SOURCES`` in parallel; returns nvcc's output by
+  name."""
   jobs = {name: _start(name) for name in SOURCES}
   return {name: _finish(name, job) for name, job in jobs.items()}
 

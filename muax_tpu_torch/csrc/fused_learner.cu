@@ -1,8 +1,9 @@
 // Fused MuZero learner: the K-step unrolled loss and its hand-derived
-// backward for a batch of windows, for Hopper (sm_90a). Two kernels: the MLP
-// spec's (fused_muzero_grad_kernel, below) and the categorical LearnerSpec's
-// (fused_categorical_grad_kernel, entry mz_fused_categorical_grad, whose
-// design is described at the kernel); both end in finish_grads_kernel.
+// backward for a batch of windows, for Hopper (sm_90a). The MLP spec's
+// fused_muzero_grad_kernel (below) ends in finish_grads_kernel; the
+// categorical LearnerSpec's is categorical_tile_kernel and the
+// weight-gradient pass categorical_dw_kernel (entry
+// mz_fused_categorical_grad, whose design is described at the kernels).
 //
 // Replaces the TPU kernel muax_tpu/models/fused_learner.py `_make_kernel`
 // in raw mode with the MLP spec (elu towers, h-support heads), which
@@ -47,7 +48,7 @@
 #include <math.h>
 #include <stddef.h>
 
-#include "tile_gemm.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -532,7 +533,7 @@ finish_grads_kernel(const float* __restrict__ partial, int G, int n,
   if (threadIdx.x == 0) l2[0] = 0.5f * l2_coef * red[0];
 }
 
-// ---- the categorical LearnerSpec: a tile of windows per block -------------
+// ---- the categorical LearnerSpec: two kernels --------------------------
 //
 // Replaces the same TPU kernel with the categorical spec
 // (`extract_categorical_learner_spec`, muax_tpu/models/fused_learner.py:180):
@@ -540,28 +541,41 @@ finish_grads_kernel(const float* __restrict__ partial, int G, int n,
 // two-hot targets (:371-381), v0 the linear expectation (:523-525). At the
 // widths of bench.py's categorical_training (three towers of (256, 256,
 // 256), about 490 K weights) neither the weights nor one warp's gradient sum
-// fit in shared memory, so this kernel is organised around products instead
-// of windows. A block owns kCatTile windows and keeps every activation of
-// their forward pass in a device-memory scratch of its own; each layer runs
-// as one [rows, in] x [in, out] product (rows: the tile's windows for the
-// representation and for each dynamics step, all K steps at once for the
-// prediction, which only the dynamics chain feeds). The backward runs the
-// prediction over all steps, then the dynamics from the last step back, then
-// the representation, keeping each layer's dZ; then every layer's dW is one
-// product dZ^T X over all the rows that used it, written to the block's own
-// row of the [G, n_weights] scratch, and the biases and LayerNorm
-// parameters are column sums in row order. finish_grads_kernel then adds the
-// G rows in a fixed order. No float atomics: two launches on the same inputs
-// give bit-identical gradients.
+// fit in shared memory, so the work is organised around products.
+//
+// categorical_tile_kernel: a block owns kCatTile windows and keeps every
+// activation of their forward pass in a device-memory scratch of its own;
+// each layer runs as one [rows, in] x [in, out] product on the tensor cores
+// (tc_tile.cuh, 3xTF32; rows: the tile's windows for the representation and
+// for each dynamics step, all K steps at once for the prediction, which only
+// the dynamics chain feeds). The backward runs the prediction over all
+// steps, then the dynamics from the last step back, then the
+// representation, and leaves each layer's dZ (and, for a LayerNorm layer,
+// dU and x-hat) in the scratch.
+//
+// categorical_dw_kernel: the weight-gradient pass. The TPU kernel sums dW
+// in VMEM across its sequential grid (:598-614); here the blocks of the
+// first kernel run in parallel, so a second kernel reads their scratch. Each
+// of its blocks owns one 32 x 32 tile of one dW = dZ^T X (its eight warps
+// take a half of the tile's rows and a quarter of the first kernel's blocks
+// each, in order, and the quarters are added in order), or 8 columns of one
+// layer's bias and LayerNorm gradients (32 slices of the blocks, added in
+// order), or the l2 sum; it writes grads = l2_coef w + dW directly. No float
+// atomics, every sum in a fixed order: two launches on the same inputs give
+// bit-identical gradients.
 //
 // What bounds it: per window about 1.84 M multiply-adds forward and twice
-// that backward at K = 5, so 1024 windows are about 11.3 GFLOP, 0.17 ms at
-// the f32 peak; the scratch traffic is a few hundred MB in L2. This first
-// version runs plain FMA products (tile_gemm.cuh) with a block-wide barrier
-// around each, and 64 blocks fill half the SMs at batch 1024.
+// that backward at K = 5, so 1024 windows are about 11.3 GFLOP: 0.17 ms at
+// the f32 FMA peak, 0.069 ms at the TF32 tensor-core peak taken three times
+// (3xTF32). kCatTile = 8 gives 128 blocks at batch 1024, one per SM, and
+// 16 warps a block keep twice the loads of eight in flight, each on a
+// 16 x 16 tile of a product.
 
-constexpr int kCatTile = 16;
-constexpr int kCatWarps = mz_tile::kThreads / 32;
+constexpr int kCatTile = 8;
+constexpr int kCatThreads = 512;  // categorical_tile_kernel
+constexpr int kCatWarps = kCatThreads / 32;
+constexpr int kDwThreads = 256;   // categorical_dw_kernel
+constexpr int kDwWarps = kDwThreads / 32;
 
 struct CatTower {
   int n, in, n_heads;
@@ -587,6 +601,29 @@ struct CatArgs {
   long ds, dsd, dx0, dx1, ce;  // scratch: gradients into s, temporaries, CEs
 };
 
+// One linear of the towers as the weight-gradient pass reads it: the
+// scratch offsets of its input rows X and of dZ (and, for a LayerNorm
+// layer, x-hat and dU; -1 otherwise), its shape, the rows each block of the
+// first kernel holds, and where W [out, in] starts in the flat parameters
+// (b [out] follows, then the LayerNorm's scale and offset).
+struct DwLinear {
+  long x, dz, xh, du;
+  int in, out, rows, w_off;
+};
+
+constexpr int kDwTile = 32;   // dW tiles are kDwTile x kDwTile
+constexpr int kColChunk = 8;  // columns of a bias-gradient block
+
+struct DwArgs {
+  int n_lin, G, n_weights;
+  long block_floats;
+  float l2_coef;
+  DwLinear lin[kMaxLin];
+  // Blocks before linear l's dW tiles, and before its column-sum blocks
+  // (after every dW tile); the last block sums l2.
+  int tile0[kMaxLin + 1], col0[kMaxLin + 1];
+};
+
 // Linear two-hot over bins j: vmin + j * step (ops/support.py
 // scalar_to_two_hot, the kernel's :371-381).
 struct LinearTwoHot {
@@ -605,9 +642,9 @@ __device__ LinearTwoHot linear_two_hot(float x, const CatArgs& g) {
 }
 
 // The forward of a tower's hidden layers on rows [r0, r0 + rows).
-__device__ void cat_tower_fwd(const CatArgs& g, const CatTower& tw,
-                              const float* Wt, float* base, int r0, int rows,
-                              float* gsm, int warp, int lane) {
+__device__ void cat_tower_fwd(const CatTower& tw, const float* Wt,
+                              float* base, int r0, int rows, int warp,
+                              int lane) {
   const float* x = base + tw.x0 + static_cast<long>(r0) * tw.in;
   int in = tw.in;
   for (int l = 0; l < tw.n; ++l) {
@@ -615,8 +652,7 @@ __device__ void cat_tower_fwd(const CatArgs& g, const CatTower& tw,
     const float* W = Wt + tw.w_off[l];
     const float* b = W + out * in;
     float* y = base + tw.y[l] + static_cast<long>(r0) * out;
-    mz_tile::gemm(rows, out, in, x, in, 1, W, 1, in, y, out, 1, b, false,
-                  gsm);
+    mz_tc::gemm(rows, out, in, x, in, 1, W, 1, in, y, out, 1, b, false);
     __syncthreads();
     for (int r = warp; r < rows; r += kCatWarps) {
       float* yr = y + static_cast<long>(r) * out;
@@ -652,27 +688,26 @@ __device__ void cat_tower_fwd(const CatArgs& g, const CatTower& tw,
 
 // A head of a tower on rows [r0, r0 + rows): hz = last hidden @ W^T + b.
 __device__ void cat_head_fwd(const CatTower& tw, int h, const float* Wt,
-                             float* base, int r0, int rows, float* gsm) {
+                             float* base, int r0, int rows) {
   const int in = tw.width[tw.n - 1], out = tw.head_out[h];
   const float* x = base + tw.y[tw.n - 1] + static_cast<long>(r0) * in;
   const float* W = Wt + tw.head_off[h];
-  mz_tile::gemm(rows, out, in, x, in, 1, W, 1, in,
-                base + tw.hz[h] + static_cast<long>(r0) * out, out, 1,
-                W + out * in, false, gsm);
+  mz_tc::gemm(rows, out, in, x, in, 1, W, 1, in,
+              base + tw.hz[h] + static_cast<long>(r0) * out, out, 1,
+              W + out * in, false);
   __syncthreads();
 }
 
 // dy (rows [r0, r0 + rows) of the gradient at a head's input) from the
 // heads' dZ: sum_h dh_h @ W_h.
 __device__ void cat_heads_bwd(const CatTower& tw, const float* Wt,
-                              float* base, int r0, int rows, float* dy,
-                              float* gsm) {
+                              float* base, int r0, int rows, float* dy) {
   const int in = tw.width[tw.n - 1];
   for (int h = 0; h < tw.n_heads; ++h) {
     const int out = tw.head_out[h];
-    mz_tile::gemm(rows, in, out,
-                  base + tw.dh[h] + static_cast<long>(r0) * out, out, 1,
-                  Wt + tw.head_off[h], in, 1, dy, in, 1, nullptr, h > 0, gsm);
+    mz_tc::gemm(rows, in, out, base + tw.dh[h] + static_cast<long>(r0) * out,
+                out, 1, Wt + tw.head_off[h], in, 1, dy, in, 1, nullptr,
+                h > 0);
     __syncthreads();
   }
 }
@@ -684,8 +719,8 @@ __device__ void cat_heads_bwd(const CatTower& tw, const float* Wt,
 // widest layer].
 __device__ void cat_tower_bwd(const CatTower& tw, const float* Wt,
                               float* base, int r0, int rows, float* dy,
-                              float* tmp, float* dx_out, int nx, float* gsm,
-                              int warp, int lane) {
+                              float* tmp, float* dx_out, int nx, int warp,
+                              int lane) {
   for (int l = tw.n - 1; l >= 0; --l) {
     const int out = tw.width[l];
     const int in = l > 0 ? tw.width[l - 1] : tw.in;
@@ -721,82 +756,32 @@ __device__ void cat_tower_bwd(const CatTower& tw, const float* Wt,
     }
     __syncthreads();
     if (l > 0) {
-      mz_tile::gemm(rows, in, out, dz, out, 1, W, in, 1, tmp, in, 1, nullptr,
-                    false, gsm);
+      mz_tc::gemm(rows, in, out, dz, out, 1, W, in, 1, tmp, in, 1, nullptr,
+                  false);
       __syncthreads();
       float* t = dy;
       dy = tmp;
       tmp = t;
     } else if (nx > 0) {
-      mz_tile::gemm(rows, nx, out, dz, out, 1, W, in, 1, dx_out, nx, 1,
-                    nullptr, false, gsm);
+      mz_tc::gemm(rows, nx, out, dz, out, 1, W, in, 1, dx_out, nx, 1,
+                  nullptr, false);
       __syncthreads();
     }
   }
 }
 
-// Column sums over `rows` rows of [rows, n] (times the matching entries of
-// `mul` when given) into out[n], in row order; one thread per column.
-__device__ void col_sums(const float* x, const float* mul, int rows, int n,
-                         float* out) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const long i = static_cast<long>(r) * n + j;
-      s += mul ? x[i] * mul[i] : x[i];
-    }
-    out[j] = s;
-  }
-}
-
-// Every parameter gradient of a tower over its `rows` rows into `part` (the
-// block's row of the [G, n_weights] scratch, in the parameters' layout).
-__device__ void cat_tower_dw(const CatTower& tw, float* base, int rows,
-                             float* part, float* gsm) {
-  for (int l = 0; l < tw.n; ++l) {
-    const int out = tw.width[l];
-    const int in = l > 0 ? tw.width[l - 1] : tw.in;
-    const float* x = base + (l > 0 ? tw.y[l - 1] : tw.x0);
-    const float* dz = base + tw.dz[l];
-    float* dw = part + tw.w_off[l];
-    mz_tile::gemm(out, in, rows, dz, 1, out, x, in, 1, dw, in, 1, nullptr,
-                  false, gsm);
-    col_sums(dz, nullptr, rows, out, dw + out * in);
-    if (tw.kind[l] == 1) {
-      const float* du = base + tw.du[l];
-      col_sums(du, base + tw.xh[l], rows, out, dw + out * in + out);
-      col_sums(du, nullptr, rows, out, dw + out * in + 2 * out);
-    }
-    __syncthreads();
-  }
-  const int in = tw.width[tw.n - 1];
-  const float* x = base + tw.y[tw.n - 1];
-  for (int h = 0; h < tw.n_heads; ++h) {
-    const int out = tw.head_out[h];
-    const float* dz = base + tw.dh[h];
-    float* dw = part + tw.head_off[h];
-    mz_tile::gemm(out, in, rows, dz, 1, out, x, in, 1, dw, in, 1, nullptr,
-                  false, gsm);
-    col_sums(dz, nullptr, rows, out, dw + out * in);
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(mz_tile::kThreads)
-fused_categorical_grad_kernel(const float* __restrict__ raw,
-                              const float* __restrict__ coef,
-                              const float* __restrict__ weights,
-                              float* __restrict__ partial,
-                              float* __restrict__ scratch,
-                              float* __restrict__ met, const CatArgs g) {
-  __shared__ __align__(16) float gsm[mz_tile::kSmemFloats];
+__global__ void __launch_bounds__(kCatThreads, 1)
+categorical_tile_kernel(const float* __restrict__ raw,
+                        const float* __restrict__ coef,
+                        const float* __restrict__ weights,
+                        float* __restrict__ scratch, float* __restrict__ met,
+                        const CatArgs g) {
   constexpr int T = kCatTile;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int w0 = blockIdx.x * T;
   const int E = g.E, A = g.A, bins = g.bins, K = g.K, KT = K * T;
   float* base = scratch + blockIdx.x * g.block_floats;
-  float* part = partial + static_cast<long>(blockIdx.x) * g.n_weights;
   const size_t ld = static_cast<size_t>(g.ld);
   // Raw row `row` of the tile's window t; 0 past the batch.
   auto rawv = [&](int row, int t) {
@@ -814,8 +799,8 @@ fused_categorical_grad_kernel(const float* __restrict__ raw,
   for (int i = threadIdx.x; i < T * g.O; i += blockDim.x)
     base[rp.x0 + i] = rawv(g.r_obs + i % g.O, i / g.O);
   __syncthreads();
-  cat_tower_fwd(g, rp, weights, base, 0, T, gsm, warp, lane);
-  cat_head_fwd(rp, 0, weights, base, 0, T, gsm);
+  cat_tower_fwd(rp, weights, base, 0, T, warp, lane);
+  cat_head_fwd(rp, 0, weights, base, 0, T);
   for (int r = warp; r < T; r += kCatWarps)
     minmax(base + rp.hz[0] + r * E, S + r * E, E, lane);
   __syncthreads();
@@ -829,9 +814,9 @@ fused_categorical_grad_kernel(const float* __restrict__ raw,
         x[j] = j < E ? s[j] : (j - E == a ? 1.f : 0.f);
     }
     __syncthreads();
-    cat_tower_fwd(g, dp, weights, base, r0, T, gsm, warp, lane);
-    cat_head_fwd(dp, 0, weights, base, r0, T, gsm);
-    cat_head_fwd(dp, 1, weights, base, r0, T, gsm);
+    cat_tower_fwd(dp, weights, base, r0, T, warp, lane);
+    cat_head_fwd(dp, 0, weights, base, r0, T);
+    cat_head_fwd(dp, 1, weights, base, r0, T);
     for (int r = warp; r < T; r += kCatWarps) {
       float* rz = base + dp.hz[0] + static_cast<long>(r0 + r) * bins;
       const float c =
@@ -844,9 +829,9 @@ fused_categorical_grad_kernel(const float* __restrict__ raw,
     }
     __syncthreads();
   }
-  cat_tower_fwd(g, pp, weights, base, 0, KT, gsm, warp, lane);
-  cat_head_fwd(pp, 0, weights, base, 0, KT, gsm);
-  cat_head_fwd(pp, 1, weights, base, 0, KT, gsm);
+  cat_tower_fwd(pp, weights, base, 0, KT, warp, lane);
+  cat_head_fwd(pp, 0, weights, base, 0, KT);
+  cat_head_fwd(pp, 1, weights, base, 0, KT);
   for (int r = warp; r < KT; r += kCatWarps) {
     const int i = r / T, t = r % T;
     float* pz = base + pp.hz[0] + static_cast<long>(r) * A;
@@ -894,7 +879,8 @@ fused_categorical_grad_kernel(const float* __restrict__ raw,
     float* dpz = base + pp.dh[0] + static_cast<long>(r) * A;
     float* dvz = base + pp.dh[1] + static_cast<long>(r) * bins;
     const int pi_row = g.r_pi + i * A;
-    for (int j = lane; j < A; j += 32) dpz[j] = cm * (pz[j] - rawv(pi_row + j, t));
+    for (int j = lane; j < A; j += 32)
+      dpz[j] = cm * (pz[j] - rawv(pi_row + j, t));
     const LinearTwoHot vt = linear_two_hot(rawv(g.r_rn + i, t), g);
     for (int j = lane; j < bins; j += 32) dvz[j] = cm * (vz[j] - vt(j));
   }
@@ -902,9 +888,8 @@ fused_categorical_grad_kernel(const float* __restrict__ raw,
   float* dx0 = base + g.dx0;
   float* dx1 = base + g.dx1;
   float* dspred = base + g.dsd + T * E;  // [K*T, E]
-  cat_heads_bwd(pp, weights, base, 0, KT, dx0, gsm);
-  cat_tower_bwd(pp, weights, base, 0, KT, dx0, dx1, dspred, E, gsm, warp,
-                lane);
+  cat_heads_bwd(pp, weights, base, 0, KT, dx0);
+  cat_tower_bwd(pp, weights, base, 0, KT, dx0, dx1, dspred, E, warp, lane);
 
   // ---- backward: dynamics, last step first ---------------------------------
   float* ds = base + g.ds;    // [T, E]: the gradient into s_{i+1}
@@ -925,9 +910,8 @@ fused_categorical_grad_kernel(const float* __restrict__ raw,
       __syncwarp();
     }
     __syncthreads();
-    cat_heads_bwd(dp, weights, base, r0, T, dx0, gsm);
-    cat_tower_bwd(dp, weights, base, r0, T, dx0, dx1, dsd, E, gsm, warp,
-                  lane);
+    cat_heads_bwd(dp, weights, base, r0, T, dx0);
+    cat_tower_bwd(dp, weights, base, r0, T, dx0, dx1, dsd, E, warp, lane);
     // s_i feeds the prediction as is and the dynamics through
     // scale_gradient.
     for (int j = threadIdx.x; j < T * E; j += blockDim.x)
@@ -940,14 +924,135 @@ fused_categorical_grad_kernel(const float* __restrict__ raw,
     minmax_bwd(base + rp.hz[0] + r * E, ds + r * E, base + rp.dh[0] + r * E,
                E, lane);
   __syncthreads();
-  cat_heads_bwd(rp, weights, base, 0, T, dx0, gsm);
-  cat_tower_bwd(rp, weights, base, 0, T, dx0, dx1, nullptr, 0, gsm, warp,
-                lane);
+  cat_heads_bwd(rp, weights, base, 0, T, dx0);
+  cat_tower_bwd(rp, weights, base, 0, T, dx0, dx1, nullptr, 0, warp, lane);
+}
 
-  // ---- weight gradients of the tile ------------------------------------------
-  cat_tower_dw(rp, base, T, part, gsm);
-  cat_tower_dw(pp, base, KT, part, gsm);
-  cat_tower_dw(dp, base, KT, part, gsm);
+// The blocks of the first kernel that warp (or row slice) `part` of
+// `parts` sums over: an even split, in order.
+__device__ __forceinline__ int block_lo(int G, int part, int parts) {
+  return static_cast<int>(static_cast<long>(G) * part / parts);
+}
+
+// One kDwTile x kDwTile tile of dW = dZ^T X of linear L: warp w sums rows
+// [16 (w % 2), 16 (w % 2) + 16) of it over the first kernel's blocks of
+// slice w / 2 (a quarter of them, in order), the block adds the four
+// slices in order, and grads = l2_coef * w + dW.
+__device__ void dw_tile(const DwArgs& g, const DwLinear& L, int m0, int n0,
+                        const float* scratch, const float* weights,
+                        float* grads, float* red) {
+  constexpr int kSlices = kDwWarps / 2;
+  const int warp = threadIdx.x >> 5;
+  const int half = warp % 2, slice = warp / 2;
+  float acc[1][4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) acc[0][j][h] = 0.f;
+  const int out = L.out, in = L.in;
+  const int mh = m0 + 16 * half;  // this warp's first row of the tile
+  if (mh < out) {
+    const int hi = block_lo(g.G, slice + 1, kSlices);
+    for (int b = block_lo(g.G, slice, kSlices); b < hi; ++b) {
+      const float* dz = scratch + b * g.block_floats + L.dz;  // [rows, out]
+      const float* x = scratch + b * g.block_floats + L.x;    // [rows, in]
+      mz_tc::warp_tile<1, 4, mz_tc::chunk_steps<1, 4, true>(), true>(
+          out - mh, in - n0, L.rows, dz + mh, 1, out, x + n0, in, 1, acc);
+    }
+  }
+  float* mine = red + warp * 16 * kDwTile;
+  mz_tc::for_each(acc, 0, 0, 16, kDwTile,
+                  [&](int m, int n, float v) { mine[m * kDwTile + n] = v; });
+  __syncthreads();
+  for (int e = threadIdx.x; e < kDwTile * kDwTile; e += blockDim.x) {
+    const int m = e / kDwTile, n = e % kDwTile;
+    const int o = m0 + m, i = n0 + n;
+    if (o >= out || i >= in) continue;
+    float s = 0.f;
+    for (int v = 0; v < kSlices; ++v)
+      s += red[(2 * v + m / 16) * 16 * kDwTile + (m % 16) * kDwTile + n];
+    const long k = L.w_off + static_cast<long>(o) * in + i;
+    grads[k] = g.l2_coef * weights[k] + s;
+  }
+}
+
+// The bias gradient (and, for a LayerNorm layer, its scale's and offset's)
+// of columns [c0, c0 + kColChunk) of linear L: thread (slice, column) sums
+// a slice of the first kernel's blocks in order, then the slices are added
+// in order.
+__device__ void dw_columns(const DwArgs& g, const DwLinear& L, int c0,
+                           const float* scratch, const float* weights,
+                           float* grads, float* red) {
+  constexpr int kSlices = kDwThreads / kColChunk;
+  const int slice = threadIdx.x / kColChunk, c = threadIdx.x % kColChunk;
+  const int o = c0 + c, out = L.out;
+  const bool ln = L.du >= 0;
+  float db = 0.f, dscale = 0.f, doffset = 0.f;
+  if (o < out) {
+    const int hi = block_lo(g.G, slice + 1, kSlices);
+    for (int b = block_lo(g.G, slice, kSlices); b < hi; ++b) {
+      const float* blk = scratch + b * g.block_floats + o;
+#pragma unroll 8
+      for (int r = 0; r < L.rows; ++r) {
+        const long at = static_cast<long>(r) * out;
+        db += blk[L.dz + at];
+        if (ln) {
+          const float du = blk[L.du + at];
+          dscale += du * blk[L.xh + at];
+          doffset += du;
+        }
+      }
+    }
+  }
+  red[threadIdx.x] = db;
+  red[kDwThreads + threadIdx.x] = dscale;
+  red[2 * kDwThreads + threadIdx.x] = doffset;
+  __syncthreads();
+  if (slice != 0 || o >= out) return;
+  for (int q = 0; q < (ln ? 3 : 1); ++q) {
+    float s = 0.f;
+    for (int v = 0; v < kSlices; ++v)
+      s += red[q * kDwThreads + v * kColChunk + c];
+    const long k = L.w_off + static_cast<long>(out) * L.in + q * out + o;
+    grads[k] = g.l2_coef * weights[k] + s;
+  }
+}
+
+__global__ void __launch_bounds__(kDwThreads, 2)
+categorical_dw_kernel(const float* __restrict__ scratch,
+                      const float* __restrict__ weights,
+                      float* __restrict__ grads, float* __restrict__ l2,
+                      const DwArgs g) {
+  __shared__ __align__(16) float red[kDwWarps * 16 * kDwTile];
+  const int blk = blockIdx.x;
+  if (blk < g.tile0[g.n_lin]) {
+    int l = 0;
+    while (blk >= g.tile0[l + 1]) ++l;
+    const DwLinear& L = g.lin[l];
+    const int tiles_n = (L.in + kDwTile - 1) / kDwTile;
+    const int t = blk - g.tile0[l];
+    dw_tile(g, L, t / tiles_n * kDwTile, t % tiles_n * kDwTile, scratch,
+            weights, grads, red);
+    return;
+  }
+  if (blk < g.col0[g.n_lin]) {
+    int l = 0;
+    while (blk >= g.col0[l + 1]) ++l;
+    dw_columns(g, g.lin[l], (blk - g.col0[l]) * kColChunk, scratch, weights,
+               grads, red);
+    return;
+  }
+  // l2 = 0.5 * l2_coef * sum w^2, in a fixed order.
+  float s = 0.f;
+  for (int k = threadIdx.x; k < g.n_weights; k += blockDim.x)
+    s = fmaf(weights[k], weights[k], s);
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int half = kDwThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) l2[0] = 0.5f * g.l2_coef * red[0];
 }
 
 // Fills a tower's parameter offsets (from *off, in the parameters' order:
@@ -978,9 +1083,9 @@ bool cat_tower(CatTower* tw, int in, int n, const int* widths,
     *off += static_cast<long>(out) * width + out + (kinds[l] ? 2 * out : 0);
     tw->y[l] = take(static_cast<long>(rows) * out);
     tw->dz[l] = take(static_cast<long>(rows) * out);
-    tw->xh[l] = kinds[l] ? take(static_cast<long>(rows) * out) : 0;
-    tw->du[l] = kinds[l] ? take(static_cast<long>(rows) * out) : 0;
-    tw->inv[l] = kinds[l] ? take(rows) : 0;
+    tw->xh[l] = kinds[l] ? take(static_cast<long>(rows) * out) : -1;
+    tw->du[l] = kinds[l] ? take(static_cast<long>(rows) * out) : -1;
+    tw->inv[l] = kinds[l] ? take(rows) : -1;
     if (out > *max_w) *max_w = out;
     width = out;
   }
@@ -1032,6 +1137,42 @@ bool cat_layout(CatArgs* g, int O, int E, int A, int bins, int K,
   cur += 3L * KT + T;
   g->block_floats = (cur + 3) / 4 * 4;
   return true;
+}
+
+// The weight-gradient pass's linears (the parameters' order) and its block
+// table for G blocks of the first kernel.
+void dw_layout(DwArgs* d, const CatArgs& g, int G, float l2_coef) {
+  d->n_lin = 0;
+  d->G = G;
+  d->n_weights = g.n_weights;
+  d->block_floats = g.block_floats;
+  d->l2_coef = l2_coef;
+  auto add = [&](long x, long dz, long xh, long du, int in, int out,
+                 int rows, int w_off) {
+    d->lin[d->n_lin++] = DwLinear{x, dz, xh, du, in, out, rows, w_off};
+  };
+  const CatTower* towers[3] = {&g.repr, &g.pred, &g.dyn};
+  for (int t = 0; t < 3; ++t) {
+    const CatTower& tw = *towers[t];
+    const int rows = t == 0 ? kCatTile : g.K * kCatTile;
+    int in = tw.in;
+    for (int l = 0; l < tw.n; ++l) {
+      add(l > 0 ? tw.y[l - 1] : tw.x0, tw.dz[l], tw.xh[l], tw.du[l], in,
+          tw.width[l], rows, tw.w_off[l]);
+      in = tw.width[l];
+    }
+    for (int h = 0; h < tw.n_heads; ++h)
+      add(tw.y[tw.n - 1], tw.dh[h], -1, -1, in, tw.head_out[h], rows,
+          tw.head_off[h]);
+  }
+  auto up = [](int n, int by) { return (n + by - 1) / by; };
+  d->tile0[0] = 0;
+  for (int l = 0; l < d->n_lin; ++l)
+    d->tile0[l + 1] = d->tile0[l] + up(d->lin[l].out, kDwTile) *
+                                        up(d->lin[l].in, kDwTile);
+  d->col0[0] = d->tile0[d->n_lin];
+  for (int l = 0; l < d->n_lin; ++l)
+    d->col0[l + 1] = d->col0[l] + up(d->lin[l].out, kColChunk);
 }
 
 }  // namespace
@@ -1181,13 +1322,9 @@ int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
   return cudaGetLastError();
 }
 
-// Blocks of a categorical launch over B windows.
-int mz_categorical_grad_blocks(int B) {
-  return (B + kCatTile - 1) / kCatTile;
-}
-
-// Floats of device scratch a categorical launch of G blocks needs, or -1
-// when the shapes do not fit (towers as mz_fused_categorical_grad's).
+// Floats of device scratch a categorical launch of G blocks of kCatTile
+// windows needs, or -1 when the shapes do not fit (towers as
+// mz_fused_categorical_grad's).
 long mz_categorical_scratch_floats(int G, int O, int E, int A, int bins,
                                    int K, int n_repr, const int* repr_w,
                                    const int* repr_k, int n_pred,
@@ -1201,33 +1338,31 @@ long mz_categorical_scratch_floats(int G, int O, int E, int A, int bins,
   return static_cast<long>(G) * g.block_floats;
 }
 
-// Launch the categorical learner on `stream`. raw, coef, outputs and the
-// block-sum scratch `partial` as mz_fused_muzero_grad; weights: the flat
-// parameters in the modules' order (representation: hidden layers, then
-// the embedding head; prediction: hidden layers, policy head, value head;
-// dynamics: hidden layers, reward head, next-state head; per hidden layer
-// W [out, in], b [out] and, for kind 1 (ln_tanh; kind 0 is elu), the
-// LayerNorm's scale [out] and offset [out]). scratch holds
-// mz_categorical_scratch_floats floats. Returns a cudaError_t,
-// MZ_ERR_SHAPE or MZ_ERR_SCRATCH.
+// Launch the categorical learner on `stream`: categorical_tile_kernel over
+// G = ceil(B / kCatTile) blocks, then categorical_dw_kernel. raw, coef and
+// the outputs as mz_fused_muzero_grad; weights: the flat parameters in the
+// modules' order (representation: hidden layers, then the embedding head;
+// prediction: hidden layers, policy head, value head; dynamics: hidden
+// layers, reward head, next-state head; per hidden layer W [out, in], b
+// [out] and, for kind 1 (ln_tanh; kind 0 is elu), the LayerNorm's scale
+// [out] and offset [out]). scratch holds mz_categorical_scratch_floats(G,
+// ...) floats. Returns a cudaError_t, MZ_ERR_SHAPE or MZ_ERR_SCRATCH.
 int mz_fused_categorical_grad(
     const float* raw, int ld, const float* coef, const float* weights,
-    int n_weights, float* grads, float* met, float* l2, float* partial,
-    int partial_rows, float* scratch, long scratch_floats, int B, int O,
-    int E, int A, int bins, float vmin, float vmax, int K, int n_repr,
-    const int* repr_w, const int* repr_k, int n_pred, const int* pred_w,
-    const int* pred_k, int n_dyn, const int* dyn_w, const int* dyn_k,
-    int r_obs, int r_action, int r_reward, int r_rn, int r_pi, int r_mask,
-    float gradient_scale, float l2_coef, int device, void* stream) {
+    int n_weights, float* grads, float* met, float* l2, float* scratch,
+    long scratch_floats, int G, int B, int O, int E, int A, int bins,
+    float vmin, float vmax, int K, int n_repr, const int* repr_w,
+    const int* repr_k, int n_pred, const int* pred_w, const int* pred_k,
+    int n_dyn, const int* dyn_w, const int* dyn_k, int r_obs, int r_action,
+    int r_reward, int r_rn, int r_pi, int r_mask, float gradient_scale,
+    float l2_coef, int device, void* stream) {
   CatArgs g;
-  if (B < 1 || ld < B ||
+  if (B < 1 || ld < B || G != (B + kCatTile - 1) / kCatTile ||
       !cat_layout(&g, O, E, A, bins, K, n_repr, repr_w, repr_k, n_pred,
                   pred_w, pred_k, n_dyn, dyn_w, dyn_k) ||
       g.n_weights != n_weights)
     return MZ_ERR_SHAPE;
-  const int G = mz_categorical_grad_blocks(B);
-  if (partial_rows < G ||
-      scratch_floats < static_cast<long>(G) * g.block_floats)
+  if (scratch_floats < static_cast<long>(G) * g.block_floats)
     return MZ_ERR_SCRATCH;
   g.B = B;
   g.ld = ld;
@@ -1242,16 +1377,17 @@ int mz_fused_categorical_grad(
   g.r_rn = r_rn;
   g.r_pi = r_pi;
   g.r_mask = r_mask;
+  DwArgs d;
+  dw_layout(&d, g, G, l2_coef);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_categorical_grad_kernel<<<G, mz_tile::kThreads, 0, st>>>(
-      raw, coef, weights, partial, scratch, met, g);
+  categorical_tile_kernel<<<G, kCatThreads, 0, st>>>(raw, coef, weights,
+                                                     scratch, met, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int grid2 = (n_weights + kFinishThreads - 1) / kFinishThreads + 1;
-  finish_grads_kernel<<<grid2, kFinishThreads, 0, st>>>(
-      partial, G, n_weights, weights, l2_coef, grads, l2);
+  categorical_dw_kernel<<<d.col0[d.n_lin] + 1, kDwThreads, 0, st>>>(
+      scratch, weights, grads, l2, d);
   return cudaGetLastError();
 }
 
@@ -1259,7 +1395,7 @@ const char* mz_learner_error_string(int code) {
   if (code == MZ_ERR_SHAPE)
     return "shapes do not fit the fused learner kernel";
   if (code == MZ_ERR_SCRATCH)
-    return "the scratch of block sums has too few rows";
+    return "the scratch has too few rows or floats";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

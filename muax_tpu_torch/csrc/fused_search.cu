@@ -56,12 +56,13 @@
 // the finite kNeg, so a row whose every score is masked takes action 0, as
 // the TPU kernel's lowest-row tie-break does.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
 
-#include "tile_gemm.cuh"
+#include "tc_tile.cuh"
 #include "warp_mlp.cuh"
 
 // Returned when the shapes do not fit the kernel (too many layers, or one
@@ -471,20 +472,47 @@ fused_search_kernel(const float* __restrict__ root_emb,
                          out_visits, out_value, out_q, lane);
 }
 
-// ---- categorical modes: a tile of environments per block ------------------
+// ---- categorical modes: a cluster of blocks per tile of environments ------
 //
 // The towers of the categorical family (about 338 K weights at the widths of
 // bench.py's muzero_categorical) cannot stay in shared memory, so this kernel
-// turns the expansion around: a block owns kTileEnvs environments, its warps
-// walk their trees (kept in device memory, where L1 and L2 hold them), and
-// after a block-wide barrier every environment of the tile expands at once,
-// layer by layer, as one [tile, in] x [in, out] product whose weight chunks
-// are read from device memory (L2-resident) once per tile (tile_gemm.cuh).
-// Each layer's epilogue (ELU, or LayerNorm then tanh), the decodes, the
-// next-state normaliser and the policy softmax run one warp per environment.
+// turns the expansion around: a tile of kTileEnvs environments expands at
+// once, layer by layer, as one [tile, in] x [in, out] product on the tensor
+// cores (tc_tile.cuh, 3xTF32). A tile belongs to a cluster of kC blocks (4,
+// or 2 when the batch is large; the wrapper picks). Each block walks the
+// trees of kTileEnvs / kC of the tile's environments, one warp per
+// environment, with the embeddings in a device scratch and the node and
+// edge arrays in its shared memory (kSmemTrees) or, where they do not fit
+// there (many simulations or actions), in the device scratch after the
+// embeddings; the wrapper picks. It computes a kC-th of every layer's
+// output columns for all the tile's rows, reading only that part of the
+// weights from L2. It writes its columns into the same buffer of every
+// block of the cluster (distributed shared memory); after a cluster barrier
+// each block holds whole rows and runs the layer's epilogue (ELU, or
+// LayerNorm then tanh), the same in every block. At 512 envs that is 128
+// blocks, one per SM; at 2048, 256 blocks, two per SM. The decodes, the
+// next-state normaliser, the policy softmax, the install and the backup run
+// in the block that walks the environment.
+//
+// What bounds it: per expansion the towers' 338 K multiply-adds, so 2048
+// envs x 64 simulations are 88.6 GFLOP: 1.32 ms at the f32 FMA peak, 0.54 ms
+// at the TF32 tensor-core peak taken three times. Its real limit is the
+// chain of dependent steps in each simulation (the descent, eight product
+// phases at the bench widths, each ended by a cluster barrier, the install
+// and the backup), which the blocks of a cluster shorten by splitting every
+// product's columns and the walks between them.
+//
+// A buffer that a block writes into the others in one phase was last read
+// there before the barrier that ended the phase before it: the dynamics
+// input X0 is read only by the first dynamics layer, the hidden layers
+// alternate between D0 and D1, the reward and next-state heads write the
+// free one of those and Z, the prediction alternates between the dynamics'
+// last layer and the reward buffer, and the value and policy heads write
+// the free one of those and Z again.
 
-constexpr int kTileEnvs = 16;
-constexpr int kTileWarps = mz_tile::kThreads / 32;
+constexpr int kTileEnvs = 16;  // environments of a tile
+constexpr int kTileThreads = 256;
+constexpr int kTileWarps = kTileThreads / 32;
 
 struct TiledArgs {
   int B, A, E, bins, support, linear;
@@ -495,16 +523,18 @@ struct TiledArgs {
   int dyn_width[kMaxLayers], dyn_kind[kMaxLayers], dyn_off[kMaxLayers];
   int pred_width[kMaxLayers], pred_kind[kMaxLayers], pred_off[kMaxLayers];
   int reward_off, state_off, value_off, policy_off;
-  int ld;           // floats per activation row
-  long env_floats;  // floats of device scratch per environment
+  // Floats per row of the hidden-layer buffers, of the dynamics input and of
+  // the next-state and policy buffer: each 4 more than a multiple of 32.
+  int ld, ld_x, ld_z;
+  int tree_floats;  // floats of one tree's node and edge arrays
+  long tree_base;   // scratch floats before the trees: B N E embeddings
 };
 
-// The forest of environment `env` in the device scratch.
-__device__ __forceinline__ Forest tiled_forest(float* scratch, int env,
-                                               const TiledArgs& g,
-                                               float** emb) {
+// The node and edge arrays of one tree, at `base` in shared memory or in
+// the device scratch.
+__device__ __forceinline__ Forest tiled_forest(float* base,
+                                               const TiledArgs& g) {
   const int N = g.num_nodes, NA = N * g.A;
-  float* base = scratch + env * g.env_floats;
   Forest f;
   f.nvis = base;
   f.nval = base + N;
@@ -516,7 +546,6 @@ __device__ __forceinline__ Forest tiled_forest(float* scratch, int env,
   f.cvis = base + 5 * N + 2 * NA;
   f.crew = base + 5 * N + 3 * NA;
   f.cval = base + 5 * N + 4 * NA;
-  *emb = base + 5 * N + 5 * NA;
   return f;
 }
 
@@ -566,36 +595,76 @@ __device__ void finish_row(float* y, int out, int kind, const float* scale,
   __syncwarp();
 }
 
-// The hidden layers of one tower over the tile: x (rows of width `in`) into
-// the other buffer and back. Returns the buffer holding the last layer's
-// activations and leaves its width in *width.
-__device__ float* tile_tower(const float* weights, const int* offs,
-                             const int* widths, const int* kinds, int n,
-                             int in, float* x, float* other,
-                             const TiledArgs& g, float* gsm, int warp,
-                             int lane, int* width) {
+// The columns [c0, c0 + n) of an N-wide layer that block `rank` of a
+// cluster of kC computes: chunks of a multiple of 8 columns, the last
+// ragged.
+template <int kC>
+__device__ __forceinline__ void own_columns(int N, int rank, int* c0,
+                                            int* n) {
+  const int chunk = ((N + kC - 1) / kC + 7) / 8 * 8;
+  *c0 = rank * chunk;
+  *n = max(0, min(N - *c0, chunk));
+}
+
+// out = x W + b for the tile's rows x [kTileEnvs, ldx] (shared memory) and
+// W [in, width] (device memory, b [width] after it), this block's columns
+// only, written into out [kTileEnvs, ldo] in every block of the cluster.
+// The caller ends the phase with a cluster barrier.
+template <int kC>
+__device__ void cluster_layer(const float* x, int ldx, int in, const float* W,
+                              int width, float* out, int ldo, int rank,
+                              int warp) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  float* dst[kC];
+#pragma unroll
+  for (int r = 0; r < kC; ++r) dst[r] = cluster.map_shared_rank(out, r);
+  int c0, n;
+  own_columns<kC>(width, rank, &c0, &n);
+  const float* Wc = W + c0;
+  const float* b = W + static_cast<long>(in) * width + c0;
+  mz_tc::product<1, 1, false>(
+      kTileEnvs, n, in, x, ldx, 1, Wc, width, 1,
+      [&](int m, int j, float v) {
+        v += __ldg(b + j);
+#pragma unroll
+        for (int r = 0; r < kC; ++r) dst[r][m * ldo + c0 + j] = v;
+      },
+      warp, kTileWarps);
+}
+
+// The hidden layers of one tower over the tile's rows, from x (width `in`)
+// through bufs[0], bufs[1], bufs[0], ...; each layer's product, a cluster
+// barrier, then its epilogue on every row. Returns the buffer holding the
+// last layer's activations and leaves its width in *width.
+template <int kC>
+__device__ float* cluster_tower(const float* weights, const int* offs,
+                                const int* widths, const int* kinds, int n,
+                                const float* x, int ldx, int in,
+                                float* const* bufs, const TiledArgs& g,
+                                int rank, int warp, int lane, int* width) {
+  namespace cg = cooperative_groups;
+  float* y = nullptr;
   for (int l = 0; l < n; ++l) {
     const int out = widths[l];
     const float* W = weights + offs[l];
-    const float* b = W + in * out;
-    mz_tile::gemm(kTileEnvs, out, in, x, g.ld, 1, W, out, 1, other, g.ld, 1,
-                  b, false, gsm);
-    __syncthreads();
+    const float* b = W + static_cast<long>(in) * out;
+    y = bufs[l % 2];
+    cluster_layer<kC>(x, ldx, in, W, out, y, g.ld, rank, warp);
+    cg::this_cluster().sync();
     for (int i = warp; i < kTileEnvs; i += kTileWarps)
-      finish_row(other + i * g.ld, out, kinds[l], b + out, b + 2 * out,
-                 lane);
+      finish_row(y + i * g.ld, out, kinds[l], b + out, b + 2 * out, lane);
     __syncthreads();
-    float* t = x;
-    x = other;
-    other = t;
+    x = y;
+    ldx = g.ld;
     in = out;
   }
   *width = in;
-  return x;
+  return y;
 }
 
-template <bool kGumbel>
-__global__ void __launch_bounds__(mz_tile::kThreads)
+template <bool kGumbel, int kC, bool kSmemTrees>
+__global__ void __launch_bounds__(kTileThreads, 2)
 fused_search_tiled_kernel(const float* __restrict__ root_emb,
                           const float* __restrict__ root_logits,
                           const float* __restrict__ root_value,
@@ -607,50 +676,65 @@ fused_search_tiled_kernel(const float* __restrict__ root_emb,
                           float* __restrict__ out_visits,
                           float* __restrict__ out_value,
                           float* __restrict__ out_q, const TiledArgs g) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
-  constexpr int T = kTileEnvs;
-  float* gsm = smem;
-  float* bufs[2] = {smem + mz_tile::kSmemFloats,
-                    smem + mz_tile::kSmemFloats + T * g.ld};
-  float* inval = bufs[1] + T * g.ld;  // [T, A]
-  int* s_parent = reinterpret_cast<int*>(inval + T * g.A);
-  int* s_act = s_parent + T;
-  int* s_slot = s_act + T;
-  float* s_reward = reinterpret_cast<float*>(s_slot + T);
+  constexpr int kRankEnvs = kTileEnvs / kC;
+  const int L = kTileEnvs * g.ld;
+  float* D[2] = {smem, smem + L};
+  float* X0 = smem + 2 * L;     // the dynamics input [kTileEnvs, ld_x]
+  // Z: the next state, then the policy logits [kTileEnvs, ld_z].
+  float* Z = X0 + kTileEnvs * g.ld_x;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int A = g.A, E = g.E, N = g.num_nodes, bins = g.bins;
-  const int env0 = blockIdx.x * T;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = rank * kRankEnvs;  // this block's rows of the tile
+  const int env0 = static_cast<int>(blockIdx.x) / kC * kTileEnvs + row0;
+  // The block's trees [kRankEnvs, tree_floats].
+  float* trees = kSmemTrees ? Z + kTileEnvs * g.ld_z
+                            : scratch + g.tree_base +
+                                  static_cast<long>(env0) * g.tree_floats;
+  float* inval = kSmemTrees ? trees + kRankEnvs * g.tree_floats
+                            : Z + kTileEnvs * g.ld_z;  // [kRankEnvs, A]
+  int* s_parent = reinterpret_cast<int*>(inval + kRankEnvs * g.A);
+  int* s_act = s_parent + kRankEnvs;
+  int* s_slot = s_act + kRankEnvs;
+  float* s_reward = reinterpret_cast<float*>(s_slot + kRankEnvs);
+  float* x0dst[kC];
+  for (int r = 0; r < kC; ++r) x0dst[r] = cluster.map_shared_rank(X0, r);
 
-  for (int i = warp; i < T; i += kTileWarps) {
+  for (int i = warp; i < kRankEnvs; i += kTileWarps) {
     const int env = env0 + i;
     for (int a = lane; a < A; a += 32)
       inval[i * A + a] =
           (env < g.B && invalid) ? invalid[static_cast<size_t>(env) * A + a]
                                  : 0.f;
     if (env >= g.B) continue;
-    float* emb;
-    const Forest f = tiled_forest(scratch, env, g, &emb);
+    float* emb = scratch + static_cast<long>(env) * N * E;
+    const Forest f = tiled_forest(trees + i * g.tree_floats, g);
     init_forest<kGumbel>(f, N, A, root_value[env], lane);
     for (int j = lane; j < E; j += 32)
       emb[j] = root_emb[static_cast<size_t>(env) * E + j];
     softmax_into(root_logits + static_cast<size_t>(env) * A, f.cpri, A,
                  lane);
   }
+  cluster.sync();  // every block of the cluster runs before any writes
 
   for (int sim = 0; sim < g.num_simulations; ++sim) {
     // ---- descent, and the dynamics input concat(s, one_hot(a)) ----------
-    for (int i = warp; i < T; i += kTileWarps) {
+    for (int i = warp; i < kRankEnvs; i += kTileWarps) {
       const int env = env0 + i;
-      float* x = bufs[0] + i * g.ld;
+      const int row = (row0 + i) * g.ld_x;
       if (env >= g.B) {
-        for (int j = lane; j < E + A; j += 32) x[j] = 0.f;
+        for (int j = lane; j < E + A; j += 32)
+          for (int r = 0; r < kC; ++r) x0dst[r][row + j] = 0.f;
         if (lane == 0) s_slot[i] = -1;
         continue;
       }
-      float* emb;
-      const Forest f = tiled_forest(scratch, env, g, &emb);
+      const float* emb = scratch + static_cast<long>(env) * N * E;
+      const Forest f = tiled_forest(trees + i * g.tree_floats, g);
       const float sched =
           kGumbel ? schedule[static_cast<size_t>(env) * g.num_simulations +
                              sim]
@@ -662,37 +746,36 @@ fused_search_tiled_kernel(const float* __restrict__ root_emb,
                                : nullptr,
                        sched, lane, &parent, &act);
       const int existing = f.cidx[parent * A + act];
-      for (int j = lane; j < E + A; j += 32)
-        x[j] = j < E ? emb[parent * E + j] : (j - E == act ? 1.f : 0.f);
+      for (int j = lane; j < E + A; j += 32) {
+        const float v =
+            j < E ? emb[parent * E + j] : (j - E == act ? 1.f : 0.f);
+        for (int r = 0; r < kC; ++r) x0dst[r][row + j] = v;
+      }
       if (lane == 0) {
         s_parent[i] = parent;
         s_act[i] = act;
         s_slot[i] = existing < 0 ? sim + 1 : existing;
       }
     }
-    __syncthreads();
+    cluster.sync();
 
     // ---- dynamics: hidden layers, reward head, next-state head ----------
     int hw;
-    float* h = tile_tower(weights, g.dyn_off, g.dyn_width, g.dyn_kind,
-                          g.n_dyn, E + A, bufs[0], bufs[1], g, gsm, warp,
-                          lane, &hw);
-    float* y = h == bufs[0] ? bufs[1] : bufs[0];
-    const float* W = weights + g.reward_off;
-    mz_tile::gemm(T, bins, hw, h, g.ld, 1, W, bins, 1, y, g.ld, 1,
-                  W + hw * bins, false, gsm);
-    __syncthreads();
-    for (int i = warp; i < T; i += kTileWarps) {
-      const float r = decode_row(y + i * g.ld, bins, g, lane);
+    float* h = cluster_tower<kC>(weights, g.dyn_off, g.dyn_width, g.dyn_kind,
+                                 g.n_dyn, X0, g.ld_x, E + A, D, g, rank, warp,
+                                 lane, &hw);
+    float* Y = h == D[0] ? D[1] : D[0];  // reward logits
+    cluster_layer<kC>(h, g.ld, hw, weights + g.reward_off, bins, Y, g.ld,
+                      rank, warp);
+    cluster_layer<kC>(h, g.ld, hw, weights + g.state_off, E, Z, g.ld_z, rank,
+                      warp);
+    cluster.sync();
+    for (int i = warp; i < kRankEnvs; i += kTileWarps) {
+      const float r = decode_row(Y + (row0 + i) * g.ld, bins, g, lane);
       if (lane == 0) s_reward[i] = r;
     }
-    __syncthreads();
-    W = weights + g.state_off;
-    mz_tile::gemm(T, E, hw, h, g.ld, 1, W, E, 1, y, g.ld, 1, W + hw * E,
-                  false, gsm);
-    __syncthreads();
-    for (int i = warp; i < T; i += kTileWarps) {
-      float* ns = y + i * g.ld;
+    for (int i = warp; i < kTileEnvs; i += kTileWarps) {
+      float* ns = Z + i * g.ld_z;
       float lo = INFINITY, hi = -INFINITY;
       for (int j = lane; j < E; j += 32) {
         lo = fminf(lo, ns[j]);
@@ -701,55 +784,51 @@ fused_search_tiled_kernel(const float* __restrict__ root_emb,
       lo = warp_min(lo);
       hi = warp_max(hi);
       const float span = fmaxf(hi - lo, 1e-8f);
-      const int env = env0 + i;
-      float* emb = nullptr;
-      if (env < g.B) tiled_forest(scratch, env, g, &emb);
+      const int local = i - row0;
+      const bool mine = local >= 0 && local < kRankEnvs && env0 + local < g.B;
+      float* emb =
+          mine ? scratch + static_cast<long>(env0 + local) * N * E : nullptr;
       for (int j = lane; j < E; j += 32) {
         ns[j] = (ns[j] - lo) / span;
-        if (emb) emb[s_slot[i] * E + j] = ns[j];
+        if (mine) emb[s_slot[local] * E + j] = ns[j];
       }
       __syncwarp();
     }
     __syncthreads();
 
     // ---- prediction: hidden layers, value head, policy head -------------
-    float* p = tile_tower(weights, g.pred_off, g.pred_width, g.pred_kind,
-                          g.n_pred, E, y, h, g, gsm, warp, lane, &hw);
-    y = p == bufs[0] ? bufs[1] : bufs[0];
-    W = weights + g.value_off;
-    mz_tile::gemm(T, bins, hw, p, g.ld, 1, W, bins, 1, y, g.ld, 1,
-                  W + hw * bins, false, gsm);
-    __syncthreads();
-    float value[(T + kTileWarps - 1) / kTileWarps];
-    for (int i = warp, r = 0; i < T; i += kTileWarps, ++r)
-      value[r] = decode_row(y + i * g.ld, bins, g, lane);
-    __syncthreads();
-    W = weights + g.policy_off;
-    mz_tile::gemm(T, A, hw, p, g.ld, 1, W, A, 1, y, g.ld, 1, W + hw * A,
-                  false, gsm);
-    __syncthreads();
+    float* P[2] = {h, Y};
+    float* p = cluster_tower<kC>(weights, g.pred_off, g.pred_width,
+                                 g.pred_kind, g.n_pred, Z, g.ld_z, E, P, g,
+                                 rank, warp, lane, &hw);
+    float* V = p == P[0] ? P[1] : P[0];  // value logits
+    cluster_layer<kC>(p, g.ld, hw, weights + g.value_off, bins, V, g.ld, rank,
+                      warp);
+    cluster_layer<kC>(p, g.ld, hw, weights + g.policy_off, A, Z, g.ld_z, rank,
+                      warp);
+    cluster.sync();
 
     // ---- install and backup, one warp per environment --------------------
-    for (int i = warp, r = 0; i < T; i += kTileWarps, ++r) {
+    for (int i = warp; i < kRankEnvs; i += kTileWarps) {
       const int env = env0 + i;
       if (env >= g.B) continue;
-      float* emb;
-      const Forest f = tiled_forest(scratch, env, g, &emb);
+      const int row = row0 + i;
+      const float value = decode_row(V + row * g.ld, bins, g, lane);
+      const Forest f = tiled_forest(trees + i * g.tree_floats, g);
       const int slot = s_slot[i];
-      softmax_into(y + i * g.ld, f.cpri + slot * A, A, lane);
+      softmax_into(Z + row * g.ld_z, f.cpri + slot * A, A, lane);
       if (lane == 0)
         install_and_backup<kGumbel>(f, A, g.discount, slot, s_parent[i],
-                                    s_act[i], value[r], s_reward[i]);
+                                    s_act[i], value, s_reward[i]);
       __syncwarp();
     }
     __syncthreads();
   }
 
-  for (int i = warp; i < T; i += kTileWarps) {
+  for (int i = warp; i < kRankEnvs; i += kTileWarps) {
     const int env = env0 + i;
     if (env >= g.B) continue;
-    float* emb;
-    const Forest f = tiled_forest(scratch, env, g, &emb);
+    const Forest f = tiled_forest(trees + i * g.tree_floats, g);
     write_summary<kGumbel>(f, A, g.discount, static_cast<size_t>(env),
                            out_visits, out_value, out_q, lane);
   }
@@ -848,9 +927,11 @@ int make_args(Args* args, int B, int A, int E, int S41, int support_size,
 }
 
 
-// Sizes the tile's shared memory and launches one categorical mode.
-template <bool kGumbel>
-int launch_tiled(const TiledArgs& g, const float* root_emb,
+// Sizes the cluster's shared memory and launches one categorical mode over
+// `grid` blocks, in clusters of kC blocks per tile of kTileEnvs
+// environments.
+template <bool kGumbel, int kC, bool kSmemTrees>
+int launch_tiled(const TiledArgs& g, int grid, const float* root_emb,
                  const float* root_logits, const float* root_value,
                  const float* invalid, const float* root_score,
                  const float* schedule, const float* weights, float* scratch,
@@ -862,30 +943,44 @@ int launch_tiled(const TiledArgs& g, const float* root_emb,
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
+  // D0, D1, X0, Z; the block's trees, invalid mask and per-env slots.
+  constexpr int kRankEnvs = kTileEnvs / kC;
   const size_t smem =
-      (static_cast<size_t>(mz_tile::kSmemFloats) +
-       2 * static_cast<size_t>(kTileEnvs) * g.ld +
-       static_cast<size_t>(kTileEnvs) * g.A + 4 * kTileEnvs) *
+      (static_cast<size_t>(kTileEnvs) * (2 * g.ld + g.ld_x + g.ld_z) +
+       static_cast<size_t>(kRankEnvs) *
+           ((kSmemTrees ? g.tree_floats : 0) + g.A + 4)) *
       sizeof(float);
   if (smem > static_cast<size_t>(max_smem)) return kErrShape;
-  err = cudaFuncSetAttribute(fused_search_tiled_kernel<kGumbel>,
+  auto kernel = fused_search_tiled_kernel<kGumbel, kC, kSmemTrees>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int grid = (g.B + kTileEnvs - 1) / kTileEnvs;
-  fused_search_tiled_kernel<kGumbel>
-      <<<grid, mz_tile::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          root_emb, root_logits, root_value, invalid, root_score, schedule,
-          weights, scratch, out_visits, out_value, out_q, g);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(kTileThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kC;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, root_emb, root_logits, root_value,
+                           invalid, root_score, schedule, weights, scratch,
+                           out_visits, out_value, out_q, g);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Floats of device scratch per environment of the tiled kernel: node arrays
-// (visits, values, raw values, parents, actions), edge arrays (children,
-// priors, visits, rewards, values) and the embeddings.
-long tiled_env_floats(int A, int E, int num_simulations) {
-  const long N = num_simulations + 1;
-  return 5 * N + 5 * N * A + N * E;
+// Floats of one tree of the tiled kernel: node arrays (visits, values, raw
+// values, parents, actions) and edge arrays (children, priors, visits,
+// rewards, values).
+int tiled_tree_floats(int A, int num_simulations) {
+  const int N = num_simulations + 1;
+  return 5 * N + 5 * N * A;
 }
 
 }  // namespace
@@ -946,12 +1041,6 @@ int mz_fused_gumbel_search(const float* root_emb, const float* root_logits,
                       out_q, device, stream);
 }
 
-// Floats of device scratch the tiled (categorical) search needs for B
-// environments.
-long mz_tiled_scratch_floats(int B, int A, int E, int num_simulations) {
-  return static_cast<long>(B) * tiled_env_floats(A, E, num_simulations);
-}
-
 // Launch the tiled search (the categorical modes) on `stream`: MuZero when
 // root_score and schedule are NULL, Gumbel otherwise (inputs as
 // mz_fused_gumbel_search). weights: per hidden layer W [in, out], b [out]
@@ -960,13 +1049,18 @@ long mz_tiled_scratch_floats(int B, int A, int E, int num_simulations) {
 // next-state head, then the prediction's hidden layers, value head and
 // policy head. The value convention is linear (vmin + j (vmax - vmin) /
 // (bins - 1)) or, with linear = 0, the h-support of `support`. scratch holds
-// mz_tiled_scratch_floats(B, A, E, num_simulations) floats. Returns a
-// cudaError_t, or MZ_ERR_SHAPE.
+// the trees' embeddings, B N E floats, N = num_simulations + 1, and, unless
+// smem_trees, their node and edge arrays after them, B (5 N + 5 N A)
+// floats; each tile of 16 environments runs on a cluster of `cluster`
+// blocks (2 or 4), and grid is cluster ceil(B / 16) blocks. Returns a
+// cudaError_t, or MZ_ERR_SHAPE (also when the shared memory a block needs
+// passes the device's limit).
 int mz_fused_tiled_search(const float* root_emb, const float* root_logits,
                           const float* root_value, const float* invalid,
                           const float* root_score, const float* schedule,
                           const float* weights, int n_weights, float* scratch,
-                          long scratch_floats, float* out_visits,
+                          long scratch_floats, int cluster, int smem_trees,
+                          int grid, float* out_visits,
                           float* out_value, float* out_q, int B, int A, int E,
                           int bins, int linear, int support, float vmin,
                           float vmax, int num_simulations, int max_depth,
@@ -978,7 +1072,12 @@ int mz_fused_tiled_search(const float* root_emb, const float* root_logits,
   if (n_dyn < 1 || n_dyn > kMaxLayers || n_pred < 1 || n_pred > kMaxLayers ||
       B < 1 || A < 1 || E < 1 || bins < 2 || num_simulations < 1 ||
       (root_score == nullptr) != (schedule == nullptr) ||
-      scratch_floats < mz_tiled_scratch_floats(B, A, E, num_simulations))
+      (cluster != 2 && cluster != 4) ||
+      grid != (B + kTileEnvs - 1) / kTileEnvs * cluster)
+    return kErrShape;
+  const long tree_base = static_cast<long>(B) * (num_simulations + 1) * E;
+  const long tree_floats = tiled_tree_floats(A, num_simulations);
+  if (scratch_floats < tree_base + (smem_trees ? 0 : B * tree_floats))
     return kErrShape;
   TiledArgs g;
   g.B = B;
@@ -998,8 +1097,7 @@ int mz_fused_tiled_search(const float* root_emb, const float* root_logits,
   g.pb_c_base = pb_c_base;
   g.n_dyn = n_dyn;
   g.n_pred = n_pred;
-  int ld = E + A;
-  if (bins > ld) ld = bins;
+  int ld = bins;
   long off = 0;
   int in = E + A;
   for (int l = 0; l < n_dyn; ++l) {
@@ -1032,15 +1130,45 @@ int mz_fused_tiled_search(const float* root_emb, const float* root_logits,
   g.policy_off = static_cast<int>(off);
   off += static_cast<long>(in) * A + A;
   if (off != n_weights) return kErrShape;
-  g.ld = (ld + 3) / 4 * 4;
-  g.env_floats = tiled_env_floats(A, E, num_simulations);
+  // Rows 4 floats longer than a multiple of 32: conflict-free A fragments.
+  auto row = [](int n) { return (n + 31) / 32 * 32 + 4; };
+  g.ld = row(ld);
+  g.ld_x = row(E + A);
+  g.ld_z = row(E > A ? E : A);
+  g.tree_floats = static_cast<int>(tree_floats);
+  g.tree_base = tree_base;
+  auto go = [&](auto launch) {
+    return launch(g, grid, root_emb, root_logits, root_value, invalid,
+                  root_score, schedule, weights, scratch, out_visits,
+                  out_value, out_q, device, stream);
+  };
+  auto trees = [&](auto in_smem, auto in_scratch) {
+    return smem_trees ? go(in_smem) : go(in_scratch);
+  };
   if (root_score != nullptr)
-    return launch_tiled<true>(g, root_emb, root_logits, root_value, invalid,
-                              root_score, schedule, weights, scratch,
-                              out_visits, out_value, out_q, device, stream);
-  return launch_tiled<false>(g, root_emb, root_logits, root_value, invalid,
-                             nullptr, nullptr, weights, scratch, out_visits,
-                             out_value, out_q, device, stream);
+    return cluster == 2
+               ? trees(launch_tiled<true, 2, true>, launch_tiled<true, 2, false>)
+               : trees(launch_tiled<true, 4, true>,
+                       launch_tiled<true, 4, false>);
+  return cluster == 2
+             ? trees(launch_tiled<false, 2, true>, launch_tiled<false, 2, false>)
+             : trees(launch_tiled<false, 4, true>,
+                     launch_tiled<false, 4, false>);
+}
+
+// The limits the wrapper sizes the tiled search's launch by: SMs, shared
+// memory per SM, per block (opt-in) and reserved per block, in bytes.
+int mz_device_limits(int device, int* out) {
+  const cudaDeviceAttr attrs[4] = {
+      cudaDevAttrMultiProcessorCount,
+      cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+      cudaDevAttrMaxSharedMemoryPerBlockOptin,
+      cudaDevAttrReservedSharedMemoryPerBlock};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = cudaDeviceGetAttribute(out + i, attrs[i], device);
+    if (err != cudaSuccess) return err;
+  }
+  return 0;
 }
 
 const char* mz_error_string(int code) {

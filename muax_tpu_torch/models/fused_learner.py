@@ -12,9 +12,10 @@ return the gradient as one flat vector in the order of
 the ``LossMetrics`` of ``muzero_loss``, with the semantics of autograd over
 ``muzero_loss``.
 
-On CUDA tensors they launch the hand-written kernel
-``csrc/fused_learner.cu`` (its MLP kernel, or its tiled categorical
-kernel); on CPU tensors they run the plain version, autograd over
+On CUDA tensors they launch the hand-written kernels of
+``csrc/fused_learner.cu`` (the MLP kernel, or the categorical pair: a
+per-tile forward and backward, then a weight-gradient pass, both on the
+tensor cores); on CPU tensors they run the plain version, autograd over
 ``models/losses.py`` ``muzero_loss`` on the equivalent batch. The kernel
 returns gradients directly and is never called under autograd. The
 fc-resnet family has no kernel, as in the JAX package: its residual
@@ -221,12 +222,10 @@ def _load_kernel():
     lib.mz_fused_grad_blocks.argtypes = [i32]
     lib.mz_fused_grad_blocks.restype = i32
     lib.mz_fused_categorical_grad.argtypes = (
-        [ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ctypes.c_long]
+        [ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ctypes.c_long, i32]
         + [i32] * 5 + [f32, f32, i32]
         + [i32, ptr, ptr] * 3 + [i32] * 6 + [f32, f32, i32, ptr])
     lib.mz_fused_categorical_grad.restype = i32
-    lib.mz_categorical_grad_blocks.argtypes = [i32]
-    lib.mz_categorical_grad_blocks.restype = i32
     lib.mz_categorical_scratch_floats.argtypes = (
         [i32] * 6 + [i32, ptr, ptr] * 3)
     lib.mz_categorical_scratch_floats.restype = ctypes.c_long
@@ -253,11 +252,22 @@ def _check_raw(lw, raw: torch.Tensor, coef: torch.Tensor, lay: RawLayout):
                        f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+# Windows per block of the categorical kernel's first pass
+# (``kCatTile`` in csrc/fused_learner.cu): 128 blocks at batch 1024.
+CATEGORICAL_TILE = 8
+
+
+def categorical_grad_blocks(batch: int) -> int:
+  """Blocks of the categorical kernel's first pass over ``batch`` windows;
+  each keeps its windows' activations in its own part of the scratch."""
+  return -(-batch // CATEGORICAL_TILE)
+
+
 def _categorical_grad_cuda(spec: LearnerSpec, raw: torch.Tensor,
                            coef: torch.Tensor, lay: RawLayout, *,
                            l2_coef: float, gradient_scale: float):
-  """Launch the tiled categorical kernel; returns (grads [n], met [4, B],
-  l2 [])."""
+  """Launch the categorical learner (the per-tile forward and backward,
+  then the weight-gradient pass); returns (grads [n], met [4, B], l2 [])."""
   global categorical_launches
   _check_raw(spec, raw, coef, lay)
   dev = raw.device
@@ -275,12 +285,11 @@ def _categorical_grad_cuda(spec: LearnerSpec, raw: torch.Tensor,
             *tower(spec.dyn_kinds, spec.dyn_layers))
   shapes = (lay.O, spec.embedding_dim, spec.num_actions, spec.num_bins,
             lay.K)
-  G = lib.mz_categorical_grad_blocks(B)
+  G = categorical_grad_blocks(B)
   n_scratch = lib.mz_categorical_scratch_floats(G, *shapes, *towers)
   if n_scratch < 0:
     raise RuntimeError("fused learner kernel: shapes do not fit the "
                        "categorical kernel")
-  partial = torch.empty((G, n), dtype=torch.float32, device=dev)
   scratch = torch.empty((max(n_scratch, 1),), dtype=torch.float32,
                         device=dev)
   grads = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -288,8 +297,8 @@ def _categorical_grad_cuda(spec: LearnerSpec, raw: torch.Tensor,
   l2 = torch.empty((1,), dtype=torch.float32, device=dev)
   err = lib.mz_fused_categorical_grad(
       raw.data_ptr(), raw.stride(0), coef.data_ptr(), spec.flat.data_ptr(),
-      n, grads.data_ptr(), met.data_ptr(), l2.data_ptr(), partial.data_ptr(),
-      G, scratch.data_ptr(), n_scratch, B, *shapes[:4], spec.vmin,
+      n, grads.data_ptr(), met.data_ptr(), l2.data_ptr(), scratch.data_ptr(),
+      n_scratch, G, B, *shapes[:4], spec.vmin,
       spec.vmax, lay.K, *towers,
       lay.obs, lay.action, lay.reward, lay.rn, lay.pi, lay.mask,
       gradient_scale, l2_coef,

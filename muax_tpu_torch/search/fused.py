@@ -455,18 +455,126 @@ def _load_kernel():
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, f32] + tail
     lib.mz_fused_tiled_search.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ctypes.c_long,
-        ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ctypes.c_long, i32, i32,
+        i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
         i32, i32, f32, f32, f32,
         i32, ptr, ptr, i32, ptr, ptr, i32, ptr]
-    lib.mz_tiled_scratch_floats.argtypes = [i32, i32, i32, i32]
-    lib.mz_tiled_scratch_floats.restype = ctypes.c_long
+    lib.mz_device_limits.argtypes = [i32, ptr]
     for fn in (lib.mz_fused_muzero_search, lib.mz_fused_gumbel_search,
-               lib.mz_fused_tiled_search):
+               lib.mz_fused_tiled_search, lib.mz_device_limits):
       fn.restype = i32
     lib.mz_error_string.argtypes = [i32]
     lib.mz_error_string.restype = ctypes.c_char_p
   return lib
+
+
+# The categorical modes' launch (``kTileEnvs`` in csrc/fused_search.cu): a
+# tile of 16 environments per cluster of blocks, each block walking its
+# share of the tile's trees and computing its share of every layer's
+# columns.
+TILE_ENVS = 16
+# Blocks of the categorical kernel an SM can hold at most: its
+# ``__launch_bounds__(256, 2)``.
+_TILED_BLOCKS_PER_SM = 2
+
+
+class DeviceLimits(NamedTuple):
+  """What a card offers the categorical kernel: SMs, and shared memory in
+  bytes per SM, per block (opt-in) and reserved per block."""
+  sms: int
+  smem_per_sm: int
+  smem_per_block: int
+  smem_reserved: int
+
+
+def device_limits(device: torch.device) -> DeviceLimits:
+  """The card's ``DeviceLimits``, read with the CUDA runtime."""
+  index = device.index if device.index is not None else (
+      torch.cuda.current_device())
+  out = (ctypes.c_int * 4)()
+  lib = _load_kernel()
+  err = lib.mz_device_limits(index, out)
+  if err != 0:
+    raise RuntimeError("fused search kernel: "
+                       + lib.mz_error_string(err).decode())
+  return DeviceLimits(*out)
+
+
+class TiledPlan(NamedTuple):
+  """How a categorical-mode launch runs: ``cluster`` blocks per tile of
+  ``TILE_ENVS`` envs, and the trees' node and edge arrays in shared memory
+  (``smem_trees``) or in the device scratch."""
+  cluster: int
+  smem_trees: bool
+
+
+def _padded_row(n: int) -> int:
+  # Rows 4 floats longer than a multiple of 32 (``row`` in the kernel).
+  return -(-n // 32) * 32 + 4
+
+
+def tiled_tree_floats(num_actions: int, num_simulations: int) -> int:
+  """Floats of one tree's node and edge arrays: 5 N + 5 N A."""
+  n = num_simulations + 1
+  return 5 * n + 5 * n * num_actions
+
+
+def tiled_smem_bytes(cluster: int, smem_trees: bool, num_actions: int,
+                     embedding_dim: int, num_simulations: int,
+                     widths) -> int:
+  """Shared memory of one block (the kernel's ``launch_tiled``): four
+  activation buffers of the tile's rows, and per env of the block its
+  invalid mask, four slots and, with ``smem_trees``, its tree. ``widths``:
+  the bins and every hidden layer's width."""
+  A, E = num_actions, embedding_dim
+  rows = (2 * _padded_row(max(widths)) + _padded_row(E + A)
+          + _padded_row(max(E, A)))
+  tree = tiled_tree_floats(A, num_simulations) if smem_trees else 0
+  return 4 * (TILE_ENVS * rows + TILE_ENVS // cluster * (tree + A + 4))
+
+
+def tiled_plan(batch: int, num_actions: int, embedding_dim: int,
+               num_simulations: int, widths,
+               limits: DeviceLimits) -> TiledPlan:
+  """Four blocks per tile while the card keeps them all resident at once,
+  else two (with four, a launch over 2048 envs at the bench widths would
+  run in two waves of blocks; ``tools/kernel_split.py`` times both); the
+  trees in shared memory where they fit a block, else in the device
+  scratch. Raises ValueError when even the activation rows do not fit."""
+
+  def size(cluster, smem_trees):
+    return tiled_smem_bytes(cluster, smem_trees, num_actions, embedding_dim,
+                            num_simulations, widths)
+
+  def place(cluster):
+    plan = TiledPlan(cluster, size(cluster, True) <= limits.smem_per_block)
+    return plan if size(*plan) <= limits.smem_per_block else None
+
+  four, two = place(4), place(2)  # two needs at least what four does
+  if four is None:
+    raise ValueError("the categorical search's activation rows do not fit "
+                     "a block's shared memory")
+  per_sm = min(_TILED_BLOCKS_PER_SM,
+               limits.smem_per_sm // (size(*four) + limits.smem_reserved))
+  if two is None or -(-batch // TILE_ENVS) * 4 <= per_sm * limits.sms:
+    return four
+  return two
+
+
+def tiled_grid(batch: int, cluster: int) -> int:
+  """Blocks of a categorical-mode launch over ``batch`` environments."""
+  return -(-batch // TILE_ENVS) * cluster
+
+
+def tiled_scratch_floats(batch: int, num_actions: int, embedding_dim: int,
+                         num_simulations: int, smem_trees: bool) -> int:
+  """Floats of device scratch of a categorical-mode launch: the embeddings
+  of every environment's N = num_simulations + 1 nodes and, unless the
+  trees stay in shared memory, their node and edge arrays."""
+  emb = batch * (num_simulations + 1) * embedding_dim
+  if smem_trees:
+    return emb
+  return emb + batch * tiled_tree_floats(num_actions, num_simulations)
 
 
 def _check(name: str, t: torch.Tensor, shape, device: torch.device):
@@ -491,7 +599,8 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
                        schedule=None):
   """Launch one mode of the kernel: ``FusedMLPWeights`` take the MLP modes
   (the towers staged in shared memory), a ``FusedNetSpec`` the categorical
-  modes (tiles of environments, weights streamed from device memory);
+  modes (clusters of blocks per tile of environments, tensor-core products
+  over weights read from device memory);
   ``root_score`` and ``schedule`` select the Gumbel policy."""
   global launches, gumbel_launches
   global categorical_launches, categorical_gumbel_launches
@@ -535,13 +644,16 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
   stream = torch.cuda.current_stream(device).cuda_stream
   if tiled:
     kind = {"elu": 0, "ln_tanh": 1}
-    n_scratch = lib.mz_tiled_scratch_floats(B, A, E, num_simulations)
-    scratch = torch.empty((max(n_scratch, 1),), dtype=torch.float32,
-                          device=device)
+    plan = tiled_plan(B, A, E, num_simulations,
+                      [bins, *dyn_width, *pred_width], device_limits(device))
+    n_scratch = tiled_scratch_floats(B, A, E, num_simulations,
+                                     plan.smem_trees)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=device)
     err = lib.mz_fused_tiled_search(
         *roots, root_score.data_ptr() if gumbel else None,
         schedule.data_ptr() if gumbel else None,
         flat.data_ptr(), flat.numel(), scratch.data_ptr(), n_scratch,
+        plan.cluster, int(plan.smem_trees), tiled_grid(B, plan.cluster),
         visits.data_ptr(), value.data_ptr(), qvalues.data_ptr(),
         B, A, E, bins, int(spec.decode == "linear"), spec.support_size,
         spec.vmin, spec.vmax, num_simulations, max_depth, discount,

@@ -1,5 +1,6 @@
-"""The categorical modes of the search kernel and the categorical learner
-kernel against their plain PyTorch versions, on the card. Every test here
+"""The categorical modes of the search kernel, the categorical learner's two
+kernels and their shared tensor-core tile product against their plain
+PyTorch versions, on the card. Every test here
 needs a CUDA card (and ``nvcc`` to build the kernels) and skips without one;
 the file imports nothing of the JAX package:
 
@@ -11,11 +12,16 @@ rtol = atol = 1e-3 (``tests/test_fused.py:54-60``); Gumbel: the policy's
 action on at least 99 % of environments. Learner: gradients rtol 5e-4 /
 atol 1e-6, total rtol 1e-5, priorities rtol 1e-4
 (``tests/test_fused_learner.py:156-162``), and two launches on the same
-inputs give bit-identical gradients.
+inputs give bit-identical gradients. Tile product (``csrc/tc_tile.cuh``,
+3xTF32): within 1e-5 of sum_k |a_mk| |b_kn| of a float64 product, which a
+single TF32 pass (about 5e-4) misses, and bit-identical on a repeat.
 """
+import ctypes
+
 import pytest
 import torch
 
+from muax_tpu_torch import _build
 from muax_tpu_torch.envs import CartPole
 from muax_tpu_torch.models import fused_learner, make_categorical_mlp_networks
 from muax_tpu_torch.replay.buffer import gumbel_noise
@@ -67,10 +73,73 @@ def _compare(out, ref, sims):
   torch.testing.assert_close(q[exact], ref_q[exact], rtol=1e-3, atol=1e-3)
 
 
+# The products of the learner's first pass (shape 0: rows of a tile of 8
+# windows, or all K = 5 steps of it; W [out, in] read transposed in the
+# forward, as is in the backward), of the search (shape 1: 16 rows, one
+# cluster block's quarter of the columns) and of the weight-gradient pass
+# (shape 2: dZ [rows, out] read transposed against X [rows, in]), at the
+# bench widths and at ragged edges. (shape, M, N, K, A transposed, B
+# transposed).
+PRODUCTS = [
+    (0, 8, 256, 4, False, True),     # representation's first layer
+    (0, 8, 256, 256, False, True),
+    (0, 40, 51, 256, False, True),   # value head over K steps
+    (0, 40, 256, 51, False, False),  # value head's backward
+    (0, 8, 66, 256, False, False),   # gradient into concat(s, a)
+    (0, 13, 37, 29, False, True),    # ragged everywhere
+    (1, 16, 64, 256, False, False),
+    (1, 16, 16, 66, False, False),   # a quarter of 51 bins over E + A
+    (1, 16, 2, 256, False, False),   # policy head
+    (1, 11, 13, 21, False, False),
+    (2, 256, 256, 40, True, False),
+    (2, 51, 256, 40, True, False),
+    (2, 256, 4, 8, True, False),     # representation's first layer's dW
+    (2, 37, 45, 24, True, False),
+]
+
+
+@pytest.mark.parametrize("shape,M,N,K,ta,tb", PRODUCTS)
+def test_tile_product_matches_float64(cuda, shape, M, N, K, ta, tb):
+  lib = _build.load("tc_tile_check")
+  ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+  lib.mz_tc_product.argtypes = [i32, i32, i32, i32, ptr, i64, i64, ptr, i64,
+                                i64, ptr, i32, ptr]
+  lib.mz_tc_product.restype = i32
+  gen = torch.Generator(device=cuda).manual_seed(M * 1000 + N * 10 + K)
+  a = torch.randn((K, M) if ta else (M, K), generator=gen, device=cuda)
+  b = torch.randn((N, K) if tb else (K, N), generator=gen, device=cuda)
+  sa = (1, M) if ta else (K, 1)  # (sam, sak)
+  sb = (1, K) if tb else (N, 1)  # (sbk, sbn)
+
+  def run():
+    c = torch.full((M, N), float("nan"), device=cuda)
+    err = lib.mz_tc_product(shape, M, N, K, a.data_ptr(), *sa, b.data_ptr(),
+                            *sb, c.data_ptr(), cuda.index,
+                            torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    return c
+
+  c = run()
+  A64 = (a.T if ta else a).double()
+  B64 = (b.T if tb else b).double()
+  ref = A64 @ B64
+  scale = A64.abs() @ B64.abs()
+  assert float(((c.double() - ref).abs() / scale).max()) <= 1e-5
+  assert torch.equal(c, run())
+
+
+# Searches whose trees do not fit a block's shared memory beside the
+# activation rows at 2048 envs, so that they live in the device scratch.
+PAST_SMEM = [(18, BENCH, 2048, 64, False, None),
+             (2, BENCH, 2048, 400, False, None)]
+
+
 @pytest.mark.parametrize("A,widths,B,sims,invalid,max_depth", [
     (2, BENCH, 256, 32, False, None),
+    (2, BENCH, 512, 64, False, None),  # categorical_training's envs
     (3, SMALL, 203, 16, True, 2),
-])
+] + PAST_SMEM)
 def test_muzero_mode_matches_plain(cuda, A, widths, B, sims, invalid,
                                    max_depth):
   root, spec, inv, gen = _search_inputs(cuda, A, widths, B, invalid)
@@ -90,8 +159,9 @@ def test_muzero_mode_matches_plain(cuda, A, widths, B, sims, invalid,
 
 @pytest.mark.parametrize("A,widths,B,sims,invalid,max_depth", [
     (2, BENCH, 256, 32, False, None),
+    (2, BENCH, 512, 64, False, None),
     (3, SMALL, 203, 16, True, 2),
-])
+] + PAST_SMEM)
 def test_gumbel_mode_matches_plain(cuda, A, widths, B, sims, invalid,
                                    max_depth):
   root, spec, inv, gen = _search_inputs(cuda, A, widths, B, invalid)
@@ -116,6 +186,15 @@ def test_gumbel_mode_matches_plain(cuda, A, widths, B, sims, invalid,
   assert float((action == ref_action).float().mean()) >= 0.99
 
 
+@pytest.mark.parametrize("A,widths,B,sims,invalid,max_depth", PAST_SMEM)
+def test_trees_past_shared_memory_go_to_scratch(cuda, A, widths, B, sims,
+                                                invalid, max_depth):
+  net_widths = [widths["num_bins"], *widths["layer_sizes"] * 2]
+  plan = fused.tiled_plan(B, A, widths["embedding_dim"], sims, net_widths,
+                          fused.device_limits(cuda))
+  assert not plan.smem_trees
+
+
 def _batch(device, A, B, K, seed=0):
   gen = torch.Generator(device=device).manual_seed(seed)
   lengths = torch.randint(1, K + 1, (B,), generator=gen, device=device)
@@ -135,6 +214,7 @@ def _batch(device, A, B, K, seed=0):
 @pytest.mark.parametrize("A,widths,B,K", [
     (3, SMALL, 100, 5),
     (2, BENCH, 1024, 5),  # the wide towers of bench.py's categorical runs
+    (2, BENCH, 300, 5),   # a batch the last block does not fill
 ])
 def test_learner_matches_plain(cuda, A, widths, B, K):
   net = make_categorical_mlp_networks(A, device=cuda, **widths)

@@ -224,7 +224,7 @@ def test_dispatch_reasons():
   assert "exceeds" in status(unroll_steps=L + 1)[2]
 
 
-def test_generic_paths_train():
+def test_generic_and_hybrid_paths_train():
   """The generic group path with the fused learner in batch mode; the
   hybrid path (fused_learner off: the fused sampler's per-step rows feed
   autograd over muzero_loss); and make_update_fn."""
