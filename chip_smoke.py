@@ -8,11 +8,13 @@ Phase 0 builds every CUDA kernel of the port from the sources in the
 checkout, one ``nvcc`` per source, all at once, and prints each kernel's
 registers and spill bytes as ``ptxas`` reports them. Phases 1 and 2 hold the
 search kernel against its plain PyTorch version at the rollout's shapes and
-at edge shapes. Phase 3 drives self-play, MuZero on CartPole
-(``make_rollout_fn`` at 8192 envs x 64 simulations x 20 steps, the rollout
-of ``bench.py``'s default run), counts the kernel launches it makes and
-checks what it returns; then it times the search kernel and its plain
-version on the inputs of that run.
+at edge shapes; phase 1 also holds the kernel with every lane-group size
+G at the rollout's shape. Phase 3 drives self-play, MuZero on CartPole (``make_rollout_fn`` at 8192
+envs x 64 simulations x 20 steps, the rollout of ``bench.py``'s default
+run), counts the kernel launches it makes and checks what it returns; then
+it times the search kernel and its plain version on the inputs of that run,
+at 8192 envs and on the first 1024 of them (the training iteration's
+batch), with the launch plan and the theoretical warps per SM of each.
 
 Phases 4 to 7 do the same for training, at ``bench.py``'s
 ``training_regime`` (1024 envs x 64 simulations x 20 steps, batch 4096,
@@ -31,12 +33,14 @@ Phases 8 to 11 drive Gumbel MuZero and the generic search engine. Phase 8
 holds the search kernel's Gumbel mode against its plain version at 8192
 envs x 64 simulations (A = 2, at most 16 considered actions) and at an edge
 shape (1003 envs, A = 4 with one invalid action, so 3 considered, depth cap
-2, towers (16, 16)), and checks that the policy's action agrees. Phase 9
-drives ``make_rollout_fn`` with ``policy="gumbel"`` at ``bench.py``'s
-``gumbel_mlp`` (8192 envs x 64 simulations x 20 steps): exactly 20 Gumbel
-launches and no MuZero launch per rollout. Phase 10 drives the training
-iteration at ``gumbel_training`` (1024 envs, batch 4096, samples per insert
-32, presample 16): exactly 20 + 10 + 160 launches. Phase 11 runs one policy
+2, towers (16, 16)), and with every G at 8192 envs, and checks that the
+policy's action agrees. Phase 9 drives ``make_rollout_fn`` with
+``policy="gumbel"`` at ``bench.py``'s ``gumbel_mlp`` (8192 envs x 64
+simulations x 20 steps): exactly 20 Gumbel launches and no MuZero launch per
+rollout; it times the kernel at 8192 and 1024 envs as phase 3 does. Phase
+10 drives the training iteration at ``gumbel_training`` (1024 envs, batch
+4096, samples per insert 32, presample 16): exactly 20 + 10 + 160
+launches. Phase 11 runs one policy
 step of the generic engine (``search.fused=False``) for each policy at 1024
 envs x 64 simulations on the card: no kernel launch, and visits within 2 of
 the kernel's.
@@ -50,7 +54,8 @@ against their plain version at ``muzero_categorical``'s shape (2048 envs x
 64 simulations, A = 2), at ``categorical_training``'s 512 envs and at an
 edge shape (1003 envs, A = 3 with an invalid action, depth cap 2, towers
 (48, 32), 21 bins), and at 2048 envs with A = 18, whose trees the kernel
-keeps in the device scratch rather than in shared memory. Phase 13 drives ``make_rollout_fn`` at
+keeps in the device scratch rather than in shared memory, and times that
+instance. Phase 13 drives ``make_rollout_fn`` at
 ``muzero_categorical`` (2048 envs x 64 simulations x 20 steps) in each
 policy: exactly 20 launches of that mode and none of the others per
 rollout; it times the kernel at 2048 and at 512 envs. Phase 14 holds the
@@ -258,12 +263,15 @@ def search_mode(policy, family):
 
 
 def search_against_plain(device, policy, family, num_actions, batch,
-                         widths=None, with_invalid=False, max_depth=None):
+                         widths=None, with_invalid=False, max_depth=None,
+                         group=None, timed=False):
   """Phases 1-2, 8 and 12: one mode of the search kernel against its plain
   version on the same inputs (seeded weights, roots from random CartPole
   observations, Dirichlet or Gumbel noise from SEED), as compare_search;
   in the Gumbel modes the policy's action must also agree on at least 99 %
-  of envs, and no env may take an invalid action."""
+  of envs, and no env may take an invalid action. ``group`` fixes the MLP
+  modes' lane-group size G; ``timed`` adds the kernel's and the plain
+  version's times and the bound."""
   from muax_tpu_torch.envs import CartPole
   from muax_tpu_torch.replay.buffer import gumbel_noise
   from muax_tpu_torch.search import fused
@@ -286,30 +294,56 @@ def search_against_plain(device, policy, family, num_actions, batch,
                 support_size=getattr(net, "support_size", None),
                 invalid_actions=invalid, max_depth=max_depth)
   mode = search_mode(policy, family)
-  before = search_counts()
   if policy == "gumbel":
     logits = _mask_invalid(root.prior_logits, invalid).contiguous()
     gumbel = gumbel_noise(gen, (batch, num_actions), device)
     args = (root.embedding.contiguous(), logits, root.value.contiguous(),
             weights)
-    out = fused.fused_gumbel_search(*args, gumbel=gumbel,
-                                    max_num_considered_actions=16, **kwargs)
     root_score, schedule = fused.gumbel_root_inputs(
         logits, gumbel, invalid, max_num_considered_actions=16,
         num_simulations=MAIN_SIMS)
-    ref = fused.fused_gumbel_search_reference(
-        *args, root_score=root_score, schedule=schedule, **kwargs)
+
+    def launch():
+      return fused.fused_gumbel_search(*args, gumbel=gumbel,
+                                       max_num_considered_actions=16,
+                                       **kwargs)
+
+    def plain():
+      return fused.fused_gumbel_search_reference(
+          *args, root_score=root_score, schedule=schedule, **kwargs)
   else:
     logits = fused.noised_root_logits(gen, root.prior_logits, invalid)
     args = (root.embedding.contiguous(), logits, root.value.contiguous(),
             weights)
-    out = fused.fused_muzero_search(*args, **kwargs)
-    ref = fused.fused_muzero_search_reference(*args, **kwargs)
-  torch.cuda.synchronize()
-  got = tuple(a - b for a, b in zip(search_counts(), before))
+
+    def launch():
+      return fused.fused_muzero_search(*args, **kwargs)
+
+    def plain():
+      return fused.fused_muzero_search_reference(*args, **kwargs)
+  chosen = fused.mlp_search_plan
+  if group is not None:
+    fused.mlp_search_plan = lambda *a: chosen(*a, group=group)
+  try:
+    before = search_counts()
+    out = launch()
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(search_counts(), before))
+    if timed:
+      ms = time_ms(launch, 5)
+  finally:
+    fused.mlp_search_plan = chosen
   check(got == tuple(int(i == mode) for i in range(len(got))),
         f"the wrapper launched the {family} {policy} mode once, not {got}")
+  ref = plain()
   figures = compare_search(out, ref, MAIN_SIMS, invalid)
+  if timed:
+    figures["ms"] = ms
+    figures["plain_ms"] = time_ms(plain, 1)
+    figures["bound_ms"], figures["bound_by"] = search_bound_ms(
+        batch, MAIN_SIMS, weights, with_invalid, gumbel=policy == "gumbel",
+        peak=PEAK_3XTF32_FLOPS if family == "categorical"
+        else PEAK_F32_FLOPS)
   if policy == "gumbel":
     action, _ = fused.gumbel_action(out[0], out[2], gumbel, logits, invalid)
     ref_action, _ = fused.gumbel_action(ref[0], ref[2], gumbel, logits,
@@ -323,6 +357,49 @@ def search_against_plain(device, policy, family, num_actions, batch,
             "no env takes an invalid action")
     figures["same_action"] = same
   return figures
+
+
+def mlp_search_figures(device, args, kwargs, gumbel):
+  """Phases 3 and 9: the MLP search kernel timed on the rollout's last roots
+  at MAIN_ENVS and on the first TRAIN_ENVS of them (the training
+  iteration's batch), with the plain version's time, the bound, the launch
+  plan and the theoretical occupancy: the CUDA runtime's occupancy
+  calculator's blocks per SM for the compiled instance, at most the blocks
+  the grid gives the busiest SM, in warps (what the card can hold, not
+  what a counter saw resident). Keys for TRAIN_ENVS end in _1024."""
+  from muax_tpu_torch.search import fused
+  plain = (fused.fused_gumbel_search_reference if gumbel
+           else fused.fused_muzero_search_reference)
+  weights = args[3]
+  A, E = args[1].shape[1], args[0].shape[1]
+  widths = [2 * SUPPORT + 1] + [w.shape[1] for w, _ in (
+      *weights.dyn_hidden, *weights.pred_hidden)]
+  n_weights = weights.flat().numel()
+  limits = fused.device_limits(device)
+  out = {}
+  for batch, suffix in ((MAIN_ENVS, ""), (TRAIN_ENVS, f"_{TRAIN_ENVS}")):
+    a = tuple(t[:batch].contiguous() for t in args[:3]) + (weights,)
+    kw = dict(kwargs)
+    if gumbel:
+      kw["root_score"] = kwargs["root_score"][:batch].contiguous()
+      kw["schedule"] = kwargs["schedule"][:batch].contiguous()
+    out["search_ms" + suffix] = time_ms(
+        lambda: fused._fused_search_cuda(*a, **kw), 10)
+    out["plain_search_ms" + suffix] = time_ms(lambda: plain(*a, **kw), 1)
+    out["bound_ms" + suffix], out["bound_by" + suffix] = search_bound_ms(
+        batch, MAIN_SIMS, weights, False, gumbel=gumbel)
+    plan = fused.mlp_search_plan(batch, A, E, MAIN_SIMS, n_weights, widths,
+                                 gumbel, limits)
+    floats = fused.mlp_env_floats(A, E, MAIN_SIMS,
+                                  fused.mlp_act_width(A, E, widths), gumbel,
+                                  plan.smem_emb)
+    blocks = fused.mlp_blocks_per_sm(plan, n_weights, floats, gumbel, device)
+    busiest = min(blocks, -(-plan.grid // limits.sms))
+    out["plan" + suffix] = dict(
+        plan._asdict(), runtime_blocks_per_sm=blocks,
+        theoretical_warps_per_sm=busiest * plan.envs_per_block * plan.group
+        // 32)
+  return out
 
 
 def drive_main_path(device, policy="muzero", family="mlp"):
@@ -732,6 +809,24 @@ def learner_bound_ms(net, lay, B, n_weights, peak=PEAK_F32_FLOPS):
   floats = lay.rows * B + B + 2 * n_weights + 4 * B + 1
   t_bytes = 4.0 * floats / PEAK_BYTES_PER_S * 1e3
   return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mlp_line(figures, groups, ptxas, gumbel):
+  """The MLP search's extra keys in the kernel line: the plan's choice at
+  MAIN_ENVS and TRAIN_ENVS, the times at TRAIN_ENVS, and every instance with
+  its registers and its largest error against the plain version."""
+  from muax_tpu_torch.search import fused
+  t = f"_{TRAIN_ENVS}"
+  return {
+      "plan": figures["plan"], "plan" + t: figures["plan" + t],
+      "ms" + t: figures["search_ms" + t],
+      "plain_ms" + t: figures["plain_search_ms" + t],
+      "bound_ms" + t: figures["bound_ms" + t],
+      "instances": {
+          f"fused_search_kernel<{gumbel}><{g}>": dict(
+              ptxas.get(f"fused_search:fused_search_kernel<{gumbel}><{g}>",
+                        {}), max_abs_err=groups[f"G={g}"]["max_abs_err"])
+          for g in fused.MLP_GROUPS}}
 
 
 def ptxas_figures(logs):
@@ -1151,8 +1246,12 @@ def run(device):
   mlp = dict(pred_layers=(16,), dyn_layers=(16,))
   mlp_edge = dict(pred_layers=(16, 16), dyn_layers=(16, 16))
   main_cmp = search_against_plain(device, "muzero", "mlp", 2, MAIN_ENVS, mlp)
+  main_groups = {f"G={g}": search_against_plain(
+      device, "muzero", "mlp", 2, MAIN_ENVS, mlp, group=g)
+                 for g in fused.MLP_GROUPS}
   print(f"phase 1 kernel vs plain, B={MAIN_ENVS} sims={MAIN_SIMS} A=2 "
-        f"E={EMBED} S={SUPPORT} H=(16,): {json.dumps(main_cmp)} "
+        f"E={EMBED} S={SUPPORT} H=(16,): {json.dumps(main_cmp)}; each "
+        f"lane-group size: {json.dumps(main_groups)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
   t0 = time.perf_counter()
@@ -1164,11 +1263,8 @@ def run(device):
 
   t0 = time.perf_counter()
   launches, figures, (args, kwargs) = drive_main_path(device)
-  figures["search_ms"] = time_ms(lambda: fused.fused_muzero_search(
-      *args, **kwargs), 10)
-  figures["plain_search_ms"] = time_ms(
-      lambda: fused.fused_muzero_search_reference(*args, **kwargs), 1)
-  bound_ms, bound_by = search_bound_ms(MAIN_ENVS, MAIN_SIMS, args[3], False)
+  figures.update(mlp_search_figures(device, args, kwargs, False))
+  bound_ms, bound_by = figures["bound_ms"], figures["bound_by"]
   print(f"phase 3 rollout, {MAIN_ENVS} envs x {MAIN_SIMS} sims x "
         f"{MAIN_STEPS} steps: {json.dumps(figures)} "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1243,21 +1339,21 @@ def run(device):
   gumbel_edge = search_against_plain(device, "gumbel", "mlp", 4, EDGE_ENVS,
                                      mlp_edge, with_invalid=True,
                                      max_depth=2)
+  gumbel_groups = {f"G={g}": search_against_plain(
+      device, "gumbel", "mlp", 2, MAIN_ENVS, mlp, group=g)
+                   for g in fused.MLP_GROUPS}
   print(f"phase 8 Gumbel kernel vs plain, B={MAIN_ENVS} sims={MAIN_SIMS} "
         f"A=2 max_considered=16 H=(16,): {json.dumps(gumbel_main)}; "
         f"B={EDGE_ENVS} A=4 with one invalid action (3 considered), "
-        f"max_depth=2, H=(16, 16): {json.dumps(gumbel_edge)} "
+        f"max_depth=2, H=(16, 16): {json.dumps(gumbel_edge)}; each "
+        f"lane-group size at B={MAIN_ENVS}: {json.dumps(gumbel_groups)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
   t0 = time.perf_counter()
   _, gumbel_figures, (args, kwargs) = drive_main_path(device, "gumbel")
-  gumbel_figures["search_ms"] = time_ms(
-      lambda: fused._fused_search_cuda(*args, **kwargs), 10)
-  gumbel_figures["plain_search_ms"] = time_ms(
-      lambda: fused.fused_gumbel_search_reference(*args, **kwargs), 1)
-  gumbel_bound, gumbel_by = search_bound_ms(MAIN_ENVS, MAIN_SIMS, args[3],
-                                            False, gumbel=True)
-  gumbel_figures["bound_ms"] = gumbel_bound
+  gumbel_figures.update(mlp_search_figures(device, args, kwargs, True))
+  gumbel_bound = gumbel_figures["bound_ms"]
+  gumbel_by = gumbel_figures["bound_by"]
   print(f"phase 9 Gumbel rollout, {MAIN_ENVS} envs x {MAIN_SIMS} sims x "
         f"{MAIN_STEPS} steps: {json.dumps(gumbel_figures)} "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1291,7 +1387,7 @@ def run(device):
                                      with_invalid=True, max_depth=2),
         "trees_in_scratch": search_against_plain(
             device, policy, "categorical", SCRATCH_TREE_ACTIONS, CAT_ENVS,
-            CAT_NET)}
+            CAT_NET, timed=True)}
   widths = [CAT_NET["num_bins"], *CAT_NET["layer_sizes"] * 2]
   plan = fused.tiled_plan(CAT_ENVS, SCRATCH_TREE_ACTIONS,
                           CAT_NET["embedding_dim"], MAIN_SIMS, widths,
@@ -1302,7 +1398,8 @@ def run(device):
         f"B={CAT_SEARCH_SMALL_ENVS} sims={MAIN_SIMS} A=2 E=64 H=(256, 256, "
         f"256) 51 bins +-150; B={EDGE_ENVS} A=3 with one invalid action, "
         f"max_depth=2, H=(48, 32), 21 bins; B={CAT_ENVS} "
-        f"A={SCRATCH_TREE_ACTIONS}, trees in the device scratch ({plan}): "
+        f"A={SCRATCH_TREE_ACTIONS}, trees in the device scratch ({plan}), "
+        f"timed: "
         f"{json.dumps(cat_cmp)} ({time.perf_counter() - t0:.1f} s)")
 
   t0 = time.perf_counter()
@@ -1463,6 +1560,7 @@ def run(device):
       "launches": train_launches[0], "max_abs_err": main_cmp["max_abs_err"],
       "ms": figures["search_ms"], "plain_ms": figures["plain_search_ms"],
       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+      **mlp_line(figures, main_groups, ptxas, "false"),
   }, {
       "name": "fused_sample_group", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_sampler.cu",
@@ -1488,6 +1586,7 @@ def run(device):
       "ms": gumbel_figures["search_ms"],
       "plain_ms": gumbel_figures["plain_search_ms"],
       "bound_ms": gumbel_bound, "bound_by": gumbel_by, "library_ms": None,
+      **mlp_line(gumbel_figures, gumbel_groups, ptxas, "true"),
   }, {
       "name": "fused_categorical_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",

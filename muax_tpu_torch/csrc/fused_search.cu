@@ -1,7 +1,7 @@
 // Fused search: every simulation of every environment in one launch, for
 // Hopper (sm_90a), in the two policy modes of the TPU kernel, for the MLP
-// triplet (fused_search_kernel: one warp per environment, everything in
-// shared memory) and for the acme categorical family
+// triplet (fused_search_kernel: a group of lanes per environment over a
+// compact tree in shared memory) and for the acme categorical family
 // (fused_search_tiled_kernel, entry mz_fused_tiled_search: LayerNorm-tanh
 // layers and the linear two-hot decode, `decode="linear"` with ln_tanh
 // towers in the TPU kernel; its design is described at the kernel).
@@ -22,19 +22,28 @@
 // simulation walks down the tree (one selection per level, each needing the
 // previous one's child index), runs the two towers, then walks back up to the
 // root, and the next simulation needs the updated statistics. The chain is
-// latency-bound shared-memory traffic, not arithmetic.
+// latency-bound shared-memory traffic, not arithmetic, so the card is filled
+// by running many environments' chains at once.
 //
-// What the design does about it. One warp owns one environment, and its
-// whole tree lives in shared memory: int32 parent, action and child indices,
-// f32 statistics, the embeddings. Nothing goes to device memory between the
-// root read and the summary write. The tower weights (about 1.9 K floats at
-// the flagship widths) are staged once per block in shared memory. Lanes
-// split the actions during selection (warp shuffles find the max, ties go to
-// the lowest action), the output rows of each dense layer, and the 2S+1-bin
-// softmax and expectation. Tree edits and the backup run on lane 0 with the
-// warp synchronised around them. Several warps (environments) share a block
-// so the latency of one environment's chain hides behind the others'. The
-// tensor-core path, persistence and a tuned occupancy are left for later.
+// What the design does about it. A group of G lanes (a compile-time 4 or
+// 32) owns one environment, so a warp walks 32 / G trees at once: the TPU
+// kernel's environments on lanes, made Hopper-sized. The group's lanes split
+// the actions during selection (shuffle rounds under the group's mask over
+// the fewest lanes that cover the actions find the max, ties go to the
+// lowest action), the output rows of each dense layer (four chains at a
+// time, two in a whole warp), and the 2S+1 bins of the heads (summed in a
+// warp's order whatever G, so that every G rounds alike). Every lane takes
+// the walk; one lane installs and backs up. The tree is compact: an edge's visits, value and
+// reward are its child node's (see Tree), so a node keeps visits, value,
+// reward and parent (and the Gumbel mode's raw value) and an edge its child
+// index and prior, 4N + 2NA floats in shared memory at an odd stride per
+// environment. The embeddings stay beside the
+// tree where every environment of the launch still fits the card at once,
+// else in a device scratch (B N E floats, 17 MB at 8192 envs, held in L2).
+// The tower weights are staged once per block. The wrapper's plan
+// (search/fused.py `mlp_search_plan`) picks G, the environments per block
+// and the embeddings' place from the batch and the card's limits, so that
+// every environment is resident in one wave where the shapes allow.
 //
 // Semantics are those of the TPU kernel: node 0 starts with one visit and
 // the root value; root priors are softmax(root logits); the first maximum
@@ -64,6 +73,7 @@
 
 #include "tc_tile.cuh"
 #include "warp_mlp.cuh"
+#include "group_mlp.cuh"
 
 // Returned when the shapes do not fit the kernel (too many layers, or one
 // environment's tree does not fit the shared memory of a block).
@@ -71,11 +81,19 @@
 
 namespace {
 
+using namespace mz_group;
 using namespace mz_warp;
 
 constexpr int kErrShape = MZ_ERR_SHAPE;
 constexpr int kMaxLayers = 8;
-constexpr int kMaxEnvsPerBlock = 8;
+// The MLP kernel's blocks: at most 256 threads. A thread of the G = 32
+// instance takes at most 64 registers, so that 32 warps fit an SM; one of
+// the G = 4 instance at most 128 (16 warps an SM), which its heads' sums in
+// a warp's order need to run without spilling, and which costs no warps
+// where it is launched: there the trees' shared memory holds an SM to 8.
+constexpr int kMlpThreads = 256;
+template <int G>
+constexpr int kMlpMinBlocks = G == 32 ? 4 : 2;
 constexpr float kNeg = -1e30f;
 // completed_by_mix_value's defaults (muax_tpu/search/qtransforms.py:58-59).
 constexpr float kValueScale = 0.1f;
@@ -92,11 +110,13 @@ struct Args {
   int n_weights;       // floats in the flat weight buffer
   int weights_stride;  // floats of shared memory reserved for the weights
   int act_width;       // floats per activation buffer
-  int env_floats;      // floats of shared memory per environment
-  int envs_per_block;
+  int env_stride;      // floats of shared memory per environment (odd)
+  int emb_offset;      // floats: the embeddings' start in an env's slice
+  int envs_per_block;  // lane groups of a block
+  int smem_emb;        // embeddings in shared memory, else in the scratch
 };
 
-// The tree of one environment in shared memory.
+// The tree of one environment of the categorical kernel.
 struct Forest {
   float* nvis;  // [N]
   float* nval;  // [N]
@@ -250,7 +270,7 @@ __device__ int select_gumbel_interior(const Forest& f, int cur, int A,
   return warp_argmax(best, best_a);
 }
 
-// ---- the tree walk, shared by both kernels --------------------------------
+// ---- the categorical kernel's tree walk ----------------------------------
 
 // Resets one environment's forest: node 0 with one visit and the root value,
 // every index -1, every statistic 0. The warp's lanes split the arrays.
@@ -358,10 +378,269 @@ __device__ __forceinline__ void write_summary(const Forest& f, int A,
   if (lane == 0) out_value[env] = f.nval[0];
 }
 
-// ---- MLP modes: one warp per environment, everything in shared memory ----
+// ---- MLP modes: a group of G lanes per environment over a compact tree ---
 
+// One environment's compact tree. An edge's visits, value and reward are
+// those of the child node it leads to (each backup pass counts the edge and
+// its child together, the edge's value is set from the child's just after
+// the child's changes, the reward is written at each install of the child),
+// so the edge keeps only its child index and prior, and an unexpanded edge
+// (child -1) reads as zeros.
+struct Tree {
+  float* nvis;  // [N]
+  float* nval;  // [N]
+  float* nrew;  // [N] the reward of the edge into the node
+  float* nraw;  // [N] the raw network value, Gumbel mode only
+  int* npar;    // [N]
+  int* cidx;    // [N, A]
+  float* cpri;  // [N, A]
+
+  __device__ __forceinline__ float q(int c, float discount) const {
+    return nrew[c] + discount * nval[c];
+  }
+  __device__ __forceinline__ float visits(int c) const {
+    return c >= 0 ? nvis[c] : 0.f;
+  }
+};
+
+// The lanes of a group that the walk's reductions span: the least power of
+// two that covers the actions, at most G. Lane l takes the actions
+// first, first + span, ... (first = l mod span), so every span of the group
+// sees every action once and holds the whole result.
+template <int G>
+struct Walk {
+  Group<G> g;
+  int span, first;
+
+  __device__ explicit Walk(int A) {
+    span = 1;
+    while (span < A && span < G) span <<= 1;
+    first = g.lane & (span - 1);
+  }
+};
+
+// PUCT under the parent-and-siblings qtransform; invalid actions masked at
+// depth 0.
+template <int G>
+__device__ int group_puct(const Walk<G>& w, const Tree& t, int cur,
+                          int depth, int A, float discount, float pb_c_init,
+                          float pb_c_base, const float* inval) {
+  const float nvisit = t.nvis[cur];
+  const float nvalue = t.nval[cur];
+  const int* kids = t.cidx + cur * A;
+  float lo = INFINITY, hi = -INFINITY;
+  for (int a = w.first; a < A; a += w.span) {
+    const int c = kids[a];
+    const float safe_q = c >= 0 ? t.q(c, discount) : nvalue;
+    lo = fminf(lo, safe_q);
+    hi = fmaxf(hi, safe_q);
+  }
+  w.g.min_max(&lo, &hi, w.span);
+  const float minv = fminf(nvalue, lo);
+  const float maxv = fmaxf(nvalue, hi);
+  const float span = fmaxf(maxv - minv, 1e-8f);
+  const float pb_c =
+      pb_c_init + logf((nvisit + pb_c_base + 1.f) / pb_c_base);
+  const float prior_scale = sqrtf(nvisit) * pb_c;
+  float best = -INFINITY;
+  int best_a = INT_MAX;
+  for (int a = w.first; a < A; a += w.span) {
+    const int c = kids[a];
+    const float completed = c >= 0 ? t.q(c, discount) : minv;
+    float score = (completed - minv) / span +
+                  prior_scale * t.cpri[cur * A + a] / (t.visits(c) + 1.f);
+    if (depth == 0 && inval[a] > 0.f) score = kNeg;
+    if (score > best) {  // a rises along the lane's stride: first max
+      best = score;
+      best_a = a;
+    }
+  }
+  return w.g.argmax(best, best_a, w.span);
+}
+
+// completed_by_mix_value at one node, once per visit of the node:
+// sigma(q)(a) = (50 + max_a n(a)) * 0.1 * (completed(a) - low) /
+// max(high - low, 1e-8), completed(a) = q(a) for a visited child and the
+// mixed value otherwise. Every lane of the group gets the node's figures.
+struct GroupMix {
+  float v_mix, low, span, scale, sum_visits;
+
+  __device__ __forceinline__ float completed(const Tree& t, int c,
+                                             float discount) const {
+    return c >= 0 ? t.q(c, discount) : v_mix;
+  }
+  __device__ __forceinline__ float cq(float completed) const {
+    return scale * ((completed - low) / span);
+  }
+};
+
+template <int G>
+__device__ GroupMix group_mix(const Walk<G>& w, const Tree& t, int node,
+                              int A, float discount) {
+  const int* kids = t.cidx + node * A;
+  float sum_visits = 0.f, sum_probs = 0.f, weighted = 0.f, maxvisit = 0.f;
+  for (int a = w.first; a < A; a += w.span) {
+    const int c = kids[a];
+    if (c >= 0) {
+      const float cv = t.nvis[c];
+      const float p = t.cpri[node * A + a];
+      sum_visits += cv;
+      maxvisit = fmaxf(maxvisit, cv);
+      sum_probs += p;
+      weighted += p * t.q(c, discount);
+    }
+  }
+  for (int o = w.span / 2; o > 0; o >>= 1) {  // three sums, a max at once
+    sum_visits += w.g.shfl(sum_visits, o);
+    sum_probs += w.g.shfl(sum_probs, o);
+    weighted += w.g.shfl(weighted, o);
+    maxvisit = fmaxf(maxvisit, w.g.shfl(maxvisit, o));
+  }
+  GroupMix m;
+  weighted = weighted / fmaxf(sum_probs, 1e-8f);
+  m.sum_visits = sum_visits;
+  m.v_mix = (t.nraw[node] + sum_visits * weighted) / (sum_visits + 1.f);
+  float lo = INFINITY, hi = -INFINITY;
+  for (int a = w.first; a < A; a += w.span) {
+    const float c = m.completed(t, kids[a], discount);
+    lo = fminf(lo, c);
+    hi = fmaxf(hi, c);
+  }
+  w.g.min_max(&lo, &hi, w.span);
+  m.low = lo;
+  m.span = fmaxf(hi - lo, 1e-8f);
+  m.scale = (kMaxvisitInit + maxvisit) * kValueScale;
+  return m;
+}
+
+// Gumbel root: sequential halving over g + logits + sigma(q) among the
+// actions whose visits equal the schedule's entry `sched`; the rest, and
+// invalid actions, score the finite kNeg.
+template <int G>
+__device__ int group_gumbel_root(const Walk<G>& w, const Tree& t, int A,
+                                 float discount, const float* rscore,
+                                 float sched, const float* inval) {
+  const GroupMix m = group_mix(w, t, 0, A, discount);
+  float best = -INFINITY;
+  int best_a = INT_MAX;
+  for (int a = w.first; a < A; a += w.span) {
+    const int c = t.cidx[a];
+    float score = t.visits(c) == sched
+                      ? rscore[a] + m.cq(m.completed(t, c, discount))
+                      : kNeg;
+    if (inval[a] > 0.f) score = kNeg;
+    if (score > best) {
+      best = score;
+      best_a = a;
+    }
+  }
+  return w.g.argmax(best, best_a, w.span);
+}
+
+// Gumbel interior: softmax(log prior + sigma(q)) - n / (1 + sum n). Each
+// action's log prior + sigma(q) is computed once, into z (the lane's own
+// entries of an activation buffer, free during the walk).
+template <int G>
+__device__ int group_gumbel_interior(const Walk<G>& w, const Tree& t,
+                                     int cur, int A, float discount,
+                                     float* z) {
+  const GroupMix m = group_mix(w, t, cur, A, discount);
+  const int* kids = t.cidx + cur * A;
+  float mx = -INFINITY;
+  for (int a = w.first; a < A; a += w.span) {
+    const float v = logf(fmaxf(t.cpri[cur * A + a], 1e-30f)) +
+                    m.cq(m.completed(t, kids[a], discount));
+    z[a] = v;
+    mx = fmaxf(mx, v);
+  }
+  mx = w.g.max(mx, w.span);
+  float total = 0.f;
+  for (int a = w.first; a < A; a += w.span) {
+    const float e = expf(z[a] - mx);
+    z[a] = e;
+    total += e;
+  }
+  total = fmaxf(w.g.sum(total, w.span), 1e-30f);
+  float best = -INFINITY;
+  int best_a = INT_MAX;
+  for (int a = w.first; a < A; a += w.span) {
+    const float score =
+        z[a] / total - t.visits(kids[a]) / (1.f + m.sum_visits);
+    if (score > best) {
+      best = score;
+      best_a = a;
+    }
+  }
+  return w.g.argmax(best, best_a, w.span);
+}
+
+// One descent from the root to the edge it stops at: an unexpanded child,
+// or max_depth. Every lane of the group takes the same path.
+template <bool kGumbel, int G>
+__device__ __forceinline__ void group_descend(
+    const Walk<G>& w, const Tree& t, const Args& args, const float* inval,
+    const float* rscore, float sched, float* z, int* parent_out,
+    int* act_out) {
+  const int A = args.A;
+  int cur = 0, parent = -1, act = -1, depth = 0;
+  while (true) {
+    int best_a;
+    if (!kGumbel) {
+      best_a = group_puct(w, t, cur, depth, A, args.discount, args.pb_c_init,
+                          args.pb_c_base, inval);
+    } else if (depth == 0) {
+      best_a = group_gumbel_root(w, t, A, args.discount, rscore, sched,
+                                 inval);
+    } else {
+      best_a = group_gumbel_interior(w, t, cur, A, args.discount, z);
+    }
+    const int child = t.cidx[cur * A + best_a];
+    parent = cur;
+    act = best_a;
+    cur = child;
+    ++depth;
+    if (child < 0 || depth >= args.max_depth) break;
+  }
+  *parent_out = parent;
+  *act_out = act;
+}
+
+// Install of the expanded node (running mean; a re-evaluated node's raw
+// value is replaced) and the backup along parent pointers from the raw
+// network value, as in the TPU kernel; the edges need no update. One lane
+// runs it.
 template <bool kGumbel>
-__global__ void __launch_bounds__(32 * kMaxEnvsPerBlock)
+__device__ __forceinline__ void group_install_backup(const Tree& t, int A,
+                                                     float discount, int slot,
+                                                     int parent, int act,
+                                                     float value,
+                                                     float reward) {
+  const float count = t.nvis[slot];
+  t.nval[slot] = (t.nval[slot] * count + value) / (count + 1.f);
+  t.nvis[slot] = count + 1.f;
+  if (kGumbel) t.nraw[slot] = value;
+  t.npar[slot] = parent;
+  t.nrew[slot] = reward;
+  t.cidx[parent * A + act] = slot;
+  int idx = slot;
+  float v = value;
+  while (idx != 0) {
+    const int par = t.npar[idx];
+    const float cnt = t.nvis[par];
+    const float vnew = t.nrew[idx] + discount * v;
+    t.nval[par] = (t.nval[par] * cnt + vnew) / (cnt + 1.f);
+    t.nvis[par] = cnt + 1.f;
+    v = vnew;
+    idx = par;
+  }
+}
+
+// Every simulation of one environment per lane group, the towers staged
+// once per block in shared memory, the compact trees (and, where the launch
+// plan keeps them there, the embeddings) in shared memory at an odd
+// stride per environment.
+template <bool kGumbel, int G>
+__global__ void __launch_bounds__(kMlpThreads, kMlpMinBlocks<G>)
 fused_search_kernel(const float* __restrict__ root_emb,
                     const float* __restrict__ root_logits,
                     const float* __restrict__ root_value,
@@ -369,6 +648,7 @@ fused_search_kernel(const float* __restrict__ root_emb,
                     const float* __restrict__ root_score,
                     const float* __restrict__ schedule,
                     const float* __restrict__ weights,
+                    float* __restrict__ emb_scratch,
                     float* __restrict__ out_visits,
                     float* __restrict__ out_value,
                     float* __restrict__ out_q, const Args args) {
@@ -377,99 +657,142 @@ fused_search_kernel(const float* __restrict__ root_emb,
     smem[i] = weights[i];
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int env = blockIdx.x * args.envs_per_block + warp;
+  const int local = threadIdx.x / G;
+  const int env = blockIdx.x * args.envs_per_block + local;
   if (env >= args.B) return;
-
   const int A = args.A, E = args.E, N = args.num_nodes, NA = N * A;
+  const Walk<G> w(A);
+  const Group<G>& g = w.g;
+  const int lane = g.lane;
   const int S41 = args.S41;
   const float discount = args.discount;
+  const size_t e = static_cast<size_t>(env);
 
-  // This environment's forest slice.
-  Forest f;
-  f.nvis = smem + args.weights_stride + warp * args.env_floats;
-  f.nval = f.nvis + N;
-  f.npar = reinterpret_cast<int*>(f.nval + N);
-  f.nact = f.npar + N;
-  f.cidx = f.nact + N;
-  f.cpri = reinterpret_cast<float*>(f.cidx + NA);
-  f.cvis = f.cpri + NA;
-  f.crew = f.cvis + NA;
-  f.cval = f.crew + NA;
-  float* emb = f.cval + NA;
-  float* bufs[2] = {emb + N * E, emb + N * E + args.act_width};
+  // This environment's slice: the tree, two activation buffers, the
+  // invalid mask, the Gumbel mode's raw values and root score, and the
+  // embeddings here or in the scratch.
+  float* base = smem + args.weights_stride + local * args.env_stride;
+  Tree t;
+  t.nvis = base;
+  t.nval = base + N;
+  t.nrew = base + 2 * N;
+  t.npar = reinterpret_cast<int*>(base + 3 * N);
+  t.cidx = reinterpret_cast<int*>(base + 4 * N);
+  t.cpri = base + 4 * N + NA;
+  float* bufs[2] = {t.cpri + NA, t.cpri + NA + args.act_width};
   float* inval = bufs[1] + args.act_width;
-  f.nraw = inval + A;         // Gumbel mode: [N]
-  float* rscore = f.nraw + N;  // Gumbel mode: [A]
+  t.nraw = inval + A;          // Gumbel mode: [N]
+  float* rscore = t.nraw + N;  // Gumbel mode: [A]
+  float* emb = args.smem_emb ? base + args.emb_offset
+                             : emb_scratch + e * N * E;
 
-  // ---- forest init ------------------------------------------------------
-  init_forest<kGumbel>(f, N, A, root_value[env], lane);
-  for (int j = lane; j < E; j += 32)
-    emb[j] = root_emb[static_cast<size_t>(env) * E + j];
-  for (int a = lane; a < A; a += 32) {
-    inval[a] = invalid ? invalid[static_cast<size_t>(env) * A + a] : 0.f;
-    if (kGumbel) rscore[a] = root_score[static_cast<size_t>(env) * A + a];
+  // ---- tree init: node 0 with one visit and the root value --------------
+  const float rv = root_value[env];
+  for (int i = lane; i < N; i += G) {
+    t.nvis[i] = i == 0 ? 1.f : 0.f;
+    t.nval[i] = i == 0 ? rv : 0.f;
   }
-  softmax_into(root_logits + static_cast<size_t>(env) * A, f.cpri, A, lane);
+  if (lane == 0) {
+    t.nrew[0] = 0.f;
+    t.npar[0] = -1;
+    if (kGumbel) t.nraw[0] = rv;
+  }
+  for (int i = lane; i < NA; i += G) t.cidx[i] = -1;
+  for (int j = lane; j < E; j += G) emb[j] = root_emb[e * E + j];
+  for (int a = lane; a < A; a += G) {
+    inval[a] = invalid ? invalid[e * A + a] : 0.f;
+    if (kGumbel) rscore[a] = root_score[e * A + a];
+  }
+  softmax_row(g, root_logits + e * A, t.cpri, A);
 
   for (int sim = 0; sim < args.num_simulations; ++sim) {
     // ---- descent ----------------------------------------------------------
     const float sched =
-        kGumbel
-            ? schedule[static_cast<size_t>(env) * args.num_simulations + sim]
-            : 0.f;
+        kGumbel ? schedule[e * args.num_simulations + sim] : 0.f;
     int parent, act;
-    descend<kGumbel>(f, A, discount, args.pb_c_init, args.pb_c_base,
-                     args.max_depth, inval, rscore, sched, lane, &parent,
-                     &act);
+    group_descend<kGumbel, G>(w, t, args, inval, rscore, sched, bufs[0],
+                              &parent, &act);
     // Fresh node sim+1, unless the depth cap stopped on an existing child.
-    const int existing = f.cidx[parent * A + act];
+    const int existing = t.cidx[parent * A + act];
     const int slot = existing < 0 ? sim + 1 : existing;
 
     // ---- expansion: dynamics on concat(s, one_hot(a)), then prediction --
-    for (int j = lane; j < E + A; j += 32)
-      bufs[0][j] = j < E ? emb[parent * E + j] : (j - E == act ? 1.f : 0.f);
-    __syncwarp();
+    for (int j = lane; j < E; j += G) bufs[0][j] = emb[parent * E + j];
+    g.sync();
     const float* p = smem;
-    int k = 1, h_width;
-    const float* h = run_hidden(p, bufs[0], E + A, args.dyn_width, args.n_dyn,
-                                bufs, &k, &h_width, lane);
-    dense(p, p + h_width * S41, h, bufs[k], h_width, S41, false, lane);
-    p += h_width * S41 + S41;
-    const float reward = decode_support(bufs[k], S41, args.support_size, lane);
-    dense(p, p + h_width * E, h, bufs[k], h_width, E, false, lane);
-    float lo = INFINITY, hi = -INFINITY;
-    for (int j = lane; j < E; j += 32) {
-      lo = fminf(lo, bufs[k][j]);
-      hi = fmaxf(hi, bufs[k][j]);
+    const float* x = bufs[0];
+    int in = E, k = 1;
+    for (int l = 0; l < args.n_dyn; ++l) {
+      const int out = args.dyn_width[l];
+      const int rows = l == 0 ? E + A : in;  // the one-hot rows after s
+      dense_elu(g, p, p + rows * out, x, bufs[k], in, out,
+                l == 0 ? p + (E + act) * out : nullptr);
+      p += rows * out + out;
+      x = bufs[k];
+      k ^= 1;
+      in = out;
     }
-    lo = warp_min(lo);
-    hi = warp_max(hi);
+    float* ns = bufs[k];  // the reward logits, then the next state
+    const float reward = decode_head(g, p, p + in * S41, x, in, S41,
+                                     args.support_size, ns);
+    p += in * S41 + S41;
+    float lo = INFINITY, hi = -INFINITY;
+    for_outputs(g, p, p + in * E, x, in, E, nullptr, [&](int j, float v) {
+      ns[j] = v;
+      lo = fminf(lo, v);
+      hi = fmaxf(hi, v);
+    });
+    g.min_max(&lo, &hi);
     const float ns_span = fmaxf(hi - lo, 1e-8f);
-    float* ns = emb + slot * E;
-    for (int j = lane; j < E; j += 32) ns[j] = (bufs[k][j] - lo) / ns_span;
-    __syncwarp();
+    for (int j = lane; j < E; j += G) {
+      const float v = (ns[j] - lo) / ns_span;
+      ns[j] = v;
+      emb[slot * E + j] = v;
+    }
+    g.sync();
 
     p = smem + args.pred_offset;
-    k = 0;
-    const float* g = run_hidden(p, ns, E, args.pred_width, args.n_pred, bufs,
-                                &k, &h_width, lane);
-    dense(p, p + h_width * S41, g, bufs[k], h_width, S41, false, lane);
-    p += h_width * S41 + S41;
-    const float value = decode_support(bufs[k], S41, args.support_size, lane);
-    dense(p, p + h_width * A, g, bufs[k], h_width, A, false, lane);
-    softmax_into(bufs[k], f.cpri + slot * A, A, lane);
+    x = ns;
+    in = E;
+    k ^= 1;  // the dynamics' last hidden buffer is free again
+    for (int l = 0; l < args.n_pred; ++l) {
+      const int out = args.pred_width[l];
+      dense_elu(g, p, p + in * out, x, bufs[k], in, out, nullptr);
+      p += in * out + out;
+      x = bufs[k];
+      k ^= 1;
+      in = out;
+    }
+    const float value = decode_head(g, p, p + in * S41, x, in, S41,
+                                    args.support_size, bufs[k]);
+    p += in * S41 + S41;
+    float* prior = t.cpri + slot * A;
+    for_outputs(g, p, p + in * A, x, in, A, nullptr,
+                [&](int a, float v) { prior[a] = v; });
+    softmax_row(g, prior, prior, A);
 
     // ---- install (running mean) and backup along parent pointers -------
     if (lane == 0)
-      install_and_backup<kGumbel>(f, A, discount, slot, parent, act, value,
-                                  reward);
-    __syncwarp();
+      group_install_backup<kGumbel>(t, A, discount, slot, parent, act, value,
+                                    reward);
+    g.sync();
   }
 
-  write_summary<kGumbel>(f, A, discount, static_cast<size_t>(env),
-                         out_visits, out_value, out_q, lane);
+  // ---- the root summary: visits, value, and r + discount v (MuZero) or
+  // the completed sigma(q) (Gumbel) ---------------------------------------
+  if (kGumbel) {
+    const GroupMix m = group_mix(w, t, 0, A, discount);
+    for (int a = lane; a < A; a += G)
+      out_q[e * A + a] = m.cq(m.completed(t, t.cidx[a], discount));
+  } else {
+    for (int a = lane; a < A; a += G) {
+      const int c = t.cidx[a];
+      out_q[e * A + a] = c >= 0 ? t.q(c, discount) : 0.f;
+    }
+  }
+  for (int a = lane; a < A; a += G)
+    out_visits[e * A + a] = t.visits(t.cidx[a]);
+  if (lane == 0) out_value[env] = t.nval[0];
 }
 
 // ---- categorical modes: a cluster of blocks per tile of environments ------
@@ -834,48 +1157,68 @@ fused_search_tiled_kernel(const float* __restrict__ root_emb,
   }
 }
 
-// Sizes the shared memory from `args`' shapes and launches one mode.
+// Sizes the shared memory from the launch plan and launches one MLP mode:
+// ceil(B / envs_per_block) blocks of envs_per_block groups of G lanes.
+using MlpKernel = void (*)(const float*, const float*, const float*,
+                           const float*, const float*, const float*,
+                           const float*, float*, float*, float*, float*,
+                           const Args);
+
+size_t mlp_smem_bytes(const Args& args) {
+  return (static_cast<size_t>(args.weights_stride) +
+          static_cast<size_t>(args.envs_per_block) * args.env_stride) *
+         sizeof(float);
+}
+
 template <bool kGumbel>
-int launch(Args args, const float* root_emb, const float* root_logits,
-           const float* root_value, const float* invalid,
-           const float* root_score, const float* schedule,
-           const float* weights, float* out_visits, float* out_value,
-           float* out_q, int device, void* stream) {
+MlpKernel mlp_kernel(int group) {
+  switch (group) {
+    case 4: return fused_search_kernel<kGumbel, 4>;
+    case 32: return fused_search_kernel<kGumbel, 32>;
+    default: return nullptr;
+  }
+}
+
+int launch(const Args& args, int gumbel, int group, const float* root_emb,
+           const float* root_logits, const float* root_value,
+           const float* invalid, const float* root_score,
+           const float* schedule, const float* weights, float* emb_scratch,
+           float* out_visits, float* out_value, float* out_q, int device,
+           void* stream) {
+  const MlpKernel kernel =
+      gumbel ? mlp_kernel<true>(group) : mlp_kernel<false>(group);
+  const int threads = args.envs_per_block * group;
+  if (kernel == nullptr || args.envs_per_block < 1 || threads > kMlpThreads ||
+      threads % 32 != 0)
+    return kErrShape;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  int per_block = kMaxEnvsPerBlock;
-  while (per_block > 0 &&
-         (static_cast<long>(args.weights_stride) +
-          static_cast<long>(per_block) * args.env_floats) * 4 > max_smem)
-    --per_block;
-  if (per_block == 0) return kErrShape;
-  args.envs_per_block = per_block;
-  const size_t smem =
-      (static_cast<size_t>(args.weights_stride) +
-       static_cast<size_t>(per_block) * args.env_floats) * sizeof(float);
-  err = cudaFuncSetAttribute(fused_search_kernel<kGumbel>,
+  const size_t smem = mlp_smem_bytes(args);
+  if (smem > static_cast<size_t>(max_smem)) return kErrShape;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int grid = (args.B + per_block - 1) / per_block;
-  fused_search_kernel<kGumbel><<<grid, 32 * per_block, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  const int grid = (args.B + args.envs_per_block - 1) / args.envs_per_block;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       root_emb, root_logits, root_value, invalid, root_score, schedule,
-      weights, out_visits, out_value, out_q, args);
+      weights, emb_scratch, out_visits, out_value, out_q, args);
   return cudaGetLastError();
 }
 
-// Fills `args` from the shapes and the tower widths shared by both modes;
-// returns 0, or kErrShape when they do not fit the kernel or the flat
-// weight buffer.
+// Fills `args` from the shapes, the tower widths and the launch plan (G,
+// environments per block, embeddings in shared memory or in a scratch of
+// scratch_floats); returns 0, or kErrShape when they do not fit the kernel
+// or the flat weight buffer.
 int make_args(Args* args, int B, int A, int E, int S41, int support_size,
               int num_simulations, int max_depth, float discount,
               int n_weights, int n_dyn, const int* dyn_width, int n_pred,
-              const int* pred_width, bool gumbel) {
+              const int* pred_width, bool gumbel, int envs_per_block,
+              int smem_emb, const float* emb_scratch, long scratch_floats) {
   if (n_dyn < 1 || n_dyn > kMaxLayers || n_pred < 1 || n_pred > kMaxLayers ||
       B < 1 || A < 1 || E < 1 || S41 < 1 || num_simulations < 1)
     return kErrShape;
@@ -892,7 +1235,9 @@ int make_args(Args* args, int B, int A, int E, int S41, int support_size,
   args->pb_c_base = 1.f;
   args->n_dyn = n_dyn;
   args->n_pred = n_pred;
-  int act_width = E + A;
+  // An activation buffer holds s, a hidden layer, a head's bins, the next
+  // state, or the Gumbel interior's per-action scores.
+  int act_width = E > A ? E : A;
   if (S41 > act_width) act_width = S41;
   long dyn_floats = 0;
   int in = E + A;
@@ -918,14 +1263,23 @@ int make_args(Args* args, int B, int A, int E, int S41, int support_size,
   args->weights_stride = (n_weights + 3) / 4 * 4;
   args->act_width = act_width;
   const long N = num_simulations + 1;
-  // Node and edge arrays, embeddings, two activation buffers, the invalid
-  // mask; the Gumbel mode adds the raw values [N] and the root score [A].
-  long floats = 4 * N + 5 * N * A + N * E + 2 * act_width + A;
-  if (gumbel) floats += N + A;
-  args->env_floats = static_cast<int>(floats);
+  // The tree (4 N + 2 N A), two activation buffers, the invalid mask; the
+  // Gumbel mode adds the raw values [N] and the root score [A]; then the
+  // embeddings [N, E] where they stay in shared memory. An odd stride puts
+  // the environments of a warp on different banks.
+  const long offset = 4 * N + 2 * N * A + 2L * act_width + A +
+                      (gumbel ? N + A : 0);
+  const long floats = (offset + (smem_emb ? N * E : 0)) | 1;
+  if (floats > INT_MAX / kMlpThreads) return kErrShape;
+  if (!smem_emb && (emb_scratch == nullptr ||
+                    scratch_floats < static_cast<long>(B) * N * E))
+    return kErrShape;
+  args->emb_offset = static_cast<int>(offset);
+  args->env_stride = static_cast<int>(floats);
+  args->envs_per_block = envs_per_block;
+  args->smem_emb = smem_emb;
   return 0;
 }
-
 
 // Sizes the cluster's shared memory and launches one categorical mode over
 // `grid` blocks, in clusters of kC blocks per tile of kTileEnvs
@@ -991,12 +1345,17 @@ extern "C" {
 // f32: root_emb [B, E], root_logits [B, A] (noised and masked), root_value
 // [B], invalid [B, A] or NULL; weights is the flat tower buffer (per layer W
 // [in, out] then b [out]: dynamics hidden layers, reward head, next-state
-// head, then prediction hidden layers, value head, policy head). Outputs:
-// visits [B, A], value [B], q [B, A] (r + discount v). Returns a
-// cudaError_t, or MZ_ERR_SHAPE.
+// head, then prediction hidden layers, value head, policy head). The launch
+// plan: `group` lanes per environment (4 or 32), envs_per_block
+// groups a block (envs_per_block x group a multiple of 32, at most 256),
+// and the embeddings in shared memory (smem_emb) or in emb_scratch, B N E
+// floats, N = num_simulations + 1. Outputs: visits [B, A], value [B], q
+// [B, A] (r + discount v). Returns a cudaError_t, or MZ_ERR_SHAPE.
 int mz_fused_muzero_search(const float* root_emb, const float* root_logits,
                            const float* root_value, const float* invalid,
                            const float* weights, int n_weights,
+                           float* emb_scratch, long scratch_floats, int group,
+                           int envs_per_block, int smem_emb,
                            float* out_visits, float* out_value, float* out_q,
                            int B, int A, int E, int S41, int support_size,
                            int num_simulations, int max_depth, float discount,
@@ -1006,16 +1365,18 @@ int mz_fused_muzero_search(const float* root_emb, const float* root_logits,
   Args args;
   const int bad = make_args(&args, B, A, E, S41, support_size,
                             num_simulations, max_depth, discount, n_weights,
-                            n_dyn, dyn_width, n_pred, pred_width, false);
+                            n_dyn, dyn_width, n_pred, pred_width, false,
+                            envs_per_block, smem_emb, emb_scratch,
+                            scratch_floats);
   if (bad) return bad;
   args.pb_c_init = pb_c_init;
   args.pb_c_base = pb_c_base;
-  return launch<false>(args, root_emb, root_logits, root_value, invalid,
-                       nullptr, nullptr, weights, out_visits, out_value,
-                       out_q, device, stream);
+  return launch(args, 0, group, root_emb, root_logits, root_value, invalid,
+                nullptr, nullptr, weights, emb_scratch, out_visits, out_value,
+                out_q, device, stream);
 }
 
-// Launch the Gumbel MuZero search on `stream`. Inputs as
+// Launch the Gumbel MuZero search on `stream`. Inputs and plan as
 // mz_fused_muzero_search, with root_logits the masked logits (no noise),
 // plus root_score [B, A] (gumbel + root_logits) and schedule
 // [B, num_simulations] (each row's considered-visit counts, exact integers
@@ -1025,6 +1386,8 @@ int mz_fused_gumbel_search(const float* root_emb, const float* root_logits,
                            const float* root_value, const float* invalid,
                            const float* root_score, const float* schedule,
                            const float* weights, int n_weights,
+                           float* emb_scratch, long scratch_floats, int group,
+                           int envs_per_block, int smem_emb,
                            float* out_visits, float* out_value, float* out_q,
                            int B, int A, int E, int S41, int support_size,
                            int num_simulations, int max_depth, float discount,
@@ -1034,11 +1397,31 @@ int mz_fused_gumbel_search(const float* root_emb, const float* root_logits,
   Args args;
   const int bad = make_args(&args, B, A, E, S41, support_size,
                             num_simulations, max_depth, discount, n_weights,
-                            n_dyn, dyn_width, n_pred, pred_width, true);
+                            n_dyn, dyn_width, n_pred, pred_width, true,
+                            envs_per_block, smem_emb, emb_scratch,
+                            scratch_floats);
   if (bad) return bad;
-  return launch<true>(args, root_emb, root_logits, root_value, invalid,
-                      root_score, schedule, weights, out_visits, out_value,
-                      out_q, device, stream);
+  return launch(args, 1, group, root_emb, root_logits, root_value, invalid,
+                root_score, schedule, weights, emb_scratch, out_visits,
+                out_value, out_q, device, stream);
+}
+
+// Blocks of the MLP kernel (mode `gumbel`, G = group) of `threads` threads
+// and smem_bytes of dynamic shared memory that one SM holds at once, as
+// the CUDA runtime reckons it from the compiled kernel; into *out.
+int mz_mlp_blocks_per_sm(int gumbel, int group, int threads, long smem_bytes,
+                         int device, int* out) {
+  const MlpKernel kernel =
+      gumbel ? mlp_kernel<true>(group) : mlp_kernel<false>(group);
+  if (kernel == nullptr) return kErrShape;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kernel, threads, static_cast<size_t>(smem_bytes));
 }
 
 // Launch the tiled search (the categorical modes) on `stream`: MuZero when
@@ -1156,15 +1539,17 @@ int mz_fused_tiled_search(const float* root_emb, const float* root_logits,
                      launch_tiled<false, 4, false>);
 }
 
-// The limits the wrapper sizes the tiled search's launch by: SMs, shared
-// memory per SM, per block (opt-in) and reserved per block, in bytes.
+// The limits the wrapper sizes the searches' launches by: SMs, shared
+// memory per SM, per block (opt-in) and reserved per block, in bytes, and
+// 32-bit registers per SM.
 int mz_device_limits(int device, int* out) {
-  const cudaDeviceAttr attrs[4] = {
+  const cudaDeviceAttr attrs[5] = {
       cudaDevAttrMultiProcessorCount,
       cudaDevAttrMaxSharedMemoryPerMultiprocessor,
       cudaDevAttrMaxSharedMemoryPerBlockOptin,
-      cudaDevAttrReservedSharedMemoryPerBlock};
-  for (int i = 0; i < 4; ++i) {
+      cudaDevAttrReservedSharedMemoryPerBlock,
+      cudaDevAttrMaxRegistersPerMultiprocessor};
+  for (int i = 0; i < 5; ++i) {
     const cudaError_t err = cudaDeviceGetAttribute(out + i, attrs[i], device);
     if (err != cudaSuccess) return err;
   }

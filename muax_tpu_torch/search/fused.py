@@ -32,6 +32,7 @@ Stochastic MuZero has its own kernel, ``csrc/fused_smz.cu``, behind
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -228,13 +229,56 @@ def _as_spec(weights, support_size) -> FusedNetSpec:
   return _mlp_weights_to_spec(weights, support_size)
 
 
+class PlainForest(NamedTuple):
+  """The plain version's trees after the search, [B, N] node and [B, N, A]
+  edge arrays: node visits, values, raw network values, the reward written
+  at each install of the node, parents, actions; edge children, priors,
+  visits, rewards, values; the embeddings [B, N, E]."""
+  nvis: torch.Tensor
+  nval: torch.Tensor
+  nraw: torch.Tensor
+  nrew: torch.Tensor
+  npar: torch.Tensor
+  nact: torch.Tensor
+  cidx: torch.Tensor
+  cpri: torch.Tensor
+  cvis: torch.Tensor
+  crew: torch.Tensor
+  cval: torch.Tensor
+  embs: torch.Tensor
+
+
 def _plain_search(root_embedding, root_prior_logits, root_value,
                   spec: FusedNetSpec, *, num_simulations, discount,
                   invalid_actions, max_depth, pb_c_init=1.25,
                   pb_c_base=19652.0, root_score=None, schedule=None):
-  """Every mode of the plain version, batched over [B, N] and [B, N, A]
-  tensors with a lockstep descent. ``root_score`` and ``schedule`` select
-  the Gumbel mode."""
+  """Every mode of the plain version: the root summaries of
+  ``_plain_forest``'s trees. ``root_score`` and ``schedule`` select the
+  Gumbel mode."""
+  f = _plain_forest(root_embedding, root_prior_logits, root_value, spec,
+                    num_simulations=num_simulations, discount=discount,
+                    invalid_actions=invalid_actions, max_depth=max_depth,
+                    pb_c_init=pb_c_init, pb_c_base=pb_c_base,
+                    root_score=root_score, schedule=schedule)
+  if root_score is not None:
+    root = torch.zeros(f.nvis.shape[0], dtype=torch.long,
+                       device=f.nvis.device)
+    root_q, _, _ = _completed_q(root, torch.arange(f.nvis.shape[0],
+                                                   device=f.nvis.device),
+                                f.nraw, f.cvis, f.cpri, f.crew, f.cval,
+                                discount)
+  else:
+    root_q = f.crew[:, 0] + discount * f.cval[:, 0]
+  return f.cvis[:, 0], f.nval[:, 0], root_q
+
+
+def _plain_forest(root_embedding, root_prior_logits, root_value,
+                  spec: FusedNetSpec, *, num_simulations, discount,
+                  invalid_actions, max_depth, pb_c_init=1.25,
+                  pb_c_base=19652.0, root_score=None, schedule=None
+                  ) -> PlainForest:
+  """The plain search, batched over [B, N] and [B, N, A] tensors with a
+  lockstep descent; returns the final trees."""
   gumbel = root_score is not None
   B, E = root_embedding.shape
   A = root_prior_logits.shape[-1]
@@ -252,6 +296,7 @@ def _plain_search(root_embedding, root_prior_logits, root_value,
   nval = torch.zeros(B, N, dtype=f32, device=dev)
   nval[:, 0] = root_value.to(f32)
   nraw = nval.clone()
+  nrew = torch.zeros(B, N, dtype=f32, device=dev)
   npar = torch.full((B, N), -1, dtype=torch.long, device=dev)
   nact = torch.full((B, N), -1, dtype=torch.long, device=dev)
   cidx = torch.full((B, N, A), -1, dtype=torch.long, device=dev)
@@ -358,6 +403,7 @@ def _plain_search(root_embedding, root_prior_logits, root_value,
     nval[rows, slot] = (nval[rows, slot] * count + value) / (count + 1.0)
     nvis[rows, slot] = count + 1.0
     nraw[rows, slot] = value
+    nrew[rows, slot] = reward
     npar[rows, slot] = parent
     nact[rows, slot] = act
     cpri[rows, slot] = pol
@@ -383,11 +429,8 @@ def _plain_search(root_embedding, root_prior_logits, root_value,
       v = torch.where(on, vnew, v)
       idx = torch.where(on, par, idx)
 
-  if gumbel:
-    root_q, _, _ = completed_q(torch.zeros_like(rows))
-  else:
-    root_q = crew[:, 0] + discount * cval[:, 0]
-  return cvis[:, 0], nval[:, 0], root_q
+  return PlainForest(nvis, nval, nraw, nrew, npar, nact, cidx, cpri, cvis,
+                     crew, cval, embs)
 
 
 def fused_muzero_search_reference(
@@ -448,11 +491,12 @@ def _load_kernel():
   if lib.mz_fused_muzero_search.argtypes is None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i32, ptr, i32, ptr, i32, ptr]  # towers, device, stream
+    plan = [ptr, ctypes.c_long, i32, i32, i32]  # emb scratch, G, envs, place
     lib.mz_fused_muzero_search.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, ptr, i32, *plan, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, f32, f32, f32] + tail
     lib.mz_fused_gumbel_search.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, *plan, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, f32] + tail
     lib.mz_fused_tiled_search.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ctypes.c_long, i32, i32,
@@ -460,8 +504,11 @@ def _load_kernel():
         i32, i32, f32, f32, f32,
         i32, ptr, ptr, i32, ptr, ptr, i32, ptr]
     lib.mz_device_limits.argtypes = [i32, ptr]
+    lib.mz_mlp_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.c_long, i32,
+                                         ptr]
     for fn in (lib.mz_fused_muzero_search, lib.mz_fused_gumbel_search,
-               lib.mz_fused_tiled_search, lib.mz_device_limits):
+               lib.mz_fused_tiled_search, lib.mz_device_limits,
+               lib.mz_mlp_blocks_per_sm):
       fn.restype = i32
     lib.mz_error_string.argtypes = [i32]
     lib.mz_error_string.restype = ctypes.c_char_p
@@ -479,19 +526,26 @@ _TILED_BLOCKS_PER_SM = 2
 
 
 class DeviceLimits(NamedTuple):
-  """What a card offers the categorical kernel: SMs, and shared memory in
-  bytes per SM, per block (opt-in) and reserved per block."""
+  """What a card offers the search kernels: SMs, shared memory in bytes per
+  SM, per block (opt-in) and reserved per block, and registers per SM."""
   sms: int
   smem_per_sm: int
   smem_per_block: int
   smem_reserved: int
+  regs_per_sm: int = 65536
 
 
 def device_limits(device: torch.device) -> DeviceLimits:
-  """The card's ``DeviceLimits``, read with the CUDA runtime."""
+  """The card's ``DeviceLimits``, read once per card with the CUDA
+  runtime."""
   index = device.index if device.index is not None else (
       torch.cuda.current_device())
-  out = (ctypes.c_int * 4)()
+  return _device_limits(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> DeviceLimits:
+  out = (ctypes.c_int * 5)()
   lib = _load_kernel()
   err = lib.mz_device_limits(index, out)
   if err != 0:
@@ -577,6 +631,169 @@ def tiled_scratch_floats(batch: int, num_actions: int, embedding_dim: int,
   return emb + batch * tiled_tree_floats(num_actions, num_simulations)
 
 
+# The MLP modes' launch (``fused_search_kernel<policy, G>``): a group of G
+# lanes per environment, blocks of at most 256 threads and at most 64
+# registers a thread at G = 32, 128 at G = 4 (its ``__launch_bounds__(256,
+# 4)`` and ``(256, 2)``), and an SM holds at most 32 blocks and 2048
+# threads. G = 4 gives eight environments a warp,
+# every lane busy in the towers; G = 32 a warp per environment, for batches
+# too small to fill the card otherwise and for trees too large to keep many
+# at once (``tools/kernel_split.py`` times both at 8192 and 1024 envs).
+MLP_GROUPS = (4, 32)
+MLP_BLOCK_THREADS = 256
+_MLP_REGISTERS = {4: 128, 32: 64}  # per thread, by G
+_SM_BLOCKS, _SM_THREADS = 32, 2048
+# Warps per SM that the plan aims for to hide each environment's chain of
+# dependent steps behind others' (past eight warps an SM the smaller G wins,
+# by issuing fewer instructions per environment).
+MLP_TARGET_WARPS = 8
+
+
+class MLPPlan(NamedTuple):
+  """How an MLP-mode launch runs: ``group`` lanes per environment,
+  ``envs_per_block`` environments a block, the embeddings in shared memory
+  (``smem_emb``) or in a device scratch; ``grid`` blocks, of which an SM
+  holds ``blocks_per_sm`` at once, ``warps_per_sm`` on the busiest SM, and
+  whether every block is resident in one wave."""
+  group: int
+  envs_per_block: int
+  smem_emb: bool
+  grid: int
+  blocks_per_sm: int
+  warps_per_sm: int
+  resident: bool
+
+
+def mlp_act_width(num_actions: int, embedding_dim: int, widths) -> int:
+  """Floats of one activation buffer: the state, a hidden layer, a head's
+  bins, the next state or the Gumbel interior's per-action scores
+  (``widths``: the bins and every hidden layer's width)."""
+  return max(embedding_dim, num_actions, *widths)
+
+
+def mlp_env_floats(num_actions: int, embedding_dim: int,
+                   num_simulations: int, act_width: int, gumbel: bool,
+                   smem_emb: bool) -> int:
+  """Floats of shared memory of one environment (the kernel's
+  ``make_args``): the compact tree 4 N + 2 N A, two activation buffers, the
+  invalid mask; the Gumbel mode's raw values [N] and root score [A]; the
+  embeddings [N, E] with ``smem_emb``; rounded up to an odd count."""
+  n, A = num_simulations + 1, num_actions
+  floats = 4 * n + 2 * n * A + 2 * act_width + A
+  if gumbel:
+    floats += n + A
+  if smem_emb:
+    floats += n * embedding_dim
+  return floats | 1
+
+
+def mlp_smem_bytes(n_weights: int, envs_per_block: int, env_floats: int
+                   ) -> int:
+  """Shared memory of one block: the towers, then each environment's
+  slice."""
+  return 4 * (-(-n_weights // 4) * 4 + envs_per_block * env_floats)
+
+
+def _mlp_candidate(batch, group, smem_emb, env_floats, n_weights,
+                   limits: DeviceLimits) -> Optional[MLPPlan]:
+  """The launch with G = ``group``: 256 threads a block, halved while the
+  block's shared memory does not fit or the grid would leave SMs without
+  a block, and while halving lets an SM hold more environments of a
+  launch that does not fit the card at once; down to one warp. None when
+  one warp's environments do not fit."""
+  least = max(1, 32 // group)
+
+  def plan(envs):
+    size = mlp_smem_bytes(n_weights, envs, env_floats)
+    if size > limits.smem_per_block:
+      return None
+    threads = envs * group
+    per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
+                 limits.regs_per_sm // (_MLP_REGISTERS[group] * threads),
+                 limits.smem_per_sm // (size + limits.smem_reserved))
+    grid = -(-batch // envs)
+    busiest = min(per_sm, -(-grid // limits.sms))
+    return MLPPlan(group, envs, smem_emb, grid, per_sm,
+                   busiest * threads // 32, grid <= per_sm * limits.sms)
+
+  envs = MLP_BLOCK_THREADS // group
+  while envs > least and (plan(envs) is None
+                          or -(-batch // envs) < limits.sms):
+    envs //= 2
+  best = plan(envs)
+  while best is not None and not best.resident and envs > least:
+    envs //= 2
+    smaller = plan(envs)
+    if (smaller.blocks_per_sm * smaller.envs_per_block
+        <= best.blocks_per_sm * best.envs_per_block):
+      break
+    best = smaller
+  return best
+
+
+def mlp_search_plan(batch: int, num_actions: int, embedding_dim: int,
+                    num_simulations: int, n_weights: int, widths,
+                    gumbel: bool, limits: DeviceLimits,
+                    group: Optional[int] = None) -> MLPPlan:
+  """The MLP modes' launch plan. Among the launches that keep every
+  environment resident in one wave, the smallest G that still gives the
+  busiest SM ``MLP_TARGET_WARPS`` warps (fewer lanes per environment waste
+  fewer lanes), else the largest G (the most warps); the embeddings in
+  shared memory where that keeps them all resident. Where no launch keeps
+  them all, the most environments resident per SM, then the largest G.
+  ``widths``: the bins and every hidden layer's width; ``group`` fixes G
+  (for timing each). Raises RuntimeError where one environment's tree and
+  the towers do not fit a block's shared memory, as the kernel would. The
+  plan of a shape is worked out once and kept."""
+  return _mlp_search_plan(batch, num_actions, embedding_dim,
+                          num_simulations, n_weights, tuple(widths), gumbel,
+                          limits, group)
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_search_plan(batch, num_actions, embedding_dim, num_simulations,
+                     n_weights, widths, gumbel, limits, group) -> MLPPlan:
+  act_width = mlp_act_width(num_actions, embedding_dim, widths)
+  plans = []
+  for g in (MLP_GROUPS if group is None else (group,)):
+    for smem_emb in (True, False):
+      floats = mlp_env_floats(num_actions, embedding_dim, num_simulations,
+                              act_width, gumbel, smem_emb)
+      plan = _mlp_candidate(batch, g, smem_emb, floats, n_weights, limits)
+      if plan is not None:
+        plans.append(plan)
+  if not plans:
+    raise RuntimeError("fused search kernel: shapes do not fit the fused "
+                       "search kernel (one environment's tree and the "
+                       "towers exceed a block's shared memory)")
+  resident = [p for p in plans if p.resident]
+  if resident:
+    full = [p for p in resident if p.warps_per_sm >= MLP_TARGET_WARPS]
+    if full:
+      return min(full, key=lambda p: (p.group, not p.smem_emb))
+    return max(resident, key=lambda p: (p.group, p.smem_emb))
+  return max(plans, key=lambda p: (p.blocks_per_sm * p.envs_per_block,
+                                   p.group, p.smem_emb))
+
+
+def mlp_blocks_per_sm(plan: MLPPlan, n_weights: int, env_floats: int,
+                      gumbel: bool, device: torch.device) -> int:
+  """Blocks of ``plan`` that one SM of ``device`` holds at once, as the CUDA
+  runtime reckons it from the compiled kernel (its registers included)."""
+  index = device.index if device.index is not None else (
+      torch.cuda.current_device())
+  out = ctypes.c_int(0)
+  lib = _load_kernel()
+  err = lib.mz_mlp_blocks_per_sm(
+      int(gumbel), plan.group, plan.envs_per_block * plan.group,
+      mlp_smem_bytes(n_weights, plan.envs_per_block, env_floats), index,
+      ctypes.byref(out))
+  if err != 0:
+    raise RuntimeError("fused search kernel: "
+                       + lib.mz_error_string(err).decode())
+  return out.value
+
+
 def _check(name: str, t: torch.Tensor, shape, device: torch.device):
   if t.device != device or t.dtype != torch.float32:
     raise ValueError(f"{name}: expected float32 on {device}, got {t.dtype} "
@@ -598,7 +815,8 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
                        pb_c_init=1.25, pb_c_base=19652.0, root_score=None,
                        schedule=None):
   """Launch one mode of the kernel: ``FusedMLPWeights`` take the MLP modes
-  (the towers staged in shared memory), a ``FusedNetSpec`` the categorical
+  (lane groups per environment, the towers staged in shared memory, laid
+  out by ``mlp_search_plan``), a ``FusedNetSpec`` the categorical
   modes (clusters of blocks per tile of environments, tensor-core products
   over weights read from device memory);
   ``root_score`` and ``schedule`` select the Gumbel policy."""
@@ -663,9 +881,17 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
         len(pred_width), _ints(pred_width),
         _ints([kind[k] for k, _ in spec.pred_layers]), dev_index, stream)
   else:
-    buffers = (flat.data_ptr(), flat.numel(), visits.data_ptr(),
-               value.data_ptr(), qvalues.data_ptr(), B, A, E, bins,
-               spec.support_size, num_simulations, max_depth, discount)
+    plan = mlp_search_plan(B, A, E, num_simulations, flat.numel(),
+                           [bins, *dyn_width, *pred_width], gumbel,
+                           device_limits(device))
+    n_scratch = 0 if plan.smem_emb else B * (num_simulations + 1) * E
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=device)
+    buffers = (flat.data_ptr(), flat.numel(),
+               scratch.data_ptr() if n_scratch else None, n_scratch,
+               plan.group, plan.envs_per_block, int(plan.smem_emb),
+               visits.data_ptr(), value.data_ptr(), qvalues.data_ptr(),
+               B, A, E, bins, spec.support_size, num_simulations, max_depth,
+               discount)
     tail = (len(dyn_width), _ints(dyn_width), len(pred_width),
             _ints(pred_width), dev_index, stream)
     if gumbel:

@@ -78,3 +78,101 @@ def test_tiled_search_scratch_floats():
 def test_categorical_learner_blocks(batch, blocks):
   assert fused_learner.CATEGORICAL_TILE == 8
   assert fused_learner.categorical_grad_blocks(batch) == blocks
+
+
+# ---- the MLP search's launch plan (``fused_search_kernel<policy, G>``) ----
+
+FLAGSHIP_E, FLAGSHIP_BINS, FLAGSHIP_HIDDEN = 8, 41, 16
+
+
+def _mlp_n_weights(A, E=FLAGSHIP_E, bins=FLAGSHIP_BINS, h=FLAGSHIP_HIDDEN):
+  """Floats of the towers with one hidden layer of h in each."""
+  dyn = (E + A) * h + h + h * (bins + E) + bins + E
+  pred = E * h + h + h * (bins + A) + bins + A
+  return dyn + pred
+
+
+def _parent_accepts(A, E, sims, n_weights, bins, hidden, gumbel, limits):
+  """Whether the one-warp-per-env kernel (the whole tree, embeddings
+  and two activation rows in shared memory) launched this shape: one
+  environment's floats beside the towers within a block's limit."""
+  n = sims + 1
+  act = max(E + A, bins, *hidden)
+  floats = 4 * n + 5 * n * A + n * E + 2 * act + A + (n + A if gumbel else 0)
+  return 4 * (-(-n_weights // 4) * 4 + floats) <= limits.smem_per_block
+
+
+@pytest.mark.parametrize(
+    "batch,A,sims,gumbel,group,envs,smem_emb,resident,warps", [
+        # bench.py's rollout and gumbel_mlp: every env resident, 8 lanes'
+        # worth of warps on each SM, the embeddings in the scratch.
+        (8192, 2, 64, False, 4, 32, False, True, 8),
+        (8192, 2, 64, True, 4, 32, False, True, 8),
+        # training_regime and gumbel_training: a warp per env.
+        (1024, 2, 64, False, 32, 4, True, True, 8),
+        (1024, 2, 64, True, 32, 4, True, True, 8),
+        (2048, 2, 64, False, 32, 8, True, True, 16),
+        (1003, 4, 64, False, 32, 4, True, True, 8),
+        (1, 2, 64, False, 32, 1, True, True, 1),
+        # An Atari-sized action set and long searches: no launch holds
+        # 8192 trees at once, and whole warps walk them.
+        (8192, 18, 64, False, 32, 8, True, False, 16),
+        (2048, 18, 64, False, 32, 8, True, True, 16),
+        (8192, 2, 400, False, 32, 8, False, False, 16),
+        (8192, 2, 400, True, 32, 4, False, False, 12),
+    ])
+def test_mlp_search_plan(batch, A, sims, gumbel, group, envs, smem_emb,
+                         resident, warps):
+  n_weights = _mlp_n_weights(A)
+  widths = [FLAGSHIP_BINS, FLAGSHIP_HIDDEN, FLAGSHIP_HIDDEN]
+  plan = fused.mlp_search_plan(batch, A, FLAGSHIP_E, sims, n_weights, widths,
+                               gumbel, H100)
+  assert (plan.group, plan.envs_per_block, plan.smem_emb, plan.resident,
+          plan.warps_per_sm) == (group, envs, smem_emb, resident, warps)
+  assert plan.grid * plan.envs_per_block >= batch  # every env has a group
+  threads = plan.group * plan.envs_per_block
+  assert threads <= fused.MLP_BLOCK_THREADS and threads % 32 == 0
+  floats = fused.mlp_env_floats(A, FLAGSHIP_E, sims,
+                                fused.mlp_act_width(A, FLAGSHIP_E, widths),
+                                gumbel, plan.smem_emb)
+  smem = fused.mlp_smem_bytes(n_weights, plan.envs_per_block, floats)
+  assert smem <= H100.smem_per_block
+  assert plan.blocks_per_sm * (smem + H100.smem_reserved) <= H100.smem_per_sm
+  assert plan.resident == (plan.grid <= plan.blocks_per_sm * H100.sms)
+  assert _parent_accepts(A, FLAGSHIP_E, sims, n_weights, FLAGSHIP_BINS,
+                         [FLAGSHIP_HIDDEN], gumbel, H100)
+
+
+@pytest.mark.parametrize("gumbel", [False, True])
+@pytest.mark.parametrize("A,E,hidden", [(1, 1, 4), (2, 8, 16), (5, 16, 64),
+                                        (18, 32, 64), (64, 8, 16)])
+def test_mlp_plan_takes_every_shape_the_warp_kernel_took(gumbel, A, E,
+                                                        hidden):
+  # Past the largest tree one warp's block holds, both refuse; below it,
+  # the plan never refuses what the one-warp-per-env kernel launched.
+  bins = 41
+  n_weights = _mlp_n_weights(A, E, bins, hidden)
+  for sims in (1, 16, 64, 200, 400, 1000, 2000, 4000, 6000, 20000):
+    parent = _parent_accepts(A, E, sims, n_weights, bins, [hidden], gumbel,
+                             H100)
+    try:
+      fused.mlp_search_plan(8192, A, E, sims, n_weights, [bins, hidden],
+                            gumbel, H100)
+      ok = True
+    except RuntimeError as err:
+      assert "do not fit" in str(err)
+      ok = False
+    assert ok or not parent, (sims, "refused where the warp kernel ran")
+    if sims == 20000:
+      assert not ok  # one tree of 20,001 nodes exceeds a block
+
+
+def test_mlp_env_floats():
+  # The flagship tree: 4 N + 2 N A = 520 floats, two activation buffers of
+  # 41 (the bins), the invalid mask: 604; Gumbel adds N + A; the embeddings
+  # N E; rounded up to odd.
+  assert fused.mlp_env_floats(2, 8, 64, 41, False, False) == 605
+  assert fused.mlp_env_floats(2, 8, 64, 41, True, False) == 604 + 67
+  assert fused.mlp_env_floats(2, 8, 64, 41, False, True) == 604 + 520 + 1
+  assert fused.mlp_act_width(2, 8, [41, 16, 16]) == 41
+  assert fused.mlp_smem_bytes(1884, 32, 605) == 4 * (1884 + 32 * 605)

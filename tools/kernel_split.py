@@ -1,11 +1,20 @@
-"""Where the time of the categorical family's kernels goes, on one CUDA card.
+"""Where the time of the search and learner kernels goes, on one CUDA card.
 
 Run from the root of a checkout (its ``muax_tpu_torch`` package and
 ``csrc/`` are the ones measured):
 
-  python3 tools/kernel_split.py [--out FILE]
+  python3 tools/kernel_split.py [--out FILE] [--only mlp|categorical]
 
-It times the categorical learner at batch 1024 (``categorical_training``'s
+The MLP search (``fused_search_kernel``, both policies) is timed at 8192
+and 1024 envs x 64 simulations at the flagship widths (A = 2, embedding 8,
+support 20, hidden (16,)), with CUDA events, as its plan launches it and
+with each lane-group size G; then a copy of its source
+with per-warp ``clock64()`` stamps at the kernel's section comments (the
+descent, the expansion, the install and backup) and around the Gumbel mode's
+mix value gives each section's share of the warp-cycles (lane 0 of each
+warp stamps; the mix value's share is part of the descent's).
+
+For the categorical family it times the learner at batch 1024 (``categorical_training``'s
 batch, bench widths: embedding 64, towers (256, 256, 256), 51 bins) and the
 tiled search at 2048 and 512 envs x 64 simulations in both policies, with
 CUDA events and, by kernel, with ``torch.profiler`` (the search also with
@@ -23,6 +32,16 @@ version in float64: the largest error of the kernel and of the plain
 version in float32, each relative to the float64 result. The stamps are
 placed by the sources' section comments and lines, which an edit to those
 lines must keep.
+
+With ``--against OTHER`` (the root of another checkout, such as the parent
+commit unpacked with ``git archive``) it instead compares the two
+checkouts, each run a fresh process with its checkout's own package (and
+``chip_smoke.py``), after both have built their kernels: the MLP search on
+trees too large for many to fit the card at once (8192 envs, 18 actions x
+64 simulations and 2 x 400, the ``gpu`` tests' inputs) against the plain
+version, with a digest of the kernel's outputs that shows whether the two
+kernels round alike; then the MLP training iteration, ``chip_smoke.py``'s
+phases 6 and 10, in the order other, this, this, other.
 """
 import argparse
 import copy
@@ -70,6 +89,62 @@ extern "C" int split_read(unsigned long long* out) {
   return cudaMemcpyFromSymbol(out, g_sec, sizeof(g_sec));
 }
 '''
+
+
+# The MLP search's stamps: lane 0 of each warp keeps its own section sums
+# in registers and adds them at the end; the mix value adds its cycles to
+# the warp's slot.
+MLP_PRE = r'''
+__device__ unsigned long long g_msec[4];
+__device__ unsigned long long g_mix[1 << 17];
+#define MSTAMP_INIT long long _last = clock64(); \
+  unsigned long long _acc[3] = {0, 0, 0};
+#define MSTAMP(k) { long long _n = clock64(); _acc[k] += _n - _last; \
+  _last = _n; }
+#define MSTAMP_FLUSH if ((threadIdx.x & 31) == 0) { \
+  for (int _k = 0; _k < 3; ++_k) atomicAdd(&g_msec[_k], _acc[_k]); }
+#define MIX_START const long long _ms = clock64();
+#define MIX_END if ((threadIdx.x & 31) == 0) \
+  g_mix[((blockIdx.x * blockDim.x + threadIdx.x) >> 5) & ((1 << 17) - 1)] \
+  += clock64() - _ms;
+'''
+MLP_POST = r'''
+extern "C" int split_reset() {
+  void* p;
+  cudaGetSymbolAddress(&p, g_msec);
+  cudaMemset(p, 0, sizeof(g_msec));
+  cudaGetSymbolAddress(&p, g_mix);
+  return cudaMemset(p, 0, sizeof(g_mix));
+}
+extern "C" int split_read(unsigned long long* out) {
+  unsigned long long* mix = new unsigned long long[1 << 17];
+  int err = cudaMemcpyFromSymbol(out, g_msec, sizeof(g_msec));
+  if (!err) err = cudaMemcpyFromSymbol(mix, g_mix, sizeof(g_mix));
+  out[3] = 0;
+  for (int i = 0; i < (1 << 17); ++i) out[3] += mix[i];
+  delete[] mix;
+  return err;
+}
+'''
+MLP_SECTIONS = ("descent", "expansion", "install_backup", "mix_value")
+_MLP_INCLUDE = '#include "group_mlp.cuh"\n'
+_MLP_MIX_END = ("  m.span = fmaxf(hi - lo, 1e-8f);\n"
+                "  m.scale = (kMaxvisitInit + maxvisit) * kValueScale;\n")
+MLP_MARKS = [
+    (_MLP_INCLUDE, _MLP_INCLUDE + MLP_PRE),
+    ("  for (int sim = 0; sim < args.num_simulations; ++sim) {\n",
+     "  MSTAMP_INIT\n"
+     "  for (int sim = 0; sim < args.num_simulations; ++sim) {\n"),
+    ("    // ---- descent ---", "    MSTAMP(2)\n    // ---- descent ---"),
+    ("    // ---- expansion:", "    MSTAMP(0)\n    // ---- expansion:"),
+    ("    // ---- install (running mean)",
+     "    MSTAMP(1)\n    // ---- install (running mean)"),
+    ("    g.sync();\n  }\n\n  // ---- the root summary",
+     "    g.sync();\n  }\n  MSTAMP(2)\n  MSTAMP_FLUSH\n\n"
+     "  // ---- the root summary"),
+    ("  const int* kids = t.cidx + node * A;\n",
+     "  MIX_START\n  const int* kids = t.cidx + node * A;\n"),
+    (_MLP_MIX_END, _MLP_MIX_END + "  MIX_END\n")]
 
 
 def _one(src, old, new):
@@ -122,9 +197,16 @@ SEARCH_MARKS = [
      "g_gemm_cycles[blockIdx.x] += clock64() - _s;\n}\n")]
 
 
-def build_stamped(build):
-  """Stamped copies of the learner and search sources, built with nvcc;
-  returns (libraries, section names) by source."""
+def _mlp_stamped(src):
+  for old, new in MLP_MARKS:
+    src = _one(src, old, new)
+  return src + MLP_POST
+
+
+def build_stamped(build, which):
+  """Stamped copies of the sources, built with nvcc: the learner's and the
+  categorical search's (``which`` "categorical"), the MLP search's
+  ("mlp"); returns (libraries, section names) by stamped copy."""
   from muax_tpu_torch import _build
   csrc = pathlib.Path(_build.__file__).parent / "csrc"
   out = pathlib.Path(build)
@@ -132,15 +214,21 @@ def build_stamped(build):
   for header in csrc.glob("*.cuh"):
     shutil.copy(header, out / header.name)
   names, procs = {}, {}
-  for name, marks, names[name], gemm in (
-      ("fused_learner", LEARNER_MARKS, LEARNER_SECTIONS, True),
-      ("fused_search", SEARCH_MARKS, SEARCH_SECTIONS, False)):
-    src = (csrc / f"{name}.cu").read_text()
-    (out / f"{name}.cu").write_text(_stamped(src, marks, gemm))
-    procs[name] = subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
-         str(out / f"{name}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+  jobs = {"categorical": (
+      ("fused_learner", "fused_learner",
+       lambda s: _stamped(s, LEARNER_MARKS, True), LEARNER_SECTIONS),
+      ("fused_search", "fused_search",
+       lambda s: _stamped(s, SEARCH_MARKS, False), SEARCH_SECTIONS)),
+          "mlp": (("fused_search_mlp", "fused_search", _mlp_stamped,
+                   MLP_SECTIONS),)}
+  for key in which:
+    for name, source, stamp, names[name] in jobs[key]:
+      src = (csrc / f"{source}.cu").read_text()
+      (out / f"{name}.cu").write_text(stamp(src))
+      procs[name] = subprocess.Popen(
+          [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+           str(out / f"lib{name}.so"), str(out / f"{name}.cu")],
+          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
   libs = {}
   for name, proc in procs.items():
     log, _ = proc.communicate()
@@ -177,20 +265,35 @@ def by_kernel_ms(fn, reps):
           for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
-def shares(name, fn, libs, names):
-  """Each section's share of the stamped kernel's block-cycles, and the
-  products' share within it (both of the whole)."""
+def _stamped_run(name, source, fn, libs, size):
+  """Run ``fn`` with the stamped copy ``name`` in place of ``source``'s
+  library; returns the stamped counters."""
   from muax_tpu_torch import _build
-  plain = _build.load(name)
-  _build._loaded[name] = libs[name]
+  plain = _build.load(source)
+  _build._loaded[source] = libs[name]
   try:
     libs[name].split_reset()
     fn()
     torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * (4096 * 8))()
+    buf = (ctypes.c_ulonglong * size)()
     libs[name].split_read(ctypes.addressof(buf))
   finally:
-    _build._loaded[name] = plain
+    _build._loaded[source] = plain
+  return buf
+
+
+def mlp_shares(fn, libs):
+  """Each section's share of the MLP search's warp-cycles; the mix value's
+  is part of the descent's."""
+  buf = _stamped_run("fused_search_mlp", "fused_search", fn, libs, 4)
+  whole = sum(buf[:3])
+  return {s: buf[k] / whole for k, s in enumerate(MLP_SECTIONS)}
+
+
+def shares(name, fn, libs, names):
+  """Each section's share of the stamped kernel's block-cycles, and the
+  products' share within it (both of the whole)."""
+  buf = _stamped_run(name, name, fn, libs, 4096 * 8)
   tot = [sum(buf[b * 8 + k] for b in range(4096)) for k in range(8)]
   n = len(names[name])
   whole = sum(tot[:n])
@@ -273,22 +376,191 @@ def search_case(dev, B, policy):
   return lambda: fused._fused_search_cuda(*args, **kw)
 
 
+def mlp_case(dev, B, policy):
+  """The MLP search at the flagship widths on B CartPole roots."""
+  from muax_tpu_torch.envs import CartPole
+  from muax_tpu_torch.models import make_mlp_networks
+  from muax_tpu_torch.replay.buffer import gumbel_noise
+  from muax_tpu_torch.search import fused
+  from muax_tpu_torch.train.inference import make_root_fn
+  net = make_mlp_networks(2, embedding_dim=8, support_size=20, device=dev)
+  params = net.init_params((4,), torch.Generator().manual_seed(0))
+  gen = torch.Generator(device=dev).manual_seed(0)
+  _, obs = CartPole().reset(gen, B)
+  with torch.no_grad():
+    root = make_root_fn(net)(params, obs)
+  kw = dict(num_simulations=64, discount=0.997, invalid_actions=None,
+            max_depth=None, support_size=20)
+  if policy == "gumbel":
+    logits = root.prior_logits.contiguous()
+    kw["root_score"], kw["schedule"] = fused.gumbel_root_inputs(
+        logits, gumbel_noise(gen, logits.shape, dev), None,
+        max_num_considered_actions=16, num_simulations=64)
+  else:
+    logits = fused.noised_root_logits(gen, root.prior_logits)
+  args = (root.embedding.contiguous(), logits, root.value.contiguous(),
+          fused.extract_search_weights(net, params))
+  return lambda: fused._fused_search_cuda(*args, **kw)
+
+
+def mlp_split(res, build):
+  """The MLP search's times and section shares, both policies, at 8192 and
+  1024 envs."""
+  from muax_tpu_torch.search import fused
+  cases = {f"mlp_{p}_{B}": mlp_case(torch.device("cuda", 0), B, p)
+           for B in (8192, 1024) for p in ("muzero", "gumbel")}
+  chosen = fused.mlp_search_plan
+  for key, fn in cases.items():
+    res[key] = {"ms": events_ms(fn, 10)}
+    for group in fused.MLP_GROUPS:  # each lane-group size, for the record
+      fused.mlp_search_plan = lambda *a, group=group: chosen(*a, group=group)
+      try:
+        res[key][f"ms_group_{group}"] = events_ms(fn, 10)
+      finally:
+        fused.mlp_search_plan = chosen
+  print(json.dumps(res), flush=True)
+  libs, _ = build_stamped(build, ["mlp"])
+  for key, fn in cases.items():
+    res[key]["sections"] = mlp_shares(fn, libs)
+
+
+ITERATION_RUN = r'''
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+device = torch.device("cuda", 0)
+out = {}
+for policy in ("muzero", "gumbel"):
+  t = chip_smoke.training_setup(device, policy)
+  chip_smoke.fill_ring(t)
+  _, fig = chip_smoke.drive_training(device, t)
+  out[policy] = {k: fig[k] for k in ("iteration_ms", "rollout_ms",
+                                     "learner_ms")}
+  out[policy]["device_idle_share"] = fig["profile"].get("device_idle_share")
+print("ITERATION " + json.dumps(out))
+'''
+LARGE_TREE_RUN = r'''
+import hashlib, json, sys, torch
+sys.path.insert(0, ".")
+from muax_tpu_torch.envs import CartPole
+from muax_tpu_torch.models import make_mlp_networks
+from muax_tpu_torch.replay.buffer import gumbel_noise
+from muax_tpu_torch.search import fused
+from muax_tpu_torch.train.inference import make_root_fn
+dev, B = torch.device("cuda", 0), 8192
+out = {}
+for A, sims in ((18, 64), (2, 400)):
+  net = make_mlp_networks(A, embedding_dim=8, support_size=20,
+                          pred_layers=(16,), dyn_layers=(16,), device=dev)
+  params = net.init_params((4,), torch.Generator().manual_seed(0))
+  gen = torch.Generator(device=dev).manual_seed(1)
+  _, obs = CartPole().reset(gen, B)
+  with torch.no_grad():
+    root = make_root_fn(net)(params, obs * 20)
+  args = (root.embedding.contiguous(), root.prior_logits.contiguous(),
+          root.value.contiguous(), fused.extract_fused_weights(net, params))
+  kw = dict(num_simulations=sims, support_size=20, discount=0.997,
+            invalid_actions=None, max_depth=None)
+  gumbel = gumbel_noise(gen, (B, A), dev)
+  score, sched = fused.gumbel_root_inputs(
+      args[1], gumbel, None, max_num_considered_actions=16,
+      num_simulations=sims)
+  for policy in ("muzero", "gumbel"):
+    if policy == "muzero":
+      got = fused.fused_muzero_search(*args, **kw)
+      ref = fused.fused_muzero_search_reference(*args, **kw)
+    else:
+      got = fused.fused_gumbel_search(*args, gumbel=gumbel,
+                                      max_num_considered_actions=16, **kw)
+      ref = fused.fused_gumbel_search_reference(
+          *args, root_score=score, schedule=sched, **kw)
+    (v, val, q), (rv, rval, rq) = got, ref
+    dv = (v - rv).abs().amax(-1)
+    near, same = dv <= 2, dv == 0
+    bad_val = near & ~torch.isclose(val, rval, rtol=1e-3, atol=1e-3)
+    bad_q = same & ~torch.isclose(q, rq, rtol=1e-3, atol=1e-3).all(-1)
+    digest = hashlib.sha256(b"".join(
+        t.cpu().numpy().tobytes() for t in got)).hexdigest()[:16]
+    out[f"{policy}_A{A}_sims{sims}"] = dict(
+        within_2_visits=float(near.float().mean()), max_visit_diff=float(
+            dv.max()), value_apart_envs=int(bad_val.sum()),
+        q_apart_envs=int(bad_q.sum()), kernel_outputs_sha256=digest)
+print("LARGE " + json.dumps(out))
+'''
+BUILD_RUN = ("import sys; sys.path.insert(0, '.'); "
+             "from muax_tpu_torch import _build; _build.build_all()")
+
+
+def against(other):
+  """``other`` and the cwd's checkout, each building its kernels first,
+  both at once: the MLP search at 8192 envs with 18 actions x 64
+  simulations and 2 actions x 400, both policies, against the plain
+  version (the share within 2 visits, the envs whose value or q are apart,
+  a digest of the kernel's outputs), once per checkout; then phases 6 and
+  10 in the order other, this, this, other. Runs are labelled with their
+  checkout."""
+  roots = {"other": os.path.abspath(other), "this": os.getcwd()}
+  builds = [subprocess.Popen([sys.executable, "-c", BUILD_RUN], cwd=root)
+            for root in roots.values()]
+  if any(b.wait() for b in builds):
+    raise RuntimeError("a checkout's kernels did not build")
+  def child(label, code, tag):
+    proc = subprocess.run([sys.executable, "-c", code], cwd=roots[label],
+                          capture_output=True, text=True)
+    line = [l for l in proc.stdout.splitlines() if l.startswith(tag + " ")]
+    if proc.returncode or not line:
+      raise RuntimeError(f"the {label} checkout's run failed:\n"
+                         f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    run = {"checkout": label, **json.loads(line[0][len(tag) + 1:])}
+    print(json.dumps(run), flush=True)
+    return run
+
+  trees = [child(label, LARGE_TREE_RUN, "LARGE") for label in roots]
+  runs = [child(label, ITERATION_RUN, "ITERATION")
+          for label in ("other", "this", "this", "other")]
+  return {"large_trees": trees, "iterations": runs}
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--out", default=None, help="also write the JSON here")
   parser.add_argument("--build", default="build/split",
                       help="directory for the stamped copies")
+  parser.add_argument("--only", choices=("mlp", "categorical"), default=None,
+                      help="split only the MLP search or only the "
+                      "categorical kernels")
+  parser.add_argument("--against", default=None, metavar="OTHER",
+                      help="compare the checkout at OTHER with this one "
+                      "(large MLP search trees, the MLP training "
+                      "iteration) instead")
   opts = parser.parse_args()
   sys.path.insert(0, os.getcwd())  # the checkout measured is the cwd's
   if not torch.cuda.is_available():
     sys.exit("kernel_split: needs a CUDA card")
   torch.backends.cuda.matmul.allow_tf32 = False
-  from muax_tpu_torch.models import fused_learner
   dev = torch.device("cuda", 0)
   card = subprocess.run(
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
       capture_output=True, text=True, check=True).stdout.strip()
   res = {"card": card}
+  if opts.against:
+    res.update(against(opts.against))
+  elif opts.only != "categorical":
+    mlp_split(res, opts.build)
+  if opts.only != "mlp" and not opts.against:
+    categorical_split(res, dev, opts.build)
+  print(json.dumps(res))
+  if opts.out:
+    with open(opts.out, "w") as f:
+      json.dump(res, f, indent=1)
+
+
+def categorical_split(res, dev, build):
+  """The categorical learner's and search's times, cluster sizes, section
+  shares and the learner's accuracy."""
+  from muax_tpu_torch.models import fused_learner
   net, params, raw, coef, lay = learner_case(dev)
   spec = fused_learner.extract_categorical_learner_spec(net, params)
 
@@ -313,16 +585,12 @@ def main():
       finally:
         fused.tiled_plan = chosen
   print(json.dumps(res), flush=True)
-  libs, names = build_stamped(opts.build)
+  libs, names = build_stamped(build, ["categorical"])
   res["learner_sections"], res["learner_products"] = shares(
       "fused_learner", learn, libs, names)
   for key, fn in searches.items():
     res[key]["sections"], res[key]["products"] = shares(
         "fused_search", fn, libs, names)
-  print(json.dumps(res))
-  if opts.out:
-    with open(opts.out, "w") as f:
-      json.dump(res, f, indent=1)
 
 
 if __name__ == "__main__":
