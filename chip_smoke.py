@@ -21,13 +21,18 @@ Phases 4 to 7 do the same for training, at ``bench.py``'s
 samples per insert 32 -> 160 updates in groups of 16, ring of 2048
 segments, unroll 5). Phase 4 holds the sampler kernel against its plain
 version on a ring filled by the port's own rollouts (65,536 windows), then
-at an edge shape; phase 5 holds the learner kernel against its plain
-version (autograd over ``muzero_loss``) on phase 4's windows and at an edge
-shape, and checks that a repeated launch gives bit-identical gradients.
+at an edge shape; phase 5 holds the learner kernels (the MLP spec's tile
+pass and finish pass) against their plain version (autograd over
+``muzero_loss``) on phase 4's windows, at an edge shape, on the CartPole
+notebook's towers (64, 64, 16) at K = 11, whose arena lies in the device
+scratch, and on wide towers (128,), and checks that a repeated launch gives
+bit-identical gradients.
 Phase 6 drives the training iteration (rollout -> ``replay_add`` ->
 ``make_multi_update_fn``), checks its launch counts exactly and times it and
-each kernel. Phase 7 runs ``fit`` through its normal entry for 3 iterations
-with evaluation and checkpoints.
+each kernel (the learner with CUDA events, each of its two kernels with
+``torch.profiler``, its bound, launch plan and theoretical warps per SM).
+Phase 7 runs ``fit`` through its normal entry for 3 iterations with
+evaluation and checkpoints.
 
 Phases 8 to 11 drive Gumbel MuZero and the generic search engine. Phase 8
 holds the search kernel's Gumbel mode against its plain version at 8192
@@ -652,21 +657,59 @@ def metrics_close(metrics, ref):
                        atol=1e-4), "priorities agree")
 
 
-def learner_against_plain(device, t, raw, lay):
-  """Phase 5: the learner kernel against autograd over muzero_loss on the
-  first 4096 of phase 4's windows (the flagship triplet), and on a seeded
-  batch of 1000 windows with masks (A = 4, towers (16, 16), support 10);
-  two launches on the same inputs give bit-identical gradients."""
-  from muax_tpu_torch.models import fused_learner, make_mlp_networks
+def seeded_batch(device, A, B, K, rn_scale, reward_scale=1.0):
+  """B windows of K steps with masks, from SEED + 1."""
   from muax_tpu_torch.types import Transition
 
+  gen = torch.Generator(device=device).manual_seed(SEED + 1)
+  lengths = torch.randint(1, K + 1, (B,), generator=gen, device=device)
+  return Transition(
+      obs=torch.randn((B, K, 4), generator=gen, device=device),
+      action=torch.randint(0, A, (B, K), generator=gen, device=device),
+      reward=torch.randn((B, K), generator=gen, device=device) * reward_scale,
+      done=torch.zeros((B, K), dtype=torch.bool, device=device),
+      rn=torch.randn((B, K), generator=gen, device=device) * rn_scale,
+      value=torch.zeros((B, K), device=device),
+      pi=torch.softmax(torch.randn((B, K, A), generator=gen,
+                                   device=device), -1),
+      weight=torch.rand((B,), generator=gen, device=device) + 0.5,
+      mask=(torch.arange(K, device=device)[None] < lengths[:, None]).float())
+
+
+# The CartPole notebook's towers (muax_tpu_torch/examples/parity_cartpole.py:
+# embedding 10, support 20, no representation hidden layer, (64, 64, 16)),
+# at its batch and unroll; their arena lies in the device scratch.
+NOTEBOOK_NET = dict(embedding_dim=10, support_size=20, repr_layers=(),
+                    pred_layers=(64, 64, 16), dyn_layers=(64, 64, 16))
+NOTEBOOK_BATCH, NOTEBOOK_K = 256, 11
+
+
+def learner_against_plain(device, t, raw, lay):
+  """Phase 5: the learner kernel against autograd over muzero_loss on the
+  first 4096 of phase 4's windows (the flagship triplet), on a seeded
+  batch of 1000 windows with masks (A = 4, towers (16, 16), support 10),
+  on the notebook towers (NOTEBOOK_NET) at K = 11 and on wide towers
+  (128,), whose prediction tower's weight gradients wait for the last
+  pass; two launches on the same inputs give bit-identical gradients. The
+  scratch's memory holds NaN before each launch, so that a row of it the
+  kernel leaves unwritten shows in the gradients."""
+  from muax_tpu_torch.models import fused_learner, make_mlp_networks
+
   kw = loss_kwargs(t.config)
+
+  def poison(lw, B, K):
+    # The caching allocator hands a freed block of this size back first.
+    plan = fused_learner.mlp_learner_plan(B, K, lw,
+                                          fused_learner.device_limits(device))
+    torch.full((plan.scratch_floats,), float("nan"), device=device)
 
   def one(net, params, raw_b, coef, lay):
     lw = fused_learner.extract_learner_weights(net, params)
     before = fused_learner.launches
+    poison(lw, raw_b.shape[1], lay.K)
     grads, metrics = fused_learner.fused_muzero_grad_raw(
         params, raw_b, coef, lay, net, lw, **kw)
+    poison(lw, raw_b.shape[1], lay.K)
     again, _ = fused_learner.fused_muzero_grad_raw(params, raw_b, coef, lay,
                                                    net, lw, **kw)
     torch.cuda.synchronize()
@@ -686,26 +729,20 @@ def learner_against_plain(device, t, raw, lay):
           / B).contiguous()
   main = one(t.net, t.ts.params, raw_b, coef, lay)
 
-  A, Be, K = 4, 1000, TRAIN_UNROLL
-  net = make_mlp_networks(A, embedding_dim=EMBED, support_size=10,
-                          pred_layers=(16, 16), dyn_layers=(16, 16),
-                          device=device)
-  params = net.init_params((4,), torch.Generator().manual_seed(SEED + 1))
-  gen = torch.Generator(device=device).manual_seed(SEED + 1)
-  lengths = torch.randint(1, K + 1, (Be,), generator=gen, device=device)
-  batch = Transition(
-      obs=torch.randn((Be, K, 4), generator=gen, device=device),
-      action=torch.randint(0, A, (Be, K), generator=gen, device=device),
-      reward=torch.randn((Be, K), generator=gen, device=device),
-      done=torch.zeros((Be, K), dtype=torch.bool, device=device),
-      rn=torch.randn((Be, K), generator=gen, device=device) * 5,
-      value=torch.zeros((Be, K), device=device),
-      pi=torch.softmax(torch.randn((Be, K, A), generator=gen,
-                                   device=device), -1),
-      weight=torch.rand((Be,), generator=gen, device=device) + 0.5,
-      mask=(torch.arange(K, device=device)[None] < lengths[:, None]).float())
-  edge = one(net, params, *fused_learner.raw_from_batch(batch, K))
-  return main, edge
+  def seeded(net, B, K):
+    params = net.init_params((4,), torch.Generator().manual_seed(SEED + 1))
+    batch = seeded_batch(device, net.num_actions, B, K, 5.0)
+    return one(net, params, *fused_learner.raw_from_batch(batch, K))
+
+  edge = seeded(make_mlp_networks(4, embedding_dim=EMBED, support_size=10,
+                                  pred_layers=(16, 16), dyn_layers=(16, 16),
+                                  device=device), 1000, TRAIN_UNROLL)
+  notebook = seeded(make_mlp_networks(2, device=device, **NOTEBOOK_NET),
+                    NOTEBOOK_BATCH, NOTEBOOK_K)
+  wide = seeded(make_mlp_networks(2, embedding_dim=EMBED, support_size=SUPPORT,
+                                  pred_layers=(128,), dyn_layers=(128,),
+                                  device=device), 300, TRAIN_UNROLL)
+  return main, edge, notebook, wide
 
 
 def categorical_learner_against_plain(device, t, raw, lay):
@@ -717,7 +754,6 @@ def categorical_learner_against_plain(device, t, raw, lay):
   (tests/test_fused_learner.py:156-162); two launches on the same inputs
   give bit-identical gradients."""
   from muax_tpu_torch.models import fused_learner
-  from muax_tpu_torch.types import Transition
 
   kw = loss_kwargs(t.config)
 
@@ -749,19 +785,7 @@ def categorical_learner_against_plain(device, t, raw, lay):
   A, Be, K = 3, 300, TRAIN_UNROLL
   net = make_net(device, "categorical", A, **CAT_EDGE_NET)
   params = net.init_params((4,), torch.Generator().manual_seed(SEED + 1))
-  gen = torch.Generator(device=device).manual_seed(SEED + 1)
-  lengths = torch.randint(1, K + 1, (Be,), generator=gen, device=device)
-  batch = Transition(
-      obs=torch.randn((Be, K, 4), generator=gen, device=device),
-      action=torch.randint(0, A, (Be, K), generator=gen, device=device),
-      reward=torch.randn((Be, K), generator=gen, device=device) * 3,
-      done=torch.zeros((Be, K), dtype=torch.bool, device=device),
-      rn=torch.randn((Be, K), generator=gen, device=device) * 8,
-      value=torch.zeros((Be, K), device=device),
-      pi=torch.softmax(torch.randn((Be, K, A), generator=gen,
-                                   device=device), -1),
-      weight=torch.rand((Be,), generator=gen, device=device) + 0.5,
-      mask=(torch.arange(K, device=device)[None] < lengths[:, None]).float())
+  batch = seeded_batch(device, A, Be, K, 8.0, reward_scale=3.0)
   edge = one(net, params, *fused_learner.raw_from_batch(batch, K))
   return main, edge
 
@@ -1284,11 +1308,15 @@ def run(device):
         f"({time.perf_counter() - t0:.1f} s)")
 
   t0 = time.perf_counter()
-  learner_main, learner_edge = learner_against_plain(device, t, raw, lay)
+  learner_main, learner_edge, learner_notebook, learner_wide = (
+      learner_against_plain(device, t, raw, lay))
   print(f"phase 5 learner vs plain, B={TRAIN_BATCH} on phase 4's windows: "
         f"{json.dumps(learner_main)}; B=1000 A=4 H=(16, 16) S=10 with "
-        f"masks: {json.dumps(learner_edge)}; repeated launches bit-identical "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"masks: {json.dumps(learner_edge)}; the notebook towers, "
+        f"B={NOTEBOOK_BATCH} K={NOTEBOOK_K} H=(64, 64, 16) E=10, arena in "
+        f"the scratch: {json.dumps(learner_notebook)}; B=300 H=(128,): "
+        f"{json.dumps(learner_wide)}; repeated launches "
+        f"bit-identical ({time.perf_counter() - t0:.1f} s)")
 
   t0 = time.perf_counter()
   train_launches, train = drive_training(device, t)
@@ -1308,12 +1336,23 @@ def run(device):
   lw = fused_learner.extract_learner_weights(t.net, t.ts.params)
   kw = loss_kwargs(t.config)
   learn_args = (t.ts.params, raw_b, coef, lay, t.net)
-  # The kernel's wrapper alone (block sums and their fixed-order reduction),
-  # without the loss metrics that fused_muzero_grad_raw derives after it.
-  train["learner_kernel_ms"] = time_ms(
-      lambda: fused_learner._grad_cuda(
-          lw, raw_b, coef, lay, l2_coef=kw["l2_coef"],
-          gradient_scale=kw["gradient_scale"]), 20)
+  # The kernel's wrapper alone (the tile pass and the finish pass), without
+  # the loss metrics that fused_muzero_grad_raw derives after it; and each
+  # kernel of the launch on the device, with the plan.
+  def learn():
+    return fused_learner._grad_cuda(lw, raw_b, coef, lay,
+                                    l2_coef=kw["l2_coef"],
+                                    gradient_scale=kw["gradient_scale"])
+
+  train["learner_kernel_ms"] = time_ms(learn, 50)
+  train["learner_by_kernel_ms"] = kernel_device_ms(learn, 20)
+  plan = fused_learner.mlp_learner_plan(TRAIN_BATCH, lay.K, lw,
+                                        fused.device_limits(device))
+  per_sm = fused_learner.learner_blocks_per_sm(plan, device)
+  train["learner_plan"] = plan._asdict()
+  train["learner_theoretical_warps_per_sm"] = min(
+      per_sm, -(-plan.blocks // torch.cuda.get_device_properties(
+          device).multi_processor_count)) * fused_learner.LEARNER_THREADS // 32
   train["plain_learner_ms"] = time_ms(
       lambda: fused_learner.fused_muzero_grad_raw_reference(*learn_args,
                                                             **kw), 5)
@@ -1577,6 +1616,8 @@ def run(device):
       "max_abs_err": learner_main["max_abs_err"],
       "ms": train["learner_kernel_ms"], "plain_ms": train["plain_learner_ms"],
       "bound_ms": learner_bound, "bound_by": learner_by, "library_ms": None,
+      "device_ms": (sum(train["learner_by_kernel_ms"].values())
+                    if train["learner_by_kernel_ms"] else None),
   }, {
       "name": "fused_gumbel_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",

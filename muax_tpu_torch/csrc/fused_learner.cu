@@ -1,13 +1,12 @@
 // Fused MuZero learner: the K-step unrolled loss and its hand-derived
-// backward for a batch of windows, for Hopper (sm_90a). The MLP spec's
-// fused_muzero_grad_kernel (below) ends in finish_grads_kernel; the
-// categorical LearnerSpec's is categorical_tile_kernel and the
+// backward for a batch of windows, for Hopper (sm_90a). The MLP spec runs
+// mlp_tile_kernel and then mlp_finish_kernel (entry mz_fused_muzero_grad);
+// the categorical LearnerSpec runs categorical_tile_kernel and the
 // weight-gradient pass categorical_dw_kernel (entry
-// mz_fused_categorical_grad, whose design is described at the kernels).
+// mz_fused_categorical_grad). Both are described at their kernels.
 //
 // Replaces the TPU kernel muax_tpu/models/fused_learner.py `_make_kernel`
-// in raw mode with the MLP spec (elu towers, h-support heads), which
-// `_run_kernel` launches through pl.pallas_call
+// (raw mode), which `_run_kernel` launches through pl.pallas_call
 // (muax_tpu/models/fused_learner.py:665). The plain PyTorch version of the
 // same function is autograd over `muzero_loss`
 // (`fused_muzero_grad_raw_reference` in
@@ -21,28 +20,8 @@
 // and the gradient into the hidden state scaled by `gradient_scale` where it
 // enters the dynamics. Weight gradients are summed over the batch with each
 // window's `coef` = weight / denom / B, and L2 (`l2_coef * p`) is added.
-//
-// What bounds it on this card. Per window the forward is about 9,000
-// multiply-adds at the flagship widths and the backward about twice that,
-// so a launch of 4,096 windows is about 0.22 GFLOP: 3.3 us at the f32 peak.
-// It reads well under a megabyte. So the bound is by operations. The real
-// limit of this first version is latency: every layer is a dependent step
-// on a few dozen values, done by one warp.
-//
-// What the design does about it. One warp owns one window at a time, its
-// lanes over the output features of each layer. The weights (about 8.4 KB)
-// are staged once per block in shared memory; each warp keeps its window's
-// forward activations (about 700 floats at K = 5) and its own weight-gradient
-// accumulator in shared memory, so nothing but the raw rows, the weights and
-// the per-block sums touches device memory. On the TPU the grid runs in
-// order and the gradient accumulates in VMEM across tiles; on Hopper the
-// blocks run in parallel, so each block writes its sum to one row of a
-// [G, n_weights] scratch and a second kernel adds the G rows in a fixed
-// order, then `l2_coef * p`. Nothing uses float atomics, so two launches on
-// the same inputs give bit-identical gradients. A block always takes 16
-// windows; when eight warps' slices do not fit its shared memory (towers
-// wider than the flagship's, such as the (64, 64, 16) of the CartPole notebook
-// config), fewer warps share them.
+// Nothing uses float atomics and every sum runs in a fixed order, so two
+// launches on the same inputs give bit-identical gradients.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,47 +33,51 @@ namespace {
 
 constexpr int kMaxLayers = 8;
 constexpr int kMaxLin = 3 * kMaxLayers + 5;
-constexpr int kWarps = 8;           // most warps (windows in flight) per block
-constexpr int kWindowsPerWarp = 2;  // windows each of kWarps warps takes
-constexpr int kBlockWindows = kWarps * kWindowsPerWarp;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kHEps = 1e-3f;
 constexpr float kMMEps = 1e-8f;
 
-struct Args {
-  int B, ld, O, E, A, S41, support, K;
-  int n_repr, n_pred, n_dyn;
-  // Linear l: weight [dout, din] at off[l], bias [dout] right after it.
-  // Order: repr hidden, repr head, pred hidden, value, policy, dyn hidden,
-  // reward, next state (the modules' parameters() order).
-  int off[kMaxLin], din[kMaxLin], dout[kMaxLin];
-  // Offset of hidden layer l's activation inside its tower's stash.
-  int hoff[kMaxLin];
-  int r_obs, r_action, r_reward, r_rn, r_pi, r_mask;
-  int n_weights, w_stride, warp_floats, step_floats, max_w;
-  int warps;  // warps per block: kWarps, or fewer when their slices don't fit
-  int o_obs, o_repr, o_spre0, o_steps, o_scratch;  // inside a warp's slice
-  int so_s, so_pred, so_v, so_p, so_dyn, so_r, so_spre;  // inside a step
-  float gradient_scale;
-};
+// Reductions over a group of G neighbouring lanes (G a power of two, at
+// most 32); `mask` names the group's lanes. G = 32 is the whole warp.
+template <int G>
+__device__ __forceinline__ float group_max(float v, unsigned mask) {
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(mask, v, o));
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ float group_min(float v, unsigned mask) {
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(mask, v, o));
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ float group_sum(float v, unsigned mask) {
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+  return v;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+  return group_max<32>(v, kFull);
 }
 
 __device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+  return group_min<32>(v, kFull);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+  return group_sum<32>(v, kFull);
 }
 
 __device__ __forceinline__ float elu(float x) {
   return x > 0.f ? x : expf(x) - 1.f;
+}
+
+// elu'(x) from y = elu(x).
+__device__ __forceinline__ float elu_grad(float y) {
+  return y > 0.f ? 1.f : y + 1.f;
 }
 
 __device__ __forceinline__ float sign_of(float x) {
@@ -127,87 +110,21 @@ __device__ TwoHot two_hot(float x, int support) {
   return TwoHot{low, fminf(low + 1.f, S), y - low, support};
 }
 
-// y[o] = W[o, :] . x + b[o], then elu if `act`; lanes over outputs.
-__device__ void dense(const float* W, const float* x, float* y, int in,
-                      int out, bool act, int lane) {
-  const float* b = W + in * out;
-  for (int o = lane; o < out; o += 32) {
-    const float* row = W + o * in;
-    float acc = 0.f;
-    for (int k = 0; k < in; ++k) acc = fmaf(row[k], x[k], acc);
-    acc += b[o];
-    y[o] = act ? elu(acc) : acc;
-  }
-  __syncwarp();
-}
-
-// The dynamics' first layer on concat(s [E], one_hot(a) [A]), then elu.
-__device__ void dense_sa(const float* W, const float* s, int a, float* y,
-                         int E, int A, int out, int lane) {
-  const int in = E + A;
-  const float* b = W + in * out;
-  const bool has_a = a >= 0 && a < A;
-  for (int o = lane; o < out; o += 32) {
-    const float* row = W + o * in;
-    float acc = 0.f;
-    for (int k = 0; k < E; ++k) acc = fmaf(row[k], s[k], acc);
-    if (has_a) acc += row[E + a];
-    acc += b[o];
-    y[o] = elu(acc);
-  }
-  __syncwarp();
-}
-
-// dx[k] (+)= sum_o W[o, k] dz[o] for k < n; lanes over k.
-__device__ void dense_t(const float* W, const float* dz, float* dx, int in,
-                        int out, int n, bool accumulate, int lane) {
-  for (int k = lane; k < n; k += 32) {
-    float acc = accumulate ? dx[k] : 0.f;
-    for (int o = 0; o < out; ++o) acc = fmaf(W[o * in + k], dz[o], acc);
-    dx[k] = acc;
-  }
-  __syncwarp();
-}
-
-// dW[o, k] += dz[o] x[k], db[o] += dz[o]; each element owned by one lane.
-__device__ void acc_outer(float* dW, const float* dz, const float* x, int in,
-                          int out, int lane) {
-  for (int idx = lane; idx < out * in; idx += 32) {
-    const int o = idx / in;
-    dW[idx] += dz[o] * x[idx - o * in];
-  }
-  float* db = dW + in * out;
-  for (int o = lane; o < out; o += 32) db[o] += dz[o];
-  __syncwarp();
-}
-
-// acc_outer with x = concat(s [E], one_hot(a) [A]).
-__device__ void acc_outer_sa(float* dW, const float* dz, const float* s,
-                             int a, int E, int A, int out, int lane) {
-  const int in = E + A;
-  for (int idx = lane; idx < out * in; idx += 32) {
-    const int o = idx / in;
-    const int k = idx - o * in;
-    const float x = k < E ? s[k] : (k - E == a ? 1.f : 0.f);
-    dW[idx] += dz[o] * x;
-  }
-  float* db = dW + in * out;
-  for (int o = lane; o < out; o += 32) db[o] += dz[o];
-  __syncwarp();
-}
-
-// y = (x - min) / max(max - min, 1e-8).
-__device__ void minmax(const float* x, float* y, int n, int lane) {
+// y = (x - min) / max(max - min, 1e-8), by a group of G lanes (gl: the
+// lane's place in it).
+template <int G = 32>
+__device__ void minmax(const float* x, float* y, int n, int gl,
+                       unsigned mask = kFull) {
   float lo = INFINITY, hi = -INFINITY;
-  for (int j = lane; j < n; j += 32) {
+  for (int j = gl; j < n; j += G) {
     lo = fminf(lo, x[j]);
     hi = fmaxf(hi, x[j]);
   }
-  lo = warp_min(lo);
-  hi = warp_max(hi);
+  lo = group_min<G>(lo, mask);
+  hi = group_max<G>(hi, mask);
   const float d = fmaxf(hi - lo, kMMEps);
-  for (int j = lane; j < n; j += 32) y[j] = (x[j] - lo) / d;
-  __syncwarp();
+  for (int j = gl; j < n; j += G) y[j] = (x[j] - lo) / d;
+  __syncwarp(mask);
 }
 
 // Subgradient of minmax at x for the output gradient dy, as jax.grad gives
@@ -265,262 +182,610 @@ __device__ float softmax_ce(float* z, int n, const Target& t, int lane) {
   return ce;
 }
 
-// Forward and backward of one window; adds its weight gradients to dW.
-__device__ void run_window(const Args& g, const float* Wt, float* dW,
-                           float* sl, const float* __restrict__ raw,
-                           const float* __restrict__ coef,
-                           float* __restrict__ met, int w, int lane) {
-  const size_t ld = static_cast<size_t>(g.ld);
-  const int E = g.E, A = g.A, S41 = g.S41, K = g.K;
-  const int l_repr_out = g.n_repr;
-  const int l_pred0 = g.n_repr + 1;
-  const int l_value = l_pred0 + g.n_pred, l_policy = l_value + 1;
-  const int l_dyn0 = l_policy + 1;
-  const int l_reward = l_dyn0 + g.n_dyn, l_state = l_reward + 1;
-  auto rawv = [&](int row) { return raw[row * ld + w]; };
-  auto Wl = [&](int l) { return Wt + g.off[l]; };
-  auto dWl = [&](int l) { return dW + g.off[l]; };
+// ---- the MLP spec: a tile pass and a finish pass --------------------------
+//
+// Replaces the TPU kernel with the MLP spec (elu towers, h-support heads).
+// The TPU kernel lays the batch across the 128 lanes and the features on
+// sublanes (muax_tpu/models/fused_learner.py:287-289); here the windows are
+// the rows of tensor-core tile products.
+//
+// mlp_tile_kernel: a block owns a tile of kTile = 16 windows, the M of
+// mma.sync m16n8k8. Each layer of the forward and of the backward is one
+// [rows, in] x [in, out] product on the tensor cores (tc_tile.cuh, 3xTF32),
+// its bias and elu (or elu's derivative) applied as the products' sums are
+// stored; its rows are the tile's 16 windows for the representation and
+// for each dynamics step, and all K steps' 16 K rows at once for the
+// prediction, which only the dynamics chain feeds. The row-wise work (the
+// softmax cross-entropies over the bins with their gradient, the min-max
+// normaliser and its subgradient) runs on a thread (the bins) or 8 lanes
+// (the state) a row, and v0 (h^-1 of the first value) on a warp a row.
+// The towers' weights stay in shared memory,
+// and so does the arena (the forward's activations and the backward's
+// gradients, in rows padded to 4 mod 8 floats so that a product's lanes
+// read distinct banks) where it fits beside them; else the arena lies in a
+// device scratch (wide towers, long unrolls: `mlp_learner_plan` in
+// models/fused_learner.py decides). Each
+// linear's weight gradient is one product over the block's rows, dW = dz^T
+// x, and its bias gradient a column sum, both in a fixed order, written to
+// the block's row of a [G, n_weights] scratch: the prediction tower's by
+// the warps the first step of the dynamics' backward leaves idle (where it
+// leaves any), the rest last.
+//
+// mlp_finish_kernel: grads = l2_coef w + the G block rows added in a fixed
+// order (each block of it 32 weights, its 8 warps a slice of the rows each,
+// the slices added in order), and l2 in the last block.
+//
+// What bounds it: per window about 9,000 multiply-adds forward and twice
+// that backward at the flagship widths, so a launch of 4,096 windows is
+// about 0.22 GFLOP: 3.3 us at the f32 peak. What limits it is latency: a
+// tile's chain of about 40 dependent stages of products and row passes,
+// two blocks an SM. The design puts each link on 16 windows at once and
+// spreads it over a block's 8 warps, instead of one warp walking one
+// window's 120 small layers.
 
-  float* obs = sl + g.o_obs;
-  float* repr = sl + g.o_repr;
-  float* spre0 = sl + g.o_spre0;
-  float* steps = sl + g.o_steps;
-  float* DS = sl + g.o_scratch;   // gradient into the current state [E]
-  float* T1 = DS + E;             // gradient into a pre-norm state [E]
-  float* DD = T1 + E;             // gradient into s from the dynamics [E]
-  float* H1 = DD + E;
-  float* H2 = H1 + g.max_w;
-  float* bufs[2] = {H2 + g.max_w, H2 + 2 * g.max_w};
+constexpr int kTile = 16;         // windows of a block
+constexpr int kThreads = 256;     // mlp_tile_kernel
+constexpr int kWarps = kThreads / 32;
+constexpr int kTM = 16, kTN = 16;  // a warp's tile of a product
+constexpr int kNormLanes = 8;      // lanes of a row of the normaliser
+constexpr int kFinishThreads = 256;
+constexpr int kFinishCols = 32;    // weights of a mlp_finish_kernel block
+constexpr int kFinishSlices = kFinishThreads / kFinishCols;
+
+// Floats of a row of n: n padded to 4 mod 8, so that the 8 rows (or
+// columns) that a tile product's lanes read at once fall in distinct banks.
+__host__ __device__ constexpr int padded(int n) {
+  return n <= 4 ? 4 : (n + 3) / 8 * 8 + 4;
+}
+
+struct MlpArgs {
+  int B, ld, O, E, A, S41, support, K;
+  int n_repr, n_pred, n_dyn, n_lin;
+  // Linear l, in the modules' parameter order (representation hidden layers
+  // and head; prediction hidden layers, value and policy heads; dynamics
+  // hidden layers, reward and next-state heads): W [out, in] and b [out] at
+  // off[l] of the flat parameters, which shared memory holds as they are.
+  int off[kMaxLin], din[kMaxLin], dout[kMaxLin];
+  // In the block's arena: the linear's rows (kTile for the representation,
+  // K kTile for the others, step-major), its input rows x (stride xs), its
+  // outputs y and their gradient dz (stride ys; a softmax head's dz takes
+  // the place of its logits).
+  int rows[kMaxLin], xs[kMaxLin], ys[kMaxLin];
+  long x[kMaxLin], y[kMaxLin], dz[kMaxLin];
+  // Weight-gradient work: dW tiles before linear l, bias columns before it.
+  int tile0[kMaxLin + 1], col0[kMaxLin + 1];
+  // The arena's other buffers: the start observations [kTile, x0s]; the
+  // tile's raw rows of actions, rewards, returns, policies and masks, and
+  // its coef [4 K + K A + 1, kTile]; the dynamics input concat(s_i,
+  // one_hot(a_i)) [K kTile, sas], whose first E columns are the
+  // prediction's input; the gradient into s_i [K kTile, dss]; the
+  // cross-entropies [3, K kTile] and v0 [kTile].
+  long x0, rt, sa, ds, ce;
+  int x0s, sas, dss;
+  int r_obs, r_action, r_reward, r_rn, r_pi, r_mask;
+  int n_weights, smem_weights;
+  long arena_floats;
+  float gradient_scale;
+};
+
+// One product term: sum_k A(m, k) B(k, n), A(m, k) = A[m * sam + k * sak],
+// B(k, n) = B[k * sbk + n * sbn], k < K.
+struct Term {
+  const float* A;
+  int sam, sak;
+  const float* B;
+  int sbk, sbn, K;
+};
+
+// C = the sum of one or two terms over [0, M) x [0, N). (Two fields, not
+// an array: an array indexed at run time would go to local memory.)
+struct Prod {
+  int M, N, nterm;
+  Term t0, t1;
+};
+
+__device__ __forceinline__ Prod prod(int M, int N, const Term& a) {
+  return Prod{M, N, 1, a, a};
+}
+
+__device__ __forceinline__ Prod prod(int M, int N, const Term& a,
+                                     const Term& b) {
+  return Prod{M, N, 2, a, b};
+}
+
+// What a tile product does with its sums v at (m, n): C[m * ldc + n] =
+// v + bias[n] (kLinear), elu(v + bias[n]) (kElu), v elu'(y[m * ldc + n])
+// with y the layer's activations (kEluGrad), v (kSet), or C + scale v
+// (kAddScaled).
+enum Epilogue { kLinear, kElu, kEluGrad, kSet, kAddScaled };
+
+struct Out {
+  float* C;
+  const float* aux;  // the bias (kLinear, kElu) or the activations y
+  int ldc, mode;
+  float scale;
+};
+
+// One warp's kTM x kTN tile at (m0, n0) of p, its terms added into one set
+// of sums in order, stored as o says.
+template <bool kPrefA>
+__device__ __forceinline__ void tile_job(const Prod& p, const Out& o,
+                                         int m0, int n0) {
+  float acc[1][2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) acc[0][j][h] = 0.f;
+  auto term = [&](const Term& t) {
+    mz_tc::warp_tile<1, 2, mz_tc::chunk_steps<1, 2, kPrefA>(), kPrefA>(
+        p.M - m0, p.N - n0, t.K, t.A + static_cast<long>(m0) * t.sam, t.sam,
+        t.sak, t.B + static_cast<long>(n0) * t.sbn, t.sbk, t.sbn, acc);
+  };
+  term(p.t0);
+  if (p.nterm > 1) term(p.t1);
+  mz_tc::for_each(acc, m0, n0, p.M, p.N, [&](int m, int n, float v) {
+    float* c = o.C + m * o.ldc + n;
+    switch (o.mode) {
+      case kLinear: *c = v + o.aux[n]; break;
+      case kElu: *c = elu(v + o.aux[n]); break;
+      case kEluGrad: *c = v * elu_grad(o.aux[m * o.ldc + n]); break;
+      case kSet: *c = v; break;
+      default: *c = *c + o.scale * v;
+    }
+  });
+}
+
+// A stage of the tile pass: the tiles of p1 and then of p2 (none when
+// p2.M is 0) dealt to the block's warps in turn; the warps left without a
+// tile run idle(w, n) as the w-th of n; then the block's barrier.
+template <bool kPrefA, typename Idle>
+__device__ __forceinline__ void stage(const Prod& p1, const Out& o1,
+                                      const Prod& p2, const Out& o2,
+                                      const Idle& idle) {
+  const int warp = threadIdx.x >> 5;
+  const int n1 = (p1.N + kTN - 1) / kTN;
+  const int t1 = (p1.M + kTM - 1) / kTM * n1;
+  const int n2 = (p2.N + kTN - 1) / kTN;
+  const int t2 = p2.M > 0 ? (p2.M + kTM - 1) / kTM * n2 : 0;
+  for (int tile = warp; tile < t1 + t2; tile += kWarps) {
+    if (tile < t1) {
+      tile_job<kPrefA>(p1, o1, tile / n1 * kTM, tile % n1 * kTN);
+    } else {
+      const int u = tile - t1;
+      tile_job<kPrefA>(p2, o2, u / n2 * kTM, u % n2 * kTN);
+    }
+  }
+  if (warp >= t1 + t2) idle(warp - t1 - t2, kWarps - t1 - t2);
+  __syncthreads();
+}
+
+template <bool kPrefA>
+__device__ __forceinline__ void stage(const Prod& p1, const Out& o1,
+                                      const Prod& p2, const Out& o2) {
+  stage<kPrefA>(p1, o1, p2, o2, [](int, int) {});
+}
+
+template <bool kPrefA>
+__device__ __forceinline__ void stage(const Prod& p1, const Out& o1) {
+  Prod none = p1;
+  none.M = 0;
+  stage<kPrefA>(p1, o1, none, o1);
+}
+
+// Copies a float (or, 16-byte aligned, four) from device memory to shared
+// memory (cp.async): the copies of a thread are in flight together until
+// cp_wait.
+__device__ __forceinline__ void cp_float(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_float4(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The row passes take G lanes a row (gl: a lane's place among them,
+// mask: the row's lanes) and sum in the order of a group of 8 lanes: the
+// partial sum of k < 8 over j = k mod 8 in increasing j, then the
+// butterfly of group_sum<8>; lane gl keeps the partials of k = gl + G q.
+// The same sums at any G, so that the row passes give one result however
+// their lanes are dealt.
+template <int G>
+__device__ __forceinline__ float sum8(float (&a)[8 / G], unsigned mask) {
+#pragma unroll
+  for (int o = 4; o >= G; o >>= 1)
+#pragma unroll
+    for (int q = 0; q < o / G; ++q) a[q] = a[q] + a[q + o / G];
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) a[0] += __shfl_xor_sync(mask, a[0], o);
+  return a[0];
+}
+
+// Softmax cross-entropy of logits z[n] against t(j), by one thread; z
+// becomes cm (softmax(z) - t) in place. Returns the cross-entropy.
+template <typename Target>
+__device__ float softmax_ce_grad(float* z, int n, const Target& t,
+                                 float cm) {
+  float m = -INFINITY;
+  for (int j = 0; j < n; ++j) m = fmaxf(m, z[j]);
+  float s[8] = {}, ce[8] = {};
+  for (int j0 = 0; j0 < n; j0 += 8)
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (j0 + q < n) s[q] += expf(z[j0 + q] - m);
+  const float log_s = logf(sum8<1>(s, 0u));
+  for (int j0 = 0; j0 < n; j0 += 8)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = j0 + q;
+      if (j >= n) continue;
+      const float ls = (z[j] - m) - log_s;
+      const float tj = t(j);
+      ce[q] -= tj * ls;
+      z[j] = cm * (expf(ls) - tj);
+    }
+  return sum8<1>(ce, 0u);
+}
+
+// minmax_bwd (the normaliser's subgradient) with its sums in the order
+// above, and its divisions as products with reciprocals (the backward
+// feeds no priority).
+template <int G>
+__device__ void norm_bwd_row(const float* x, const float* dy, float* dx,
+                             int n, int gl, unsigned mask) {
+  float lo = INFINITY, hi = -INFINITY;
+  for (int j = gl; j < n; j += G) {
+    lo = fminf(lo, x[j]);
+    hi = fmaxf(hi, x[j]);
+  }
+  lo = group_min<G>(lo, mask);
+  hi = group_max<G>(hi, mask);
+  const float range = hi - lo;
+  const float inv_d = 1.f / fmaxf(range, kMMEps);
+  float n_lo[8 / G] = {}, n_hi[8 / G] = {}, sg[8 / G] = {}, sgy[8 / G] = {};
+  for (int j0 = 0; j0 < n; j0 += 8)
+#pragma unroll
+    for (int q = 0; q < 8 / G; ++q) {
+      const int j = j0 + gl + G * q;
+      if (j >= n) continue;
+      n_lo[q] += x[j] == lo ? 1.f : 0.f;
+      n_hi[q] += x[j] == hi ? 1.f : 0.f;
+      sg[q] += dy[j];
+      sgy[q] += dy[j] * ((x[j] - lo) * inv_d);
+    }
+  const float inv_lo = 1.f / sum8<G>(n_lo, mask);
+  const float inv_hi = 1.f / sum8<G>(n_hi, mask);
+  const float g = sum8<G>(sg, mask), gy = sum8<G>(sgy, mask);
+  const float active = range > kMMEps ? 1.f : 0.f;
+  for (int j = gl; j < n; j += G) {
+    const float m = x[j] == lo ? inv_lo : 0.f;
+    const float mm = x[j] == hi ? inv_hi : 0.f;
+    dx[j] = (dy[j] - m * g - active * gy * (mm - m)) * inv_d;
+  }
+  if (G > 1) __syncwarp(mask);
+}
+
+// The layout tables of g are indexed at run time: __grid_constant__ keeps
+// them in the constant bank, where a copy per thread would spill 2 KB a
+// thread to local memory.
+template <bool kSmemArena>
+__global__ void __launch_bounds__(kThreads, 2)
+mlp_tile_kernel(const float* __restrict__ raw, const float* __restrict__ coef,
+                const float* __restrict__ weights, float* __restrict__ arena,
+                float* __restrict__ partial, float* __restrict__ met,
+                const __grid_constant__ MlpArgs g) {
+  constexpr bool kPrefA = !kSmemArena;  // operands in device memory
+  extern __shared__ __align__(16) float smem[];
+  float* Ws = smem;
+  float* base = kSmemArena ? smem + g.smem_weights
+                           : arena + blockIdx.x * g.arena_floats;
+  const int w0 = blockIdx.x * kTile;
+  const int T = kTile, K = g.K, R = K * T, E = g.E, A = g.A, S41 = g.S41;
+  const size_t ld = static_cast<size_t>(g.ld);
+  const int l_rhead = g.n_repr, l_pred0 = l_rhead + 1;
+  const int l_value = l_pred0 + g.n_pred, l_policy = l_value + 1;
+  const int l_dyn0 = l_policy + 1, l_reward = l_dyn0 + g.n_dyn;
+  const int l_state = l_reward + 1;
+  // The tile's copy of its raw rows: step i of window t in a block of rows
+  // starting at `first` (0 actions, K rewards, 2 K returns, q_pi policies
+  // of A rows a step, q_mask masks, q_coef the coef). Windows past the
+  // batch read 0, so that they compute on zeros and, with cm = 0, add
+  // nothing to any gradient.
+  float* rt = base + g.rt;
+  auto tile_raw = [&](int first, int i, int t) {
+    return rt[(first + i) * T + t];
+  };
+  const int q_pi = 3 * K, q_mask = q_pi + K * A, q_coef = q_mask + K;
+  auto cm_of = [&](int i, int t) {
+    return tile_raw(q_coef, 0, t) * tile_raw(q_mask, i, t);
+  };
+  auto at = [&](long off, int row, int stride) {
+    return base + off + static_cast<long>(row) * stride;
+  };
+  // Linear l on rows [r0, r0 + M): its input times W^T.
+  auto fwd_term = [&](int l, int r0) {
+    return Term{at(g.x[l], r0, g.xs[l]), g.xs[l], 1, Ws + g.off[l], 1,
+                g.din[l], g.din[l]};
+  };
+  // Linear l's dz on rows [r0, r0 + M) times W: the gradient at its input.
+  auto bwd_term = [&](int l, int r0) {
+    return Term{at(g.dz[l], r0, g.ys[l]), g.ys[l], 1, Ws + g.off[l],
+                g.din[l], 1, g.dout[l]};
+  };
+  // Outputs: y = x W^T + b (then elu), and dz of layer lp = v elu'(y).
+  auto fwd_out = [&](int l, int r0, bool act) {
+    return Out{at(g.y[l], r0, g.ys[l]), Ws + g.off[l] + g.din[l] * g.dout[l],
+               g.ys[l],
+               act ? kElu : kLinear, 0.f};
+  };
+  auto bwd_out = [&](int lp, int r0) {
+    return Out{at(g.dz[lp], r0, g.ys[lp]), at(g.y[lp], r0, g.ys[lp]),
+               g.ys[lp], kEluGrad, 0.f};
+  };
+  auto fwd = [&](int l, int r0, int M, bool act) {
+    stage<kPrefA>(prod(M, g.dout[l], fwd_term(l, r0)), fwd_out(l, r0, act));
+  };
+  // dz of layer l - 1 from dz of layer l.
+  auto bwd = [&](int l, int r0, int M) {
+    stage<kPrefA>(prod(M, g.din[l], bwd_term(l, r0)), bwd_out(l - 1, r0));
+  };
+  // The row passes: the normaliser's on kNormLanes lanes a row of the
+  // state, the softmax heads' on a thread a row of bins.
+  const int lane = threadIdx.x & 31;
+  const int nl = threadIdx.x % kNormLanes;
+  const unsigned nmask = ((1u << kNormLanes) - 1) << (lane & -kNormLanes);
+  // Rows of s_i from the pre-norm state of linear l (row block `src`):
+  // minmax, then one_hot(a_i).
+  auto next_state = [&](int l, int src, int i) {
+    for (int t = threadIdx.x / kNormLanes; t < T;
+         t += kThreads / kNormLanes) {
+      float* s = at(g.sa, i * T + t, g.sas);
+      minmax<kNormLanes>(at(g.y[l], src + t, g.ys[l]), s, E, nl, nmask);
+      const int a = static_cast<int>(tile_raw(0, i, t));
+      for (int j = nl; j < A; j += kNormLanes) s[E + j] = j == a ? 1.f : 0.f;
+    }
+    __syncthreads();
+  };
+  // The normaliser's subgradient: the gradient at the pre-norm rows x
+  // (linear l, rows r0..) from the gradient into s at rows ds0.. of ds.
+  auto norm_bwd = [&](int l, int r0, int ds0) {
+    for (int t = threadIdx.x / kNormLanes; t < T;
+         t += kThreads / kNormLanes)
+      norm_bwd_row<kNormLanes>(at(g.y[l], r0 + t, g.ys[l]),
+                               at(g.ds, ds0 + t, g.dss),
+                               at(g.dz[l], r0 + t, g.ys[l]), E, nl, nmask);
+    __syncthreads();
+  };
+  float* ce = base + g.ce;
 
   // ---- forward ------------------------------------------------------------
-  for (int f = lane; f < g.O; f += 32) obs[f] = rawv(g.r_obs + f);
-  __syncwarp();
-  const float* x = obs;
-  int in = g.O;
-  for (int l = 0; l < g.n_repr; ++l) {
-    float* y = repr + g.hoff[l];
-    dense(Wl(l), x, y, in, g.dout[l], true, lane);
-    x = y;
-    in = g.dout[l];
+  // The weights, the start observations and the tile's raw rows (0 past
+  // the batch), the copies in flight at once (the arena's only where it
+  // lies in shared memory).
+  const int warp = threadIdx.x >> 5;
+  {
+    const int n4 = reinterpret_cast<size_t>(weights) % 16 == 0
+                       ? g.n_weights / 4 * 4 : 0;
+    for (int i = 4 * threadIdx.x; i < n4; i += 4 * kThreads)
+      cp_float4(Ws + i, weights + i);
+    for (int i = n4 + threadIdx.x; i < g.n_weights; i += kThreads)
+      cp_float(Ws + i, weights + i);
   }
-  const float* repr_last = x;
-  const int repr_last_w = in;
-  dense(Wl(l_repr_out), x, spre0, in, E, false, lane);
-  minmax(spre0, steps + g.so_s, E, lane);
-
-  float v_sum = 0.f, p_sum = 0.f, r_sum = 0.f, v0 = 0.f;
+  auto copy_raw = [&](float* dst, const float* src, int t) {
+    if (w0 + t >= g.B) {
+      *dst = 0.f;
+    } else if (kSmemArena) {
+      cp_float(dst, src + w0 + t);
+    } else {
+      *dst = src[w0 + t];
+    }
+  };
+  for (int i = threadIdx.x; i < T * g.O; i += kThreads)
+    copy_raw(base + g.x0 + (i % T) * g.x0s + i / T,
+             raw + (g.r_obs + i / T) * ld, i % T);
+  for (int i = threadIdx.x; i < q_coef * T; i += kThreads) {
+    const int q = i / T;
+    const int row = q < K        ? g.r_action + q
+                    : q < 2 * K  ? g.r_reward + q - K
+                    : q < q_pi   ? g.r_rn + q - 2 * K
+                    : q < q_mask ? g.r_pi + q - q_pi
+                                 : g.r_mask + q - q_mask;
+    copy_raw(rt + i, raw + row * ld, i % T);
+  }
+  for (int t = threadIdx.x; t < T; t += kThreads)
+    copy_raw(rt + q_coef * T + t, coef, t);
+  cp_wait();
+  {  // the last step's next state feeds nothing: its gradient is 0
+    float* d = at(g.dz[l_state], (K - 1) * T, g.ys[l_state]);
+    for (int i = threadIdx.x; i < T * g.ys[l_state]; i += kThreads)
+      d[i] = 0.f;
+  }
+  __syncthreads();
+  for (int l = 0; l <= l_rhead; ++l) fwd(l, 0, T, l < l_rhead);
+  next_state(l_rhead, 0, 0);
   for (int i = 0; i < K; ++i) {
-    float* st = steps + i * g.step_floats;
-    const float* s = st + g.so_s;
-    const float mask = rawv(g.r_mask + i);
-    // prediction
-    x = s;
-    in = E;
-    for (int l = 0; l < g.n_pred; ++l) {
-      float* y = st + g.so_pred + g.hoff[l_pred0 + l];
-      dense(Wl(l_pred0 + l), x, y, in, g.dout[l_pred0 + l], true, lane);
-      x = y;
-      in = g.dout[l_pred0 + l];
-    }
-    float* vz = st + g.so_v;
-    dense(Wl(l_value), x, vz, in, S41, false, lane);
-    const float ce_v =
-        softmax_ce(vz, S41, two_hot(rawv(g.r_rn + i), g.support), lane);
-    if (i == 0) {
-      float ev = 0.f;
-      for (int j = lane; j < S41; j += 32)
-        ev += vz[j] * static_cast<float>(j - g.support);
-      v0 = inv_value_transform(warp_sum(ev));
-    }
-    float* pz = st + g.so_p;
-    dense(Wl(l_policy), x, pz, in, A, false, lane);
-    const int pi_row = g.r_pi + i * A;
-    const float ce_p =
-        softmax_ce(pz, A, [&](int j) { return rawv(pi_row + j); }, lane);
-    v_sum += mask * ce_v;
-    p_sum += mask * ce_p;
-    // dynamics
-    const int a = static_cast<int>(rawv(g.r_action + i));
-    float* y = st + g.so_dyn + g.hoff[l_dyn0];
-    dense_sa(Wl(l_dyn0), s, a, y, E, A, g.dout[l_dyn0], lane);
-    x = y;
-    in = g.dout[l_dyn0];
-    for (int l = 1; l < g.n_dyn; ++l) {
-      y = st + g.so_dyn + g.hoff[l_dyn0 + l];
-      dense(Wl(l_dyn0 + l), x, y, in, g.dout[l_dyn0 + l], true, lane);
-      x = y;
-      in = g.dout[l_dyn0 + l];
-    }
-    float* rz = st + g.so_r;
-    dense(Wl(l_reward), x, rz, in, S41, false, lane);
-    r_sum += mask * softmax_ce(rz, S41, two_hot(rawv(g.r_reward + i),
-                                                g.support), lane);
-    float* spre = st + g.so_spre;
-    dense(Wl(l_state), x, spre, in, E, false, lane);
-    if (i + 1 < K) minmax(spre, st + g.step_floats + g.so_s, E, lane);
+    const int r0 = i * T;
+    for (int l = l_dyn0; l < l_reward; ++l) fwd(l, r0, T, true);
+    stage<kPrefA>(prod(T, S41, fwd_term(l_reward, r0)),
+                  fwd_out(l_reward, r0, false),
+                  prod(T, E, fwd_term(l_state, r0)),
+                  fwd_out(l_state, r0, false));
+    if (i + 1 < K) next_state(l_state, r0, i + 1);
   }
-  if (lane == 0) {
+  for (int l = l_pred0; l < l_value; ++l) fwd(l, 0, R, true);
+  stage<kPrefA>(prod(R, S41, fwd_term(l_value, 0)),
+                fwd_out(l_value, 0, false),
+                prod(R, A, fwd_term(l_policy, 0)),
+                fwd_out(l_policy, 0, false));
+  // v0 = h^-1 of the first step's expected value, a warp a window, each
+  // lane summing its bins j = lane + 32 q in order and the warp's
+  // butterfly adding the lanes, as the one-warp-per-window kernel summed.
+  // The priorities |v0 - z|^0.5 amplify v0's rounding where v0 is near z;
+  // the 8-lane order of the row passes left them further from the plain
+  // version's on one of tools/kernel_split.py priority_probe's inputs.
+  for (int t = warp; t < T; t += kWarps) {
+    const float* z = at(g.y[l_value], t, g.ys[l_value]);
+    float m = -INFINITY;
+    for (int j = lane; j < S41; j += 32) m = fmaxf(m, z[j]);
+    m = warp_max(m);
+    float s = 0.f;
+    for (int j = lane; j < S41; j += 32) s += expf(z[j] - m);
+    const float log_s = logf(warp_sum(s));
+    float ev = 0.f;
+    for (int j = lane; j < S41; j += 32)
+      ev += expf((z[j] - m) - log_s) * static_cast<float>(j - g.support);
+    ev = warp_sum(ev);
+    if (lane == 0) ce[3 * R + t] = inv_value_transform(ev);
+  }
+  __syncthreads();
+  // The three heads' cross-entropies and dz over every step.
+  for (int q = threadIdx.x; q < 3 * R; q += kThreads) {
+    const int r = q % R, i = r / T, t = r % T;
+    if (q >= 2 * R) {
+      ce[q] = softmax_ce_grad(at(g.y[l_reward], r, g.ys[l_reward]), S41,
+                              two_hot(tile_raw(K, i, t), g.support),
+                              cm_of(i, t));
+    } else if (q < R) {
+      ce[q] = softmax_ce_grad(at(g.y[l_value], r, g.ys[l_value]), S41,
+                              two_hot(tile_raw(2 * K, i, t), g.support),
+                              cm_of(i, t));
+    } else {
+      ce[q] = softmax_ce_grad(
+          at(g.y[l_policy], r, g.ys[l_policy]), A,
+          [&](int j) { return tile_raw(q_pi + i * A, j, t); }, cm_of(i, t));
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < T && w0 + t < g.B; t += kThreads) {
+    float v_sum = 0.f, p_sum = 0.f, r_sum = 0.f;
+    for (int i = 0; i < K; ++i) {
+      const float mask = tile_raw(q_mask, i, t);
+      v_sum += mask * ce[i * T + t];
+      p_sum += mask * ce[R + i * T + t];
+      r_sum += mask * ce[2 * R + i * T + t];
+    }
+    const int w = w0 + t;
     met[w] = v_sum;
     met[g.B + w] = p_sum;
     met[2 * g.B + w] = r_sum;
-    met[3 * g.B + w] = v0;
+    met[3 * g.B + w] = ce[3 * R + t];
   }
 
-  // ---- backward -----------------------------------------------------------
-  const float c = coef[w];
-  for (int j = lane; j < E; j += 32) DS[j] = 0.f;
-  __syncwarp();
+  // The weight gradients of linears [a0, a1) and [b0, b1), into the
+  // block's row of partial, by the w-th of n warps: dW = dz^T x over the
+  // linear's rows (a warp a tile, rows in order) and db = the column sums
+  // of dz (a thread a column, rows in order).
+  float* part = partial + static_cast<size_t>(blockIdx.x) * g.n_weights;
+  auto weight_grads = [&](int a0, int a1, int b0, int b1, int w, int n) {
+    const int ta = g.tile0[a1] - g.tile0[a0], tb = g.tile0[b1] - g.tile0[b0];
+    for (int v = w; v < ta + tb; v += n) {
+      const int tile = v < ta ? g.tile0[a0] + v : g.tile0[b0] + v - ta;
+      int l = 0;
+      while (tile >= g.tile0[l + 1]) ++l;
+      const int in = g.din[l], tn = (in + kTN - 1) / kTN;
+      const int u = tile - g.tile0[l];
+      const Term t{base + g.dz[l], 1, g.ys[l], base + g.x[l], g.xs[l], 1,
+                   g.rows[l]};
+      tile_job<kPrefA>(prod(g.dout[l], in, t),
+                       Out{part + g.off[l], nullptr, in, kSet, 0.f},
+                       u / tn * kTM, u % tn * kTN);
+    }
+    const int ca = g.col0[a1] - g.col0[a0], cb = g.col0[b1] - g.col0[b0];
+    for (int v = w * 32 + lane; v < ca + cb; v += n * 32) {
+      const int c = v < ca ? g.col0[a0] + v : g.col0[b0] + v - ca;
+      int l = 0;
+      while (c >= g.col0[l + 1]) ++l;
+      const int o = c - g.col0[l], ys = g.ys[l];
+      const float* dz = base + g.dz[l] + o;
+      float sum = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < g.rows[l]; ++r) sum += dz[r * ys];
+      part[g.off[l] + g.din[l] * g.dout[l] + o] = sum;
+    }
+  };
+
+  // ---- backward: prediction over every step --------------------------------
+  stage<kPrefA>(prod(R, g.din[l_value], bwd_term(l_value, 0),
+                     bwd_term(l_policy, 0)),
+                bwd_out(l_value - 1, 0));
+  for (int l = l_value - 1; l > l_pred0; --l) bwd(l, 0, R);
+  stage<kPrefA>(prod(R, E, bwd_term(l_pred0, 0)),
+                Out{base + g.ds, nullptr, g.dss, kSet, 0.f});
+
+  // ---- backward: dynamics, last step first ---------------------------------
+  // The heads' stage deals one row of tiles; a warp is left idle unless
+  // the last dynamics width has kWarps tiles (over 112 floats), and then
+  // the prediction tower's weight gradients wait for the last pass.
+  const bool pred_dw_early =
+      (g.din[l_reward] + kTN - 1) / kTN * ((T + kTM - 1) / kTM) < kWarps;
   for (int i = K - 1; i >= 0; --i) {
-    float* st = steps + i * g.step_floats;
-    const float* s = st + g.so_s;
-    const float cm = c * rawv(g.r_mask + i);
-    // dynamics branch: reward head, next-state head through the normaliser
-    minmax_bwd(st + g.so_spre, DS, T1, E, lane);
-    const TwoHot rt = two_hot(rawv(g.r_reward + i), g.support);
-    const float* rz = st + g.so_r;
-    for (int j = lane; j < S41; j += 32) H1[j] = cm * (rz[j] - rt(j));
-    __syncwarp();
-    const int last_d = l_dyn0 + g.n_dyn - 1;
-    const float* gd = st + g.so_dyn + g.hoff[last_d];
-    const int hd = g.dout[last_d];
-    acc_outer(dWl(l_reward), H1, gd, hd, S41, lane);
-    acc_outer(dWl(l_state), T1, gd, hd, E, lane);
-    float* dy = bufs[0];
-    float* dx = bufs[1];
-    dense_t(Wl(l_reward), H1, dy, hd, S41, hd, false, lane);
-    dense_t(Wl(l_state), T1, dy, hd, E, hd, true, lane);
-    const int a = static_cast<int>(rawv(g.r_action + i));
-    for (int l = g.n_dyn - 1; l >= 0; --l) {
-      const int L = l_dyn0 + l;
-      const float* y = st + g.so_dyn + g.hoff[L];
-      for (int o = lane; o < g.dout[L]; o += 32)
-        dy[o] *= y[o] > 0.f ? 1.f : y[o] + 1.f;
-      __syncwarp();
-      if (l > 0) {
-        const float* xin = st + g.so_dyn + g.hoff[L - 1];
-        acc_outer(dWl(L), dy, xin, g.din[L], g.dout[L], lane);
-        dense_t(Wl(L), dy, dx, g.din[L], g.dout[L], g.din[L], false, lane);
-        float* t = dy;
-        dy = dx;
-        dx = t;
-      } else {
-        acc_outer_sa(dWl(L), dy, s, a, E, A, g.dout[L], lane);
-        dense_t(Wl(L), dy, DD, g.din[L], g.dout[L], E, false, lane);
-      }
-    }
-    // prediction branch: value and policy heads
-    const TwoHot vt = two_hot(rawv(g.r_rn + i), g.support);
-    const float* vz = st + g.so_v;
-    const float* pz = st + g.so_p;
-    const int pi_row = g.r_pi + i * A;
-    for (int j = lane; j < S41; j += 32) H1[j] = cm * (vz[j] - vt(j));
-    for (int j = lane; j < A; j += 32) H2[j] = cm * (pz[j] - rawv(pi_row + j));
-    __syncwarp();
-    const int last_p = l_pred0 + g.n_pred - 1;
-    const float* hp = st + g.so_pred + g.hoff[last_p];
-    const int wp = g.dout[last_p];
-    acc_outer(dWl(l_value), H1, hp, wp, S41, lane);
-    acc_outer(dWl(l_policy), H2, hp, wp, A, lane);
-    dy = bufs[0];
-    dx = bufs[1];
-    dense_t(Wl(l_value), H1, dy, wp, S41, wp, false, lane);
-    dense_t(Wl(l_policy), H2, dy, wp, A, wp, true, lane);
-    for (int l = g.n_pred - 1; l >= 0; --l) {
-      const int L = l_pred0 + l;
-      const float* y = st + g.so_pred + g.hoff[L];
-      for (int o = lane; o < g.dout[L]; o += 32)
-        dy[o] *= y[o] > 0.f ? 1.f : y[o] + 1.f;
-      __syncwarp();
-      const float* xin = l > 0 ? st + g.so_pred + g.hoff[L - 1] : s;
-      acc_outer(dWl(L), dy, xin, g.din[L], g.dout[L], lane);
-      dense_t(Wl(L), dy, dx, g.din[L], g.dout[L], g.din[L], false, lane);
-      float* t = dy;
-      dy = dx;
-      dx = t;
-    }
-    // s feeds prediction as is and the dynamics through scale_gradient.
-    for (int j = lane; j < E; j += 32)
-      DS[j] = dy[j] + g.gradient_scale * DD[j];
-    __syncwarp();
+    const int r0 = i * T;
+    // Through the normaliser of s_{i+1}, whose gradient is complete.
+    if (i + 1 < K) norm_bwd(l_state, r0, r0 + T);
+    // The warps this stage leaves idle, where it leaves any, take the
+    // prediction tower's weight gradients, complete since its backward.
+    const Prod heads = prod(T, g.din[l_reward], bwd_term(l_reward, r0),
+                            bwd_term(l_state, r0));
+    Prod none = heads;
+    none.M = 0;
+    stage<kPrefA>(heads, bwd_out(l_reward - 1, r0), none, Out{},
+                  [&](int w, int n) {
+                    if (pred_dw_early && i == K - 1)
+                      weight_grads(l_pred0, l_dyn0, 0, 0, w, n);
+                  });
+    for (int l = l_reward - 1; l > l_dyn0; --l) bwd(l, r0, T);
+    // s_i feeds the prediction as is and the dynamics through
+    // scale_gradient.
+    stage<kPrefA>(prod(T, E, bwd_term(l_dyn0, r0)),
+                  Out{at(g.ds, r0, g.dss), nullptr, g.dss, kAddScaled,
+                      g.gradient_scale});
   }
 
-  // representation: head through the normaliser, then the hidden layers
-  minmax_bwd(spre0, DS, T1, E, lane);
-  acc_outer(dWl(l_repr_out), T1, repr_last, repr_last_w, E, lane);
-  if (g.n_repr > 0) {
-    float* dy = bufs[0];
-    float* dx = bufs[1];
-    dense_t(Wl(l_repr_out), T1, dy, repr_last_w, E, repr_last_w, false, lane);
-    for (int l = g.n_repr - 1; l >= 0; --l) {
-      const float* y = repr + g.hoff[l];
-      for (int o = lane; o < g.dout[l]; o += 32)
-        dy[o] *= y[o] > 0.f ? 1.f : y[o] + 1.f;
-      __syncwarp();
-      const float* xin = l > 0 ? repr + g.hoff[l - 1] : obs;
-      acc_outer(dWl(l), dy, xin, g.din[l], g.dout[l], lane);
-      if (l > 0) {
-        dense_t(Wl(l), dy, dx, g.din[l], g.dout[l], g.din[l], false, lane);
-        float* t = dy;
-        dy = dx;
-        dx = t;
-      }
-    }
-  }
+  // ---- backward: representation --------------------------------------------
+  norm_bwd(l_rhead, 0, 0);
+  for (int l = l_rhead; l > 0; --l) bwd(l, 0, T);
+
+  // ---- weight gradients: the block's row of partial ------------------------
+  weight_grads(0, pred_dw_early ? l_pred0 : l_dyn0, l_dyn0, g.n_lin, warp,
+               kWarps);
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
-fused_muzero_grad_kernel(const float* __restrict__ raw,
-                         const float* __restrict__ coef,
-                         const float* __restrict__ weights,
-                         float* __restrict__ partial, float* __restrict__ met,
-                         const Args args) {
-  extern __shared__ __align__(16) float smem[];
-  for (int i = threadIdx.x; i < args.n_weights; i += blockDim.x)
-    smem[i] = weights[i];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* slice = smem + args.w_stride + warp * args.warp_floats;
-  float* dW = slice;  // the warp's gradient sum, in the weights' layout
-  for (int i = lane; i < args.n_weights; i += 32) dW[i] = 0.f;
-  __syncthreads();
-
-  // A block takes kBlockWindows windows whatever its warps; each warp takes
-  // a run of them in turn.
-  const int per_warp = (kBlockWindows + args.warps - 1) / args.warps;
-  for (int k = 0; k < per_warp; ++k) {
-    const int local = warp * per_warp + k;
-    const int w = blockIdx.x * kBlockWindows + local;
-    if (local >= kBlockWindows || w >= args.B) break;
-    run_window(args, smem, dW, slice, raw, coef, met, w, lane);
-  }
-  __syncthreads();
-
-  // The block's sum, warps added in a fixed order.
-  for (int i = threadIdx.x; i < args.n_weights; i += blockDim.x) {
-    float s = 0.f;
-    for (int v = 0; v < args.warps; ++v)
-      s += smem[args.w_stride + v * args.warp_floats + i];
-    partial[static_cast<size_t>(blockIdx.x) * args.n_weights + i] = s;
-  }
-}
-
-constexpr int kFinishThreads = 256;
-
-// grads[k] = l2_coef * w[k] + sum_g partial[g, k] (g in order); the last
-// block computes l2 = 0.5 * l2_coef * sum w^2 with a fixed-order reduction.
+// grads[k] = l2_coef * w[k] + sum_g partial[g, k] (g in order, in kFinish-
+// Slices runs added in order); the last block computes l2 = 0.5 * l2_coef
+// * sum w^2 with a fixed-order reduction.
 __global__ void __launch_bounds__(kFinishThreads)
-finish_grads_kernel(const float* __restrict__ partial, int G, int n,
-                    const float* __restrict__ weights, float l2_coef,
-                    float* __restrict__ grads, float* __restrict__ l2) {
+mlp_finish_kernel(const float* __restrict__ partial, int G, int n,
+                  const float* __restrict__ weights, float l2_coef,
+                  float* __restrict__ grads, float* __restrict__ l2) {
+  __shared__ float red[kFinishThreads];
   if (blockIdx.x + 1 < gridDim.x) {
-    const int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= n) return;
+    const int c = threadIdx.x % kFinishCols, slice = threadIdx.x / kFinishCols;
+    const int k = blockIdx.x * kFinishCols + c;
     float acc = 0.f;
-    for (int b = 0; b < G; ++b) acc += partial[static_cast<size_t>(b) * n + k];
-    grads[k] = l2_coef * weights[k] + acc;
+    if (k < n) {
+      const int hi = static_cast<int>(static_cast<long>(G) * (slice + 1) /
+                                      kFinishSlices);
+      for (int b = static_cast<int>(static_cast<long>(G) * slice /
+                                    kFinishSlices);
+           b < hi; ++b)
+        acc += partial[static_cast<size_t>(b) * n + k];
+    }
+    red[threadIdx.x] = acc;
+    __syncthreads();
+    if (slice == 0 && k < n) {
+      float s = 0.f;
+      for (int v = 0; v < kFinishSlices; ++v) s += red[v * kFinishCols + c];
+      grads[k] = l2_coef * weights[k] + s;
+    }
     return;
   }
-  __shared__ float red[kFinishThreads];
   float s = 0.f;
   for (int k = threadIdx.x; k < n; k += blockDim.x)
     s = fmaf(weights[k], weights[k], s);
@@ -533,6 +798,103 @@ finish_grads_kernel(const float* __restrict__ partial, int G, int n,
   if (threadIdx.x == 0) l2[0] = 0.5f * l2_coef * red[0];
 }
 
+// The linear table and a block's arena; false when the shapes do not fit
+// the kernel. models/fused_learner.py `mlp_learner_floats` repeats the
+// arena's arithmetic for the launch plan (which the CPU tests size without
+// this library); tests/test_torch_fused_learner_kernel.py
+// `test_plan_agrees_with_the_kernel` ties the two copies together.
+bool mlp_layout(MlpArgs* g, int O, int E, int A, int S41, int K, int n_repr,
+                const int* repr_w, int n_pred, const int* pred_w, int n_dyn,
+                const int* dyn_w) {
+  if (O < 1 || E < 1 || A < 1 || S41 < 1 || K < 1 || n_repr < 0 ||
+      n_repr > kMaxLayers || n_pred < 1 || n_pred > kMaxLayers ||
+      n_dyn < 1 || n_dyn > kMaxLayers)
+    return false;
+  for (int l = 0; l < n_repr; ++l)
+    if (repr_w[l] < 1) return false;
+  for (int l = 0; l < n_pred; ++l)
+    if (pred_w[l] < 1) return false;
+  for (int l = 0; l < n_dyn; ++l)
+    if (dyn_w[l] < 1) return false;
+  g->O = O;
+  g->E = E;
+  g->A = A;
+  g->S41 = S41;
+  g->K = K;
+  g->n_repr = n_repr;
+  g->n_pred = n_pred;
+  g->n_dyn = n_dyn;
+  const int T = kTile, R = K * T;
+  long cur = 0;
+  auto take = [&](long floats) {
+    const long at = cur;
+    cur += floats;
+    return at;
+  };
+  g->x0s = padded(O);
+  g->x0 = take(static_cast<long>(T) * g->x0s);
+  g->rt = take(static_cast<long>(4 * K + K * A + 1) * T);
+  g->sas = padded(E + A);
+  g->sa = take(static_cast<long>(R) * g->sas);
+  g->dss = padded(E);
+  g->ds = take(static_cast<long>(R) * g->dss);
+  int n = 0, off = 0;
+  long x = g->x0;
+  int xs = g->x0s, in = O;
+  auto add = [&](int out, int rows, bool softmax) {
+    g->off[n] = off;
+    g->din[n] = in;
+    g->dout[n] = out;
+    off += in * out + out;
+    g->rows[n] = rows;
+    g->x[n] = x;
+    g->xs[n] = xs;
+    g->ys[n] = padded(out);
+    g->y[n] = take(static_cast<long>(rows) * g->ys[n]);
+    g->dz[n] = softmax ? g->y[n] : take(static_cast<long>(rows) * g->ys[n]);
+    ++n;
+  };
+  auto hidden = [&](int out, int rows) {
+    add(out, rows, false);
+    x = g->y[n - 1];
+    xs = g->ys[n - 1];
+    in = out;
+  };
+  for (int l = 0; l < n_repr; ++l) hidden(repr_w[l], T);
+  add(E, T, false);
+  x = g->sa;  // the prediction reads the first E columns
+  xs = g->sas;
+  in = E;
+  for (int l = 0; l < n_pred; ++l) hidden(pred_w[l], R);
+  add(S41, R, true);
+  add(A, R, true);
+  x = g->sa;
+  xs = g->sas;
+  in = E + A;
+  for (int l = 0; l < n_dyn; ++l) hidden(dyn_w[l], R);
+  add(S41, R, true);
+  add(E, R, false);
+  g->n_lin = n;
+  g->ce = take(3L * R + T);
+  g->arena_floats = (cur + 3) / 4 * 4;
+  g->n_weights = off;
+  g->smem_weights = (off + 3) / 4 * 4;
+  g->tile0[0] = g->col0[0] = 0;
+  for (int l = 0; l < n; ++l) {
+    g->tile0[l + 1] = g->tile0[l] + (g->dout[l] + kTM - 1) / kTM *
+                                        ((g->din[l] + kTN - 1) / kTN);
+    g->col0[l + 1] = g->col0[l] + g->dout[l];
+  }
+  return true;
+}
+
+using MlpKernel = void (*)(const float*, const float*, const float*, float*,
+                           float*, float*, const MlpArgs);
+
+MlpKernel mlp_kernel(bool smem_arena) {
+  return smem_arena ? mlp_tile_kernel<true> : mlp_tile_kernel<false>;
+}
+
 // ---- the categorical LearnerSpec: two kernels --------------------------
 //
 // Replaces the same TPU kernel with the categorical spec
@@ -540,7 +902,7 @@ finish_grads_kernel(const float* __restrict__ partial, int G, int n,
 // LayerNorm-tanh first layers (backward at :476-485) and linear [vmin, vmax]
 // two-hot targets (:371-381), v0 the linear expectation (:523-525). At the
 // widths of bench.py's categorical_training (three towers of (256, 256,
-// 256), about 490 K weights) neither the weights nor one warp's gradient sum
+// 256), about 490 K weights) neither the weights nor a block's gradient sums
 // fit in shared memory, so the work is organised around products.
 //
 // categorical_tile_kernel: a block owns kCatTile windows and keeps every
@@ -1182,46 +1544,77 @@ void dw_layout(DwArgs* d, const CatArgs& g, int G, float l2_coef) {
 
 extern "C" {
 
-// Blocks of a launch over B windows: the rows of the scratch `partial`.
-int mz_fused_grad_blocks(int B) {
-  return (B + kBlockWindows - 1) / kBlockWindows;
+// Shared-memory floats of the MLP spec's weights (out[0]) and
+// floats of one block's arena (out[1]); MZ_ERR_SHAPE when the shapes do not
+// fit the kernel. Widths as mz_fused_muzero_grad's.
+int mz_mlp_learner_floats(int O, int E, int A, int S41, int K, int n_repr,
+                          const int* repr_w, int n_pred, const int* pred_w,
+                          int n_dyn, const int* dyn_w, long* out) {
+  MlpArgs g;
+  if (!mlp_layout(&g, O, E, A, S41, K, n_repr, repr_w, n_pred, pred_w, n_dyn,
+                  dyn_w))
+    return MZ_ERR_SHAPE;
+  out[0] = g.smem_weights;
+  out[1] = g.arena_floats;
+  return 0;
 }
 
-// Launch the learner on `stream`. raw: the fused sampler's rows, row r of
-// window w at raw[r * ld + w] (ld >= B); coef [B]; weights: the flat
-// parameters in the modules' order (per linear W [out, in] then b; towers
-// representation, prediction, dynamics, heads as in the Args comment).
+// Blocks of mlp_tile_kernel (the instance with its arena in shared memory,
+// or in the device scratch) that one SM holds at `smem_bytes` of shared
+// memory each, by the CUDA occupancy calculator.
+int mz_learner_blocks_per_sm(int smem_arena, long smem_bytes, int device,
+                             int* out) {
+  const MlpKernel kernel = mlp_kernel(smem_arena != 0);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kernel, kThreads, static_cast<size_t>(smem_bytes));
+}
+
+// Launch the MLP learner on `stream`: mlp_tile_kernel over G =
+// ceil(B / 16) blocks, then mlp_finish_kernel. raw: the fused sampler's
+// rows, row r of window w at raw[r * ld + w] (ld >= B); coef [B]; weights:
+// the flat parameters in the modules' order (per linear W [out, in] then
+// b; towers representation, prediction, dynamics, heads as in MlpArgs).
 // Outputs: grads [n_weights] in the same layout, met [4, B] (value, policy
 // and reward cross-entropy sums over the valid steps, and the decoded value
-// at step 0), l2 [1]. partial is scratch of [mz_fused_grad_blocks(B),
-// n_weights]. Returns a cudaError_t, MZ_ERR_SHAPE or MZ_ERR_SCRATCH.
+// at step 0), l2 [1]. scratch: the blocks' rows of weight gradients [G,
+// n_weights], then, unless smem_arena, their arenas (G times
+// mz_mlp_learner_floats' out[1]); smem_bytes: the shared memory of a block,
+// the weights and, with smem_arena, the arena (the launch plan's
+// figures, which this checks). Returns a cudaError_t, MZ_ERR_SHAPE or
+// MZ_ERR_SCRATCH.
 int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
                          const float* weights, int n_weights, float* grads,
-                         float* met, float* l2, float* partial,
-                         int partial_rows, int B, int O, int E, int A,
-                         int S41, int support, int K, int n_repr,
-                         const int* repr_w, int n_pred, const int* pred_w,
-                         int n_dyn, const int* dyn_w, int r_obs, int r_action,
+                         float* met, float* l2, float* scratch,
+                         long scratch_floats, int G, int smem_arena,
+                         long smem_bytes, int B, int O, int E, int A, int S41,
+                         int support, int K, int n_repr, const int* repr_w,
+                         int n_pred, const int* pred_w, int n_dyn,
+                         const int* dyn_w, int r_obs, int r_action,
                          int r_reward, int r_rn, int r_pi, int r_mask,
                          float gradient_scale, float l2_coef, int device,
                          void* stream) {
-  if (B < 1 || ld < B || O < 1 || E < 1 || A < 1 || S41 < 1 || K < 1 ||
-      n_repr < 0 || n_repr > kMaxLayers || n_pred < 1 ||
-      n_pred > kMaxLayers || n_dyn < 1 || n_dyn > kMaxLayers)
+  MlpArgs g;
+  if (B < 1 || ld < B || G != (B + kTile - 1) / kTile ||
+      !mlp_layout(&g, O, E, A, S41, K, n_repr, repr_w, n_pred, pred_w, n_dyn,
+                  dyn_w) ||
+      g.n_weights != n_weights)
     return MZ_ERR_SHAPE;
-  if (partial_rows < mz_fused_grad_blocks(B)) return MZ_ERR_SCRATCH;
-  Args g;
+  const long smem = 4L * (g.smem_weights + (smem_arena ? g.arena_floats : 0));
+  if (smem != smem_bytes) return MZ_ERR_SHAPE;
+  const long partial_floats = static_cast<long>(G) * n_weights;
+  if (scratch_floats <
+      partial_floats + (smem_arena ? 0 : static_cast<long>(G) *
+                                             g.arena_floats))
+    return MZ_ERR_SCRATCH;
   g.B = B;
   g.ld = ld;
-  g.O = O;
-  g.E = E;
-  g.A = A;
-  g.S41 = S41;
   g.support = support;
-  g.K = K;
-  g.n_repr = n_repr;
-  g.n_pred = n_pred;
-  g.n_dyn = n_dyn;
   g.r_obs = r_obs;
   g.r_action = r_action;
   g.r_reward = r_reward;
@@ -1230,95 +1623,26 @@ int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
   g.r_mask = r_mask;
   g.gradient_scale = gradient_scale;
 
-  // The linear table, in the modules' parameter order.
-  int n_lin = 0, off = 0, max_w = S41;
-  if (E > max_w) max_w = E;
-  if (A > max_w) max_w = A;
-  auto add = [&](int in, int out, int* stash, bool hidden) {
-    g.off[n_lin] = off;
-    g.din[n_lin] = in;
-    g.dout[n_lin] = out;
-    g.hoff[n_lin] = hidden ? *stash : 0;
-    if (hidden) *stash += out;
-    if (out > max_w) max_w = out;
-    off += in * out + out;
-    ++n_lin;
-  };
-  int repr_floats = 0, pred_floats = 0, dyn_floats = 0, in = O;
-  for (int l = 0; l < n_repr; ++l) {
-    add(in, repr_w[l], &repr_floats, true);
-    in = repr_w[l];
-  }
-  add(in, E, nullptr, false);
-  in = E;
-  for (int l = 0; l < n_pred; ++l) {
-    add(in, pred_w[l], &pred_floats, true);
-    in = pred_w[l];
-  }
-  add(in, S41, nullptr, false);
-  add(in, A, nullptr, false);
-  in = E + A;
-  for (int l = 0; l < n_dyn; ++l) {
-    add(in, dyn_w[l], &dyn_floats, true);
-    in = dyn_w[l];
-  }
-  add(in, S41, nullptr, false);
-  add(in, E, nullptr, false);
-  if (off != n_weights) return MZ_ERR_SHAPE;
-  g.n_weights = n_weights;
-  g.w_stride = (n_weights + 3) / 4 * 4;
-  g.max_w = max_w;
-
-  // A step's stash: s, prediction activations, value probs, policy probs,
-  // dynamics activations, reward probs, pre-norm next state.
-  g.so_s = 0;
-  g.so_pred = g.so_s + E;
-  g.so_v = g.so_pred + pred_floats;
-  g.so_p = g.so_v + S41;
-  g.so_dyn = g.so_p + A;
-  g.so_r = g.so_dyn + dyn_floats;
-  g.so_spre = g.so_r + S41;
-  g.step_floats = g.so_spre + E;
-  // A warp's slice: gradient sum, obs, representation activations, pre-norm
-  // s0, K steps, scratch (3 state vectors and 4 layer-wide buffers).
-  g.o_obs = g.w_stride;
-  g.o_repr = g.o_obs + O;
-  g.o_spre0 = g.o_repr + repr_floats;
-  g.o_steps = g.o_spre0 + E;
-  g.o_scratch = g.o_steps + K * g.step_floats;
-  g.warp_floats = (g.o_scratch + 3 * E + 4 * max_w + 3) / 4 * 4;
-
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  // Each warp's slice holds a whole gradient sum, so wide towers fit fewer
-  // warps: take as many as fit, down to one.
-  auto smem_for = [&](int warps) {
-    return (static_cast<size_t>(g.w_stride) +
-            static_cast<size_t>(warps) * g.warp_floats) * sizeof(float);
-  };
-  g.warps = kWarps;
-  while (g.warps > 0 && smem_for(g.warps) > static_cast<size_t>(max_smem))
-    --g.warps;
-  if (g.warps == 0) return MZ_ERR_SHAPE;
-  const size_t smem = smem_for(g.warps);
-  err = cudaFuncSetAttribute(fused_muzero_grad_kernel,
+  if (smem > max_smem) return MZ_ERR_SHAPE;
+  const MlpKernel kernel = mlp_kernel(smem_arena != 0);
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-
-  const int G = mz_fused_grad_blocks(B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_muzero_grad_kernel<<<G, 32 * g.warps, smem, st>>>(raw, coef, weights,
-                                                          partial, met, g);
+  kernel<<<G, kThreads, smem, st>>>(raw, coef, weights,
+                                    scratch + partial_floats, scratch, met, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int grid2 = (n_weights + kFinishThreads - 1) / kFinishThreads + 1;
-  finish_grads_kernel<<<grid2, kFinishThreads, 0, st>>>(
-      partial, G, n_weights, weights, l2_coef, grads, l2);
+  mlp_finish_kernel<<<(n_weights + kFinishCols - 1) / kFinishCols + 1,
+                      kFinishThreads, 0, st>>>(scratch, G, n_weights, weights,
+                                               l2_coef, grads, l2);
   return cudaGetLastError();
 }
 

@@ -13,17 +13,19 @@ the ``LossMetrics`` of ``muzero_loss``, with the semantics of autograd over
 ``muzero_loss``.
 
 On CUDA tensors they launch the hand-written kernels of
-``csrc/fused_learner.cu`` (the MLP kernel, or the categorical pair: a
-per-tile forward and backward, then a weight-gradient pass, both on the
-tensor cores); on CPU tensors they run the plain version, autograd over
-``models/losses.py`` ``muzero_loss`` on the equivalent batch. The kernel
-returns gradients directly and is never called under autograd. The
-fc-resnet family has no kernel, as in the JAX package: its residual
+``csrc/fused_learner.cu``, each spec a pair on the tensor cores: the MLP
+spec's tile pass (16 windows a block, laid out by ``mlp_learner_plan``) and
+its finish pass, or the categorical spec's per-tile forward and backward
+and its weight-gradient pass; on CPU tensors they run the plain version,
+autograd over ``models/losses.py`` ``muzero_loss`` on the equivalent batch.
+The kernel returns gradients directly and is never called under autograd.
+The fc-resnet family has no kernel, as in the JAX package: its residual
 blocks' backward is not hand-derived.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -34,6 +36,7 @@ from muax_tpu_torch.models.losses import LossMetrics, muzero_grad
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
 from muax_tpu_torch.models.optimizers import flat_parameters
 from muax_tpu_torch.replay.fused_sampler import RawLayout, make_raw_layout
+from muax_tpu_torch.device import DeviceLimits, device_limits
 from muax_tpu_torch.types import Transition
 
 # Launches of the CUDA kernel, by mode; the plain version does not count.
@@ -215,12 +218,16 @@ def _load_kernel():
   fn = lib.mz_fused_muzero_grad
   if fn.argtypes is None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32]
-                   + [i32] * 7 + [i32, ptr, i32, ptr, i32, ptr]
+    i64 = ctypes.c_long
+    fn.argtypes = ([ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, i64, i32,
+                    i32, i64] + [i32] * 7 + [i32, ptr, i32, ptr, i32, ptr]
                    + [i32] * 6 + [f32, f32, i32, ptr])
     fn.restype = i32
-    lib.mz_fused_grad_blocks.argtypes = [i32]
-    lib.mz_fused_grad_blocks.restype = i32
+    lib.mz_mlp_learner_floats.argtypes = ([i32] * 5 + [i32, ptr] * 3
+                                          + [ptr])
+    lib.mz_mlp_learner_floats.restype = i32
+    lib.mz_learner_blocks_per_sm.argtypes = [i32, i64, i32, ptr]
+    lib.mz_learner_blocks_per_sm.restype = i32
     lib.mz_fused_categorical_grad.argtypes = (
         [ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ctypes.c_long, i32]
         + [i32] * 5 + [f32, f32, i32]
@@ -250,6 +257,140 @@ def _check_raw(lw, raw: torch.Tensor, coef: torch.Tensor, lay: RawLayout):
         or tuple(t.shape) != shape or not t.is_contiguous()):
       raise ValueError(f"{name}: expected contiguous float32 {shape} on "
                        f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+# The MLP spec's launch (``mlp_tile_kernel`` in csrc/fused_learner.cu): a
+# block of ``LEARNER_THREADS`` threads per tile of ``LEARNER_TILE`` windows
+# (the M of a tensor-core tile product), the towers' weights in shared
+# memory, and at most two blocks an SM (its ``__launch_bounds__(256, 2)``
+# gives a thread 128 registers: two blocks fill the register file).
+LEARNER_TILE = 16
+LEARNER_THREADS = 256
+_LEARNER_BLOCKS_PER_SM = 2
+
+
+class LearnerPlan(NamedTuple):
+  """How an MLP-spec launch runs: ``blocks`` blocks of one tile each; the
+  arena (the forward's activations and the backward's gradients) in shared
+  memory (``smem_arena``) or in the device scratch; ``smem_bytes`` of
+  shared memory a block; ``scratch_floats`` of device scratch (the blocks'
+  rows of weight gradients, then their arenas unless ``smem_arena``); an SM
+  holds ``blocks_per_sm`` blocks at once, and the busiest SM
+  ``warps_per_sm`` warps (theoretical, capped by the grid)."""
+  blocks: int
+  smem_arena: bool
+  smem_bytes: int
+  scratch_floats: int
+  blocks_per_sm: int
+  warps_per_sm: int
+
+
+def learner_padded(n: int) -> int:
+  """Floats of a row of n in the kernel's arena (its ``padded``): n padded
+  to 4 mod 8, so that a tile product's lanes read distinct banks."""
+  return 4 if n <= 4 else (n + 3) // 8 * 8 + 4
+
+
+def _mlp_linears(lw):
+  """(in, out, rows in tiles: 1 for the representation, K otherwise, and
+  whether its gradient takes the place of its logits) of every linear, in
+  the parameters' order."""
+  E, A = lw.embedding_dim, lw.num_actions
+  S41 = 2 * lw.support_size + 1
+  out = []
+
+  def tower(in_dim, hidden, heads, steps):
+    for h in hidden:
+      out.append((in_dim, h, steps, False))
+      in_dim = h
+    for h, softmax in heads:
+      out.append((in_dim, h, steps, softmax))
+
+  tower(lw.obs_dim, lw.repr_layers, ((E, False),), False)
+  tower(E, lw.pred_layers, ((S41, True), (A, True)), True)
+  tower(E + A, lw.dyn_layers, ((S41, True), (E, False)), True)
+  return out
+
+
+def mlp_learner_floats(lw, num_steps: int) -> Tuple[int, int, int]:
+  """(parameters, shared-memory floats of the weights, floats of one
+  block's arena) of the MLP spec with ``lw``'s shapes (``flat`` is not
+  read) over ``num_steps`` unroll steps: the kernel's
+  ``mz_mlp_learner_floats``. The arena holds, in rows of 16 windows (16 K
+  for the steps), the start observations, the tile's raw rows of actions,
+  rewards, returns, policies and masks and its coef, s_i with
+  one_hot(a_i), the gradient into s_i, every linear's outputs and, but for
+  the softmax heads, their gradients apart, and the cross-entropies and
+  v0.
+
+  A copy of the kernel's ``mlp_layout`` (with ``learner_padded`` and
+  ``_mlp_linears``), so that the plan is sized without the library, as the
+  CPU tests size it; ``test_plan_agrees_with_the_kernel``
+  (tests/test_torch_fused_learner_kernel.py) ties the two together."""
+  pad = learner_padded
+  T, R = LEARNER_TILE, LEARNER_TILE * num_steps
+  E, A = lw.embedding_dim, lw.num_actions
+  n_weights = 0
+  arena = (T * pad(lw.obs_dim) + (4 * num_steps + num_steps * A + 1) * T
+           + R * pad(E + A) + R * pad(E) + 3 * R + T)
+  for d_in, d_out, steps, softmax in _mlp_linears(lw):
+    n_weights += (d_in + 1) * d_out
+    arena += (R if steps else T) * pad(d_out) * (1 if softmax else 2)
+  return n_weights, -(-n_weights // 4) * 4, -(-arena // 4) * 4
+
+
+def _shapes(lw) -> tuple:
+  return (lw.repr_layers, lw.pred_layers, lw.dyn_layers, lw.obs_dim,
+          lw.embedding_dim, lw.num_actions, lw.support_size)
+
+
+def mlp_learner_plan(batch: int, num_steps: int, lw,
+                     limits: DeviceLimits) -> LearnerPlan:
+  """The MLP spec's launch plan: one block per 16 windows; the arena in
+  shared memory beside the weights where both fit a block, else in the
+  device scratch. Raises RuntimeError where the weights alone do not fit
+  (the kernel refuses such shapes). ``lw``: ``LearnerWeights`` (only its
+  shapes are read). The plan of a shape is worked out once and kept."""
+  return _mlp_learner_plan(batch, num_steps, _shapes(lw), limits)
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_learner_plan(batch, num_steps, shapes, limits) -> LearnerPlan:
+  n_weights, weights, arena = mlp_learner_floats(
+      LearnerWeights(*shapes, flat=None), num_steps)
+  blocks = -(-batch // LEARNER_TILE)
+  for smem_arena in (True, False):
+    smem = 4 * (weights + (arena if smem_arena else 0))
+    if smem <= limits.smem_per_block:
+      per_sm = min(_LEARNER_BLOCKS_PER_SM,
+                   limits.smem_per_sm // (smem + limits.smem_reserved))
+      busiest = min(per_sm, -(-blocks // limits.sms))
+      return LearnerPlan(
+          blocks, smem_arena, smem,
+          blocks * (n_weights + (0 if smem_arena else arena)), per_sm,
+          busiest * LEARNER_THREADS // 32)
+  raise RuntimeError("fused learner kernel: shapes do not fit the fused "
+                     "learner kernel (the towers' weights exceed a block's "
+                     "shared memory)")
+
+
+def learner_blocks_per_sm(plan: LearnerPlan, device: torch.device) -> int:
+  """Blocks of the plan's tile pass that one SM of ``device`` holds at
+  once, by the CUDA occupancy calculator."""
+  out = ctypes.c_int()
+  lib = _load_kernel()
+  err = lib.mz_learner_blocks_per_sm(
+      int(plan.smem_arena), plan.smem_bytes, _device_index(device),
+      ctypes.byref(out))
+  if err != 0:
+    raise RuntimeError("fused learner kernel: "
+                       + lib.mz_learner_error_string(err).decode())
+  return out.value
+
+
+def _device_index(device: torch.device) -> int:
+  return device.index if device.index is not None else (
+      torch.cuda.current_device())
 
 
 # Windows per block of the categorical kernel's first pass
@@ -302,13 +443,20 @@ def _categorical_grad_cuda(spec: LearnerSpec, raw: torch.Tensor,
       spec.vmax, lay.K, *towers,
       lay.obs, lay.action, lay.reward, lay.rn, lay.pi, lay.mask,
       gradient_scale, l2_coef,
-      dev.index if dev.index is not None else torch.cuda.current_device(),
+      _device_index(dev),
       torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError("fused learner kernel: "
                        + lib.mz_learner_error_string(err).decode())
   categorical_launches += 1
   return grads, met, l2[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _widths(towers):
+  """(count, ctypes array) of each tower's hidden widths."""
+  return tuple(x for ws in towers
+               for x in (len(ws), (ctypes.c_int * max(len(ws), 1))(*ws)))
 
 
 def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
@@ -324,26 +472,22 @@ def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
   B = raw.shape[1]
   lib = _load_kernel()
   n = lw.flat.numel()
-  G = lib.mz_fused_grad_blocks(B)
-  partial = torch.empty((G, n), dtype=torch.float32, device=dev)
-  grads = torch.empty((n,), dtype=torch.float32, device=dev)
-  met = torch.empty((4, B), dtype=torch.float32, device=dev)
-  l2 = torch.empty((1,), dtype=torch.float32, device=dev)
-
-  def widths(ws):
-    return len(ws), (ctypes.c_int * max(len(ws), 1))(*ws)
-
-  n_repr, repr_w = widths(lw.repr_layers)
-  n_pred, pred_w = widths(lw.pred_layers)
-  n_dyn, dyn_w = widths(lw.dyn_layers)
+  plan = mlp_learner_plan(B, lay.K, lw, device_limits(dev))
+  scratch = torch.empty((plan.scratch_floats,), dtype=torch.float32,
+                        device=dev)
+  out = torch.empty((n + 4 * B + 1,), dtype=torch.float32, device=dev)
+  grads, met, l2 = out[:n], out[n:n + 4 * B].view(4, B), out[n + 4 * B:]
+  n_repr, repr_w, n_pred, pred_w, n_dyn, dyn_w = _widths(_shapes(lw)[:3])
   err = lib.mz_fused_muzero_grad(
       raw.data_ptr(), raw.stride(0), coef.data_ptr(), lw.flat.data_ptr(), n,
-      grads.data_ptr(), met.data_ptr(), l2.data_ptr(), partial.data_ptr(), G,
-      B, lay.O, lw.embedding_dim, lw.num_actions, 2 * lw.support_size + 1,
+      grads.data_ptr(), met.data_ptr(), l2.data_ptr(), scratch.data_ptr(),
+      plan.scratch_floats, plan.blocks, int(plan.smem_arena),
+      plan.smem_bytes, B, lay.O, lw.embedding_dim, lw.num_actions,
+      2 * lw.support_size + 1,
       lw.support_size, lay.K, n_repr, repr_w, n_pred, pred_w, n_dyn, dyn_w,
       lay.obs, lay.action, lay.reward, lay.rn, lay.pi, lay.mask,
       gradient_scale, l2_coef,
-      dev.index if dev.index is not None else torch.cuda.current_device(),
+      _device_index(dev),
       torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError("fused learner kernel: "

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from muax_tpu_torch import _build
+from muax_tpu_torch.device import DeviceLimits, device_limits
 from muax_tpu_torch.models.acme_networks import LN_EPS, CategoricalMZNetworks
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
 from muax_tpu_torch.models.stochastic_networks import SMZNetworks, SMZParams
@@ -503,12 +504,10 @@ def _load_kernel():
         i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
         i32, i32, f32, f32, f32,
         i32, ptr, ptr, i32, ptr, ptr, i32, ptr]
-    lib.mz_device_limits.argtypes = [i32, ptr]
     lib.mz_mlp_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.c_long, i32,
                                          ptr]
     for fn in (lib.mz_fused_muzero_search, lib.mz_fused_gumbel_search,
-               lib.mz_fused_tiled_search, lib.mz_device_limits,
-               lib.mz_mlp_blocks_per_sm):
+               lib.mz_fused_tiled_search, lib.mz_mlp_blocks_per_sm):
       fn.restype = i32
     lib.mz_error_string.argtypes = [i32]
     lib.mz_error_string.restype = ctypes.c_char_p
@@ -523,35 +522,6 @@ TILE_ENVS = 16
 # Blocks of the categorical kernel an SM can hold at most: its
 # ``__launch_bounds__(256, 2)``.
 _TILED_BLOCKS_PER_SM = 2
-
-
-class DeviceLimits(NamedTuple):
-  """What a card offers the search kernels: SMs, shared memory in bytes per
-  SM, per block (opt-in) and reserved per block, and registers per SM."""
-  sms: int
-  smem_per_sm: int
-  smem_per_block: int
-  smem_reserved: int
-  regs_per_sm: int = 65536
-
-
-def device_limits(device: torch.device) -> DeviceLimits:
-  """The card's ``DeviceLimits``, read once per card with the CUDA
-  runtime."""
-  index = device.index if device.index is not None else (
-      torch.cuda.current_device())
-  return _device_limits(index)
-
-
-@functools.lru_cache(maxsize=None)
-def _device_limits(index: int) -> DeviceLimits:
-  out = (ctypes.c_int * 5)()
-  lib = _load_kernel()
-  err = lib.mz_device_limits(index, out)
-  if err != 0:
-    raise RuntimeError("fused search kernel: "
-                       + lib.mz_error_string(err).decode())
-  return DeviceLimits(*out)
 
 
 class TiledPlan(NamedTuple):

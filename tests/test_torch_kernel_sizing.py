@@ -176,3 +176,109 @@ def test_mlp_env_floats():
   assert fused.mlp_env_floats(2, 8, 64, 41, False, True) == 604 + 520 + 1
   assert fused.mlp_act_width(2, 8, [41, 16, 16]) == 41
   assert fused.mlp_smem_bytes(1884, 32, 605) == 4 * (1884 + 32 * 605)
+
+
+# ---- the MLP learner's launch plan (``mlp_tile_kernel``) --------------------
+
+def _learner_shapes(A, repr_layers, layers, support, E=8, O=4):
+  return fused_learner.LearnerWeights(
+      repr_layers=tuple(repr_layers), pred_layers=tuple(layers),
+      dyn_layers=tuple(layers), obs_dim=O, embedding_dim=E, num_actions=A,
+      support_size=support, flat=None)
+
+
+def _parent_learner_accepts(lw, K, limits):
+  """Whether the one-warp-per-window kernel launched this shape: one warp's
+  slice (its gradient sum, its window's activations, scratch rows) beside
+  the weights within a block's shared memory."""
+  def up4(n):
+    return -(-n // 4) * 4
+
+  E, A, S41 = lw.embedding_dim, lw.num_actions, 2 * lw.support_size + 1
+  n_weights = fused_learner.mlp_learner_floats(lw, K)[0]
+  widths = (*lw.repr_layers, *lw.pred_layers, *lw.dyn_layers)
+  max_w = max(S41, E, A, *widths)
+  step = 2 * E + sum(lw.pred_layers) + 2 * S41 + A + sum(lw.dyn_layers)
+  scratch = (up4(n_weights) + lw.obs_dim + sum(lw.repr_layers) + E
+             + K * step)
+  warp = up4(scratch + 3 * E + 4 * max_w)
+  return 4 * (up4(n_weights) + warp) <= limits.smem_per_block
+
+
+def test_learner_floats_at_the_flagship():
+  # Arena rows padded to 4 mod 8: 16 -> 20, 41 -> 44, 8 and 10 -> 12.
+  assert [fused_learner.learner_padded(n) for n in (1, 4, 5, 8, 10, 12, 13,
+                                                    16, 41, 64)] == [
+      4, 4, 12, 12, 12, 12, 20, 20, 44, 68]
+  lw = _learner_shapes(2, (16,), (16,), 20)
+  # 2,100 parameters, held in shared memory as they are; the arena of 16
+  # windows x 5 steps: 19,440 floats (77.8 KB).
+  assert fused_learner.mlp_learner_floats(lw, 5) == (2100, 2100, 19440)
+
+
+@pytest.mark.parametrize("A,repr_layers,layers,support,E,B,K,smem_arena,"
+                         "smem,per_sm,warps", [
+    # training_regime: 256 blocks, two an SM, one wave.
+    (2, (16,), (16,), 20, 8, 4096, 5, True, 86160, 2, 16),
+    (2, (16,), (16,), 20, 8, 4097, 5, True, 86160, 2, 16),
+    (2, (16,), (16,), 20, 8, 1, 5, True, 86160, 2, 8),
+    # The CartPole notebook towers at K = 11: the arena (546 KB) lies in
+    # the device scratch, the weights alone in shared memory.
+    (2, (), (64, 64, 16), 20, 10, 256, 11, False, 54336, 2, 8),
+])
+def test_learner_plan(A, repr_layers, layers, support, E, B, K, smem_arena,
+                      smem, per_sm, warps):
+  lw = _learner_shapes(A, repr_layers, layers, support, E)
+  plan = fused_learner.mlp_learner_plan(B, K, lw, H100)
+  n_weights, weights, arena = fused_learner.mlp_learner_floats(lw, K)
+  assert plan.blocks == -(-B // fused_learner.LEARNER_TILE)
+  assert (plan.smem_arena, plan.smem_bytes, plan.blocks_per_sm,
+          plan.warps_per_sm) == (smem_arena, smem, per_sm, warps)
+  assert plan.scratch_floats == plan.blocks * (
+      n_weights + (0 if smem_arena else arena))
+  assert plan.smem_bytes <= H100.smem_per_block
+  assert plan.blocks_per_sm * (plan.smem_bytes + H100.smem_reserved) <= (
+      H100.smem_per_sm)
+
+
+def _learner_cases():
+  """Every shape the kernel is held at: the gpu tests' and chip_smoke.py's
+  phase 5 (the flagship, the edge shape, the notebook towers and the wide
+  towers)."""
+  from tests.test_torch_fused_learner_kernel import (EMBEDDING_32_CASE,
+                                                     RAW_MODE_CASES)
+  return ([(*case, 8) for case in RAW_MODE_CASES] + [(*EMBEDDING_32_CASE, 32)]
+          + [(2, (16,), (16,), 20, 4096, 5, 8),
+             (4, (16,), (16, 16), 10, 1000, 5, 8),
+             (2, (), (64, 64, 16), 20, 256, 11, 10),
+             (2, (16,), (128,), 20, 300, 5, 8)])
+
+
+def test_learner_plan_takes_every_shape_the_warp_kernel_took():
+  # The shapes the kernel is tested at, then a sweep of towers and unrolls:
+  # wherever the one-warp-per-window kernel launched, the plan does too.
+  for A, repr_layers, layers, support, B, K, E in _learner_cases():
+    lw = _learner_shapes(A, repr_layers, layers, support, E)
+    assert _parent_learner_accepts(lw, K, H100)
+    fused_learner.mlp_learner_plan(B, K, lw, H100)
+  took = 0
+  for width in (8, 16, 64, 128, 256):
+    for depth in (1, 2, 3):
+      for K in (1, 5, 11, 20, 50):
+        for A, support, E in ((2, 20, 8), (18, 10, 32), (4, 300, 64)):
+          lw = _learner_shapes(A, (width,), (width,) * depth, support, E)
+          if not _parent_learner_accepts(lw, K, H100):
+            continue
+          took += 1
+          plan = fused_learner.mlp_learner_plan(4096, K, lw, H100)
+          assert plan.smem_bytes <= H100.smem_per_block
+  assert took > 100
+
+
+def test_learner_plan_refuses_weights_past_shared_memory():
+  # Towers of (256, 256) hold about 150 K floats of weights: more than a
+  # block's 58 K, as for the one-warp-per-window kernel.
+  lw = _learner_shapes(2, (256,), (256, 256), 20)
+  assert not _parent_learner_accepts(lw, 5, H100)
+  with pytest.raises(RuntimeError, match="do not fit"):
+    fused_learner.mlp_learner_plan(4096, 5, lw, H100)

@@ -3,7 +3,7 @@
 Run from the root of a checkout (its ``muax_tpu_torch`` package and
 ``csrc/`` are the ones measured):
 
-  python3 tools/kernel_split.py [--out FILE] [--only mlp|categorical]
+  python3 tools/kernel_split.py [--out FILE] [--only mlp|learner|categorical]
 
 The MLP search (``fused_search_kernel``, both policies) is timed at 8192
 and 1024 envs x 64 simulations at the flagship widths (A = 2, embedding 8,
@@ -13,6 +13,18 @@ with per-warp ``clock64()`` stamps at the kernel's section comments (the
 descent, the expansion, the install and backup) and around the Gumbel mode's
 mix value gives each section's share of the warp-cycles (lane 0 of each
 warp stamps; the mix value's share is part of the descent's).
+
+The MLP learner (``--only learner``) is timed at batch 4096 and the
+flagship widths (embedding 8, support 20, hidden (16,), K = 5; a seeded
+batch with masks) with CUDA events, each of its kernels with
+``torch.profiler``, and set against float64 as the categorical learner is
+(below); with its launch plan and theoretical warps per SM. A copy of its
+source with ``clock64()`` stamps gives each section's share of the tile
+pass's block-cycles (the forward with the staging of the weights; the
+backward, with the prediction tower's weight gradients on the warps its
+stages leave idle; the other weight gradients) and the share of the
+stages of tile products; the finish pass, which adds the blocks' rows, is
+a kernel of its own, timed by the profiler.
 
 For the categorical family it times the learner at batch 1024 (``categorical_training``'s
 batch, bench widths: embedding 64, towers (256, 256, 256), 51 bins) and the
@@ -36,12 +48,17 @@ lines must keep.
 With ``--against OTHER`` (the root of another checkout, such as the parent
 commit unpacked with ``git archive``) it instead compares the two
 checkouts, each run a fresh process with its checkout's own package (and
-``chip_smoke.py``), after both have built their kernels: the MLP search on
-trees too large for many to fit the card at once (8192 envs, 18 actions x
-64 simulations and 2 x 400, the ``gpu`` tests' inputs) against the plain
-version, with a digest of the kernel's outputs that shows whether the two
-kernels round alike; then the MLP training iteration, ``chip_smoke.py``'s
-phases 6 and 10, in the order other, this, this, other.
+``chip_smoke.py``), after both have built their kernels: the MLP learner
+as above (CUDA events, each kernel, a digest of its outputs), its
+priorities at embedding 32 against the plain version in float32 and in
+float64 (``priority_probe``, once per checkout), then the MLP
+training iterations, ``chip_smoke.py``'s phases 6 and 10, each in the order
+other, this, this, other. ``--only learner`` keeps the learner alone;
+``--only mlp`` takes the MLP search on trees too large for many to fit the
+card at once (8192 envs, 18 actions x 64 simulations and 2 x 400, the
+``gpu`` tests' inputs) against the plain version, with a digest of the
+kernel's outputs that shows whether the two kernels round alike, in place
+of the learner.
 """
 import argparse
 import copy
@@ -197,6 +214,32 @@ SEARCH_MARKS = [
      "g_gemm_cycles[blockIdx.x] += clock64() - _s;\n}\n")]
 
 
+# The MLP learner's tile pass (mlp_tile_kernel): block stamps at its
+# sections (the forward, with the staging of the weights; the backward,
+# with the prediction tower's weight gradients on idle warps; the other
+# weight-gradient products and column sums), and each stage of products
+# timed by thread 0 from its start to its barrier's end.
+TILE_LEARNER_SECTIONS = ("forward", "backward", "weight_gradients")
+_STAGE_END = ("  if (warp >= t1 + t2) idle(warp - t1 - t2, kWarps - t1 - t2);\n"
+              "  __syncthreads();\n}\n")
+_KERNEL_END = ("  weight_grads(0, pred_dw_early ? l_pred0 : l_dyn0, l_dyn0, g.n_lin, "
+               "warp,\n               kWarps);\n}\n")
+TILE_LEARNER_MARKS = [
+    ("                                      const Idle& idle) {\n",
+     "                                      const Idle& idle) {\n"
+     "  const long long _g0 = clock64();\n"),
+    (_STAGE_END, _STAGE_END[:-2] + "  if (threadIdx.x == 0) "
+     "g_gemm_cycles[blockIdx.x] += clock64() - _g0;\n}\n"),
+    ("  float* ce = base + g.ce;\n\n",
+     "  float* ce = base + g.ce;\n  STAMP_INIT\n\n"),
+    ("  stage<kPrefA>(prod(R, g.din[l_value], bwd_term(l_value, 0),",
+     "  STAMP(0)\n  stage<kPrefA>(prod(R, g.din[l_value], "
+     "bwd_term(l_value, 0),"),
+    ("  // ---- weight gradients: the block's row of partial",
+     "  STAMP(1)\n  // ---- weight gradients: the block's row of partial"),
+    (_KERNEL_END, _KERNEL_END[:-2] + "  STAMP(2)\n}\n")]
+
+
 def _mlp_stamped(src):
   for old, new in MLP_MARKS:
     src = _one(src, old, new)
@@ -220,7 +263,10 @@ def build_stamped(build, which):
       ("fused_search", "fused_search",
        lambda s: _stamped(s, SEARCH_MARKS, False), SEARCH_SECTIONS)),
           "mlp": (("fused_search_mlp", "fused_search", _mlp_stamped,
-                   MLP_SECTIONS),)}
+                   MLP_SECTIONS),),
+          "learner": (("fused_learner_mlp", "fused_learner",
+                       lambda s: _stamped(s, TILE_LEARNER_MARKS, False),
+                       TILE_LEARNER_SECTIONS),)}
   for key in which:
     for name, source, stamp, names[name] in jobs[key]:
       src = (csrc / f"{source}.cu").read_text()
@@ -290,10 +336,11 @@ def mlp_shares(fn, libs):
   return {s: buf[k] / whole for k, s in enumerate(MLP_SECTIONS)}
 
 
-def shares(name, fn, libs, names):
+def shares(name, fn, libs, names, source=None):
   """Each section's share of the stamped kernel's block-cycles, and the
-  products' share within it (both of the whole)."""
-  buf = _stamped_run(name, name, fn, libs, 4096 * 8)
+  products' share within it (both of the whole); ``source``: the library
+  the stamped copy ``name`` stands in for (``name`` by default)."""
+  buf = _stamped_run(name, source or name, fn, libs, 4096 * 8)
   tot = [sum(buf[b * 8 + k] for b in range(4096)) for k in range(8)]
   n = len(names[name])
   whole = sum(tot[:n])
@@ -301,20 +348,35 @@ def shares(name, fn, libs, names):
           {s: tot[4 + k] / whole for k, s in enumerate(names[name])})
 
 
-def learner_case(dev, B=1024, A=2, K=5):
+def learner_case(dev, B=1024, A=2, K=5, family="categorical",
+                 embedding_dim=8, support=20, repr_layers=(16,),
+                 layers=(16,), param_seed=1, data_seed=0):
+  """The learner's inputs: the categorical family at the bench widths (B =
+  1024, categorical_training's batch), or with ``family="mlp"`` the MLP
+  triplet (the flagship by default: embedding 8, support 20, hidden
+  (16,)); a seeded batch of B windows with masks."""
   from muax_tpu_torch.models import (fused_learner,
-                                     make_categorical_mlp_networks)
+                                     make_categorical_mlp_networks,
+                                     make_mlp_networks)
   from muax_tpu_torch.types import Transition
-  net = make_categorical_mlp_networks(A, device=dev, **BENCH)
-  params = net.init_params((4,), torch.Generator().manual_seed(1))
-  gen = torch.Generator(device=dev).manual_seed(0)
+  if family == "mlp":
+    net = make_mlp_networks(A, embedding_dim=embedding_dim,
+                            support_size=support, repr_layers=repr_layers,
+                            pred_layers=layers, dyn_layers=layers,
+                            device=dev)
+    reward_scale, rn_scale = 1.0, 5.0
+  else:
+    net = make_categorical_mlp_networks(A, device=dev, **BENCH)
+    reward_scale, rn_scale = 3.0, 40.0
+  params = net.init_params((4,), torch.Generator().manual_seed(param_seed))
+  gen = torch.Generator(device=dev).manual_seed(data_seed)
   lengths = torch.randint(1, K + 1, (B,), generator=gen, device=dev)
   batch = Transition(
       obs=torch.randn((B, K, 4), generator=gen, device=dev),
       action=torch.randint(0, A, (B, K), generator=gen, device=dev),
-      reward=torch.randn((B, K), generator=gen, device=dev) * 3,
+      reward=torch.randn((B, K), generator=gen, device=dev) * reward_scale,
       done=torch.zeros((B, K), dtype=torch.bool, device=dev),
-      rn=torch.randn((B, K), generator=gen, device=dev) * 40,
+      rn=torch.randn((B, K), generator=gen, device=dev) * rn_scale,
       value=torch.zeros((B, K), device=dev),
       pi=torch.softmax(torch.randn((B, K, A), generator=gen, device=dev), -1),
       weight=torch.rand((B,), generator=gen, device=dev) + 0.5,
@@ -329,9 +391,9 @@ def accuracy(net, params, raw, coef, lay):
   (gradients: relative to the largest float64 gradient)."""
   from muax_tpu_torch.models import fused_learner
   kw = dict(l2_coef=1e-4, gradient_scale=0.5, priority_alpha=0.5)
-  spec = fused_learner.extract_categorical_learner_spec(net, params)
+  lw = fused_learner.extract_learner(net, params)
   grads, metrics = fused_learner.fused_muzero_grad_raw(
-      params, raw, coef, lay, net, spec, **kw)
+      params, raw, coef, lay, net, lw, **kw)
   ref_grads, ref = fused_learner.fused_muzero_grad_raw_reference(
       params, raw, coef, lay, net, **kw)
   g64, m64 = fused_learner.fused_muzero_grad_raw_reference(
@@ -348,6 +410,53 @@ def accuracy(net, params, raw, coef, lay):
           "plain_f32": {"priorities_rel": rel(ref.priorities, m64.priorities),
                         "grads_of_max": float((ref_grads.double() - g64)
                                               .abs().max()) / scale}}
+
+
+# The priority probe's MLP cases at embedding 32: (A, representation
+# hidden, towers, support, K), each at seeds 0-3 for the parameters and the
+# batch (drawn as the ``gpu`` tests draw them), B = 300.
+PROBE_CASES = {"A3_H24_S10_K4": (3, (16,), (24,), 10, 4),
+               "A2_H16_S20_K5": (2, (16,), (16,), 20, 5)}
+
+
+def priority_probe(dev, B=300):
+  """The MLP learner at embedding 32 (``PROBE_CASES``): for each case and
+  seed, the share of the priority check's tolerance (rtol = atol = 1e-4)
+  that the kernel uses against the float32 plain version, and that the
+  kernel and the float32 plain version each use against the float64 plain
+  version: the largest over the windows, and the three at each window
+  where one of them passes 0.5."""
+  from muax_tpu_torch.models import fused_learner
+  kw = dict(l2_coef=1e-4, gradient_scale=0.5, priority_alpha=0.5)
+
+  def used(a, b):
+    a, b = a.double(), b.double()
+    return (a - b).abs() / (1e-4 + 1e-4 * b.abs())
+
+  out = {}
+  for name, (A, repr_layers, layers, support, K) in PROBE_CASES.items():
+    for seed in range(4):
+      net, params, raw, coef, lay = learner_case(
+          dev, B=B, A=A, K=K, family="mlp", embedding_dim=32,
+          support=support, repr_layers=repr_layers, layers=layers,
+          param_seed=seed, data_seed=seed)
+      lw = fused_learner.extract_learner_weights(net, params)
+      _, got = fused_learner.fused_muzero_grad_raw(params, raw, coef, lay,
+                                                   net, lw, **kw)
+      _, ref = fused_learner.fused_muzero_grad_raw_reference(
+          params, raw, coef, lay, net, **kw)
+      _, r64 = fused_learner.fused_muzero_grad_raw_reference(
+          copy.deepcopy(params).double(), raw.double(), coef.double(), lay,
+          net, **kw)
+      p, q, q64 = got.priorities, ref.priorities, r64.priorities
+      each = torch.stack([used(p, q), used(p, q64), used(q, q64)])
+      worst = each.amax(1)
+      out[f"{name}_seed{seed}"] = {
+          "kernel_vs_plain": float(worst[0]), "kernel_vs_f64": float(
+              worst[1]), "plain_vs_f64": float(worst[2]),
+          "windows": {int(w): [float(x) for x in each[:, w]]
+                      for w in torch.nonzero(each.amax(0) > 0.5)[:, 0]}}
+  return out
 
 
 def search_case(dev, B, policy):
@@ -424,6 +533,63 @@ def mlp_split(res, build):
     res[key]["sections"] = mlp_shares(fn, libs)
 
 
+def learner_split(res, dev, build):
+  """The MLP learner at batch 4096 and the flagship widths: ms per launch
+  with CUDA events and each of its kernels with torch.profiler, its
+  accuracy against float64, then each section's share from a stamped
+  copy."""
+  from muax_tpu_torch.models import fused_learner
+  net, params, raw, coef, lay = learner_case(dev, B=4096, family="mlp")
+  lw = fused_learner.extract_learner_weights(net, params)
+
+  def learn():
+    return fused_learner._grad_cuda(lw, raw, coef, lay, l2_coef=1e-4,
+                                    gradient_scale=0.5)
+
+  out = res["mlp_learner"] = {
+      "ms": events_ms(learn, 50), "by_kernel_ms": by_kernel_ms(learn, 20),
+      "accuracy": accuracy(net, params, raw, coef, lay)}
+  from muax_tpu_torch.device import device_limits
+  plan = fused_learner.mlp_learner_plan(raw.shape[1], lay.K, lw,
+                                        device_limits(dev))
+  per_sm = fused_learner.learner_blocks_per_sm(plan, dev)
+  out["plan"] = plan._asdict()
+  out["theoretical_warps_per_sm"] = min(
+      per_sm, -(-plan.blocks // torch.cuda.get_device_properties(
+          dev).multi_processor_count)) * fused_learner.LEARNER_THREADS // 32
+  print(json.dumps(res), flush=True)
+  libs, names = build_stamped(build, ["learner"])
+  out["sections"], out["products"] = shares(
+      "fused_learner_mlp", learn, libs, names, "fused_learner")
+
+
+# The MLP learner in a checkout: its ms per launch (CUDA events), each
+# kernel's (torch.profiler) and a digest of its outputs, on learner_case's
+# inputs (this file's, imported from TOOLS; the package is the checkout's).
+LEARNER_RUN = r'''
+import hashlib, json, sys, torch
+sys.path[:0] = [".", TOOLS]
+import kernel_split as ks
+from muax_tpu_torch.models import fused_learner
+torch.backends.cuda.matmul.allow_tf32 = False
+net, params, raw, coef, lay = ks.learner_case(torch.device("cuda", 0),
+                                              B=4096, family="mlp")
+lw = fused_learner.extract_learner_weights(net, params)
+fn = lambda: fused_learner._grad_cuda(lw, raw, coef, lay, l2_coef=1e-4,
+                                      gradient_scale=0.5)
+digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                 for t in fn())).hexdigest()[:16]
+print("LEARNER " + json.dumps({"ms": ks.events_ms(fn, 50),
+                               "by_kernel_ms": ks.by_kernel_ms(fn, 20),
+                               "outputs_sha256": digest}))
+'''.replace("TOOLS", repr(os.path.dirname(os.path.abspath(__file__))))
+PRIORITY_RUN = r'''
+import json, sys, torch
+sys.path[:0] = [".", TOOLS]
+import kernel_split as ks
+torch.backends.cuda.matmul.allow_tf32 = False
+print("PRIORITIES " + json.dumps(ks.priority_probe(torch.device("cuda", 0))))
+'''.replace("TOOLS", repr(os.path.dirname(os.path.abspath(__file__))))
 ITERATION_RUN = r'''
 import json, sys, torch
 sys.path.insert(0, ".")
@@ -493,14 +659,16 @@ BUILD_RUN = ("import sys; sys.path.insert(0, '.'); "
              "from muax_tpu_torch import _build; _build.build_all()")
 
 
-def against(other):
+def against(other, only=None):
   """``other`` and the cwd's checkout, each building its kernels first,
-  both at once: the MLP search at 8192 envs with 18 actions x 64
-  simulations and 2 actions x 400, both policies, against the plain
+  both at once. The MLP learner (``LEARNER_RUN``, then once per checkout
+  ``priority_probe``) unless ``only`` is
+  "mlp"; with ``only="mlp"`` the MLP search at 8192 envs with 18 actions x
+  64 simulations and 2 actions x 400, both policies, against the plain
   version (the share within 2 visits, the envs whose value or q are apart,
-  a digest of the kernel's outputs), once per checkout; then phases 6 and
-  10 in the order other, this, this, other. Runs are labelled with their
-  checkout."""
+  a digest of the kernel's outputs), once per checkout; then, unless
+  ``only`` is "learner", phases 6 and 10. Every timed run goes in the order
+  other, this, this, other, and is labelled with its checkout."""
   roots = {"other": os.path.abspath(other), "this": os.getcwd()}
   builds = [subprocess.Popen([sys.executable, "-c", BUILD_RUN], cwd=root)
             for root in roots.values()]
@@ -517,10 +685,19 @@ def against(other):
     print(json.dumps(run), flush=True)
     return run
 
-  trees = [child(label, LARGE_TREE_RUN, "LARGE") for label in roots]
-  runs = [child(label, ITERATION_RUN, "ITERATION")
-          for label in ("other", "this", "this", "other")]
-  return {"large_trees": trees, "iterations": runs}
+  order = ("other", "this", "this", "other")
+  out = {}
+  if only in (None, "learner"):
+    out["learner"] = [child(label, LEARNER_RUN, "LEARNER") for label in order]
+    out["priorities"] = [child(label, PRIORITY_RUN, "PRIORITIES")
+                         for label in roots]
+  if only == "mlp":
+    out["large_trees"] = [child(label, LARGE_TREE_RUN, "LARGE")
+                          for label in roots]
+  if only in (None, "mlp"):
+    out["iterations"] = [child(label, ITERATION_RUN, "ITERATION")
+                         for label in order]
+  return out
 
 
 def main():
@@ -528,13 +705,14 @@ def main():
   parser.add_argument("--out", default=None, help="also write the JSON here")
   parser.add_argument("--build", default="build/split",
                       help="directory for the stamped copies")
-  parser.add_argument("--only", choices=("mlp", "categorical"), default=None,
-                      help="split only the MLP search or only the "
-                      "categorical kernels")
+  parser.add_argument("--only", choices=("mlp", "learner", "categorical"),
+                      default=None, help="split only the MLP search, the "
+                      "MLP learner or the categorical kernels")
   parser.add_argument("--against", default=None, metavar="OTHER",
                       help="compare the checkout at OTHER with this one "
-                      "(large MLP search trees, the MLP training "
-                      "iteration) instead")
+                      "(the MLP learner and training iterations; with "
+                      "--only mlp the large MLP search trees and the "
+                      "iterations) instead")
   opts = parser.parse_args()
   sys.path.insert(0, os.getcwd())  # the checkout measured is the cwd's
   if not torch.cuda.is_available():
@@ -546,11 +724,16 @@ def main():
       capture_output=True, text=True, check=True).stdout.strip()
   res = {"card": card}
   if opts.against:
-    res.update(against(opts.against))
-  elif opts.only != "categorical":
-    mlp_split(res, opts.build)
-  if opts.only != "mlp" and not opts.against:
-    categorical_split(res, dev, opts.build)
+    if opts.only == "categorical":
+      parser.error("--against compares the MLP kernels only")
+    res.update(against(opts.against, opts.only))
+  else:
+    if opts.only in (None, "mlp"):
+      mlp_split(res, opts.build)
+    if opts.only in (None, "learner"):
+      learner_split(res, dev, opts.build)
+    if opts.only in (None, "categorical"):
+      categorical_split(res, dev, opts.build)
   print(json.dumps(res))
   if opts.out:
     with open(opts.out, "w") as f:
