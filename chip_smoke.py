@@ -72,6 +72,20 @@ alone. Phase 15 drives one training iteration at ``categorical_training``
 (512 envs x 64 simulations x 20 steps, batch 1024, samples per insert 32,
 presample 16): exactly 20 + 20 + 320 launches, timed and profiled.
 
+Phases 16 to 20 drive Stochastic MuZero (``bench.py``'s ``smz_mlp`` five
+nets: 32 chance outcomes, embedding 32, hidden (64,)). Phase 16 holds the
+forest search kernel against its plain version at ``stochastic_200sims``
+(256 envs x 200 simulations), at 512 envs, on a deep-tree net (one action
+and one outcome made to dominate, so that the simulations extend one
+chain; 64 envs, with and without ``max_depth=32``) and at an edge shape,
+each with a repeated launch that must give the same bits. Phase 17 drives
+``make_rollout_fn`` at ``stochastic_200sims`` (exactly 20 launches and no
+other search mode) and times the kernel, with its launch plan, registers
+and theoretical warps per SM. Phase 18 holds the sampler's
+``per_step_obs`` mode against its plain version at W = 16,384, phase 19
+drives one ``smz_training`` iteration (exactly 20 + 10 + 0 launches: the
+hybrid feed runs autograd) and phase 20 runs ``fit`` with a resume.
+
 Every failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or without the package beside it, it fails the same way.
 The line before the last lists every kernel with its launches, error, times
@@ -119,6 +133,11 @@ SMZ_NET = dict(num_chance_outcomes=32, embedding_dim=32, support_size=20,
 SMZ_EDGE_NET = dict(num_chance_outcomes=4, embedding_dim=8, support_size=10,
                     hidden=(16, 16))
 SMZ_ENVS, SMZ_SIMS, SMZ_EDGE_ENVS = 256, 200, 37
+# stochastic_200sims_512 (bench.py), and the deep-tree net's envs (few, so
+# that the plain version's lockstep walks stay within seconds), its bias on
+# one entry of the policy head's and of the chance head's bias, and the
+# production depth cap (bench.py's smz_training_depth32).
+SMZ_LARGE_ENVS, SMZ_DEEP_ENVS, SMZ_DEEP_BIAS, SMZ_DEPTH_CAP = 512, 64, 8.0, 32
 SMZ_BATCH, SMZ_PRESAMPLE = 256, 64
 SMZ_PROFILE_UPDATES = 16
 SMZ_UPDATES = -(-int(TRAIN_SPI) * SMZ_ENVS * MAIN_STEPS // SMZ_BATCH)
@@ -872,6 +891,9 @@ def ptxas_figures(logs):
       elif entry is not None and "spill stores" in line:
         stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
         entry.update(spill_stores=int(stores), spill_loads=int(loads))
+        frame = re.search(r"(\d+) bytes stack frame", line)
+        if frame:
+          entry["stack_frame"] = int(frame.group(1))
       elif entry is not None and "registers" in line:
         entry["registers"] = int(re.search(r"Used (\d+) registers",
                                            line).group(1))
@@ -1212,17 +1234,30 @@ def smz_bound_ms(args, kwargs):
           "chance_parent_share": chance / (B * sims)}
 
 
+def deep_tree_params(params, bias=SMZ_DEEP_BIAS):
+  """``params`` with ``bias`` added to the first entry of the policy head's
+  and of the chance head's bias (in place): one action and one outcome
+  dominate, and the simulations extend one chain."""
+  with torch.no_grad():
+    params.prediction.linears()[-2].bias[0] += bias
+    params.decision.linears()[-2].bias[0] += bias
+  return params
+
+
 def smz_against_plain(device, num_actions, batch, widths=None,
-                      with_invalid=False, max_depth=None):
+                      with_invalid=False, max_depth=None, deep=False):
   """Phase 16: the Stochastic MuZero kernel against its plain version on
-  the same inputs (seeded weights, roots from random CartPole observations,
-  Dirichlet noise from SEED), as compare_search."""
+  the same inputs (seeded weights, ``deep``: with deep_tree_params; roots
+  from random CartPole observations, Dirichlet noise from SEED), as
+  compare_search; a second launch must give the same bits."""
   from muax_tpu_torch.envs import CartPole
   from muax_tpu_torch.search import fused
   from muax_tpu_torch.train.inference import make_smz_fns
 
   net = make_net(device, "smz", num_actions, **(widths or {}))
   params = net.init_params((4,), torch.Generator().manual_seed(SEED))
+  if deep:
+    deep_tree_params(params)
   gen = torch.Generator(device=device).manual_seed(SEED)
   _, obs = CartPole().reset(gen, batch)
   invalid = None
@@ -1240,10 +1275,13 @@ def smz_against_plain(device, num_actions, batch, widths=None,
                 max_depth=max_depth)
   before = search_counts()
   out = fused.fused_smz_search(*args, **kwargs)
+  again = fused.fused_smz_search(*args, **kwargs)
   torch.cuda.synchronize()
   got = tuple(a - b for a, b in zip(search_counts(), before))
-  check(got == (0, 0, 0, 0, 1),
-        f"the wrapper launched the Stochastic MuZero kernel once, not {got}")
+  check(got == (0, 0, 0, 0, 2),
+        f"the wrapper launched the Stochastic MuZero kernel twice, not {got}")
+  check(all(torch.equal(a, b) for a, b in zip(out, again)),
+        "a repeated Stochastic MuZero launch gives the same bits")
   ref = fused.fused_smz_search_reference(*args, **kwargs)
   return compare_search(out, ref, SMZ_SIMS, invalid)
 
@@ -1532,18 +1570,33 @@ def run(device):
   # ---- Stochastic MuZero -------------------------------------------------
   t0 = time.perf_counter()
   smz_main = smz_against_plain(device, 2, SMZ_ENVS)
-  smz_edge = smz_against_plain(device, 3, SMZ_EDGE_ENVS, SMZ_EDGE_NET,
-                               with_invalid=True, max_depth=2)
+  smz_cases = {
+      f"B={SMZ_LARGE_ENVS}": smz_against_plain(device, 2, SMZ_LARGE_ENVS),
+      f"deep-tree net, B={SMZ_DEEP_ENVS}": smz_against_plain(
+          device, 2, SMZ_DEEP_ENVS, deep=True),
+      f"deep-tree net, B={SMZ_DEEP_ENVS}, max_depth={SMZ_DEPTH_CAP}":
+          smz_against_plain(device, 2, SMZ_DEEP_ENVS, deep=True,
+                            max_depth=SMZ_DEPTH_CAP),
+      f"edge B={SMZ_EDGE_ENVS} A=3 C=4 E=8 H=(16, 16) S=10 with one invalid "
+      f"action, max_depth=2": smz_against_plain(
+          device, 3, SMZ_EDGE_ENVS, SMZ_EDGE_NET, with_invalid=True,
+          max_depth=2)}
   print(f"phase 16 Stochastic MuZero kernel vs plain, B={SMZ_ENVS} "
         f"sims={SMZ_SIMS} A=2 C=32 E=32 H=(64,) S=20: "
-        f"{json.dumps(smz_main)}; B={SMZ_EDGE_ENVS} A=3 C=4 E=8 H=(16, 16) "
-        f"S=10 with one invalid action, max_depth=2: {json.dumps(smz_edge)} "
+        f"{json.dumps(smz_main)}; {json.dumps(smz_cases)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
   t0 = time.perf_counter()
   _, smz_roll, (args, kwargs) = drive_main_path(device, "stochastic", "smz")
   smz_roll["search_ms"] = time_ms(lambda: fused.fused_smz_search(
       *args, **kwargs), 10)
+  smz_plan = fused.smz_launch_plan(args[0], args[3], **kwargs)
+  smz_roll["plan"] = smz_plan._asdict()
+  smz_roll["theoretical_warps_per_sm"] = min(
+      fused.smz_blocks_per_sm(smz_plan, device),
+      -(-smz_plan.grid // torch.cuda.get_device_properties(
+          device).multi_processor_count)) * smz_plan.envs_per_block * (
+              fused.SMZ_ENV_THREADS // 32)
   smz_roll["plain_search_ms"] = time_ms(
       lambda: fused.fused_smz_search_reference(*args, **kwargs), 1)
   smz_roll.update(smz_bound_ms(args, kwargs))
@@ -1667,7 +1720,10 @@ def run(device):
       "max_abs_err": smz_main["max_abs_err"],
       "ms": smz_roll["search_ms"], "plain_ms": smz_roll["plain_search_ms"],
       "bound_ms": smz_roll["bound_ms"], "bound_by": smz_roll["bound_by"],
-      "library_ms": None,
+      "library_ms": None, "plan": smz_roll["plan"],
+      "theoretical_warps_per_sm": smz_roll["theoretical_warps_per_sm"],
+      "instances": {k.split(":", 1)[1]: v for k, v in ptxas.items()
+                    if k.startswith("fused_smz:")},
   }, {
       "name": "fused_sample_group_per_step_obs", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_sampler.cu",

@@ -19,13 +19,19 @@
 // window (O*K more rows). The reads of the ring are scattered (each window
 // lands in a random segment); the writes are not.
 //
-// What the design does about it. One thread owns one window. The TPU kernel
-// keeps the whole ring in VMEM and gathers it with a one-hot matmul because
-// XLA's gather was slow there; here each thread indexes the ring directly in
-// its [C, L, ...] layout and reads only what its window needs. The output
-// rows are stored window-fastest, so the writes of a warp's 32 threads to
-// one row are one coalesced 128-byte transaction. The ring (about 2 MB at
-// the training regime) stays in the 50 MB L2 across the group.
+// What the design does about it. A group of kGroup = 8 lanes owns a
+// window, a block of 256 threads 32 windows. The group reads the segment's
+// num_starts priorities (contiguous: 64 bytes at L = 20, K = 5) and their
+// Gumbels in one pass of its lanes and takes the first maximum in three
+// shuffle rounds; then each lane owns steps j = lane, lane + 8, ... of the
+// window and copies that step's contiguous entries (its observation with
+// per_step_obs, action, reward, return, policy row, done) into their rows.
+// The rows are stored window-fastest, so a row's stores from the four
+// groups of a warp are one 16-byte run. The TPU kernel keeps the whole ring
+// in VMEM and gathers it with a one-hot matmul because XLA's gather was
+// slow there; here the lanes index the ring directly in its [C, L, ...]
+// layout and read only what the window needs. The ring (about 2 MB at the
+// training regime) stays in the 50 MB L2 across the group.
 //
 // Semantics are those of the TPU kernel: start = first argmax over the
 // num_starts = L - K + 1 valid starts of log(prio + 1e-9) + gumbel; step j
@@ -33,16 +39,21 @@
 // max(sum(mask), 1); the padding rows after the target-step row are zero.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kGroup = 8;  // lanes of one window
+constexpr int kThreads = 256;
+constexpr int kWindows = kThreads / kGroup;  // windows of one block
+
 struct Layout {
   int obs, action, reward, rn, pi, mask, start, weight, denom, tstep, rows;
 };
 
-__global__ void fused_sample_group_kernel(
+__global__ void __launch_bounds__(kThreads) fused_sample_group_kernel(
     const float* __restrict__ obs, const int* __restrict__ action,
     const float* __restrict__ reward, const float* __restrict__ rn,
     const float* __restrict__ pi, const uint8_t* __restrict__ done,
@@ -50,56 +61,73 @@ __global__ void fused_sample_group_kernel(
     const int64_t* __restrict__ seg_idx, const float* __restrict__ gumbel,
     float* __restrict__ raw, int C, int L, int O, int A, int K, int W,
     int per_step_obs, Layout lay) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
+  const int w = blockIdx.x * kWindows + threadIdx.x / kGroup;
+  if (w >= W) return;  // the whole group
+  const int lane = threadIdx.x % kGroup;
+  const unsigned group = 0xffu << (threadIdx.x % 32 / kGroup * kGroup);
   const size_t ldw = static_cast<size_t>(W);
   auto out = [&](int row, float v) { raw[row * ldw + w] = v; };
 
   const int64_t seg = seg_idx[w];
   if (seg < 0 || seg >= C) {
     // Outside the ring: nothing is read; the window is all zeros.
-    for (int r = 0; r < lay.rows; ++r) out(r, 0.f);
+    for (int r = lane; r < lay.rows; r += kGroup) out(r, 0.f);
     return;
   }
   const size_t base = static_cast<size_t>(seg) * L;
 
-  // Start: first maximum of log(prio + 1e-9) + gumbel over valid starts.
+  // Start: first maximum of log(prio + 1e-9) + gumbel over valid starts,
+  // the lanes over the starts, then the group (ties to the lower start).
   const int num_starts = L - K + 1;
   float best = -INFINITY;
-  int start = 0;
-  for (int s = 0; s < num_starts; ++s) {
+  int start = INT_MAX;
+  for (int s = lane; s < num_starts; s += kGroup) {
     const float v = logf(prios[base + s] + 1e-9f) + gumbel[s * ldw + w];
     if (v > best) {
       best = v;
       start = s;
     }
   }
+  for (int o = kGroup / 2; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(group, best, o);
+    const int os = __shfl_xor_sync(group, start, o);
+    if (ob > best || (ob == best && os < start)) {
+      best = ob;
+      start = os;
+    }
+  }
+  if (start == INT_MAX) start = 0;  // no start scored above -inf
   const size_t t0 = base + start;
 
-  if (per_step_obs) {  // row f*K + j: feature f of step j
-    for (int f = 0; f < O; ++f)
-      for (int j = 0; j < K; ++j)
-        out(lay.obs + f * K + j, obs[(t0 + j) * O + f]);
-  } else {
-    for (int f = 0; f < O; ++f) out(lay.obs + f, obs[t0 * O + f]);
-  }
-  float before = 0.f, denom = 0.f;
-  for (int j = 0; j < K; ++j) {
+  // Each lane's steps of the window.
+  float valid = 0.f;  // whole numbers: the sum is exact in any order
+  for (int j = lane; j < K; j += kGroup) {
     const size_t t = t0 + j;
+    if (per_step_obs) {  // row f*K + j: feature f of step j
+      for (int f = 0; f < O; ++f) out(lay.obs + f * K + j, obs[t * O + f]);
+    }
     out(lay.action + j, static_cast<float>(action[t]));
     out(lay.reward + j, reward[t]);
     out(lay.rn + j, rn[t]);
     for (int a = 0; a < A; ++a) out(lay.pi + j * A + a, pi[t * A + a]);
-    const float m = before == 0.f ? 1.f : 0.f;
+    float m = 1.f;  // step j is valid iff no done lies strictly before it
+    for (int i = 0; i < j; ++i)
+      if (done[t0 + i]) m = 0.f;
     out(lay.mask + j, m);
-    denom += m;
-    before += done[t] ? 1.f : 0.f;
+    valid += m;
   }
-  out(lay.start, static_cast<float>(start));
-  out(lay.weight, prios[t0]);
-  out(lay.denom, fmaxf(denom, 1.f));
-  out(lay.tstep, static_cast<float>(tstep[seg]));
-  for (int r = lay.tstep + 1; r < lay.rows; ++r) out(r, 0.f);
+  if (!per_step_obs) {
+    for (int f = lane; f < O; f += kGroup) out(lay.obs + f, obs[t0 * O + f]);
+  }
+  for (int o = kGroup / 2; o > 0; o >>= 1)
+    valid += __shfl_xor_sync(group, valid, o);
+  if (lane == 0) {
+    out(lay.start, static_cast<float>(start));
+    out(lay.weight, prios[t0]);
+    out(lay.denom, fmaxf(valid, 1.f));
+    out(lay.tstep, static_cast<float>(tstep[seg]));
+  }
+  for (int r = lay.tstep + 1 + lane; r < lay.rows; r += kGroup) out(r, 0.f);
 }
 
 }  // namespace
@@ -129,9 +157,8 @@ int mz_fused_sample_group(const float* obs, const int* action,
     return MZ_ERR_SHAPE;
   const Layout lay{r_obs, r_action, r_reward, r_rn, r_pi, r_mask,
                    r_start, r_weight, r_denom, r_tstep, rows};
-  const int threads = 128;
-  const int grid = (W + threads - 1) / threads;
-  fused_sample_group_kernel<<<grid, threads, 0,
+  const int grid = (W + kWindows - 1) / kWindows;
+  fused_sample_group_kernel<<<grid, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       obs, action, reward, rn, pi, done, prios, tstep, seg_idx, gumbel, raw,
       C, L, O, A, K, W, per_step_obs, lay);

@@ -1344,17 +1344,164 @@ def fused_smz_search_reference(
       max_depth=max_depth, pb_c_init=pb_c_init, pb_c_base=pb_c_base)[:3]
 
 
+# The Stochastic MuZero launch (``fused_smz_kernel<smem_tree>``): four warps
+# an environment and one to three environments a block (its
+# ``__launch_bounds__(384, 1)``: at most 168 registers a thread), the three
+# towers staged once per block in shared memory. Each environment's compact
+# tree (a float4 per node: visits, value, reward, and the PUCT prior scale
+# or the children's visits; per slot of a row of max(A, C) the child index
+# and prior; the last descent's path) and its embeddings [N, E] lie in
+# shared memory where the block has room, else in a device scratch; the
+# work buffers always in shared memory.
+SMZ_ENV_THREADS = 128
+SMZ_MAX_ENVS = 3
+_SMZ_REGISTERS = 168
+_SMZ_MAX_NODES = 32767  # int16 node indices
+
+
+class SMZPlan(NamedTuple):
+  """How a Stochastic MuZero launch runs: ``envs_per_block`` environments a
+  block, the trees (``smem_tree``) and the embeddings (``smem_emb``) in
+  shared memory or in the device scratch; ``grid`` blocks, of which an SM
+  holds ``blocks_per_sm`` at once, in ``waves`` waves; ``smem_bytes`` of
+  shared memory a block and ``scratch_bytes`` of device scratch an
+  environment."""
+  envs_per_block: int
+  smem_tree: bool
+  smem_emb: bool
+  grid: int
+  blocks_per_sm: int
+  waves: int
+  smem_bytes: int
+  scratch_bytes: int
+
+
+def _round16(n: int) -> int:
+  return -(-n // 16) * 16
+
+
+def smz_env_bytes(num_actions: int, num_outcomes: int, embedding_dim: int,
+                  bins: int, num_simulations: int, max_depth: int,
+                  max_hidden: int) -> Tuple[int, int, int]:
+  """Bytes of one environment's compact tree, work buffers and embeddings
+  (the kernel's ``mz_smz_env_bytes``): the tree's float4 nodes (4 N
+  floats) and priors (N K), int16 children (N K) and path (min(max_depth, sims) +
+  1); the buffers X [E], two hidden [max_hidden], Y [E + C + bins], Z [A +
+  bins] and the invalid mask [A], each rounded up to 4 floats, and 8
+  control words; the embeddings [N, E]."""
+  A, C, E = num_actions, num_outcomes, embedding_dim
+  n, k = num_simulations + 1, max(num_actions, num_outcomes)
+  path = min(max_depth, num_simulations) + 1
+  tree = _round16(4 * (4 * n + n * k) + 2 * (n * k + path))
+  floats = sum(-(-f // 4) * 4 for f in (
+      E, max_hidden, max_hidden, E + C + bins, A + bins, A)) + 8
+  return tree, 4 * floats, _round16(4 * n * E)
+
+
+def smz_search_plan(batch: int, num_actions: int, num_outcomes: int,
+                    embedding_dim: int, bins: int, num_simulations: int,
+                    max_depth: int, n_weights: int, max_hidden: int,
+                    limits: DeviceLimits) -> SMZPlan:
+  """The Stochastic MuZero launch plan. The trees in shared memory where
+  one fits a block beside the towers (a level of a walk is then a
+  shared-memory access, not an L2 round trip), then the fewest waves, then
+  the embeddings in shared memory, then the fewest environments a block
+  (the most SMs at work). Raises RuntimeError where the towers and one
+  environment's work buffers do not fit a block's shared memory, or the
+  tree's nodes pass int16, as the kernel would. The plan of a shape is
+  worked out once and kept."""
+  return _smz_search_plan(batch, num_actions, num_outcomes, embedding_dim,
+                          bins, num_simulations, max_depth, n_weights,
+                          max_hidden, limits)
+
+
+@functools.lru_cache(maxsize=None)
+def _smz_search_plan(batch, num_actions, num_outcomes, embedding_dim, bins,
+                     num_simulations, max_depth, n_weights, max_hidden,
+                     limits) -> SMZPlan:
+  if num_simulations + 1 > _SMZ_MAX_NODES:
+    raise RuntimeError("fused SMZ search kernel: shapes do not fit the "
+                       f"kernel ({num_simulations} simulations pass its "
+                       "int16 node indices)")
+  tree, work, emb = smz_env_bytes(num_actions, num_outcomes, embedding_dim,
+                                  bins, num_simulations, max_depth,
+                                  max_hidden)
+  weights = 16 * -(-n_weights // 4)
+  best = None
+  for smem_tree, smem_emb in ((True, True), (True, False), (False, False)):
+    env_smem = work + tree * smem_tree + emb * smem_emb
+    for envs in range(1, SMZ_MAX_ENVS + 1):
+      size = weights + envs * env_smem
+      if size > limits.smem_per_block:
+        break
+      threads = envs * SMZ_ENV_THREADS
+      per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
+                   limits.regs_per_sm // (_SMZ_REGISTERS * threads),
+                   limits.smem_per_sm // (size + limits.smem_reserved))
+      grid = -(-batch // envs)
+      waves = -(-grid // (per_sm * limits.sms))
+      plan = SMZPlan(envs, smem_tree, smem_emb, grid, per_sm, waves, size,
+                     tree * (not smem_tree) + emb * (not smem_emb))
+      key = (not smem_tree, waves, not smem_emb, envs)
+      if best is None or key < best[0]:
+        best = (key, plan)
+  if best is None:
+    raise RuntimeError("fused SMZ search kernel: shapes do not fit the "
+                       "kernel (the towers and one environment's buffers "
+                       "exceed a block's shared memory)")
+  return best[1]
+
+
+def _smz_widths(weights: "FusedSMZWeights"):
+  return [[w.shape[1] for w, _ in layers] for layers in (
+      weights.dec_layers, weights.ch_layers, weights.pred_layers)]
+
+
+def smz_launch_plan(root_embedding: torch.Tensor, weights: "FusedSMZWeights",
+                    *, num_simulations: int, max_depth=None, **_) -> SMZPlan:
+  """The plan that ``fused_smz_search`` launches these inputs with (on
+  ``root_embedding``'s card)."""
+  B, E = root_embedding.shape
+  A = weights.pred_policy[0].shape[1]
+  C = weights.dec_chance[0].shape[1]
+  bins = weights.pred_value[0].shape[1]
+  max_depth = num_simulations if max_depth is None else max_depth
+  n_weights = sum(w.numel() + b.numel() for w, b in weights.layers())
+  return smz_search_plan(B, A, C, E, bins, num_simulations, max_depth,
+                         n_weights, max(max(w) for w in _smz_widths(weights)),
+                         device_limits(root_embedding.device))
+
+
+def smz_blocks_per_sm(plan: SMZPlan, device: torch.device) -> int:
+  """Blocks of ``plan`` that one SM of ``device`` holds at once, as the CUDA
+  runtime reckons it from the compiled kernel (its registers included)."""
+  index = device.index if device.index is not None else (
+      torch.cuda.current_device())
+  out = ctypes.c_int(0)
+  lib = _load_smz_kernel()
+  err = lib.mz_smz_blocks_per_sm(plan.envs_per_block, int(plan.smem_tree),
+                                 plan.smem_bytes, index, ctypes.byref(out))
+  if err != 0:
+    raise RuntimeError("fused SMZ search kernel: "
+                       + lib.mz_smz_error_string(err).decode())
+  return out.value
+
+
 def _load_smz_kernel():
   lib = _build.load("fused_smz")
   fn = lib.mz_fused_smz_search
   if fn.argtypes is None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, ctypes.c_long, ptr,
-                   ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, f32,
-                   f32, f32, i32, ptr, i32, ptr, i32, ptr, i32, ptr]
+    i64 = ctypes.c_long
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, i64, i32, i32, i32,
+                   i64, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+                   i32, f32, f32, f32, i32, ptr, i32, ptr, i32, ptr, i32,
+                   ptr]
     fn.restype = i32
-    lib.mz_smz_scratch_floats.argtypes = [i32, i32, i32, i32, i32]
-    lib.mz_smz_scratch_floats.restype = ctypes.c_long
+    lib.mz_smz_env_bytes.argtypes = [i32] * 7 + [ptr]
+    lib.mz_smz_env_bytes.restype = None
+    lib.mz_smz_blocks_per_sm.argtypes = [i32, i32, i64, i32, ptr]
+    lib.mz_smz_blocks_per_sm.restype = i32
     lib.mz_smz_error_string.argtypes = [i32]
     lib.mz_smz_error_string.restype = ctypes.c_char_p
   return lib
@@ -1364,7 +1511,8 @@ def _fused_smz_search_cuda(root_embedding, root_prior_logits, root_value,
                            weights: FusedSMZWeights, *, num_simulations,
                            support_size, discount, invalid_actions,
                            max_depth, pb_c_init, pb_c_base):
-  """Launch ``csrc/fused_smz.cu`` on the current stream."""
+  """Launch ``csrc/fused_smz.cu`` on the current stream, laid out by
+  ``smz_search_plan``."""
   global smz_launches
   device = root_embedding.device
   B, E = root_embedding.shape
@@ -1378,8 +1526,7 @@ def _fused_smz_search_cuda(root_embedding, root_prior_logits, root_value,
     _check("invalid_actions", invalid_actions, (B, A), device)
   flat = weights.flat()
   _check("weights", flat, flat.shape, device)
-  widths = [[w.shape[1] for w, _ in layers] for layers in (
-      weights.dec_layers, weights.ch_layers, weights.pred_layers)]
+  widths = _smz_widths(weights)
   if not all(widths) or (
       weights.dec_layers[0][0].shape[0] != E + A
       or weights.ch_layers[0][0].shape[0] != E + C
@@ -1395,15 +1542,20 @@ def _fused_smz_search_cuda(root_embedding, root_prior_logits, root_value,
   visits = torch.empty((B, A), dtype=torch.float32, device=device)
   value = torch.empty((B,), dtype=torch.float32, device=device)
   qvalues = torch.empty((B, A), dtype=torch.float32, device=device)
-  n_scratch = lib.mz_smz_scratch_floats(B, A, C, E, num_simulations)
-  scratch = torch.empty((n_scratch,), dtype=torch.float32, device=device)
+  plan = smz_launch_plan(root_embedding, weights,
+                         num_simulations=num_simulations, max_depth=max_depth)
   max_depth = num_simulations if max_depth is None else max_depth
+  n_scratch = B * plan.scratch_bytes
+  scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=device)
   err = lib.mz_fused_smz_search(
       root_embedding.data_ptr(), root_prior_logits.data_ptr(),
       root_value.data_ptr(),
       None if invalid_actions is None else invalid_actions.data_ptr(),
-      flat.data_ptr(), flat.numel(), scratch.data_ptr(), n_scratch,
-      visits.data_ptr(), value.data_ptr(), qvalues.data_ptr(),
+      flat.data_ptr(), flat.numel(),
+      scratch.data_ptr() if n_scratch else None, n_scratch,
+      plan.envs_per_block, int(plan.smem_tree), int(plan.smem_emb),
+      plan.smem_bytes, visits.data_ptr(), value.data_ptr(),
+      qvalues.data_ptr(),
       B, A, C, E, S41, support_size, num_simulations, max_depth, discount,
       pb_c_init, pb_c_base,
       len(widths[0]), _ints(widths[0]), len(widths[1]), _ints(widths[1]),

@@ -52,7 +52,7 @@ def test_raw_rows_equal_jax_kernel(C, L, K, W, filled, done_rate):
   np.testing.assert_array_equal(raw[lay.tstep].numpy(), seg_idx * 3.0)
 
 
-def test_per_step_obs_is_not_ported():
+def test_per_step_obs_rows():
   """The per-step-observation mode runs (it was refused before Stochastic
   MuZero was ported): row f*K + j holds feature f of window step j, and
   every other row is that of the start-observation mode, shifted by the

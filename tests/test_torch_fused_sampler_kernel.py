@@ -7,7 +7,9 @@ and skips without one; the file imports nothing of the JAX package:
 Where the kernel and the plain version pick the same start, every raw row
 must be exactly equal (both copy the same values); ``logf`` and
 ``torch.log`` may differ by an ulp, so a near-tie may pick another start,
-on at most 0.01 % of windows.
+on at most 0.01 % of windows. Batches that end inside a block, segments
+outside the ring (all-zero windows) and windows longer than a group of 8
+lanes (K = 12) are covered, in both modes.
 """
 import pytest
 import torch
@@ -87,3 +89,29 @@ def test_wrapper_rejects_bad_inputs(cuda):
         state, seg_idx, torch.cat([gumbel, gumbel], 1)[:, ::2], 3)
   with pytest.raises(ValueError, match="unroll"):
     fused_sampler.fused_sample_group(state, seg_idx, gumbel, 9)
+
+
+@pytest.mark.parametrize("per_step_obs", [False, True])
+@pytest.mark.parametrize("C,L,K,A,W,filled", [
+    (64, 20, 5, 3, 1003, 48),   # W not a multiple of a block's windows
+    (64, 20, 5, 3, 8, 48),      # one partial block
+    (32, 20, 12, 4, 200, 32),   # K = 12 steps: more than 8 lanes
+])
+def test_kernel_ragged_batches_and_segments_outside_the_ring(
+    cuda, per_step_obs, C, L, K, A, W, filled):
+  state, gen = _ring(cuda, C, L, A, filled)
+  seg_idx = torch.randint(0, filled, (W,), generator=gen, device=cuda)
+  col = torch.arange(W, device=cuda)
+  outside = col % 7 == 3
+  seg_idx = torch.where(outside, torch.where(col % 2 == 0, -1, C), seg_idx)
+  gumbel = gumbel_noise(gen, (L, W), cuda)
+  raw, lay = fused_sampler.fused_sample_group(state, seg_idx, gumbel, K,
+                                              per_step_obs=per_step_obs)
+  torch.cuda.synchronize()
+  assert torch.equal(raw[:, outside], torch.zeros_like(raw[:, outside]))
+  inside = ~outside
+  ref, ref_lay = fused_sampler.fused_sample_group_reference(
+      state, seg_idx[inside], gumbel[:, inside].contiguous(), K,
+      per_step_obs=per_step_obs)
+  assert lay == ref_lay
+  assert compare_raw(raw[:, inside], ref, lay) >= 0.9999

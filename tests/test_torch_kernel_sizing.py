@@ -282,3 +282,130 @@ def test_learner_plan_refuses_weights_past_shared_memory():
   assert not _parent_learner_accepts(lw, 5, H100)
   with pytest.raises(RuntimeError, match="do not fit"):
     fused_learner.mlp_learner_plan(4096, 5, lw, H100)
+
+
+# ---- the Stochastic MuZero launch plan (``fused_smz_kernel``) ---------------
+
+# bench.py's smz_mlp widths: A = 2, 32 chance outcomes, embedding 32,
+# hidden (64,), 41 bins.
+SMZ_MLP = dict(A=2, C=32, E=32, hidden=64, bins=41)
+
+
+def _smz_n_weights(A, C, E, hidden, bins):
+  """Floats of the three towers at one hidden layer (the kernel's flat
+  layout: per linear W then b)."""
+  def tower(inputs, heads):
+    return inputs * hidden + hidden + sum(hidden * h + h for h in heads)
+  return (tower(E + A, (E, C, bins)) + tower(E + C, (E, bins))
+          + tower(E, (A, bins)))
+
+
+def _smz_parent_accepts(A, C, E, hidden, bins, sims, limits):
+  """Whether the one-warp-per-env kernel launched this shape: its node
+  arrays (4 N floats), three activation buffers and the invalid mask
+  beside the weights within a block's shared memory."""
+  def up4(n):
+    return -(-n // 4) * 4
+
+  act = up4(max(E + max(A, C), E, C, bins, hidden))
+  warp = 4 * (sims + 1) + 3 * act + up4(A)
+  return 4 * (up4(_smz_n_weights(A, C, E, hidden, bins)) + warp) <= (
+      limits.smem_per_block)
+
+
+def test_smz_weights_at_smz_mlp():
+  # The 22,877 floats the kernel stages (PERF.md, chip_smoke.py phase 16).
+  assert _smz_n_weights(**SMZ_MLP) == 22877
+
+
+def test_smz_env_bytes():
+  # smz_mlp at 200 simulations: N = 201, K = max(A, C) = 32; the tree's
+  # f32 visits, values, rewards, prior scales (4 N) and priors (N K), int16
+  # children (N K) and a path of 201: 42,210 bytes, to 42,224; the work
+  # buffers X 32, H0 and H1 64, Y 32 + 32 + 41 (to 108), Z 2 + 41 (to 44),
+  # the mask 2 (to 4) and 8 control words: 324 floats; the embeddings
+  # 201 x 32 floats.
+  n, k = 201, 32
+  assert 4 * (4 * n + n * k) + 2 * (n * k + n) == 42210
+  assert fused.smz_env_bytes(2, 32, 32, 41, 200, 200, 64) == (
+      42224, 4 * 324, 4 * 201 * 32)
+  # A depth cap shortens the path: 33 entries, 41,874 bytes, to 41,888.
+  assert fused.smz_env_bytes(2, 32, 32, 41, 200, 32, 64)[0] == 41888
+
+
+@pytest.mark.parametrize(
+    "batch,sims,max_depth,widths,envs,smem_tree,smem_emb,grid,waves", [
+        # stochastic_200sims: two envs a block, trees and embeddings in
+        # shared memory, one block on each of 128 SMs.
+        (256, 200, 200, SMZ_MLP, 2, True, True, 128, 1),
+        # stochastic_200sims_512: the same blocks in two waves.
+        (512, 200, 200, SMZ_MLP, 2, True, True, 256, 2),
+        # The deep-tree cases of the gpu tests and phase 16.
+        (64, 200, 32, SMZ_MLP, 1, True, True, 64, 1),
+        (64, 200, 200, SMZ_MLP, 1, True, True, 64, 1),
+        # Phase 16's edge shape.
+        (37, 64, 2, dict(A=3, C=4, E=8, hidden=16, bins=21), 1, True, True,
+         37, 1),
+        # Longer searches: one tree still fits beside the towers at 400
+        # simulations; at 800 the trees go to the device scratch.
+        (256, 400, 400, SMZ_MLP, 1, True, True, 256, 2),
+        (256, 800, 800, SMZ_MLP, 1, False, False, 256, 1),
+        # Wide C: rows of 256 slots.
+        (64, 100, 100, dict(A=3, C=256, E=16, hidden=32, bins=41), 1, False,
+         False, 64, 1),
+    ])
+def test_smz_search_plan(batch, sims, max_depth, widths, envs, smem_tree,
+                         smem_emb, grid, waves):
+  A, C, E = widths["A"], widths["C"], widths["E"]
+  hidden, bins = widths["hidden"], widths["bins"]
+  n_weights = _smz_n_weights(A, C, E, hidden, bins)
+  plan = fused.smz_search_plan(batch, A, C, E, bins, sims, max_depth,
+                               n_weights, hidden, H100)
+  assert (plan.envs_per_block, plan.smem_tree, plan.smem_emb, plan.grid,
+          plan.waves) == (envs, smem_tree, smem_emb, grid, waves)
+  assert plan.grid * plan.envs_per_block >= batch
+  tree, work, emb = fused.smz_env_bytes(A, C, E, bins, sims, max_depth,
+                                        hidden)
+  assert plan.smem_bytes == 4 * (-(-n_weights // 4) * 4) + envs * (
+      work + tree * smem_tree + emb * smem_emb)
+  assert plan.scratch_bytes == tree * (not smem_tree) + emb * (not smem_emb)
+  assert plan.smem_bytes <= H100.smem_per_block
+  assert plan.blocks_per_sm * (plan.smem_bytes + H100.smem_reserved) <= (
+      H100.smem_per_sm)
+  assert plan.waves == -(-plan.grid // (plan.blocks_per_sm * H100.sms))
+  if not smem_tree:  # no block holds even one tree beside the towers
+    assert 4 * (-(-n_weights // 4) * 4) + work + tree > H100.smem_per_block
+
+
+@pytest.mark.parametrize("widths", [
+    SMZ_MLP, dict(A=3, C=4, E=8, hidden=16, bins=21),
+    dict(A=4, C=8, E=16, hidden=24, bins=41),
+    dict(A=18, C=64, E=64, hidden=128, bins=101)])
+def test_smz_plan_takes_every_shape_the_warp_kernel_took(widths):
+  A, C, E = widths["A"], widths["C"], widths["E"]
+  hidden, bins = widths["hidden"], widths["bins"]
+  n_weights = _smz_n_weights(A, C, E, hidden, bins)
+  for sims in (1, 16, 64, 200, 400, 1000, 4000, 8000, 16000, 32766):
+    parent = _smz_parent_accepts(A, C, E, hidden, bins, sims, H100)
+    try:
+      fused.smz_search_plan(256, A, C, E, bins, sims, sims, n_weights,
+                            hidden, H100)
+      ok = True
+    except RuntimeError as err:
+      assert "do not fit" in str(err)
+      ok = False
+    assert ok or not parent, (sims, "refused where the warp kernel ran")
+
+
+def test_smz_plan_refuses_what_the_kernel_cannot_take():
+  # Towers past a block's shared memory (hidden 256 at C = 64: 67 K
+  # floats), and trees past int16 node indices.
+  wide = dict(A=2, C=64, E=64, hidden=256, bins=101)
+  n_weights = _smz_n_weights(**wide)
+  assert 4 * n_weights > H100.smem_per_block
+  with pytest.raises(RuntimeError, match="do not fit"):
+    fused.smz_search_plan(256, 2, 64, 64, 101, 200, 200, n_weights, 256,
+                          H100)
+  with pytest.raises(RuntimeError, match="do not fit"):
+    fused.smz_search_plan(256, 2, 32, 32, 41, 32767, 32767,
+                          _smz_n_weights(**SMZ_MLP), 64, H100)

@@ -9,8 +9,14 @@ Search: the decision visits sum to the simulation count, at least 99 % of
 envs are within 2 visits of the plain version (a score tie that f32
 rounding breaks the other way moves a visit, and the subtree differs from
 then on), their root values within rtol = atol = 1e-3, and where the visits
-agree exactly the decision q too. Sampler: where both pick the same start,
-every raw row is exactly equal (both copy the same values).
+agree exactly the decision q too; a second launch gives the same bits. The
+cases cover bench.py's smz_mlp widths at 256 and 512 envs (trees and
+embeddings in shared memory), a deep-tree net (one action and one outcome
+made to dominate, so that the simulations extend one chain) with and
+without the depth cap, and trees that go to the device scratch (800
+simulations, or 256 chance outcomes), whose memory is filled with NaN
+before each launch. Sampler: where both pick the same start, every raw row
+is exactly equal (both copy the same values).
 """
 import pytest
 import torch
@@ -32,12 +38,21 @@ def cuda():
   return torch.device("cuda", torch.cuda.current_device())
 
 
+# Added to the first entry of the policy head's and of the chance head's
+# bias: one action and one outcome dominate, and the trees grow chains.
+DEEP_BIAS = 8.0
+
+
 def _search_inputs(device, B, A, C, E, hidden, support, with_invalid,
-                   seed=0):
+                   seed=0, deep=False):
   net = make_stochastic_mlp_networks(A, num_chance_outcomes=C,
                                      embedding_dim=E, support_size=support,
                                      hidden=hidden, device=device)
   params = net.init_params((4,), torch.Generator().manual_seed(seed))
+  if deep:
+    with torch.no_grad():
+      params.prediction.linears()[-2].bias[0] += DEEP_BIAS
+      params.decision.linears()[-2].bias[0] += DEEP_BIAS
   gen = torch.Generator(device=device).manual_seed(seed)
   obs = torch.randn((B, 4), generator=gen, device=device)
   invalid = None
@@ -51,20 +66,46 @@ def _search_inputs(device, B, A, C, E, hidden, support, with_invalid,
            fused.extract_smz_fused_weights(net, params)), invalid)
 
 
-@pytest.mark.parametrize("B,sims,A,C,E,hidden,with_invalid,max_depth", [
-    (256, 200, 2, 32, 32, (64,), False, None),  # bench.py's smz_mlp
-    (37, 64, 3, 4, 8, (16,), True, 2),          # edge: masks, depth cap
-    (100, 50, 4, 8, 16, (24, 16), True, None),  # two hidden layers
-])
+def _poison_scratch(args, kwargs):
+  """Leaves NaN in the memory that the launch's scratch is handed next
+  (the caching allocator gives a freed block of the same size back
+  first), so that a tree or embedding the kernel reads before it writes
+  shows in the outputs."""
+  plan = fused.smz_launch_plan(args[0], args[3], **kwargs)
+  n = args[0].shape[0] * plan.scratch_bytes
+  if n:
+    torch.full((n // 4,), float("nan"), device=args[0].device)
+  return plan
+
+
+@pytest.mark.parametrize(
+    "B,sims,A,C,E,hidden,with_invalid,max_depth,deep", [
+        (256, 200, 2, 32, 32, (64,), False, None, False),  # smz_mlp
+        (512, 200, 2, 32, 32, (64,), False, None, False),  # two waves
+        (64, 200, 2, 32, 32, (64,), False, None, True),    # deep trees
+        (64, 200, 2, 32, 32, (64,), False, 32, True),      # ... capped
+        (37, 64, 3, 4, 8, (16,), True, 2, False),   # edge: masks, depth cap
+        (100, 50, 4, 8, 16, (24, 16), True, None, False),  # two layers
+        (48, 800, 2, 32, 32, (64,), False, None, False),   # trees: scratch
+        (64, 100, 3, 256, 16, (32,), True, None, False),   # wide C: scratch
+        (64, 50, 18, 4, 16, (32,), True, None, False),     # lanes split A
+    ])
 def test_smz_kernel_matches_plain(cuda, B, sims, A, C, E, hidden,
-                                  with_invalid, max_depth):
-  args, invalid = _search_inputs(cuda, B, A, C, E, hidden, 20, with_invalid)
+                                  with_invalid, max_depth, deep):
+  args, invalid = _search_inputs(cuda, B, A, C, E, hidden, 20, with_invalid,
+                                 deep=deep)
   kwargs = dict(num_simulations=sims, support_size=20, discount=0.997,
                 invalid_actions=invalid, max_depth=max_depth)
   before = fused.smz_launches
+  plan = _poison_scratch(args, kwargs)
   visits, value, q = fused.fused_smz_search(*args, **kwargs)
+  _poison_scratch(args, kwargs)
+  again = fused.fused_smz_search(*args, **kwargs)
   torch.cuda.synchronize()
-  assert fused.smz_launches == before + 1
+  assert fused.smz_launches == before + 2
+  for a, b in zip((visits, value, q), again):
+    assert torch.equal(a, b)
+  assert plan.smem_tree == (sims <= 200 and C <= 32)
   ref_visits, ref_value, ref_q = fused.fused_smz_search_reference(*args,
                                                                   **kwargs)
   assert bool((visits.sum(-1) == sims).all())
@@ -77,6 +118,24 @@ def test_smz_kernel_matches_plain(cuda, B, sims, A, C, E, hidden,
   torch.testing.assert_close(q[exact], ref_q[exact], rtol=1e-3, atol=1e-3)
   if invalid is not None:
     assert float(visits[invalid > 0].abs().max()) == 0.0
+
+
+def test_smz_plan_agrees_with_the_kernel(cuda):
+  """The plan's Python copy of an environment's layout against the
+  kernel's own (``mz_smz_env_bytes``), and its blocks per SM against the
+  CUDA runtime's count for the compiled kernel."""
+  import ctypes
+  lib = fused._load_smz_kernel()
+  for A, C, E, bins, sims, depth, hidden in (
+      (2, 32, 32, 41, 200, 200, 64), (3, 4, 8, 21, 64, 2, 16),
+      (3, 256, 16, 41, 100, 100, 32), (4, 8, 16, 41, 50, 50, 24)):
+    out = (ctypes.c_long * 3)()
+    lib.mz_smz_env_bytes(A, C, E, bins, sims, depth, hidden, out)
+    assert tuple(out) == fused.smz_env_bytes(A, C, E, bins, sims, depth,
+                                             hidden)
+  args, _ = _search_inputs(cuda, 256, 2, 32, 32, (64,), 20, False)
+  plan = fused.smz_launch_plan(args[0], args[3], num_simulations=200)
+  assert fused.smz_blocks_per_sm(plan, cuda) == plan.blocks_per_sm
 
 
 def test_smz_wrapper_rejects_bad_inputs(cuda):

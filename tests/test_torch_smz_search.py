@@ -9,7 +9,9 @@ mode) and the XLA engine's ``stochastic_muzero_policy``: decision visits
 within 2 (ties break deterministically in the kernels and by 1e-7 noise in
 the engines) and root values at rtol = atol = 1e-3
 (``tests/test_fused_smz.py:58-66``), with the depth cap too; the policy's
-action weights within 2.5 / sims (``:117-119``). The CUDA kernel is held
+action weights within 2.5 / sims (``:117-119``). A deep-tree case biases
+the JAX params' policy and chance heads (one action and one outcome
+dominate, so the simulations extend one chain) before conversion. The CUDA kernel is held
 against the plain version on the card (``test_torch_smz_kernels.py``).
 """
 import jax
@@ -29,15 +31,39 @@ from muax_tpu_torch.search import fused, policies
 from muax_tpu_torch.search.types import RootFnOutput
 from muax_tpu_torch.train import make_policy_fn, make_rollout_fn
 from muax_tpu_torch.train.inference import make_smz_fns
-from tests.test_torch_smz_networks import CONFIGS, smz_nets
+from muax_tpu_torch.models.convert import smz_params_from_numpy
+from tests.test_torch_smz_networks import CONFIGS, TOWERS, smz_nets
 
 DISCOUNT = 0.95
+# Added to the first entry of the policy head's and of the chance head's
+# bias in the deep-tree case.
+DEEP_BIAS = 8.0
 
 
-def _setup(cfg=CONFIGS[0], batch=4):
+def _deep_tree(j_params):
+  """``j_params`` with DEEP_BIAS on the first bias entry of the policy head
+  (the prediction tower's second-to-last linear) and of the chance head
+  (the decision tower's)."""
+  def biased(tower):
+    names = sorted(tower, key=lambda k: 0 if k == "linear"
+                   else int(k.rsplit("_", 1)[1]))
+    head = dict(tower[names[-2]])
+    head["b"] = head["b"].at[0].add(DEEP_BIAS)
+    return {**tower, names[-2]: head}
+
+  return j_params._replace(prediction=biased(j_params.prediction),
+                           decision=biased(j_params.decision))
+
+
+def _setup(cfg=CONFIGS[0], batch=4, deep=False):
   """JAX networks, params and root, and the port's networks, params and
-  the same root as torch tensors."""
+  the same root as torch tensors; ``deep`` biases the heads first."""
   j_net, j_params, _, net, params = smz_nets(cfg)
+  if deep:
+    j_params = _deep_tree(j_params)
+    params = smz_params_from_numpy(
+        {name: jax.tree.map(np.asarray, getattr(j_params, name))
+         for name in TOWERS}, net)
   obs = jax.random.normal(jax.random.PRNGKey(1), (batch, 5))
   j_fns = j_make_smz_fns(j_net, DISCOUNT)
   j_root = j_fns[0](j_params, obs)
@@ -85,6 +111,33 @@ def _port_routes(net, params, root, sims, invalid=None, max_depth=None,
 def test_searches_match_jax(max_depth):
   j_net, j_params, (_, j_dec, j_ch), j_root, net, params, root = _setup()
   sims = 24
+  ref_engine = j_policy(
+      j_params, jax.random.PRNGKey(2), j_root, decision_recurrent_fn=j_dec,
+      chance_recurrent_fn=j_ch, num_simulations=sims,
+      num_chance_outcomes=net.num_chance_outcomes, dirichlet_fraction=0.0,
+      discount=DISCOUNT, max_depth=max_depth).search_tree.summary()
+  ref_kernel = j_fused_search(
+      j_root.embedding, j_root.prior_logits, j_root.value,
+      j_extract(j_net, j_params), num_simulations=sims,
+      num_chance_outcomes=net.num_chance_outcomes,
+      support_size=net.support_size, discount=DISCOUNT, max_depth=max_depth,
+      interpret=True)
+  engine_ref = (np.asarray(ref_engine.visit_counts)[:, :net.num_actions],
+                ref_engine.value)
+  for visits, value in _port_routes(net, params, root, sims,
+                                    max_depth=max_depth):
+    _agree(visits, value, ref_kernel[0], ref_kernel[1], sims)
+    _agree(visits, value, *engine_ref, sims)
+
+
+@pytest.mark.parametrize("max_depth", [None, 8])
+def test_deep_tree_searches_match_jax(max_depth):
+  """The deep-tree net: the port's routes against the JAX kernel and
+  engine at batch 4, 32 simulations; the descents run as deep as the
+  simulations allow (or to the cap), and the cap re-evaluates in place."""
+  j_net, j_params, (_, j_dec, j_ch), j_root, net, params, root = _setup(
+      deep=True)
+  sims = 32
   ref_engine = j_policy(
       j_params, jax.random.PRNGKey(2), j_root, decision_recurrent_fn=j_dec,
       chance_recurrent_fn=j_ch, num_simulations=sims,

@@ -3,7 +3,8 @@
 Run from the root of a checkout (its ``muax_tpu_torch`` package and
 ``csrc/`` are the ones measured):
 
-  python3 tools/kernel_split.py [--out FILE] [--only mlp|learner|categorical]
+  python3 tools/kernel_split.py [--out FILE]
+      [--only mlp|learner|categorical|smz|sampler] [--against OTHER]
 
 The MLP search (``fused_search_kernel``, both policies) is timed at 8192
 and 1024 envs x 64 simulations at the flagship widths (A = 2, embedding 8,
@@ -39,6 +40,25 @@ section's share of the block-cycles and the products' share within it.
 The stamps add a barrier at each mark, so the shares, not the stamped
 times, are the figures to read.
 
+The Stochastic MuZero search (``--only smz``) is timed (CUDA events, and
+its device time with ``torch.profiler``) at bench.py's smz_mlp widths and
+stochastic_200sims regime on a fresh net, on the same net trained by the
+port's own ``fit`` (40 iterations of stochastic_200sims, about 25 s on the
+card, cached under ``build/smz_trained/`` and reused when present), the
+trained net with ``max_depth=32`` and at 512 envs, a deep-tree net (the
+fresh net with +8 on one entry of the policy head's and of the chance
+head's bias) with and without ``max_depth=32``, and the fresh and trained
+nets on 64 roots (one environment an SM); with its launch plan and
+ptxas's registers, stack frame and spills. A stamped copy gives the
+descent depths (mean and largest), each section's share of the
+environments' leader-warp cycles (setup, descent, expansion, install and
+backup, summary) and the cycles of a level of the descent, of an
+expansion and of a backup. The sampler (``--only sampler``) is timed as
+phases 4 and 18 call it (W = 65,536, and W = 16,384 with per_step_obs):
+the wrapper with CUDA events in five runs of 20 calls, the host's time a
+call, and each launch's device time (``torch.profiler``, least, median
+and largest of 50), with its bound.
+
 Last it sets the learner's priorities and gradients against the plain
 version in float64: the largest error of the kernel and of the plain
 version in float32, each relative to the float64 result. The stamps are
@@ -58,7 +78,9 @@ other, this, this, other. ``--only learner`` keeps the learner alone;
 card at once (8192 envs, 18 actions x 64 simulations and 2 x 400, the
 ``gpu`` tests' inputs) against the plain version, with a digest of the
 kernel's outputs that shows whether the two kernels round alike, in place
-of the learner.
+of the learner; ``--only smz`` and ``--only sampler`` time those kernels
+alone at the points above (the SMZ search with a digest of its outputs),
+in the same order.
 """
 import argparse
 import copy
@@ -66,6 +88,7 @@ import ctypes
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -266,7 +289,9 @@ def build_stamped(build, which):
                    MLP_SECTIONS),),
           "learner": (("fused_learner_mlp", "fused_learner",
                        lambda s: _stamped(s, TILE_LEARNER_MARKS, False),
-                       TILE_LEARNER_SECTIONS),)}
+                       TILE_LEARNER_SECTIONS),),
+          "smz": (("fused_smz_split", "fused_smz", _smz_stamped,
+                   SMZ_SECTIONS),)}
   for key in which:
     for name, source, stamp, names[name] in jobs[key]:
       src = (csrc / f"{source}.cu").read_text()
@@ -667,8 +692,11 @@ def against(other, only=None):
   64 simulations and 2 actions x 400, both policies, against the plain
   version (the share within 2 visits, the envs whose value or q are apart,
   a digest of the kernel's outputs), once per checkout; then, unless
-  ``only`` is "learner", phases 6 and 10. Every timed run goes in the order
-  other, this, this, other, and is labelled with its checkout."""
+  ``only`` is "learner", phases 6 and 10. With ``only="smz"`` the SMZ
+  search at SMZ_POINTS (``smz_times``, on the net trained once here), with
+  ``only="sampler"`` both sampler modes (``sampler_times``), and nothing
+  else. Every timed run goes in the order other, this, this, other, and is
+  labelled with its checkout."""
   roots = {"other": os.path.abspath(other), "this": os.getcwd()}
   builds = [subprocess.Popen([sys.executable, "-c", BUILD_RUN], cwd=root)
             for root in roots.values()]
@@ -687,6 +715,15 @@ def against(other, only=None):
 
   order = ("other", "this", "this", "other")
   out = {}
+  if only == "smz":
+    trained_smz_params(torch.device("cuda", 0))  # trained once, for both
+    code = SMZ_RUN.replace("TRAINED", repr(os.path.abspath(SMZ_TRAINED)))
+    out["smz"] = [child(label, code, "SMZ") for label in order]
+    return out
+  if only == "sampler":
+    out["sampler"] = [child(label, SAMPLER_RUN, "SAMPLER")
+                      for label in order]
+    return out
   if only in (None, "learner"):
     out["learner"] = [child(label, LEARNER_RUN, "LEARNER") for label in order]
     out["priorities"] = [child(label, PRIORITY_RUN, "PRIORITIES")
@@ -700,19 +737,374 @@ def against(other, only=None):
   return out
 
 
+# ---- Stochastic MuZero search (row 4) and the sampler (rows 6a-6b) ------
+#
+# The search at bench.py's smz_mlp widths (A = 2, C = 32, embedding 32,
+# support 20, hidden (64,)) and stochastic_200sims regime (256 envs x 200
+# simulations), on CartPole roots, at these points: a fresh net (seed 0),
+# the same net trained by the port's own fit (SMZ_TRAIN_ITERATIONS
+# iterations of stochastic_200sims, cached in SMZ_TRAINED and reused when
+# present), the trained net with max_depth=32 and at 512 envs, and a
+# deep-tree net (the fresh net with DEEP_BIAS on one entry of the policy
+# head's and of the chance head's bias, so that one action and one outcome
+# dominate and the simulations extend one chain), with and without
+# max_depth=32; the fresh and trained nets on 64 roots too, where no two
+# environments share an SM.
+SMZ_SIMS = 200
+SMZ_TRAINED = os.path.join("build", "smz_trained", "params.pkl")
+SMZ_TRAIN_ITERATIONS = 40
+DEEP_BIAS = 8.0
+SMZ_POINTS = {"fresh": ("fresh", 256, None), "trained": ("trained", 256, None),
+              "trained_depth32": ("trained", 256, 32),
+              "trained_512": ("trained", 512, None),
+              "deep": ("deep", 256, None), "deep_depth32": ("deep", 256, 32),
+              "fresh_64": ("fresh", 64, None),
+              "trained_64": ("trained", 64, None)}
+
+
+def smz_network(dev):
+  from muax_tpu_torch.models import make_stochastic_mlp_networks
+  return make_stochastic_mlp_networks(
+      2, num_chance_outcomes=32, embedding_dim=32, support_size=20,
+      hidden=(64,), device=dev)
+
+
+def deep_tree_params(params, bias=DEEP_BIAS):
+  """``params`` with ``bias`` added to the first entry of the policy head's
+  and of the chance head's bias (in place; returns ``params``)."""
+  with torch.no_grad():
+    params.prediction.linears()[-2].bias[0] += bias
+    params.decision.linears()[-2].bias[0] += bias
+  return params
+
+
+def trained_smz_params(dev, path=SMZ_TRAINED,
+                       iterations=SMZ_TRAIN_ITERATIONS):
+  """(params, training record): the smz_mlp nets trained with ``fit`` on
+  CartPole in stochastic_200sims' regime (256 envs x 200 simulations x 20
+  steps, batch 256, 8 updates an iteration, seed 0), read from ``path``
+  when it exists, else trained and written there."""
+  import tempfile
+  import time
+
+  from muax_tpu_torch.config import (MuZeroConfig, ReplayConfig,
+                                     SearchConfig, TrainConfig)
+  from muax_tpu_torch.envs import CartPole
+  from muax_tpu_torch.train.checkpoint import load_pytree, save_pytree
+  from muax_tpu_torch.train.fit import fit
+  net = smz_network(dev)
+  params = net.init_params((4,), torch.Generator().manual_seed(0))
+  if os.path.exists(path):
+    saved = load_pytree(path)
+    params.load_state_dict({k: torch.from_numpy(v)
+                            for k, v in saved["params"].items()})
+    return params, dict(saved["record"], cached=True)
+  config = MuZeroConfig(
+      search=SearchConfig(policy="stochastic", num_simulations=SMZ_SIMS),
+      replay=ReplayConfig(capacity=2048, min_fill=64),
+      train=TrainConfig(num_envs=256, collect_steps=20, batch_size=256,
+                        updates_per_iteration=8, unroll_steps=5,
+                        n_bootstrap=10, presample_updates=16))
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  lines = []
+  t0 = time.perf_counter()
+  with tempfile.TemporaryDirectory(dir=os.path.dirname(path)) as d:
+    state, results = fit(CartPole(), net, config, num_iterations=iterations,
+                         seed=0, eval_every=iterations, log_every=1,
+                         model_dir=d, save_best=False, log_fn=lines.append)
+  record = {"iterations": iterations,
+            "seconds": time.perf_counter() - t0,
+            "loss": [row["loss"] for row in results["history"]],
+            "test_G": {row["iteration"]: row["test_G"]
+                       for row in results["history"] if "test_G" in row}}
+  save_pytree(path, {"params": dict(state.params.state_dict()),
+                     "record": record})
+  return state.params, dict(record, cached=False)
+
+
+def smz_inputs(dev, params, B, max_depth=None, seed=0):
+  """The search's inputs on B CartPole roots of ``params`` (Dirichlet
+  noise from ``seed``), as ``chip_smoke.py``'s phase 16 draws them."""
+  from muax_tpu_torch.envs import CartPole
+  from muax_tpu_torch.search import fused
+  from muax_tpu_torch.train.inference import make_smz_fns
+  net = smz_network(dev)
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  _, obs = CartPole().reset(gen, B)
+  with torch.no_grad():
+    root = make_smz_fns(net, 0.997)[0](params, obs)
+  args = (root.embedding.contiguous(),
+          fused.noised_root_logits(gen, root.prior_logits),
+          root.value.contiguous(),
+          fused.extract_smz_fused_weights(net, params))
+  kwargs = dict(num_simulations=SMZ_SIMS, discount=0.997, support_size=20,
+                invalid_actions=None, max_depth=max_depth)
+  return args, kwargs
+
+
+def smz_cases(dev, trained):
+  """SMZ_POINTS' launches: name -> a function launching the kernel."""
+  from muax_tpu_torch.search import fused
+  fresh = smz_network(dev).init_params((4,),
+                                       torch.Generator().manual_seed(0))
+  nets = {"fresh": fresh, "trained": trained,
+          "deep": deep_tree_params(copy.deepcopy(fresh))}
+  cases = {}
+  for name, (which, B, depth) in SMZ_POINTS.items():
+    args, kwargs = smz_inputs(dev, nets[which], B, depth)
+    cases[name] = (lambda a=args, k=kwargs: fused._fused_smz_search_cuda(
+        *a, pb_c_init=1.25, pb_c_base=19652.0, **k))
+  return cases
+
+
+def smz_device_ms(fn):
+  """The search kernel's device time per launch (torch.profiler)."""
+  return sum(v for k, v in by_kernel_ms(fn, 3).items() if "smz" in k)
+
+
+def smz_times(dev, trained_path=SMZ_TRAINED):
+  """Each point's ms per launch (CUDA events), device ms (torch.profiler)
+  and a digest of the outputs, in a checkout (``--against``)."""
+  import hashlib
+  trained, _ = trained_smz_params(dev, trained_path)
+  out = {}
+  for name, fn in smz_cases(dev, trained).items():
+    digest = hashlib.sha256(b"".join(
+        t.cpu().numpy().tobytes() for t in fn())).hexdigest()[:16]
+    out[name] = {"ms": events_ms(fn, 5),
+                 "device_ms": smz_device_ms(fn),
+                 "outputs_sha256": digest}
+  return out
+
+
+# The SMZ kernel's stamps: lane 0 of an environment's leader warp keeps its
+# section sums (setup, descent, expansion, install and backup, summary) in
+# registers and adds them at the end, with the descent depth of each
+# simulation (edges walked from the root); placed by the source's section
+# comments.
+SMZ_SECTIONS = ("setup", "descent", "expansion", "install_backup",
+                "summary")
+SMZ_PRE = r"""
+__device__ unsigned long long g_ssec[5];
+__device__ unsigned long long g_sdepth[3];  // sum, count, max
+#define SSTAMP_INIT long long _last = clock64(); \
+  unsigned long long _acc[5] = {0, 0, 0, 0, 0}, _dsum = 0, _dn = 0, _dmax = 0;
+#define SSTAMP(k) { long long _n = clock64(); _acc[k] += _n - _last; \
+  _last = _n; }
+#define SDEPTH(d) { _dsum += (d); _dn += 1; \
+  _dmax = (d) > _dmax ? (d) : _dmax; }
+#define SFLUSH(leader) if (leader) { \
+  for (int _k = 0; _k < 5; ++_k) atomicAdd(&g_ssec[_k], _acc[_k]); \
+  atomicAdd(&g_sdepth[0], _dsum); atomicAdd(&g_sdepth[1], _dn); \
+  atomicMax(&g_sdepth[2], _dmax); }
+"""
+SMZ_POST = r"""
+extern "C" int split_reset() {
+  void* p;
+  cudaGetSymbolAddress(&p, g_ssec);
+  cudaMemset(p, 0, sizeof(g_ssec));
+  cudaGetSymbolAddress(&p, g_sdepth);
+  return cudaMemset(p, 0, sizeof(g_sdepth));
+}
+extern "C" int split_read(unsigned long long* out) {
+  int err = cudaMemcpyFromSymbol(out, g_ssec, sizeof(g_ssec));
+  if (!err) err = cudaMemcpyFromSymbol(out + 5, g_sdepth, sizeof(g_sdepth));
+  return err;
+}
+"""
+_SMZ_INCLUDE = '#include "warp_mlp.cuh"\n'
+SMZ_MARKS = [
+    (_SMZ_INCLUDE, _SMZ_INCLUDE + SMZ_PRE),
+    ("  extern __shared__ __align__(16) float smem[];\n",
+     "  extern __shared__ __align__(16) float smem[];\n  SSTAMP_INIT\n"),
+    ("    // ---- descent ---", "    SSTAMP(0)\n    // ---- descent ---"),
+    ("    // ---- expansion:",
+     "    SSTAMP(1)\n    SDEPTH(depth)\n    // ---- expansion:"),
+    ("    // ---- install (running mean)",
+     "    SSTAMP(2)\n    // ---- install (running mean)"),
+    ("    }\n  }\n\n  // Decision-edge q",
+     "    }\n    SSTAMP(3)\n  }\n\n  // Decision-edge q"),
+    ("    if (lane == 0) out_value[env] = t.node[0].y;\n  }\n}\n",
+     "    if (lane == 0) out_value[env] = t.node[0].y;\n  }\n  SSTAMP(4)\n"
+     "  SFLUSH(tid == 0)\n}\n")]
+
+
+def _smz_stamped(src):
+  for old, new in SMZ_MARKS:
+    src = _one(src, old, new)
+  return src + SMZ_POST
+
+
+def smz_split(res, dev, build):
+  """The SMZ search at SMZ_POINTS: ms per launch (CUDA events) and on the
+  device (torch.profiler), the launch plan, ptxas's registers, stack frame
+  and spills; then from a stamped copy the descent depths (mean and
+  largest), each section's share of the leader warps' cycles and the
+  cycles of a level of the descent, of an expansion and of a backup."""
+  from muax_tpu_torch.search import fused
+  trained, record = trained_smz_params(dev)
+  out = res["smz"] = {"trained_net": record}
+  cases = smz_cases(dev, trained)
+  for name, fn in cases.items():
+    out[name] = {"ms": events_ms(fn, 5),
+                 "device_ms": smz_device_ms(fn)}
+    print(json.dumps({name: out[name]}), flush=True)
+  for B in (256, 512):
+    args, kwargs = smz_inputs(dev, trained, B)
+    plan = fused.smz_launch_plan(args[0], args[3], **kwargs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out[f"plan_{B}"] = dict(plan._asdict(), theoretical_warps_per_sm=min(
+        fused.smz_blocks_per_sm(plan, dev), -(-plan.grid // sms))
+                            * plan.envs_per_block * fused.SMZ_ENV_THREADS
+                            // 32)
+  out["ptxas"] = smz_ptxas(build)
+  libs, _ = build_stamped(build, ["smz"])
+  for name, fn in cases.items():
+    buf = _stamped_run("fused_smz_split", "fused_smz", fn, libs, 8)
+    whole = sum(buf[:5])
+    out[name]["sections"] = {s: buf[k] / whole
+                             for k, s in enumerate(SMZ_SECTIONS)}
+    out[name]["depth_mean"] = buf[5] / max(buf[6], 1)
+    out[name]["depth_max"] = buf[7]
+    # Leader-warp cycles: a level of the descent, and per simulation the
+    # expansion and the install and backup.
+    out[name]["cycles"] = {"descent_level": buf[1] / max(buf[5], 1),
+                           "expansion": buf[2] / max(buf[6], 1),
+                           "install_backup": buf[3] / max(buf[6], 1),
+                           "per_env": whole / SMZ_POINTS[name][1]}
+
+
+def smz_ptxas(build):
+  """ptxas's report on csrc/fused_smz.cu as the package builds it:
+  registers, stack frame, spill stores and loads of each kernel."""
+  from muax_tpu_torch import _build
+  out = pathlib.Path(build)
+  out.mkdir(parents=True, exist_ok=True)
+  src = pathlib.Path(_build.__file__).parent / "csrc" / "fused_smz.cu"
+  proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                         str(out / "libfused_smz_ptxas.so"), str(src)],
+                        capture_output=True, text=True, check=True)
+  log = proc.stdout + proc.stderr
+  figures, entry = {}, None
+  for line in log.splitlines():
+    found = re.search(r"Compiling entry function '([^']+)'", line)
+    if found:
+      entry = figures.setdefault(found.group(1), {})
+    elif entry is not None and "stack frame" in line:
+      nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+      entry.update(stack_frame=nums[0], spill_stores=nums[1],
+                   spill_loads=nums[2])
+    elif entry is not None and "Used" in line and "registers" in line:
+      entry["registers"] = int(re.search(r"Used (\d+) registers",
+                                         line).group(1))
+  return figures
+
+
+def sampler_cases(dev):
+  """The sampler as phases 4 and 18 call it: W = 65,536 windows from a ring
+  filled by two rollouts of training_regime (row 6a), and W = 16,384 with
+  per_step_obs from a ring of smz_training's rollouts (row 6b). name ->
+  (function, layout, W)."""
+  import chip_smoke
+  from muax_tpu_torch.replay import fused_sampler
+  from muax_tpu_torch.replay.buffer import gumbel_noise
+  cases = {}
+  for name, family, W, per_step in (("6a", "mlp", 16 * 4096, False),
+                                    ("6b_per_step_obs", "smz", 64 * 256,
+                                     True)):
+    t = chip_smoke.training_setup(dev, family=family)
+    chip_smoke.fill_ring(t)
+    seg_idx = fused_sampler.draw_segments(t.rs, t.gen, W)
+    gumbel = gumbel_noise(t.gen, (20, W), dev)
+    call = (t.rs, seg_idx, gumbel, 5)
+    lay = fused_sampler.fused_sample_group(*call, per_step_obs=per_step)[1]
+    cases[name] = (lambda c=call, p=per_step:
+                   fused_sampler.fused_sample_group(*c, per_step_obs=p),
+                   lay, W)
+  return cases
+
+
+def launch_device_us(fn, reps):
+  """The device time of each kernel launch ``fn`` makes over ``reps`` calls
+  (torch.profiler), in microseconds."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  each = [e.time_range.end - e.time_range.start for e in prof.events()
+          if "CUDA" in str(getattr(e, "device_type", ""))
+          and "sample_group" in e.name]
+  if not each:  # the profiler kept no kernel events: their mean per call
+    mean = sum(v for k, v in by_kernel_ms(fn, reps).items()
+               if "sample_group" in k)
+    each = [mean * 1e3]
+  return each
+
+
+def sampler_times(dev):
+  """Each sampler row: the wrapper's ms per call with CUDA events in five
+  runs of 20 calls, the host's microseconds per call (200 calls issued
+  without a synchronise), and each launch's device time over 50 calls
+  (torch.profiler: least, median, largest), with the bound."""
+  import statistics
+  import time
+
+  import chip_smoke
+  out = {}
+  for name, (fn, lay, W) in sampler_cases(dev).items():
+    wrapper = [events_ms(fn, 20) for _ in range(5)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+      fn()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    device = sorted(launch_device_us(fn, 50))
+    bound, by = chip_smoke.sampler_bound_ms(lay, W, 20)
+    out[name] = {"W": W, "wrapper_ms": wrapper, "host_us_per_call": host_us,
+                 "device_ms": {"min": device[0] / 1e3,
+                               "median": statistics.median(device) / 1e3,
+                               "max": device[-1] / 1e3,
+                               "launches": len(device)},
+                 "bound_ms": bound, "bound_by": by}
+  return out
+
+
+SMZ_RUN = r"""
+import json, sys, torch
+sys.path[:0] = [".", TOOLS]
+import kernel_split as ks
+torch.backends.cuda.matmul.allow_tf32 = False
+print("SMZ " + json.dumps(ks.smz_times(torch.device("cuda", 0), TRAINED)))
+""".replace("TOOLS", repr(os.path.dirname(os.path.abspath(__file__))))
+SAMPLER_RUN = r"""
+import json, sys, torch
+sys.path[:0] = [".", TOOLS]
+import kernel_split as ks
+torch.backends.cuda.matmul.allow_tf32 = False
+print("SAMPLER " + json.dumps(ks.sampler_times(torch.device("cuda", 0))))
+""".replace("TOOLS", repr(os.path.dirname(os.path.abspath(__file__))))
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--out", default=None, help="also write the JSON here")
   parser.add_argument("--build", default="build/split",
                       help="directory for the stamped copies")
-  parser.add_argument("--only", choices=("mlp", "learner", "categorical"),
+  parser.add_argument("--only", choices=("mlp", "learner", "categorical",
+                                          "smz", "sampler"),
                       default=None, help="split only the MLP search, the "
-                      "MLP learner or the categorical kernels")
+                      "MLP learner, the categorical kernels, the Stochastic "
+                      "MuZero search or the sampler")
   parser.add_argument("--against", default=None, metavar="OTHER",
                       help="compare the checkout at OTHER with this one "
                       "(the MLP learner and training iterations; with "
                       "--only mlp the large MLP search trees and the "
-                      "iterations) instead")
+                      "iterations; with --only smz or sampler those "
+                      "kernels) instead")
   opts = parser.parse_args()
   sys.path.insert(0, os.getcwd())  # the checkout measured is the cwd's
   if not torch.cuda.is_available():
@@ -725,7 +1117,7 @@ def main():
   res = {"card": card}
   if opts.against:
     if opts.only == "categorical":
-      parser.error("--against compares the MLP kernels only")
+      parser.error("--against does not compare the categorical kernels")
     res.update(against(opts.against, opts.only))
   else:
     if opts.only in (None, "mlp"):
@@ -734,6 +1126,10 @@ def main():
       learner_split(res, dev, opts.build)
     if opts.only in (None, "categorical"):
       categorical_split(res, dev, opts.build)
+    if opts.only in (None, "smz"):
+      smz_split(res, dev, opts.build)
+    if opts.only in (None, "sampler"):
+      res["sampler"] = sampler_times(dev)
   print(json.dumps(res))
   if opts.out:
     with open(opts.out, "w") as f:
