@@ -86,6 +86,26 @@ and theoretical warps per SM. Phase 18 holds the sampler's
 drives one ``smz_training`` iteration (exactly 20 + 10 + 0 launches: the
 hybrid feed runs autograd) and phase 20 runs ``fit`` with a resume.
 
+Phases 21 to 24 drive reanalyze, legal-action masks, AlphaZero and the env
+models. Phase 21 runs ``make_reanalyze_fn`` on the ring that phase 6 filled
+(64 segments of 20 steps a call, at 64 and at 16 simulations): exactly one
+MLP search launch a call, held against the plain version on its own
+inputs, the refreshed slots stamped with the step, every other slot
+unchanged, a segment drawn twice giving bit-identical rows; it times the
+call and the kernel at 1280 envs; then ``fit`` runs 3 iterations with
+``reanalyze_every=1``, each making exactly the training iteration's
+launches and one reanalyze search. Phase 22 drives ``make_rollout_fn`` on
+Connect Four (A = 7) at 8192 envs and on TicTacToe (A = 9) at 1003 envs,
+64 simulations x 21 steps, in each policy: exactly 21 launches of the
+policy's mode, every action legal under the mask read before its step, no
+weight on an illegal action, and the last step's masked launch against the
+plain version, with the plan ``mlp_search_plan`` chose. Phase 23 runs
+AlphaZero on Connect Four at ``bench.py``'s ``alphazero_connect4`` through
+the generic engine (no kernel launch): moves/s, simulations/s, updates/s,
+the device's idle share, and 64 games against a random player. Phase 24
+steps the simulator's and the learned model's policies on Catch at 1024
+envs and trains the transition model for 10 SGD steps (no kernel launch).
+
 Every failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or without the package beside it, it fails the same way.
 The line before the last lists every kernel with its launches, error, times
@@ -153,6 +173,15 @@ CAT_SEARCH_SMALL_ENVS = 512
 # shared memory beside the activation rows (an Atari-sized action set), so
 # that the search keeps its trees in the device scratch at CAT_ENVS.
 SCRATCH_TREE_ACTIONS = 18
+# Reanalyze on training_regime's ring: segments a call (x 20 steps = 1280
+# positions), and the reduced budget of the second call.
+REANALYZE_SEGMENTS, REANALYZE_SIMS = 64, 16
+# The board games' masked rollouts: 21 moves, half a Connect Four game.
+BOARD_STEPS = 21
+# bench.py's alphazero_connect4 (bench.py:236-291): 256 games x 64
+# simulations, 21 moves an iteration; three timed iterations after one
+# warm-up, and the evaluation against a random player over 64 games.
+AZ_ENVS, AZ_MOVES, AZ_TIMED, AZ_EVAL_GAMES = 256, 21, 3, 64
 
 
 def check(cond, message):
@@ -916,16 +945,20 @@ def kernel_device_ms(fn, reps):
   return times or None
 
 
-def profile_iteration(one):
+def profile_iteration(one, host_ops=True):
   """One more training iteration under torch.profiler: device time by
   kernel (self CUDA time summed over launches), the device's busy time and
   the count of kernel launches. Profiling slows the host, so the busy time
-  is set against the unprofiled iteration time by the caller."""
+  is set against the unprofiled iteration time by the caller. Without
+  ``host_ops`` only the device's activity is recorded, which a window of
+  a hundred thousand launches needs to be processed in seconds."""
   from torch.profiler import ProfilerActivity, profile
 
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+  activities = [ProfilerActivity.CUDA]
+  if host_ops:
+    activities.append(ProfilerActivity.CPU)
+  with profile(activities=activities) as prof:
     one()
     torch.cuda.synchronize()
   kernels = [e for e in prof.key_averages()
@@ -1284,6 +1317,502 @@ def smz_against_plain(device, num_actions, batch, widths=None,
         "a repeated Stochastic MuZero launch gives the same bits")
   ref = fused.fused_smz_search_reference(*args, **kwargs)
   return compare_search(out, ref, SMZ_SIMS, invalid)
+
+
+class SearchRecorder:
+  """Wraps the MLP and categorical search kernel's wrapper
+  (``fused._fused_search_cuda``) for a phase: tallies its launches by batch
+  size and keeps the arguments and outputs of the first ``keep`` launches
+  and of the last, so the phase can hold what the kernel computed on the
+  main path against the plain version on the same inputs. The wrapper
+  itself counts as always."""
+
+  def __init__(self, keep=0):
+    from muax_tpu_torch.search import fused
+    self.fused, self.keep = fused, keep
+    self.by_batch, self.calls, self.last = {}, [], None
+
+  def __enter__(self):
+    self.inner = self.fused._fused_search_cuda
+
+    def recording(*args, **kwargs):
+      out = self.inner(*args, **kwargs)
+      batch = args[0].shape[0]
+      self.by_batch[batch] = self.by_batch.get(batch, 0) + 1
+      self.last = (args, kwargs, out)
+      if len(self.calls) < self.keep:
+        self.calls.append(self.last)
+      return out
+
+    self.fused._fused_search_cuda = recording
+    return self
+
+  def __exit__(self, *exc):
+    self.fused._fused_search_cuda = self.inner
+
+
+def mlp_plan_figures(device, args, kwargs):
+  """The launch plan ``mlp_search_plan`` picks for one recorded launch of
+  the MLP search (G, envs per block, embeddings in shared memory or not)."""
+  from muax_tpu_torch.search import fused
+  weights = args[3]
+  B, A = args[1].shape
+  widths = [2 * SUPPORT + 1] + [w.shape[1] for w, _ in (
+      *weights.dyn_hidden, *weights.pred_hidden)]
+  plan = fused.mlp_search_plan(B, A, args[0].shape[1],
+                               kwargs["num_simulations"],
+                               weights.flat().numel(), widths,
+                               "root_score" in kwargs,
+                               fused.device_limits(device))
+  return plan._asdict()
+
+
+def reanalyze_phase(device, t):
+  """Phase 21: ``make_reanalyze_fn`` on the ring that phase 6 filled
+  (2048 segments of 20 steps) with the MLP triplet at bench widths, 64
+  segments (1280 positions) per call, at 64 simulations and at
+  ``reanalyze_simulations=16``. Each call launches the MLP search exactly
+  once and nothing else; the launch's outputs hold against the plain
+  version on its own inputs (phase 1's tolerances); every drawn slot's
+  ``target_step`` is the step, every other slot keeps its bits; the two
+  draws made equal on purpose give bit-identical rows. Then the call and
+  the kernel at 1280 envs are timed, with the plan and the bound."""
+  import dataclasses
+
+  from muax_tpu_torch.train.reanalyze import (make_reanalyze_fn,
+                                              stalest_first)
+
+  K, L = REANALYZE_SEGMENTS, MAIN_STEPS
+  fields = ("obs", "pi", "value", "rn", "step_priorities", "target_step")
+  step = t.ts.step + 7
+  figures = {}
+  for sims in (MAIN_SIMS, REANALYZE_SIMS):
+    config = dataclasses.replace(t.config, search=dataclasses.replace(
+        t.config.search, reanalyze_simulations=sims))
+    reanalyze = make_reanalyze_fn(t.net, config, K, device=device)
+    uniforms = torch.rand((K,), generator=t.gen, device=device)
+    uniforms[1] = uniforms[0]          # one segment drawn twice
+    seg = stalest_first(t.rs, uniforms, step)
+    drawn = torch.zeros(t.rs.capacity, dtype=torch.bool, device=device)
+    drawn[seg] = True
+    before = {k: getattr(t.rs, k).clone() for k in fields}
+    reset_counts()
+    with SearchRecorder(keep=1) as rec:
+      _, metrics = reanalyze(t.ts.params, t.rs, t.gen, step,
+                             uniforms=uniforms)
+      torch.cuda.synchronize()
+    got = search_counts()
+    check(got == (1, 0, 0, 0, 0) and rec.by_batch == {K * L: 1},
+          f"reanalyze launched the searches {got} at batches "
+          f"{rec.by_batch}, not one MLP MuZero launch of {K * L}")
+    args, kwargs, out = rec.calls[0]
+    check(kwargs["num_simulations"] == sims, "the reanalyze budget")
+    cmp = compare_search(out, fused_reference(args, kwargs), sims)
+    check(torch.equal(out[0][:L], out[0][L:2 * L])
+          and torch.equal(out[1][:L], out[1][L:2 * L]),
+          "a segment drawn twice gives bit-identical rows")
+    check(bool((t.rs.target_step[drawn] == step).all()),
+          "every refreshed slot's target_step is the step")
+    for k in fields:
+      check(torch.equal(getattr(t.rs, k)[~drawn], before[k][~drawn]),
+            f"slots not drawn keep their {k}")
+    visits = t.rs.pi[seg] * sims
+    check(torch.allclose(visits, out[0].reshape(K, L, -1), atol=1e-3),
+          "the ring holds the launch's visit distribution")
+    for k, v in metrics.items():
+      check(math.isfinite(float(v)), f"reanalyze metric {k} is finite")
+    entry = dict(cmp, drawn_segments=int(drawn.sum()),
+                 value_shift=float(metrics["reanalyze_value_shift"]),
+                 target_age=float(metrics["reanalyzed_target_age"]))
+    if sims == MAIN_SIMS:
+      entry["call_ms"] = time_ms(lambda: reanalyze(
+          t.ts.params, t.rs, t.gen, step, uniforms=uniforms), 5)
+      entry["search_ms"] = time_ms(
+          lambda: fused_cuda(args, kwargs), 10)
+      # The same roots cut to training_regime's 1024 envs, beside phase
+      # 3's 1024 rollout roots of a fresh net.
+      first = tuple(x[:TRAIN_ENVS].contiguous() for x in args[:3]) + (
+          args[3],)
+      entry[f"search_ms_{TRAIN_ENVS}"] = time_ms(
+          lambda: fused_cuda(first, kwargs), 10)
+      entry["plain_search_ms"] = time_ms(
+          lambda: fused_reference(args, kwargs), 1)
+      entry["bound_ms"], entry["bound_by"] = search_bound_ms(
+          K * L, sims, args[3], False)
+      entry["plan"] = mlp_plan_figures(device, args, kwargs)
+    figures[f"sims={sims}"] = entry
+  return figures
+
+
+def fused_cuda(args, kwargs):
+  from muax_tpu_torch.search import fused
+  return fused._fused_search_cuda(*args, **kwargs)
+
+
+def fused_reference(args, kwargs):
+  """The plain version of a recorded MLP search launch, in its mode."""
+  from muax_tpu_torch.search import fused
+  if "root_score" in kwargs:
+    return fused.fused_gumbel_search_reference(*args, **kwargs)
+  return fused.fused_muzero_search_reference(*args, **kwargs)
+
+
+def drive_reanalyze_fit(device, root):
+  """Phase 21's second half: ``fit`` through its normal entry, 3
+  iterations of ``training_regime`` with ``reanalyze_every=1`` (64
+  segments), eval_every=2. Each iteration launches exactly the training
+  iteration's kernels (20 searches of 1024 envs, 10 samplers, 160
+  learners; the first also the warm-up iteration's searches) plus one reanalyze
+  search of 1280 positions; the evaluations' searches (32 envs) are
+  counted apart."""
+  import tempfile
+
+  from muax_tpu_torch.envs import CartPole
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.replay import fused_sampler
+  from muax_tpu_torch.train.fit import fit
+
+  config = training_config()
+  tcfg = config.train
+  group = math.gcd(tcfg.updates_per_iteration, tcfg.presample_updates)
+  warm_iters = max(1, config.replay.min_fill // tcfg.num_envs)
+  net = make_net(device)
+  K = REANALYZE_SEGMENTS
+  snapshots = []
+  reset_counts()
+  with SearchRecorder() as rec:
+    def log(line):
+      if "iteration=" in line:
+        snapshots.append((dict(rec.by_batch), fused_sampler.launches,
+                          fused_learner.launches, search_counts()))
+
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
+      _, results = fit(CartPole(), net, config, num_iterations=3, seed=SEED,
+                       eval_every=2, log_every=1, model_dir=d,
+                       save_best=False, log_fn=log, reanalyze_every=1,
+                       reanalyze_segments=K)
+    seconds = time.perf_counter() - t0
+  check(len(snapshots) == 3, "three logged iterations")
+  last = ({}, 0, 0, (0,) * 5)
+  per_iteration = []
+  for i, snap in enumerate(snapshots):
+    by_batch = {b: n - last[0].get(b, 0) for b, n in snap[0].items()}
+    searches = {b: n for b, n in by_batch.items() if n}
+    want = {TRAIN_ENVS: MAIN_STEPS * (1 + warm_iters if i == 0 else 1),
+            K * MAIN_STEPS: 1}
+    evals = searches.pop(32, 0)
+    check(searches == want, f"iteration {i + 1} launched the MLP search "
+          f"{searches} by batch (and {evals} at the evaluation's 32), not "
+          f"{want}")
+    sampler, learner = snap[1] - last[1], snap[2] - last[2]
+    check(sampler == tcfg.updates_per_iteration // group
+          and learner == tcfg.updates_per_iteration,
+          f"iteration {i + 1} launched {sampler} samplers and {learner} "
+          "learners")
+    other = tuple(a - b for a, b in zip(snap[3], last[3]))[1:]
+    check(other == (0, 0, 0, 0), f"no other search mode: {other}")
+    per_iteration.append({"search_by_batch": by_batch, "sampler": sampler,
+                          "learner": learner})
+    last = snap
+  for row in results["history"]:
+    for k, v in row.items():
+      check(math.isfinite(v), f"fit metric {k} = {v} is finite")
+    check(row["reanalyzed_segments"] == K, "reanalyze ran every iteration")
+  return {"seconds": seconds, "per_iteration": per_iteration,
+          "launches": {"search": snapshots[-1][3][0],
+                       "sampler": snapshots[-1][1],
+                       "learner": snapshots[-1][2]},
+          "loss": results["history"][-1]["loss"],
+          "test_G": results["history"][-1].get("test_G")}
+
+
+def compare_masked_search(out, args, kwargs):
+  """Phase 22's check of one masked launch against the plain version on
+  its inputs: visits sum to the simulations and miss every invalid action,
+  at least 99 % of envs within 2 visits, and root values within rtol =
+  atol = 1e-3 on at least 99 % of envs, where every env outside it is a
+  near-tie that rounding breaks: a root visit moved, or one ulp more or
+  less on the root embedding moves that env's value past the tolerance in
+  the kernel or in the plain version. Deep trees of the board games' nets
+  meet such ties: a tie broken the other way changes the subtree, so its
+  values, while the root visits may stay."""
+  invalid = kwargs["invalid_actions"]
+  sims = kwargs["num_simulations"]
+  ref = fused_reference(args, kwargs)
+  visits, value, _ = out
+  check(bool((visits.sum(-1) == sims).all()) and bool(
+      (ref[0].sum(-1) == sims).all()), "visits sum to num_simulations")
+  check(float(visits[invalid > 0].abs().sum()) == 0.0,
+        "invalid actions get no visits")
+  dv = (visits - ref[0]).abs().amax(-1)
+  share = float((dv <= 2).float().mean())
+  check(share >= 0.99, f"{share:.4f} of envs within 2 visits (need 0.99)")
+
+  def outside(a, b):
+    return (a - b).abs() > 1e-3 + 1e-3 * b.abs()
+
+  off = outside(value, ref[1])
+  unexplained = off & (dv == 0)
+  if bool(unexplained.any()):
+    for scale in (1 + 2 ** -23, 1 - 2 ** -23):
+      nudged = (args[0] * scale,) + tuple(args[1:])
+      unexplained &= ~outside(fused_cuda(nudged, kwargs)[1], value)
+      unexplained &= ~outside(fused_reference(nudged, kwargs)[1], ref[1])
+  check(not bool(unexplained.any()), f"{int(unexplained.sum())} envs whose "
+        "root value leaves rtol = atol = 1e-3 with the same visits and no "
+        "sensitivity to an ulp of the embedding")
+  share_values = 1.0 - float(off.float().mean())
+  check(share_values >= 0.99, f"{share_values:.4f} of envs with the root "
+        "value within rtol = atol = 1e-3 (need 0.99)")
+  near = ~off
+  return ref, {"within_2_visits": share,
+               "exact_visits": float((dv == 0).float().mean()),
+               "values_within_tolerance": share_values,
+               "near_ties": int(off.sum()),
+               "max_abs_err": float((value[near] - ref[1][near]).abs().max())}
+
+
+def masked_rollout(device, game, policy, envs, steps):
+  """Phase 22: ``make_rollout_fn`` on a board game with the MLP triplet at
+  bench widths, ``envs`` x 64 simulations x ``steps``: exactly ``steps``
+  launches of the policy's mode and none of the other, every action legal
+  under the mask read before its step, no weight on an illegal action;
+  the last step's launch against the plain version on its masked roots
+  (the first step's are fresh boards, every action legal), as
+  ``compare_masked_search`` holds them (Gumbel: also the same action on
+  at least 99 % of envs)."""
+  from muax_tpu_torch.config import MuZeroConfig, SearchConfig, TrainConfig
+  from muax_tpu_torch.envs import AutoResetWrapper
+  from muax_tpu_torch.train import make_rollout_fn
+
+  env = AutoResetWrapper(game)
+  A = env.spec.num_actions
+  net = make_net(device, "mlp", A)
+  params = net.init_params(env.spec.observation_shape,
+                           torch.Generator().manual_seed(SEED))
+  config = MuZeroConfig(
+      search=SearchConfig(policy=policy, num_simulations=MAIN_SIMS),
+      train=TrainConfig(num_envs=envs, collect_steps=steps))
+  rollout = make_rollout_fn(net, env, config, device=device)
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  carry = env.reset(gen, envs)
+  masks = []
+  read = env.legal_action_mask
+  env.legal_action_mask = lambda c: masks.append(read(c)) or masks[-1]
+  mode = search_mode(policy, "mlp")
+  reset_counts()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  with SearchRecorder() as rec:
+    start.record()
+    _, seg, prio, metrics = rollout(params, carry, gen, params.temperature)
+    end.record()
+    end.synchronize()
+  got = search_counts()
+  want = tuple(steps if i == mode else 0 for i in range(len(got)))
+  check(got == want, f"{policy} rollout on {type(game).__name__} launched "
+        f"{got}, not {want}")
+  legal = torch.stack(masks, dim=1)                        # [B, T, A]
+  check(len(masks) == steps, "one mask read per step")
+  taken = torch.gather(legal, 2, seg.action.long()[..., None])[..., 0]
+  check(bool((taken == 1).all()), "every action is legal under its mask")
+  check(float(seg.pi[legal == 0].abs().sum()) == 0.0,
+        "no weight on an illegal action")
+  check(bool(torch.isfinite(prio).all()) and bool(
+      torch.isfinite(seg.value).all()), "finite values and priorities")
+  args, kwargs, out = rec.last
+  invalid = kwargs["invalid_actions"]
+  check(invalid is not None and bool(torch.equal(invalid, 1.0 - masks[-1]))
+        and bool((invalid > 0).any()),
+        "the last launch searched under the last mask, which masks actions")
+  ref, figures = compare_masked_search(out, args, kwargs)
+  if policy == "gumbel":
+    def act(res):
+      visits, _, cq = res
+      score = torch.where(visits == visits.amax(-1, keepdim=True),
+                          kwargs["root_score"] + cq, -torch.inf)
+      return torch.argmax(torch.where(invalid > 0, -torch.inf, score), -1)
+    figures["same_action"] = float((act(out) == act(ref)).float().mean())
+    check(figures["same_action"] >= 0.99, "the Gumbel action agrees on "
+          f"{figures['same_action']:.4f} of envs (need 0.99)")
+  rollout_ms = start.elapsed_time(end)
+  figures.update(
+      launches=got[mode], rollout_ms=rollout_ms,
+      env_steps_per_s=envs * steps / (rollout_ms / 1e3),
+      episodes_finished=int(metrics["episodes_finished"]),
+      illegal_share_of_actions=float((legal == 0).float().mean()),
+      plan=mlp_plan_figures(device, args, kwargs))
+  return figures, (args, kwargs)
+
+
+def alphazero_phase(device):
+  """Phase 23: AlphaZero on Connect Four at bench.py's alphazero_connect4
+  (``make_az_resnet(7, channels=32, num_blocks=4)``, 256 envs x 64
+  simulations, 21 moves an iteration, batch 512, 8 updates, a ring of
+  4096, adam at 2e-3): one warm-up iteration and three timed ones through
+  the generic engine, with no launch of any of the port's kernels; every
+  move legal, the losses finite. Then the device's idle share from
+  ``torch.profiler`` (device activity only) over one move and, apart, the
+  8 updates, weighted by their share of the iteration; and
+  ``evaluate_vs_random`` over 64 games."""
+  from muax_tpu_torch.envs import ConnectFour
+  from muax_tpu_torch.models import (create_optimizer, fused_learner,
+                                     make_az_resnet)
+  from muax_tpu_torch.replay import fused_sampler, replay_add, replay_init
+  from muax_tpu_torch.train.selfplay import (AZConfig, evaluate_vs_random,
+                                             make_az_policy_fn,
+                                             make_az_selfplay_fn,
+                                             make_az_update_fn)
+
+  game = ConnectFour()
+  net = make_az_resnet(7, channels=32, num_blocks=4, device=device)
+  config = AZConfig(num_simulations=MAIN_SIMS, num_envs=AZ_ENVS,
+                    collect_steps=AZ_MOVES, batch_size=512,
+                    updates_per_iteration=8, replay_capacity=4096)
+  params = net.init_params((6, 7, 2), torch.Generator().manual_seed(SEED))
+  optimizer = create_optimizer("adam", lr=2e-3)
+  opt_state = optimizer.init(params)
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  state, _ = game.reset(gen, AZ_ENVS)
+  replay = replay_init(config.replay_capacity, AZ_MOVES, (6, 7, 2), 7,
+                       device=device)
+  selfplay = make_az_selfplay_fn(game, net, config)
+  update = make_az_update_fn(net, optimizer, config)
+
+  def kernel_launches():
+    return (sum(search_counts()) + fused_sampler.launches
+            + fused_learner.launches + fused_learner.categorical_launches)
+
+  def one():
+    nonlocal state, params, opt_state
+    state, seg, prio, metrics = selfplay(params, state, gen, 1.0)
+    # A live game's legal columns are those whose top cell is empty.
+    legal = seg.obs[:, :, 0, :, :].sum(-1) == 0
+    check(bool(torch.gather(legal, 2, seg.action.long()[..., None]).all()),
+          "every self-play move is legal")
+    replay_add(replay, seg, prio)
+    for _ in range(config.updates_per_iteration):
+      params, opt_state, _, m = update(params, opt_state, replay, gen)
+    for k, v in m.items():
+      check(math.isfinite(float(v)), f"AZ metric {k} = {float(v)} is finite")
+    return metrics, m
+
+  reset_counts()
+  t0 = time.perf_counter()
+  one()
+  torch.cuda.synchronize()
+  warmup_ms = (time.perf_counter() - t0) * 1e3
+  t0 = time.perf_counter()
+  for _ in range(AZ_TIMED):
+    metrics, m = one()
+  torch.cuda.synchronize()
+  iteration_ms = (time.perf_counter() - t0) / AZ_TIMED * 1e3
+  check(kernel_launches() == 0, "AlphaZero launched none of the port's "
+        "kernels")
+  policy_fn = make_az_policy_fn(game, net, MAIN_SIMS)
+
+  def move():
+    policy_fn(params, gen, state, 1.0)
+
+  def updates():
+    nonlocal params, opt_state
+    for _ in range(config.updates_per_iteration):
+      params, opt_state, _, _ = update(params, opt_state, replay, gen)
+
+  profile = {}
+  for name, fn in (("move", move), ("updates", updates)):
+    window_ms = time_ms(fn, 1)
+    profile[name] = profile_iteration(fn, host_ops=False)
+    busy = profile[name]["device_busy_ms"]
+    profile[name]["window_ms"] = window_ms
+    profile[name]["idle_share"] = (None if busy is None
+                                   else 1.0 - busy / window_ms)
+  if None not in (profile["move"]["idle_share"],
+                  profile["updates"]["idle_share"]):
+    moves_ms = AZ_MOVES * profile["move"]["window_ms"]
+    profile["device_idle_share"] = (
+        profile["move"]["idle_share"] * moves_ms
+        + profile["updates"]["idle_share"] * profile["updates"]["window_ms"]
+    ) / (moves_ms + profile["updates"]["window_ms"])
+  t0 = time.perf_counter()
+  score = evaluate_vs_random(game, net, params, gen, num_games=AZ_EVAL_GAMES)
+  check(-1.0 <= score <= 1.0, f"evaluate_vs_random gave {score}")
+  check(kernel_launches() == 0, "no kernel launch in the evaluation")
+  moves = AZ_ENVS * AZ_MOVES
+  return {"iteration_ms": iteration_ms, "warmup_ms": warmup_ms,
+          "moves_per_s": moves / (iteration_ms / 1e3),
+          "mcts_sims_per_s": moves * MAIN_SIMS / (iteration_ms / 1e3),
+          "learner_updates_per_s": config.updates_per_iteration
+          / (iteration_ms / 1e3),
+          "episodes_finished": int(metrics["episodes_finished"]),
+          "loss": float(m["loss"]), "profile": profile,
+          "vs_random": score,
+          "vs_random_seconds": time.perf_counter() - t0}
+
+
+def env_model_phase(device):
+  """Phase 24: the env models on Catch (10 x 5), 1024 envs x 64
+  simulations: one step of the simulator's policy and one of the learned
+  model's, over ``make_mlp_transition_model(hidden=(64, 64))`` and an AZ
+  MLP, then 10 SGD steps of ``make_model_update_fn`` on a ring of the
+  env's transitions. Shapes, pi sums to 1, everything finite, no kernel
+  launch."""
+  from muax_tpu_torch.envs import Catch
+  from muax_tpu_torch.models import (ModelSearchParams, create_optimizer,
+                                     fused_learner, make_az_mlp,
+                                     make_mlp_transition_model,
+                                     make_model_policy_fn,
+                                     make_model_update_fn,
+                                     make_simulator_policy_fn,
+                                     model_replay_add, model_replay_init)
+  from muax_tpu_torch.replay import fused_sampler
+
+  game = Catch()
+  B = TRAIN_ENVS
+  net = make_az_mlp(3, device=device)
+  params = net.init_params(game.spec.observation_shape,
+                           torch.Generator().manual_seed(SEED))
+  model = make_mlp_transition_model(3, game.spec.observation_shape,
+                                    hidden=(64, 64), device=device)
+  mparams = model.init_params(torch.Generator().manual_seed(SEED + 1))
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  state, obs = game.reset(gen, B)
+  reset_counts()
+  figures = {}
+  for name, run in (
+      ("simulator", lambda: make_simulator_policy_fn(
+          game, net, MAIN_SIMS)(params, gen, state, obs, 1.0)),
+      ("model", lambda: make_model_policy_fn(model, net, MAIN_SIMS)(
+          ModelSearchParams(params, mparams), gen, obs, 1.0))):
+    t0 = time.perf_counter()
+    action, pi, value = run()
+    torch.cuda.synchronize()
+    check(tuple(action.shape) == (B,) and tuple(pi.shape) == (B, 3)
+          and tuple(value.shape) == (B,), f"{name} policy shapes")
+    check(torch.allclose(pi.sum(-1), torch.ones(B, device=device),
+                         atol=1e-5), f"{name} pi rows sum to 1")
+    check(bool(torch.isfinite(value).all()), f"{name} values finite")
+    figures[name] = {"step_ms": (time.perf_counter() - t0) * 1e3,
+                     "mean_root_value": float(value.mean())}
+  ring = model_replay_init(4096, game.spec.observation_shape, device=device)
+  while ring.size < 1024:
+    action = torch.randint(0, 3, (B,), generator=gen, device=device)
+    nxt_state, nxt_obs, reward, done = game.step(state, action)
+    model_replay_add(ring, obs, action, reward, nxt_obs, done)
+    state, obs = nxt_state, nxt_obs
+  optimizer = create_optimizer("adam", lr=1e-3)
+  update = make_model_update_fn(model, optimizer, batch_size=256,
+                                num_sgd_steps=10)
+  mparams, _, metrics = update(mparams, optimizer.init(mparams), ring, gen)
+  for k, v in metrics.items():
+    check(math.isfinite(float(v)), f"model metric {k} is finite")
+  check(float(metrics["model_loss"]) > 0, "the ring was full enough to train")
+  check(sum(search_counts()) + fused_sampler.launches
+        + fused_learner.launches == 0, "no kernel launch")
+  figures["update"] = {k: float(v) for k, v in metrics.items()}
+  return figures
 
 
 def run(device):
@@ -1645,19 +2174,72 @@ def run(device):
         f"checkpoint_every=2, and a resume: {json.dumps(smz_fit)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
+  # ---- reanalyze, legal-action masks, AlphaZero, the env models ---------
+  t0 = time.perf_counter()
+  reanalyze = reanalyze_phase(device, t)
+  reanalyze["fit"] = drive_reanalyze_fit(
+      device, os.path.dirname(os.path.abspath(__file__)))
+  reanalyze_fit = reanalyze["fit"]["launches"]
+  print(f"phase 21 reanalyze on phase 6's ring, {REANALYZE_SEGMENTS} "
+        f"segments x {MAIN_STEPS} steps a call, {MAIN_SIMS} and "
+        f"{REANALYZE_SIMS} simulations, then fit with reanalyze_every=1: "
+        f"{json.dumps(reanalyze)} ({time.perf_counter() - t0:.1f} s)")
+
+  from muax_tpu_torch.envs import ConnectFour, TicTacToe
+  t0 = time.perf_counter()
+  masked = {}
+  for policy in ("muzero", "gumbel"):
+    masked[policy], masked_in = masked_rollout(
+        device, ConnectFour(), policy, MAIN_ENVS, BOARD_STEPS)
+    masked[policy]["search_ms"] = time_ms(lambda: fused_cuda(*masked_in),
+                                          10)
+    masked[policy]["plain_search_ms"] = time_ms(
+        lambda: fused_reference(*masked_in), 1)
+    masked[policy]["bound_ms"], masked[policy]["bound_by"] = (
+        search_bound_ms(MAIN_ENVS, MAIN_SIMS, masked_in[0][3], True,
+                        gumbel=policy == "gumbel"))
+    masked[f"tictactoe_{policy}"], _ = masked_rollout(
+        device, TicTacToe(), policy, EDGE_ENVS, BOARD_STEPS)
+  print(f"phase 22 legal-action masks, Connect Four (A=7) at {MAIN_ENVS} "
+        f"envs and TicTacToe (A=9) at {EDGE_ENVS}, x {MAIN_SIMS} sims x "
+        f"{BOARD_STEPS} steps, each policy, the kernel timed on Connect "
+        f"Four's last roots: {json.dumps(masked)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  alphazero = alphazero_phase(device)
+  print(f"phase 23 AlphaZero on Connect Four (alphazero_connect4: resnet "
+        f"4 x 32, {AZ_ENVS} games x {MAIN_SIMS} sims x {AZ_MOVES} moves, "
+        f"batch 512, 8 updates), generic engine, then {AZ_EVAL_GAMES} games "
+        f"against a random player: {json.dumps(alphazero)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  env_models = env_model_phase(device)
+  print(f"phase 24 env models on Catch 10 x 5, {TRAIN_ENVS} envs x "
+        f"{MAIN_SIMS} sims, simulator and learned MLP model, 10 SGD steps: "
+        f"{json.dumps(env_models)} ({time.perf_counter() - t0:.1f} s)")
+
   kernels = [{
       "name": "fused_muzero_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",
       "replaces": "muax_tpu/search/fused.py:759",
-      "launches": train_launches[0], "max_abs_err": main_cmp["max_abs_err"],
+      "launches": train_launches[0] + 2 + reanalyze_fit["search"]
+                  + masked["muzero"]["launches"]
+                  + masked["tictactoe_muzero"]["launches"],
+      "max_abs_err": main_cmp["max_abs_err"],
       "ms": figures["search_ms"], "plain_ms": figures["plain_search_ms"],
       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
       **mlp_line(figures, main_groups, ptxas, "false"),
+      "reanalyze_1280": {k: reanalyze[f"sims={MAIN_SIMS}"][k] for k in (
+          "search_ms", "plain_search_ms", "bound_ms", "plan")},
+      "masked_a7": {k: masked["muzero"][k] for k in (
+          "search_ms", "plain_search_ms", "bound_ms", "plan")},
   }, {
       "name": "fused_sample_group", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_sampler.cu",
       "replaces": "muax_tpu/replay/fused_sampler.py:280",
-      "launches": train_launches[1],
+      "launches": train_launches[1] + reanalyze_fit["sampler"],
       "max_abs_err": sampler_main["max_abs_err"],
       "ms": train["sampler_ms"], "plain_ms": train["plain_sampler_ms"],
       "bound_ms": sampler_bound, "bound_by": sampler_by, "library_ms": None,
@@ -1665,7 +2247,7 @@ def run(device):
       "name": "fused_muzero_grad_raw", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_learner.cu",
       "replaces": "muax_tpu/models/fused_learner.py:665",
-      "launches": train_launches[2],
+      "launches": train_launches[2] + reanalyze_fit["learner"],
       "max_abs_err": learner_main["max_abs_err"],
       "ms": train["learner_kernel_ms"], "plain_ms": train["plain_learner_ms"],
       "bound_ms": learner_bound, "bound_by": learner_by, "library_ms": None,
@@ -1675,12 +2257,15 @@ def run(device):
       "name": "fused_gumbel_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",
       "replaces": 'muax_tpu/search/fused.py:759 (policy="gumbel")',
-      "launches": gumbel_train_launches[0],
+      "launches": gumbel_train_launches[0] + masked["gumbel"]["launches"]
+                  + masked["tictactoe_gumbel"]["launches"],
       "max_abs_err": gumbel_main["max_abs_err"],
       "ms": gumbel_figures["search_ms"],
       "plain_ms": gumbel_figures["plain_search_ms"],
       "bound_ms": gumbel_bound, "bound_by": gumbel_by, "library_ms": None,
       **mlp_line(gumbel_figures, gumbel_groups, ptxas, "true"),
+      "masked_a7": {k: masked["gumbel"][k] for k in (
+          "search_ms", "plain_search_ms", "bound_ms", "plan")},
   }, {
       "name": "fused_categorical_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",

@@ -68,6 +68,13 @@ class AutoResetWrapper:
     self.env = env
     self.spec = env.spec
 
+  def legal_action_mask(self, carry: AutoResetState):
+    """[B, A] float mask (1 = legal) of the current states, or None for an
+    env without ``legal_actions``."""
+    if hasattr(self.env, "legal_actions"):
+      return self.env.legal_actions(carry.env_state)
+    return None
+
   def reset(self, generator: torch.Generator,
             batch_size: int) -> AutoResetState:
     state, obs = self.env.reset(generator, batch_size)

@@ -1,10 +1,11 @@
-"""Network families (Stochastic MuZero's five nets among them), the
-losses, the optimizer, the fused learner and
-parameter conversion."""
+"""Network families (Stochastic MuZero's five nets and the AlphaZero nets
+among them), the env models, the losses, the optimizers, the fused learner
+and parameter conversion."""
 
 from muax_tpu_torch.models.networks import (
     MZNetworks,
     MZParams,
+    ResidualConvBlock,
     make_mlp_networks,
 )
 from muax_tpu_torch.models.acme_networks import (
@@ -17,9 +18,29 @@ from muax_tpu_torch.models.stochastic_networks import (
     SMZParams,
     make_stochastic_mlp_networks,
 )
-from muax_tpu_torch.models.convert import (mlp_params_from_numpy,
+from muax_tpu_torch.models.convert import (az_params_from_numpy,
+                                           env_model_params_from_numpy,
+                                           mlp_params_from_numpy,
                                            smz_params_from_numpy)
 from muax_tpu_torch.models.losses import LossMetrics, muzero_loss
 from muax_tpu_torch.models.stochastic_losses import (SMZLossMetrics,
                                                      stochastic_muzero_loss)
-from muax_tpu_torch.models.optimizers import muzero_optimizer
+from muax_tpu_torch.models.optimizers import (create_optimizer,
+                                              flatten_optimizer,
+                                              muzero_optimizer)
+from muax_tpu_torch.models.az_networks import (AZNetwork, AZParams,
+                                               make_az_mlp, make_az_resnet)
+from muax_tpu_torch.models.env_model import (
+    EnvModel,
+    ModelSearchParams,
+    env_model_loss,
+    make_mlp_transition_model,
+    make_model_policy_fn,
+    make_model_recurrent_fn,
+    make_model_update_fn,
+    make_simulator_policy_fn,
+    make_simulator_recurrent_fn,
+    model_replay_add,
+    model_replay_init,
+    model_replay_sample,
+)

@@ -10,11 +10,17 @@ The tree has the JAX package's layout::
       {'linear', 'linear_1', ...: {'w': [in, out], 'b': [out]},
        'layer_norm', 'block_0/layer_norm', ...: {'scale': [d], 'offset': [d]}}}
 
+The AlphaZero networks and the env model's transition network are one
+haiku tree each, with names such as ``conv2_d``, ``block_0/layer_norm``,
+``linear_1`` or ``obs_h0``.
+
 Each tower names its modules as haiku does (``haiku_modules()`` of the
 port's towers, in creation order): the MLP triplet has linears only, the
 acme families add LayerNorms (``models/acme_networks.py``). Linear weights
-are transposed into ``nn.Linear``'s [out, in]; a LayerNorm's scale and
-offset are its weight and bias. Only numpy arrays cross this boundary;
+are transposed into ``nn.Linear``'s [out, in], conv kernels go from
+haiku's HWIO to ``nn.Conv2d``'s OIHW; a LayerNorm's scale and offset are
+its weight and bias (per channel in the conv blocks, as haiku keeps
+them). Only numpy arrays cross this boundary;
 turning JAX parameters into numpy is the caller's business.
 """
 from __future__ import annotations
@@ -25,38 +31,65 @@ import numpy as np
 import torch
 from torch import nn
 
-from muax_tpu_torch.models.networks import MZParams
+from muax_tpu_torch.models.networks import ChannelLayerNorm, MZParams
 from muax_tpu_torch.models.stochastic_networks import SMZParams
 from muax_tpu_torch.replay.buffer import ReplayState
 
 _TOWERS = ("representation", "prediction", "dynamic")
 
 
+def _same(x):
+  return x
+
+
+def _transpose(x):
+  return x.T
+
+
+def _hwio_to_oihw(x):
+  return x.transpose(3, 2, 0, 1)
+
+
+def _oihw_to_hwio(x):
+  return x.transpose(2, 3, 1, 0)
+
+
 def _leaves(module: nn.Module):
-  """(haiku key, port tensor, transpose) for one module's parameters."""
-  if isinstance(module, nn.LayerNorm):
-    return (("scale", module.weight, False), ("offset", module.bias, False))
-  return (("w", module.weight, True), ("b", module.bias, False))
+  """(haiku key, port tensor, haiku -> port layout, port -> haiku layout)
+  for one module's parameters: a linear's [in, out] is ``nn.Linear``'s
+  [out, in], a conv's HWIO is ``nn.Conv2d``'s OIHW, a LayerNorm's scale and
+  offset are its weight and bias."""
+  if isinstance(module, (nn.LayerNorm, ChannelLayerNorm)):
+    return (("scale", module.weight, _same, _same),
+            ("offset", module.bias, _same, _same))
+  if isinstance(module, nn.Conv2d):
+    return (("w", module.weight, _hwio_to_oihw, _oihw_to_hwio),
+            ("b", module.bias, _same, _same))
+  return (("w", module.weight, _transpose, _transpose),
+          ("b", module.bias, _same, _same))
+
+
+def _load_modules(mods, tree: Mapping, label: str) -> None:
+  """Copy a numpy haiku tree into the (haiku name, module) pairs
+  ``mods``; raises ``ValueError`` where names or shapes do not fit."""
+  if set(tree) != {key for key, _ in mods}:
+    raise ValueError(f"{label}: tree has modules {sorted(tree)}, the "
+                     f"networks {sorted(key for key, _ in mods)}")
+  for key, module in mods:
+    for leaf, target, to_port, _ in _leaves(module):
+      # np.array copies: the tree may be read-only.
+      value = to_port(np.array(tree[key][leaf], np.float32))
+      if value.shape != tuple(target.shape):
+        raise ValueError(f"{label}/{key}/{leaf}: shape {value.shape} does "
+                         f"not fit {tuple(target.shape)}")
+      with torch.no_grad():
+        target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
 
 
 def _load_towers(params: nn.Module, tree: Mapping, towers) -> None:
   """Copy every tower of a numpy haiku tree into ``params``' modules."""
   for name in towers:
-    mods = getattr(params, name).haiku_modules()
-    if set(tree[name]) != {key for key, _ in mods}:
-      raise ValueError(f"{name}: tree has modules {sorted(tree[name])}, the "
-                       f"networks {sorted(key for key, _ in mods)}")
-    for key, module in mods:
-      for leaf, target, transpose in _leaves(module):
-        # np.array copies: the tree may be read-only.
-        value = np.array(tree[name][key][leaf], np.float32)
-        if transpose:
-          value = value.T
-        if value.shape != tuple(target.shape):
-          raise ValueError(f"{name}/{key}/{leaf}: shape {value.shape} does "
-                           f"not fit {tuple(target.shape)}")
-        with torch.no_grad():
-          target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+    _load_modules(getattr(params, name).haiku_modules(), tree[name], name)
 
 
 def mlp_params_from_numpy(tree: Mapping, networks,
@@ -87,8 +120,10 @@ def smz_params_from_numpy(tree: Mapping, networks,
   return params
 
 
-def _grads_to_numpy(params: nn.Module, flat_grads: torch.Tensor,
-                    towers) -> dict:
+def _modules_to_numpy(params: nn.Module, flat_grads: torch.Tensor,
+                      mods) -> dict:
+  """A flat vector in the order of ``params.parameters()`` as a numpy
+  haiku tree over the (haiku name, module) pairs ``mods``."""
   flat = flat_grads.detach().cpu().numpy()
   where = {}
   offset = 0
@@ -99,16 +134,20 @@ def _grads_to_numpy(params: nn.Module, flat_grads: torch.Tensor,
     raise ValueError(f"gradient of {flat.size} floats does not fit params "
                      f"of {offset}")
   tree = {}
-  for name in towers:
-    tree[name] = {}
-    for key, module in getattr(params, name).haiku_modules():
-      tree[name][key] = {}
-      for leaf, p, transpose in _leaves(module):
-        start, shape = where[id(p)]
-        value = flat[start:start + p.numel()].reshape(shape)
-        tree[name][key][leaf] = np.ascontiguousarray(
-            value.T if transpose else value)
+  for key, module in mods:
+    tree[key] = {}
+    for leaf, p, _, to_haiku in _leaves(module):
+      start, shape = where[id(p)]
+      value = flat[start:start + p.numel()].reshape(shape)
+      tree[key][leaf] = np.ascontiguousarray(to_haiku(value))
   return tree
+
+
+def _grads_to_numpy(params: nn.Module, flat_grads: torch.Tensor,
+                    towers) -> dict:
+  return {name: _modules_to_numpy(params, flat_grads,
+                                  getattr(params, name).haiku_modules())
+          for name in towers}
 
 
 def mlp_grads_to_numpy(params: MZParams, flat_grads: torch.Tensor) -> dict:
@@ -137,3 +176,36 @@ def replay_state_from_numpy(ring, device) -> ReplayState:
   return ReplayState(**{name: tensor(name) for name in _RING_FIELDS},
                      cursor=int(ring.cursor),
                      total_added=int(ring.total_added))
+
+
+def az_params_from_numpy(tree: Mapping, network, observation_shape,
+                         temperature: float = 1.0):
+  """Build ``AZParams`` on ``network.device`` from the numpy haiku tree of
+  ``make_az_mlp`` or ``make_az_resnet`` (``AZParams.network`` in the JAX
+  package). Raises ``ValueError`` when the tree does not fit."""
+  params = network.init_params(observation_shape)
+  params.temperature.fill_(temperature)
+  _load_modules(params.network.haiku_modules(), tree, "network")
+  return params
+
+
+def az_grads_to_numpy(params, flat_grads: torch.Tensor) -> dict:
+  """A flat gradient in the order of ``params.parameters()`` as a numpy
+  haiku tree with the names of ``az_params_from_numpy``'s input."""
+  return _modules_to_numpy(params, flat_grads,
+                           params.network.haiku_modules())
+
+
+def env_model_params_from_numpy(tree: Mapping, model):
+  """Build the transition network of ``make_mlp_transition_model`` on
+  ``model.device`` from its numpy haiku tree. Raises ``ValueError`` when
+  the tree does not fit."""
+  params = model.init_params()
+  _load_modules(params.haiku_modules(), tree, "model")
+  return params
+
+
+def env_model_grads_to_numpy(params, flat_grads: torch.Tensor) -> dict:
+  """A flat gradient in the order of ``params.parameters()`` as a numpy
+  haiku tree with the names of ``env_model_params_from_numpy``'s input."""
+  return _modules_to_numpy(params, flat_grads, params.haiku_modules())

@@ -182,3 +182,65 @@ def make_mlp_networks(
                     pred_layers=tuple(pred_layers),
                     dyn_layers=tuple(dyn_layers),
                     device=resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Residual conv blocks (``muax_tpu/models/networks.py:121-144``), shared by
+# the conv families. Tensors are NCHW; haiku's are NHWC.
+# ---------------------------------------------------------------------------
+
+_TRUNC_NORMAL_STD = 0.87962566103423978  # std of a unit normal cut at +-2
+
+
+def conv3x3(in_channels: int, out_channels: int,
+            generator=None) -> nn.Conv2d:
+  """haiku's ``Conv2D(out_channels, 3)`` (stride 1, SAME padding, with
+  bias) in NCHW. Weights start as haiku's: truncated normal with std
+  sqrt(1 / fan_in) / 0.8796, cut at two standard deviations, and zero
+  biases."""
+  conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+  std = math.sqrt(1.0 / (in_channels * 9)) / _TRUNC_NORMAL_STD
+  with torch.no_grad():
+    nn.init.trunc_normal_(conv.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+    conv.bias.zero_()
+  return conv
+
+
+class ChannelLayerNorm(nn.Module):
+  """haiku's ``LayerNorm(axis=(-3, -2, -1))`` in NCHW: normalised over all
+  of (C, H, W) with eps 1e-5, then a per-channel scale and offset (haiku
+  keeps them per channel, the last axis of NHWC)."""
+
+  def __init__(self, channels: int, eps: float = 1e-5):
+    super().__init__()
+    self.eps = eps
+    self.weight = nn.Parameter(torch.ones(channels))
+    self.bias = nn.Parameter(torch.zeros(channels))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    h = F.layer_norm(x, x.shape[1:], eps=self.eps)
+    return h * self.weight[:, None, None] + self.bias[:, None, None]
+
+
+class ResidualConvBlock(nn.Module):
+  """LayerNorm pre-activation residual conv block (EfficientZero-style):
+  LN -> relu -> conv3x3 -> LN -> relu -> conv3x3, plus the input. Modules
+  are registered in haiku's creation order. (The JAX block's stride and
+  projection options have no caller, there or here.)"""
+
+  def __init__(self, channels: int, generator=None):
+    super().__init__()
+    self.norm_in = ChannelLayerNorm(channels)
+    self.conv_in = conv3x3(channels, channels, generator)
+    self.norm_mid = ChannelLayerNorm(channels)
+    self.conv_out = conv3x3(channels, channels, generator)
+
+  def haiku_modules(self):
+    """(haiku name inside the block, module) in creation order."""
+    return [("layer_norm", self.norm_in), ("conv2_d", self.conv_in),
+            ("layer_norm_1", self.norm_mid), ("conv2_d_1", self.conv_out)]
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    h = self.conv_in(F.relu(self.norm_in(x)))
+    return self.conv_out(F.relu(self.norm_mid(h))) + x

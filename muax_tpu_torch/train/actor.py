@@ -11,8 +11,8 @@ version; Stochastic MuZero's five nets go through the fused forest search
 fc-resnet, as in the JAX package), it goes through the generic engine
 (``search/core.py``) on whichever device the caller chose; that route is
 picked from the configuration and the family, never as a fallback after a
-failure. Paths of the JAX actor that the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+failure. On an env with ``legal_actions`` (the board games) every route
+searches under the legal-action mask of the states it acts in.
 """
 from __future__ import annotations
 
@@ -36,11 +36,6 @@ from muax_tpu_torch.train.inference import (make_recurrent_fn, make_root_fn,
                                             make_smz_fns)
 from muax_tpu_torch.types import Transition
 
-_NOT_PORTED = {
-    "legal": ("legal-action masks come with the board environments "
-              "(ROADMAP.md A.7)"),
-}
-
 
 def uses_fused_search(networks, config: MuZeroConfig) -> bool:
   """Whether ``make_policy_fn`` takes the fused search: ``search.fused`` and
@@ -55,9 +50,9 @@ def uses_fused_search(networks, config: MuZeroConfig) -> bool:
 
 def _stochastic_policy(networks, config: MuZeroConfig, discount: float,
                        dirichlet_fraction: float):
-  """(params, generator, obs, temperature) -> (action, pi, root value) for
-  Stochastic MuZero: the fused forest search under ``search.fused``, the
-  generic engine otherwise."""
+  """(params, generator, obs, temperature, invalid_actions) -> (action, pi,
+  root value) for Stochastic MuZero: the fused forest search under
+  ``search.fused``, the generic engine otherwise."""
   if not isinstance(networks, SMZNetworks):
     raise ValueError("policy 'stochastic' needs Stochastic MuZero networks "
                      "(make_stochastic_mlp_networks)")
@@ -69,18 +64,19 @@ def _stochastic_policy(networks, config: MuZeroConfig, discount: float,
                 dirichlet_alpha=search.dirichlet_alpha,
                 pb_c_init=search.pb_c_init, pb_c_base=search.pb_c_base)
 
-  def fused(params, generator, obs, temperature):
+  def fused(params, generator, obs, temperature, invalid_actions):
     return fused_smz_policy(
         params, generator, root_fn(params, obs),
         extract_smz_fused_weights(networks, params),
         support_size=networks.support_size, discount=discount,
-        temperature=temperature, **common)
+        temperature=temperature, invalid_actions=invalid_actions, **common)
 
-  def generic(params, generator, obs, temperature):
+  def generic(params, generator, obs, temperature, invalid_actions):
     out = stochastic_muzero_policy(
         params, generator, root_fn(params, obs), decision_fn, chance_fn,
         num_chance_outcomes=networks.num_chance_outcomes,
-        temperature=temperature, discount=discount, **common)
+        temperature=temperature, discount=discount,
+        invalid_actions=invalid_actions, **common)
     return (out.action, out.action_weights,
             out.search_tree.summary().value)
 
@@ -89,10 +85,10 @@ def _stochastic_policy(networks, config: MuZeroConfig, discount: float,
 
 def _triplet_policy(networks, config: MuZeroConfig, discount: float,
                     dirichlet_fraction: float):
-  """(params, generator, obs, temperature) -> (action, pi, root value) for
-  MuZero and Gumbel MuZero over a triplet family: the fused search for a
-  family with a kernel under ``search.fused``, the generic engine
-  otherwise."""
+  """(params, generator, obs, temperature, invalid_actions) -> (action, pi,
+  root value) for MuZero and Gumbel MuZero over a triplet family: the fused
+  search for a family with a kernel under ``search.fused``, the generic
+  engine otherwise."""
   if isinstance(networks, SMZNetworks):
     raise ValueError("Stochastic MuZero networks search with policy "
                      "'stochastic'")
@@ -100,12 +96,13 @@ def _triplet_policy(networks, config: MuZeroConfig, discount: float,
   root_fn = make_root_fn(networks)
   recurrent_fn = make_recurrent_fn(networks, discount)
 
-  def fused(params, generator, obs, temperature):
+  def fused(params, generator, obs, temperature, invalid_actions):
     root = root_fn(params, obs)
     weights = extract_search_weights(networks, params)
     common = dict(num_simulations=search.num_simulations,
                   support_size=getattr(networks, "support_size", None),
-                  discount=discount, max_depth=search.max_depth)
+                  discount=discount, max_depth=search.max_depth,
+                  invalid_actions=invalid_actions)
     if search.policy == "gumbel":
       return fused_mlp_gumbel_policy(
           params, generator, root, weights,
@@ -117,10 +114,11 @@ def _triplet_policy(networks, config: MuZeroConfig, discount: float,
         dirichlet_alpha=search.dirichlet_alpha, pb_c_init=search.pb_c_init,
         pb_c_base=search.pb_c_base, temperature=temperature, **common)
 
-  def generic(params, generator, obs, temperature):
+  def generic(params, generator, obs, temperature, invalid_actions):
     root = root_fn(params, obs)
     common = dict(num_simulations=search.num_simulations,
-                  max_depth=search.max_depth)
+                  max_depth=search.max_depth,
+                  invalid_actions=invalid_actions)
     if search.policy == "gumbel":
       out = gumbel_muzero_policy(
           params, generator, root, recurrent_fn,
@@ -145,8 +143,9 @@ def make_policy_fn(networks, config: MuZeroConfig, discount: float,
   (action [B] int32, pi [B, A], root_value [B]).
 
   ``eval_mode`` disables the Dirichlet exploration noise on the MuZero and
-  Stochastic MuZero root prior. ``obs`` must lie on ``device``;
-  ``generator`` on the same device.
+  Stochastic MuZero root prior. ``invalid_actions`` [B, A] (1 = invalid)
+  masks actions out of the search and the choice. ``obs`` must lie on
+  ``device``; ``generator`` on the same device.
   """
   device = resolve_device(device)
   search = config.search
@@ -161,11 +160,9 @@ def make_policy_fn(networks, config: MuZeroConfig, discount: float,
   @torch.no_grad()
   def policy_fn(params, generator: torch.Generator, obs: torch.Tensor,
                 temperature, invalid_actions=None):
-    if invalid_actions is not None:
-      raise NotImplementedError(_NOT_PORTED["legal"])
     if obs.device != device:
       raise ValueError(f"obs lies on {obs.device}, the policy on {device}")
-    return run(params, generator, obs, temperature)
+    return run(params, generator, obs, temperature, invalid_actions)
 
   return policy_fn
 
@@ -177,10 +174,9 @@ def make_rollout_fn(networks: MZNetworks, env: AutoResetWrapper,
 
   Steps are written into preallocated [T, B, ...] tensors. At segment end
   come the n-step targets Rn (bootstrapped from the stored search values)
-  and the priorities |v - Rn|^alpha + 1e-6.
+  and the priorities |v - Rn|^alpha + 1e-6. On an env with legal actions,
+  each step searches under the mask of the states it acts in.
   """
-  if hasattr(env.env, "legal_actions"):
-    raise NotImplementedError(_NOT_PORTED["legal"])
   device = resolve_device(device)
   policy_fn = make_policy_fn(networks, config, config.train.discount,
                              device=device)
@@ -203,8 +199,10 @@ def make_rollout_fn(networks: MZNetworks, env: AutoResetWrapper,
 
     for t in range(T):
       obs[t] = carry.obs
+      legal = env.legal_action_mask(carry)
+      invalid = None if legal is None else 1.0 - legal
       action[t], pi[t], value[t] = policy_fn(params, generator, carry.obs,
-                                             temperature)
+                                             temperature, invalid)
       carry, reward[t], done[t], info = env.step(carry, action[t], generator)
       episode_return[t] = info["episode_return"]
 

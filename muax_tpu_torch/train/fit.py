@@ -29,6 +29,7 @@ from muax_tpu_torch.train.actor import make_policy_fn, make_rollout_fn
 from muax_tpu_torch.train.checkpoint import (load_checkpoint,
                                              save_checkpoint, save_pytree)
 from muax_tpu_torch.train.learner import TrainState, make_multi_update_fn
+from muax_tpu_torch.train.reanalyze import make_reanalyze_fn
 from muax_tpu_torch.train.temperature import schedule_temperature
 
 _HOST_ENVS = ("string env ids, host pools and gym adapters are not ported "
@@ -55,7 +56,9 @@ def make_evaluate_fn(networks: MZNetworks, env: AutoResetWrapper,
     finished = torch.zeros(num_envs, dtype=torch.bool, device=device)
     returns = torch.zeros(num_envs, dtype=torch.float32, device=device)
     for _ in range(max_steps):
-      action, _, _ = policy_fn(params, generator, carry.obs, 0.0)
+      legal = env.legal_action_mask(carry)
+      invalid = None if legal is None else 1.0 - legal
+      action, _, _ = policy_fn(params, generator, carry.obs, 0.0, invalid)
       carry, reward, done, _ = env.step(carry, action, generator)
       returns += torch.where(finished, torch.zeros_like(reward), reward)
       finished |= done
@@ -96,6 +99,10 @@ def fit(
   results): ``results['model_path']`` is the best checkpoint,
   ``results['history']`` the logged metrics.
 
+  ``reanalyze_every=N`` refreshes the targets of ``reanalyze_segments``
+  segments of the ring, stalest first, after every N-th iteration
+  (``train/reanalyze.py``), from the same generator as the rest of the run.
+
   ``checkpoint_every=K`` snapshots the full state to
   ``model_dir/ckpt_itNNNNNN.pkl`` every K iterations (hard-linked as
   ``ckpt_latest.pkl``, the last 5 kept). ``resume_from=path`` continues
@@ -108,8 +115,6 @@ def fit(
   if not isinstance(env, Environment) or (
       eval_env is not None and not isinstance(eval_env, Environment)):
     raise NotImplementedError(_HOST_ENVS)
-  if reanalyze_every:
-    raise NotImplementedError("reanalyze is not ported yet (ROADMAP.md A.5)")
   device = networks.device
 
   wrapped = AutoResetWrapper(env)
@@ -118,6 +123,9 @@ def fit(
   evaluate = make_evaluate_fn(
       networks, AutoResetWrapper(eval_env) if eval_env is not None
       else wrapped, config, device=device)
+  reanalyze = (make_reanalyze_fn(networks, config, reanalyze_segments,
+                                 device=device)
+               if reanalyze_every else None)
 
   params = networks.init_params(env.spec.observation_shape,
                                 torch.Generator().manual_seed(seed))
@@ -217,6 +225,11 @@ def fit(
     # One readback per iteration keeps the host at most one iteration ahead.
     float(metrics["loss"])
     timed_steps += env_steps_per_iter
+
+    if reanalyze is not None and (it + 1) % reanalyze_every == 0:
+      replay_state, re_metrics = reanalyze(train_state.params, replay_state,
+                                           generator, train_state.step)
+      metrics = {**metrics, **re_metrics}
 
     if (it + 1) % log_every == 0 or it == 0:
       metrics = {k: float(v) for k, v in metrics.items()}

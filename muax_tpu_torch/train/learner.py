@@ -67,7 +67,8 @@ def _make_finish(optimizer: GradientTransformation):
 
   def _finish(train_state: TrainState, grads: torch.Tensor, metrics):
     grads = check_numerics(grads, "grads")
-    updates, opt_state = optimizer.update(grads, train_state.opt_state)
+    updates, opt_state = optimizer.update(grads, train_state.opt_state,
+                                          train_state.params)
     apply_updates(train_state.params, updates)
     stacked = torch.stack([
         metrics.total, metrics.reward_loss, metrics.value_loss,

@@ -1,5 +1,7 @@
 """The slice as a whole: the port's self-play rollout, MuZero and Gumbel,
-against loops built from the JAX package's pieces, and the policy routes.
+against loops built from the JAX package's pieces, on CartPole and, with
+legal-action masks, on TicTacToe; and the policy routes, with and without
+masks.
 
 The port runs ``make_rollout_fn`` on the CPU (plain search, no Dirichlet
 noise, temperature 0). The reference loop, written here, runs JAX
@@ -255,10 +257,164 @@ def test_gumbel_rollout_matches_jax_loop(monkeypatch):
                                rtol=1e-4, atol=1e-5)
 
 
-def test_legal_action_masks_raise():
-  net = make_mlp_networks(2, device="cpu")
+
+
+# ---- legal-action masks: TicTacToe (A = 9) --------------------------------
+
+TTT_B, TTT_T, TTT_SIMS = 6, 10, 16
+
+
+def _ttt_reference(j_net, j_params, policy, actions, noise):
+  """The JAX loop on TicTacToe with the mask of each step: the Pallas
+  search in interpret mode, no root noise, and for MuZero the port's
+  actions (visit ties may break either way at temperature 0), for Gumbel
+  its own action from the given noise. Games that end restart from the
+  empty board, as the port's auto-reset does."""
+  from muax_tpu.envs.tictactoe import TicTacToe as JTicTacToe
+  from muax_tpu.search.policies import _mask_invalid as j_mask
+  game = JTicTacToe()
+  root_fn = jax.jit(j_root(j_net))
+  weights = jfused.extract_fused_weights(j_net, j_params)
+  step = jax.jit(jax.vmap(game.step))
+  legal_fn = jax.jit(jax.vmap(game.legal_actions))
+  obs_fn = jax.jit(jax.vmap(game.observation))
+  reset = jax.vmap(game.reset)(jax.random.split(jax.random.PRNGKey(0),
+                                                TTT_B))[0]
+  state = reset
+  out = {k: [] for k in ("obs", "legal", "visits", "action", "reward",
+                         "done", "value", "pi")}
+  for t in range(TTT_T):
+    obs = obs_fn(state)
+    legal = legal_fn(state)
+    invalid = 1.0 - legal
+    root = root_fn(j_params, obs.reshape(TTT_B, -1))
+    if policy == "muzero":
+      probs = jax.nn.softmax(root.prior_logits, -1)
+      logits = j_mask(jnp.log(jnp.maximum(probs, jnp.finfo(
+          probs.dtype).tiny)), invalid)
+      visits, value, _ = jfused.fused_muzero_search(
+          root.embedding, logits, root.value, weights,
+          num_simulations=TTT_SIMS, support_size=SUPPORT, discount=DISCOUNT,
+          invalid_actions=invalid)
+      action = jnp.asarray(actions[t])
+      pi = visits / visits.sum(-1, keepdims=True)
+    else:
+      g = jnp.asarray(noise[t])
+      masked = j_mask(root.prior_logits, invalid)
+      visits, value, cq = jfused.fused_gumbel_search(
+          root.embedding, masked, root.value, weights, gumbel=g,
+          max_num_considered_actions=16, num_simulations=TTT_SIMS,
+          support_size=SUPPORT, discount=DISCOUNT, invalid_actions=invalid)
+      score = jnp.where(visits == visits.max(-1, keepdims=True),
+                        g + masked + cq, -jnp.inf)
+      action = jnp.argmax(j_mask(score, invalid), -1).astype(jnp.int32)
+      pi = jax.nn.softmax(j_mask(masked + cq, invalid), -1)
+    for k, v in (("obs", obs), ("legal", legal), ("visits", visits),
+                 ("action", action), ("value", value), ("pi", pi)):
+      out[k].append(v)
+    state, _, reward, done = step(state, action)
+    out["reward"].append(reward)
+    out["done"].append(done)
+    state = jax.tree.map(lambda f, c: jnp.where(
+        done.reshape((-1,) + (1,) * (c.ndim - 1)), f, c), reset, state)
+  return {k: np.stack([np.asarray(x) for x in v]) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("policy", ["muzero", "gumbel"])
+def test_masked_rollout_matches_jax_loop(policy, monkeypatch):
+  """``make_rollout_fn`` on TicTacToe, which reads the legal mask of the
+  current states before every step, against the JAX loop over 10 steps (a
+  game lasts at most 9, and TicTacToe resets to the empty board on both
+  sides). Every action is legal and no visit or weight lands on an
+  illegal one; MuZero's action is one of the JAX kernel's most-visited,
+  Gumbel's is the JAX policy's. Tolerances as above: visits within 2 (pi
+  within 2 / sims), root values atol 5e-4 / rtol 1e-4; the Gumbel weights,
+  softmax(logits + completed q) over 9 actions, rtol 2e-3 / atol 1e-5, what
+  the completed q's rtol = atol = 1e-3 (``tests/test_fused.py:196-202``)
+  allows them."""
+  from muax_tpu_torch.envs import TicTacToe
+  j_net = j_make(9, embedding_dim=8, support_size=SUPPORT)
+  j_params = j_net.init_params(jax.random.PRNGKey(0), jnp.zeros((1, 18)))
+  tree = {name: jax.tree.map(np.asarray, getattr(j_params, name))
+          for name in ("representation", "prediction", "dynamic")}
+  net = make_mlp_networks(9, embedding_dim=8, support_size=SUPPORT,
+                          device="cpu")
+  params = mlp_params_from_numpy(tree, net)
+  noise = np.random.default_rng(6).gumbel(
+      size=(TTT_T, TTT_B, 9)).astype(np.float32)
+  steps = iter(noise)
+  monkeypatch.setattr(fused, "gumbel_noise", lambda generator, shape,
+                      device: torch.from_numpy(next(steps)))
+  config = MuZeroConfig(
+      search=SearchConfig(policy=policy, num_simulations=TTT_SIMS,
+                          dirichlet_fraction=0.0),
+      train=TrainConfig(num_envs=TTT_B, collect_steps=TTT_T,
+                        discount=DISCOUNT))
+  env = AutoResetWrapper(TicTacToe())
+  rollout = make_rollout_fn(net, env, config, device="cpu")
+  gen = torch.Generator().manual_seed(1)
+  _, seg, prio, metrics = rollout(params, env.reset(gen, TTT_B), gen, 0.0)
+  assert bool(torch.isfinite(prio).all())
+
+  action = seg.action.numpy().T          # [T, B]
+  ref = _ttt_reference(j_net, j_params, policy, action, noise)
+  legal = ref["legal"]                   # [T, B, 9]
+  np.testing.assert_array_equal(seg.obs.numpy().transpose(1, 0, 2, 3, 4),
+                                ref["obs"])
+  assert np.take_along_axis(legal, action[..., None], -1).all(), (
+      "an illegal action was taken")
+  pi = seg.pi.numpy().transpose(1, 0, 2)
+  assert np.all(pi[legal == 0] == 0.0), "weight on an illegal action"
+  np.testing.assert_array_equal(seg.reward.numpy().T, ref["reward"])
+  np.testing.assert_array_equal(seg.done.numpy().T, ref["done"])
+  assert ref["done"].any(axis=0).all()   # every env finished a game
+  np.testing.assert_allclose(seg.value.numpy().T, ref["value"], atol=5e-4,
+                             rtol=1e-4)
+  if policy == "muzero":
+    visits = ref["visits"]
+    most = np.take_along_axis(visits, action[..., None], -1)[..., 0]
+    np.testing.assert_array_equal(most, visits.max(-1))
+    np.testing.assert_allclose(pi, ref["pi"], atol=2.0 / TTT_SIMS + 1e-6)
+  else:
+    np.testing.assert_array_equal(action, ref["action"])
+    np.testing.assert_allclose(pi, ref["pi"], rtol=2e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", [
+    dict(policy="muzero"), dict(policy="gumbel"),
+    dict(policy="muzero", fused=False), dict(policy="gumbel", fused=False),
+    dict(policy="muzero", family="categorical"),
+    dict(policy="stochastic"), dict(policy="stochastic", fused=False)])
+def test_masked_policy_routes(route):
+  """``make_policy_fn(...)(..., invalid_actions)`` through every route: the
+  fused search (MLP and categorical), the generic engine, Stochastic
+  MuZero's fused forest and generic engine. No route gives weight to, or
+  takes, an invalid action; a row with one valid action takes it."""
+  from muax_tpu_torch.models import (make_categorical_mlp_networks,
+                                     make_stochastic_mlp_networks)
+  route = dict(route)
+  family = route.pop("family", "mlp")
+  A = 5
+  if route["policy"] == "stochastic":
+    net = make_stochastic_mlp_networks(A, num_chance_outcomes=3,
+                                       embedding_dim=6, support_size=5,
+                                       hidden=(8,), device="cpu")
+  elif family == "categorical":
+    net = make_categorical_mlp_networks(A, embedding_dim=8,
+                                        layer_sizes=(16,), num_bins=11,
+                                        device="cpu")
+  else:
+    net = make_mlp_networks(A, device="cpu")
   params = net.init_params((4,), torch.Generator().manual_seed(0))
-  policy = make_policy_fn(net, _config(), DISCOUNT, device="cpu")
-  with pytest.raises(NotImplementedError, match="A.7"):
-    policy(params, torch.Generator(), torch.zeros(3, 4), 1.0,
-           invalid_actions=torch.zeros(3, 2))
+  config = MuZeroConfig(search=SearchConfig(num_simulations=12, **route))
+  policy_fn = make_policy_fn(net, config, DISCOUNT, device="cpu")
+  gen = torch.Generator().manual_seed(2)
+  obs = torch.randn(8, 4, generator=gen)
+  invalid = (torch.rand(8, A, generator=gen) < 0.5).float()
+  invalid[:, 0] = 0.0
+  invalid[0] = torch.tensor([0.0, 1.0, 1.0, 1.0, 1.0])
+  action, pi, value = policy_fn(params, gen, obs, 1.0, invalid)
+  assert not bool(invalid[torch.arange(8), action.long()].any())
+  assert float(pi[invalid > 0].abs().max()) == 0.0
+  torch.testing.assert_close(pi.sum(-1), torch.ones(8))
+  assert int(action[0]) == 0 and bool(torch.isfinite(value).all())

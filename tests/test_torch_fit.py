@@ -2,8 +2,10 @@
 runs the JAX one (MuZero and Gumbel, through the fused search and through
 the generic engine), a bit-exact resume as
 ``tests/test_checkpoint.py:84-115``,
-the resume guards, the checkpoint round trip, the fused-status report and
-the parts that raise until their ROADMAP items are ported."""
+the resume guards, the checkpoint round trip, the fused-status report,
+reanalyze inside ``fit`` (bit-exact across a resume), Catch learned with the
+name-keyed adam as ``tests/test_e2e.py:39-63`` learns it, and the part that
+raises until its ROADMAP item is ported."""
 import os
 
 import numpy as np
@@ -87,14 +89,15 @@ def test_gumbel_resume_is_bit_exact(tmp_path):
   _check_resume(tmp_path, _config(search=dict(policy="gumbel")))
 
 
-def _check_resume(tmp_path, config):
+def _check_resume(tmp_path, config, **kwargs):
   state_a, results_a = _fit(tmp_path, num_iterations=4, checkpoint_every=2,
-                            save_best=False, config=config)
+                            save_best=False, config=config, **kwargs)
   mid = os.path.join(str(tmp_path), "ckpt_it000002.pkl")
   assert load_checkpoint(
       os.path.join(str(tmp_path), "ckpt_latest.pkl"))["iteration"] == 4
   state_b, results_b = _fit(tmp_path / "resumed", num_iterations=4,
-                            resume_from=mid, save_best=False, config=config)
+                            resume_from=mid, save_best=False, config=config,
+                            **kwargs)
   for (name, a), b in zip(state_a.params.state_dict().items(),
                           state_b.params.state_dict().values()):
     assert torch.equal(a, b), name
@@ -184,5 +187,43 @@ def test_fused_status_report():
 def test_unported_parts_raise(tmp_path):
   with pytest.raises(NotImplementedError, match="A.11"):
     fit("CartPole-v1", _networks(), _config(), num_iterations=1)
-  with pytest.raises(NotImplementedError, match="A.5"):
-    _fit(tmp_path, num_iterations=1, reanalyze_every=1)
+
+
+def test_reanalyze_resume_is_bit_exact(tmp_path):
+  """``fit`` with reanalyze after every iteration: the refresh runs (its
+  metrics are logged, the ring's target steps move) and a resume from the
+  iteration-2 snapshot reproduces the run bit for bit: the draws come from
+  the checkpointed generator and ``target_step`` is part of the ring."""
+  _check_resume(tmp_path, _config(), reanalyze_every=1,
+                reanalyze_segments=4)
+  _, results = _fit(tmp_path / "again", num_iterations=2, save_best=False,
+                    reanalyze_every=1, reanalyze_segments=4)
+  row = results["history"][-1]
+  assert row["reanalyzed_segments"] == 4.0
+  assert np.isfinite(row["reanalyze_value_shift"])
+
+
+def test_catch_learns_with_named_adam():
+  """``tests/test_e2e.py:39-63`` on the port: 2-row Catch, whose catch
+  reward is one step away, with ``create_optimizer("adam", lr=3e-3)``;
+  random play averages about -1/3 and the greedy evaluation must pass 0.3
+  within 50 iterations."""
+  from muax_tpu_torch.envs import Catch
+  from muax_tpu_torch.models.optimizers import create_optimizer
+  config = MuZeroConfig(
+      search=SearchConfig(num_simulations=8, dirichlet_alpha=1.0),
+      replay=ReplayConfig(capacity=256, min_fill=16),
+      train=TrainConfig(num_envs=32, collect_steps=6, batch_size=64,
+                        updates_per_iteration=16, unroll_steps=2,
+                        n_bootstrap=3, discount=0.99,
+                        temperature_schedule=((0.5, 1.0), (1.0, 0.5))))
+  networks = make_mlp_networks(3, embedding_dim=16, support_size=3,
+                               repr_layers=(32,), pred_layers=(32,),
+                               dyn_layers=(32,), device="cpu")
+  state, results = fit(Catch(rows=2, columns=3), networks, config,
+                       create_optimizer("adam", lr=3e-3), num_iterations=50,
+                       eval_every=10, log_every=10, save_best=False,
+                       log_fn=lambda s: None, target_reward=0.9)
+  assert results["best_reward"] >= -1.0
+  test_gs = [row["test_G"] for row in results["history"] if "test_G" in row]
+  assert max(test_gs) > 0.3, f"no learning progress: {test_gs}"

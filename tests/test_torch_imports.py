@@ -38,6 +38,10 @@ ACME = ("models.acme_networks", "models.convert", "train.inference",
 # the sampler's per_step_obs mode in replay.fused_sampler).
 SMZ = ("models.stochastic_networks", "models.stochastic_losses",
        "search.types", "search.policies", "train.learner", "fused_status")
+# Reanalyze, the board games, AlphaZero and the env models.
+BOARD = ("train.reanalyze", "envs.catch", "envs.board", "envs.tictactoe",
+         "envs.connect4", "models.az_networks", "train.selfplay",
+         "models.env_model")
 
 
 def test_port_imports_no_jax():
@@ -47,6 +51,6 @@ def test_port_imports_no_jax():
   head, names = out.stdout.strip().splitlines()
   count, banned = head.split(" ", 1)
   assert int(count) >= 45, out.stdout  # every module of the port was loaded
-  for name in TRAINING + ENGINE + ACME + SMZ:
+  for name in TRAINING + ENGINE + ACME + SMZ + BOARD:
     assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned
