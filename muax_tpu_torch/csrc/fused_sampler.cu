@@ -12,7 +12,7 @@
 //
 // What bounds it on this card. Per window it does a few dozen operations
 // and moves about 420 bytes (its segment index, num_starts Gumbels and
-// priorities, the start observation, K actions, rewards, returns and dones,
+// priorities, the start observation (f32 or, for pixel rings, uint8), K actions, rewards, returns and dones,
 // K*A policy entries, the segment's target step, and 40 output rows), so it
 // is bound by bytes: about 28 MB per launch of 65,536 windows, 8 us at
 // 3.35 TB/s. With per_step_obs it also reads and writes K observations per
@@ -53,8 +53,11 @@ struct Layout {
   int obs, action, reward, rn, pi, mask, start, weight, denom, tstep, rows;
 };
 
+// ObsT is the ring's observation type, float or uint8_t (pixel frames);
+// each element is converted to f32 as it is written into its raw row.
+template <typename ObsT>
 __global__ void __launch_bounds__(kThreads) fused_sample_group_kernel(
-    const float* __restrict__ obs, const int* __restrict__ action,
+    const ObsT* __restrict__ obs, const int* __restrict__ action,
     const float* __restrict__ reward, const float* __restrict__ rn,
     const float* __restrict__ pi, const uint8_t* __restrict__ done,
     const float* __restrict__ prios, const int* __restrict__ tstep,
@@ -104,7 +107,8 @@ __global__ void __launch_bounds__(kThreads) fused_sample_group_kernel(
   for (int j = lane; j < K; j += kGroup) {
     const size_t t = t0 + j;
     if (per_step_obs) {  // row f*K + j: feature f of step j
-      for (int f = 0; f < O; ++f) out(lay.obs + f * K + j, obs[t * O + f]);
+      for (int f = 0; f < O; ++f)
+        out(lay.obs + f * K + j, static_cast<float>(obs[t * O + f]));
     }
     out(lay.action + j, static_cast<float>(action[t]));
     out(lay.reward + j, reward[t]);
@@ -117,7 +121,8 @@ __global__ void __launch_bounds__(kThreads) fused_sample_group_kernel(
     valid += m;
   }
   if (!per_step_obs) {
-    for (int f = lane; f < O; f += kGroup) out(lay.obs + f, obs[t0 * O + f]);
+    for (int f = lane; f < O; f += kGroup)
+      out(lay.obs + f, static_cast<float>(obs[t0 * O + f]));
   }
   for (int o = kGroup / 2; o > 0; o >>= 1)
     valid += __shfl_xor_sync(group, valid, o);
@@ -134,15 +139,19 @@ __global__ void __launch_bounds__(kThreads) fused_sample_group_kernel(
 
 #define MZ_ERR_SHAPE (-1)
 
+// The ring's observation type, as mz_fused_sample_group's obs_dtype.
+#define MZ_OBS_F32 0
+#define MZ_OBS_U8 1
+
 extern "C" {
 
-// Launch the sampler on `stream`. The ring is row-major: obs [C, L, O] f32,
-// action [C, L] i32, reward and rn [C, L] f32, pi [C, L, A] f32, done
+// Launch the sampler on `stream`. The ring is row-major: obs [C, L, O] f32
+// (obs_dtype MZ_OBS_F32) or uint8 (MZ_OBS_U8), action [C, L] i32, reward and rn [C, L] f32, pi [C, L, A] f32, done
 // [C, L] bool (one byte), prios [C, L] f32, tstep [C] i32. seg_idx [W] i64,
 // gumbel [L, W] f32 (rows past num_starts are not read). raw [rows, W] f32
 // gets every row of the layout: O observation rows from r_obs, or O*K with
 // per_step_obs. Returns a cudaError_t, or MZ_ERR_SHAPE.
-int mz_fused_sample_group(const float* obs, const int* action,
+int mz_fused_sample_group(const void* obs, int obs_dtype, const int* action,
                           const float* reward, const float* rn,
                           const float* pi, const uint8_t* done,
                           const float* prios, const int* tstep,
@@ -153,20 +162,27 @@ int mz_fused_sample_group(const float* obs, const int* action,
                           int r_start, int r_weight, int r_denom, int r_tstep,
                           int rows, void* stream) {
   if (C < 1 || L < 1 || O < 1 || A < 1 || K < 1 || K > L || W < 1 ||
-      rows <= r_tstep)
+      rows <= r_tstep || (obs_dtype != MZ_OBS_F32 && obs_dtype != MZ_OBS_U8))
     return MZ_ERR_SHAPE;
   const Layout lay{r_obs, r_action, r_reward, r_rn, r_pi, r_mask,
                    r_start, r_weight, r_denom, r_tstep, rows};
   const int grid = (W + kWindows - 1) / kWindows;
-  fused_sample_group_kernel<<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      obs, action, reward, rn, pi, done, prios, tstep, seg_idx, gumbel, raw,
-      C, L, O, A, K, W, per_step_obs, lay);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (obs_dtype == MZ_OBS_U8)
+    fused_sample_group_kernel<uint8_t><<<grid, kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(obs), action, reward, rn, pi, done,
+        prios, tstep, seg_idx, gumbel, raw, C, L, O, A, K, W, per_step_obs,
+        lay);
+  else
+    fused_sample_group_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(obs), action, reward, rn, pi, done, prios,
+        tstep, seg_idx, gumbel, raw, C, L, O, A, K, W, per_step_obs, lay);
   return cudaGetLastError();
 }
 
 const char* mz_sampler_error_string(int code) {
-  if (code == MZ_ERR_SHAPE) return "shapes do not fit the fused sampler";
+  if (code == MZ_ERR_SHAPE)
+    return "shapes or the obs dtype do not fit the fused sampler";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -36,9 +36,10 @@ def _search_status(networks, config) -> dict:
     return {"active": True,
             "reason": "Stochastic MuZero forest search kernel"}
   if not uses_fused_search(networks, config):
+    family = getattr(networks, "family", "this")
     return {"active": False,
-            "reason": "network family has no search kernel (the fc-resnet "
-                      "runs the generic engine)"}
+            "reason": f"{family} network family has no search kernel: "
+                      "generic engine"}
   kind = "acme categorical" if hasattr(networks, "num_bins") else "MLP triplet"
   return {"active": True,
           "reason": f"{kind} search kernel ({search.policy} mode)"}

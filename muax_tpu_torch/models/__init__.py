@@ -1,12 +1,15 @@
-"""Network families (Stochastic MuZero's five nets and the AlphaZero nets
-among them), the env models, the losses, the optimizers, the fused learner
-and parameter conversion."""
+"""Network families (the conv triplets, Stochastic MuZero's five nets and
+the AlphaZero nets among them), the env models, the losses, the optimizers,
+the fused learner and parameter conversion."""
 
 from muax_tpu_torch.models.networks import (
+    ConvMZNetworks,
     MZNetworks,
     MZParams,
     ResidualConvBlock,
+    make_efficientzero_networks,
     make_mlp_networks,
+    make_resnet_networks,
 )
 from muax_tpu_torch.models.acme_networks import (
     CategoricalMZNetworks,
@@ -19,6 +22,8 @@ from muax_tpu_torch.models.stochastic_networks import (
     make_stochastic_mlp_networks,
 )
 from muax_tpu_torch.models.convert import (az_params_from_numpy,
+                                           conv_grads_to_numpy,
+                                           conv_params_from_numpy,
                                            env_model_params_from_numpy,
                                            mlp_params_from_numpy,
                                            smz_params_from_numpy)

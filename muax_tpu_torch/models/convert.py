@@ -10,8 +10,9 @@ The tree has the JAX package's layout::
       {'linear', 'linear_1', ...: {'w': [in, out], 'b': [out]},
        'layer_norm', 'block_0/layer_norm', ...: {'scale': [d], 'offset': [d]}}}
 
-The AlphaZero networks and the env model's transition network are one
-haiku tree each, with names such as ``conv2_d``, ``block_0/layer_norm``,
+The conv triplets' towers add ``conv2_d`` and ``enc_block_0/layer_norm``
+style names. The AlphaZero networks and the env model's transition network
+are one haiku tree each, with names such as ``conv2_d``, ``block_0/layer_norm``,
 ``linear_1`` or ``obs_h0``.
 
 Each tower names its modules as haiku does (``haiku_modules()`` of the
@@ -161,6 +162,31 @@ def smz_grads_to_numpy(params: SMZParams, flat_grads: torch.Tensor) -> dict:
   """The same for the five nets, with the names of
   ``smz_params_from_numpy``'s input."""
   return _grads_to_numpy(params, flat_grads, SMZParams.TOWERS)
+
+
+def conv_params_from_numpy(tree: Mapping, networks, observation_shape,
+                          temperature: float = 1.0) -> MZParams:
+  """Build ``MZParams`` on ``networks.device`` from the numpy haiku tree of
+  a conv triplet (``make_efficientzero_networks`` or
+  ``make_resnet_networks``) for observations [H, W, C]. Each tower's
+  modules are matched by haiku's names, which follow haiku's build order
+  (``haiku_modules()``): in a block with a projection ``conv2_d`` is the
+  1x1 shortcut, and in the dynamics ``linear`` is the reward head and
+  ``linear_1`` the layer before it.
+
+  Raises ``ValueError`` when the tree's modules do not fit ``networks``.
+  """
+  params = networks.init_params(tuple(observation_shape))
+  params.temperature.fill_(temperature)
+  _load_towers(params, tree, _TOWERS)
+  return params
+
+
+def conv_grads_to_numpy(params: MZParams, flat_grads: torch.Tensor) -> dict:
+  """A flat gradient in the order of ``params.parameters()`` as a numpy
+  haiku tree with the names of ``conv_params_from_numpy``'s input (conv
+  kernels back to HWIO)."""
+  return _grads_to_numpy(params, flat_grads, _TOWERS)
 
 
 _RING_FIELDS = ("obs", "action", "reward", "done", "rn", "value", "pi",

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from muax_tpu_torch.models.networks import MZNetworks, MZParams
 from muax_tpu_torch.ops import (scalar_to_support, scalar_to_two_hot,
@@ -54,6 +55,19 @@ def l2_sum(params: MZParams) -> torch.Tensor:
   return sum(torch.sum(torch.square(p)) for p in params.parameters())
 
 
+def _tower(module: torch.nn.Module, compute_dtype, remat: bool):
+  """``module``'s forward, on parameters cast to ``compute_dtype`` (cast
+  once per loss call), and checkpointed under ``remat``."""
+  fn = module
+  if compute_dtype is not None:
+    cast = {name: p.to(compute_dtype) if p.is_floating_point() else p
+            for name, p in module.named_parameters()}
+    fn = lambda *args: torch.func.functional_call(module, cast, args)
+  if remat:
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+  return fn
+
+
 def muzero_loss(
     params: MZParams,
     batch: Transition,
@@ -63,17 +77,33 @@ def muzero_loss(
     l2_coef: float = 1e-4,
     gradient_scale: float = 0.5,
     priority_alpha: float = 0.5,
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
 ):
   """The unrolled loss on a [B, L, ...] batch; returns (total, LossMetrics).
 
   The dynamics chain runs first and prediction runs once on the K stacked
   latents, as the JAX package's default ``batched_prediction`` does.
+
+  ``compute_dtype=torch.bfloat16`` runs the towers on bf16 casts of the
+  parameters (autograd carries the gradients back through the casts, so
+  they stay f32 master gradients) and on a bf16 cast of a floating
+  observation; the cross-entropies, the target encodes and L2 stay f32.
+  ``remat=True`` recomputes the representation's and each dynamics step's
+  activations in the backward pass instead of keeping them
+  (``torch.utils.checkpoint``). Both are the conv families' memory levers.
   """
   encode, decode = _target_codec(networks)
   num_steps = num_unroll_steps or batch.action.shape[1]
   batch_size = batch.action.shape[0]
+  representation = _tower(params.representation, compute_dtype, remat)
+  prediction = _tower(params.prediction, compute_dtype, False)
+  dynamic = _tower(params.dynamic, compute_dtype, remat)
 
-  s = params.representation(batch.obs[:, 0])
+  obs0 = batch.obs[:, 0]
+  if compute_dtype is not None and obs0.is_floating_point():
+    obs0 = obs0.to(compute_dtype)
+  s = representation(obs0)
   value_targets = encode(batch.rn[:, :num_steps])
   reward_targets = encode(batch.reward[:, :num_steps])
   mask = batch.mask.to(torch.float32)
@@ -82,14 +112,14 @@ def muzero_loss(
   step_states = [s]
   for i in range(num_steps):
     s = scale_gradient(s, gradient_scale)
-    reward_logits, s = params.dynamic(s, batch.action[:, i])
-    reward_loss = reward_loss + mask[:, i] * _ce(reward_logits,
+    reward_logits, s = dynamic(s, batch.action[:, i])
+    reward_loss = reward_loss + mask[:, i] * _ce(reward_logits.float(),
                                                  reward_targets[:, i])
     if i < num_steps - 1:
       step_states.append(s)
-  policy_logits, value_logits = params.prediction(torch.cat(step_states, 0))
-  policy_logits = policy_logits.reshape(num_steps, batch_size, -1)
-  value_logits = value_logits.reshape(num_steps, batch_size, -1)
+  policy_logits, value_logits = prediction(torch.cat(step_states, 0))
+  policy_logits = policy_logits.float().reshape(num_steps, batch_size, -1)
+  value_logits = value_logits.float().reshape(num_steps, batch_size, -1)
   value_loss = torch.zeros_like(reward_loss)
   policy_loss = torch.zeros_like(reward_loss)
   for i in range(num_steps):

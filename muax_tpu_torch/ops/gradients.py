@@ -11,3 +11,21 @@ def scale_gradient(t: torch.Tensor, scale: float) -> torch.Tensor:
   appendix G).
   """
   return t * scale + t.detach() * (1.0 - scale)
+
+
+class _ClipGradient(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, t, clip):
+    ctx.clip = clip
+    return t.view_as(t)
+
+  @staticmethod
+  def backward(ctx, grad):
+    return torch.clamp(grad, -ctx.clip, ctx.clip), None
+
+
+def clip_gradient(t: torch.Tensor, clip: float) -> torch.Tensor:
+  """Identity in the forward pass; clamps the gradient elementwise to
+  [-clip, clip] in the backward pass."""
+  return _ClipGradient.apply(t, clip)

@@ -41,6 +41,15 @@ def n_step_bootstrapped_returns(
   return targets.detach()
 
 
+def batched_n_step_returns(r: torch.Tensor, d: torch.Tensor,
+                           v: torch.Tensor, n: int,
+                           lambda_t: float = 1.0) -> torch.Tensor:
+  """``n_step_bootstrapped_returns`` of each row of [B, T] inputs (the JAX
+  package's vmap over a leading batch dim; the recursion here already runs
+  along the last axis of any batch)."""
+  return n_step_bootstrapped_returns(r, d, v, n, lambda_t)
+
+
 def segment_n_step_returns(
     rewards: torch.Tensor,
     values: torch.Tensor,

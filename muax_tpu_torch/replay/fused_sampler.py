@@ -20,7 +20,9 @@ On a CUDA tensor ``fused_sample_group`` launches the hand-written kernel
 ``fused_sample_group_reference``, its plain PyTorch version. The kernel
 reads the ring in its own [C, L, ...] layout by direct indexing: the JAX
 package's ``transpose_ring`` and one-hot matmul gather exist only because
-XLA's gather was slow on the TPU, and have no counterpart here.
+XLA's gather was slow on the TPU, and have no counterpart here. The ring's
+observations may be f32 or uint8 (pixel frames); the kernel converts each
+element to f32 as it writes it, as the plain version's assignment does.
 """
 from __future__ import annotations
 
@@ -155,17 +157,22 @@ def _load_kernel():
   fn = lib.mz_fused_sample_group
   if fn.argtypes is None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 11 + [i32] * 6 + [i32] * 12 + [ptr]
+    fn.argtypes = [ptr, i32] + [ptr] * 10 + [i32] * 6 + [i32] * 12 + [ptr]
     fn.restype = i32
     lib.mz_sampler_error_string.argtypes = [i32]
     lib.mz_sampler_error_string.restype = ctypes.c_char_p
   return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device):
-  if t.device != device or t.dtype != dtype:
-    raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} "
-                     f"on {t.device}")
+# The kernel's observation types (the C entry point's obs_dtype).
+_OBS_DTYPES = {torch.float32: 0, torch.uint8: 1}
+
+
+def _check(name: str, t: torch.Tensor, dtypes, shape, device):
+  dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+  if t.device != device or t.dtype not in dtypes:
+    raise ValueError(f"{name}: expected {' or '.join(map(str, dtypes))} on "
+                     f"{device}, got {t.dtype} on {t.device}")
   if tuple(t.shape) != tuple(shape):
     raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                      f"{tuple(t.shape)}")
@@ -183,7 +190,9 @@ def _sample_cuda(state: ReplayState, seg_idx: torch.Tensor,
   if not 1 <= K <= L:
     raise ValueError(f"unroll {K} does not fit segments of length {L}")
   f32 = torch.float32
-  _check("obs", state.obs, f32, (C, L) + tuple(state.obs.shape[2:]), dev)
+  # A uint8 ring (pixel frames) is read as bytes by the kernel itself.
+  _check("obs", state.obs, tuple(_OBS_DTYPES),
+         (C, L) + tuple(state.obs.shape[2:]), dev)
   _check("action", state.action, torch.int32, (C, L), dev)
   _check("reward", state.reward, f32, (C, L), dev)
   _check("rn", state.rn, f32, (C, L), dev)
@@ -197,7 +206,8 @@ def _sample_cuda(state: ReplayState, seg_idx: torch.Tensor,
   raw = torch.empty((lay.rows, W), dtype=f32, device=dev)
   lib = _load_kernel()
   err = lib.mz_fused_sample_group(
-      state.obs.data_ptr(), state.action.data_ptr(), state.reward.data_ptr(),
+      state.obs.data_ptr(), _OBS_DTYPES[state.obs.dtype],
+      state.action.data_ptr(), state.reward.data_ptr(),
       state.rn.data_ptr(), state.pi.data_ptr(), state.done.data_ptr(),
       state.step_priorities.data_ptr(), state.target_step.data_ptr(),
       seg_idx.data_ptr(), gumbel.data_ptr(), raw.data_ptr(),

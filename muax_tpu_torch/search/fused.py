@@ -287,27 +287,30 @@ def _plain_forest(root_embedding, root_prior_logits, root_value,
   if max_depth is None:
     max_depth = num_simulations
   dev = root_embedding.device
-  f32 = torch.float32
+  # f32 on every route of the port; f64 roots (an exact reference for
+  # checks) keep their precision.
+  dt = (torch.float64 if root_embedding.dtype == torch.float64
+        else torch.float32)
   rows = torch.arange(B, device=dev)
-  invalid = (torch.zeros(B, A, dtype=f32, device=dev)
-             if invalid_actions is None else invalid_actions.to(f32))
+  invalid = (torch.zeros(B, A, dtype=dt, device=dev)
+             if invalid_actions is None else invalid_actions.to(dt))
 
-  nvis = torch.zeros(B, N, dtype=f32, device=dev)
+  nvis = torch.zeros(B, N, dtype=dt, device=dev)
   nvis[:, 0] = 1.0
-  nval = torch.zeros(B, N, dtype=f32, device=dev)
-  nval[:, 0] = root_value.to(f32)
+  nval = torch.zeros(B, N, dtype=dt, device=dev)
+  nval[:, 0] = root_value.to(dt)
   nraw = nval.clone()
-  nrew = torch.zeros(B, N, dtype=f32, device=dev)
+  nrew = torch.zeros(B, N, dtype=dt, device=dev)
   npar = torch.full((B, N), -1, dtype=torch.long, device=dev)
   nact = torch.full((B, N), -1, dtype=torch.long, device=dev)
   cidx = torch.full((B, N, A), -1, dtype=torch.long, device=dev)
-  cpri = torch.zeros(B, N, A, dtype=f32, device=dev)
-  cpri[:, 0] = torch.softmax(root_prior_logits.to(f32), dim=-1)
-  cvis = torch.zeros(B, N, A, dtype=f32, device=dev)
-  crew = torch.zeros(B, N, A, dtype=f32, device=dev)
-  cval = torch.zeros(B, N, A, dtype=f32, device=dev)
-  embs = torch.zeros(B, N, E, dtype=f32, device=dev)
-  embs[:, 0] = root_embedding.to(f32)
+  cpri = torch.zeros(B, N, A, dtype=dt, device=dev)
+  cpri[:, 0] = torch.softmax(root_prior_logits.to(dt), dim=-1)
+  cvis = torch.zeros(B, N, A, dtype=dt, device=dev)
+  crew = torch.zeros(B, N, A, dtype=dt, device=dev)
+  cval = torch.zeros(B, N, A, dtype=dt, device=dev)
+  embs = torch.zeros(B, N, E, dtype=dt, device=dev)
+  embs[:, 0] = root_embedding.to(dt)
 
   def completed_q(cur):
     return _completed_q(cur, rows, nraw, cvis, cpri, crew, cval, discount)
@@ -387,7 +390,7 @@ def _plain_forest(root_embedding, root_prior_logits, root_value,
                        existing)
 
     # Expansion.
-    x = torch.cat([embs[rows, parent], F.one_hot(act, A).to(f32)], -1)
+    x = torch.cat([embs[rows, parent], F.one_hot(act, A).to(dt)], -1)
     h = tower(x, spec.dyn_layers)
     reward = _decode(h @ spec.dyn_reward[0] + spec.dyn_reward[1], spec)
     ns = h @ spec.dyn_state[0] + spec.dyn_state[1]
@@ -426,7 +429,7 @@ def _plain_forest(root_embedding, root_prior_logits, root_value,
           on, (nval[rows, par] * cnt + vnew) / (cnt + 1.0), nval[rows, par])
       nvis[rows, par] = torch.where(on, cnt + 1.0, cnt)
       cval[rows, par, a_b] = torch.where(on, child_val, cval[rows, par, a_b])
-      cvis[rows, par, a_b] = cvis[rows, par, a_b] + on.to(f32)
+      cvis[rows, par, a_b] = cvis[rows, par, a_b] + on.to(dt)
       v = torch.where(on, vnew, v)
       idx = torch.where(on, par, idx)
 

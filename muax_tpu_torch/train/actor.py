@@ -8,7 +8,8 @@ categorical family in the kernel's categorical modes), on the CPU its plain
 version; Stochastic MuZero's five nets go through the fused forest search
 (``csrc/fused_smz.cu`` on the card, its plain version on the CPU). With
 ``search.fused=False``, and for a family the kernel does not take (the
-fc-resnet, as in the JAX package), it goes through the generic engine
+fc-resnet and the conv triplets, as in the JAX package), it goes through
+the generic engine
 (``search/core.py``) on whichever device the caller chose; that route is
 picked from the configuration and the family, never as a fallback after a
 failure. On an env with ``legal_actions`` (the board games) every route
@@ -40,7 +41,8 @@ from muax_tpu_torch.types import Transition
 def uses_fused_search(networks, config: MuZeroConfig) -> bool:
   """Whether ``make_policy_fn`` takes the fused search: ``search.fused`` and
   a family with a kernel (the MLP triplet, the categorical LayerNormMLP,
-  Stochastic MuZero's five nets)."""
+  Stochastic MuZero's five nets). The conv triplets (``ConvMZNetworks``,
+  family "conv") and the fc-resnet have none."""
   if not config.search.fused:
     return False
   return isinstance(networks, (MZNetworks, SMZNetworks)) or (

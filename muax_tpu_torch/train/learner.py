@@ -13,7 +13,8 @@ Group paths, chosen by ``fused_group_status`` from what the setup is:
   the same, with the sampler in its ``per_step_obs`` mode, whose rows
   ``_transition_from_raw`` turns back into a [B, K, ...] batch for autograd
   over the family's loss;
-* the generic path (``fused_sampler`` off, an ``observation_transform``):
+* the generic path (``fused_sampler`` off, an ``observation_transform``,
+  or more than 64 observation features, as for the pixel rings):
   ``replay_sample`` -> ``_interleave_chunks`` -> one gradient step per chunk
   (the fused learner in batch mode, or autograd over the family's loss).
 
@@ -220,6 +221,13 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
       return None, None, "disabled by config (fused_sampler)"
     if tcfg.observation_transform is not None:
       return None, None, "observation_transform runs on the sampled batch"
+    O = math.prod(replay_state.obs.shape[2:])
+    if O > 64:
+      # The sampler writes O (hybrid: O x K) f32 rows a window: about 1 GB
+      # a group of 16,384 pixel windows, where replay_sample gathers the
+      # batch's uint8 windows.
+      return None, None, (f"obs features {O} > 64 (pixel rings take "
+                          "replay_sample)")
     L = replay_state.segment_length
     if L - K + 1 < 1:
       return None, None, f"unroll {K} exceeds segment length {L}"

@@ -9,8 +9,13 @@ must be exactly equal (both copy the same values); ``logf`` and
 ``torch.log`` may differ by an ulp, so a near-tie may pick another start,
 on at most 0.01 % of windows. Batches that end inside a block, segments
 outside the ring (all-zero windows) and windows longer than a group of 8
-lanes (K = 12) are covered, in both modes.
+lanes (K = 12) are covered, in both modes. A uint8 ring (pixel frames,
+50 features) is read by the kernel itself: its raw rows equal the plain
+version's where the start agrees, and equal bit for bit the kernel's rows
+of the same ring cast to f32.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -28,15 +33,22 @@ def cuda():
   return torch.device("cuda", torch.cuda.current_device())
 
 
-def _ring(device, C, L, A, filled, seed=0):
+def _ring(device, C, L, A, filled, seed=0, frame=None):
+  """A seeded ring: 4 f32 features, or uint8 frames of shape ``frame``."""
   gen = torch.Generator(device=device).manual_seed(seed)
 
   def rand(*shape):
     return torch.rand(shape, generator=gen, device=device)
 
-  state = replay_init(C, L, (4,), A, device=device)
+  if frame is None:
+    state = replay_init(C, L, (4,), A, device=device)
+    obs = torch.randn((filled, L, 4), generator=gen, device=device)
+  else:
+    state = replay_init(C, L, frame, A, obs_dtype=torch.uint8, device=device)
+    obs = torch.randint(0, 256, (filled, L) + frame, generator=gen,
+                        device=device, dtype=torch.uint8)
   segs = Transition(
-      obs=torch.randn((filled, L, 4), generator=gen, device=device),
+      obs=obs,
       action=torch.randint(0, A, (filled, L), generator=gen, device=device,
                            dtype=torch.int32),
       reward=rand(filled, L), done=rand(filled, L) < 0.2,
@@ -115,3 +127,25 @@ def test_kernel_ragged_batches_and_segments_outside_the_ring(
       per_step_obs=per_step_obs)
   assert lay == ref_lay
   assert compare_raw(raw[:, inside], ref, lay) >= 0.9999
+
+
+@pytest.mark.parametrize("per_step_obs", [False, True])
+def test_kernel_reads_uint8_rings(cuda, per_step_obs):
+  """PixelCatch(10, 5, scale=1)'s frames: 50 uint8 features, W = 16,384."""
+  state, gen = _ring(cuda, 256, 20, 3, 256, frame=(10, 5, 1))
+  W, K = 16384, 5
+  seg_idx = torch.randint(0, 256, (W,), generator=gen, device=cuda)
+  gumbel = gumbel_noise(gen, (20, W), cuda)
+  raw, lay = fused_sampler.fused_sample_group(state, seg_idx, gumbel, K,
+                                              per_step_obs=per_step_obs)
+  ref, _ = fused_sampler.fused_sample_group_reference(
+      state, seg_idx, gumbel, K, per_step_obs=per_step_obs)
+  assert lay.O == 50
+  assert compare_raw(raw, ref, lay) >= 0.9999
+  as_f32 = dataclasses.replace(state, obs=state.obs.float())
+  raw_f32, _ = fused_sampler.fused_sample_group(as_f32, seg_idx, gumbel, K,
+                                                per_step_obs=per_step_obs)
+  assert torch.equal(raw, raw_f32)
+  with pytest.raises(ValueError, match="uint8"):
+    fused_sampler.fused_sample_group(
+        dataclasses.replace(state, obs=state.obs.half()), seg_idx, gumbel, K)

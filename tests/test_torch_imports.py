@@ -42,6 +42,10 @@ SMZ = ("models.stochastic_networks", "models.stochastic_losses",
 BOARD = ("train.reanalyze", "envs.catch", "envs.board", "envs.tictactoe",
          "envs.connect4", "models.az_networks", "train.selfplay",
          "models.env_model")
+# The conv and pixel path and the helpers ported beside it.
+PIXEL = ("models.networks", "ops.normalize", "ops.frames",
+         "ops.augmentations", "ops.gradients", "ops.returns", "envs.pixel",
+         "envs.wrappers", "utils.debug")
 
 
 def test_port_imports_no_jax():
@@ -51,6 +55,6 @@ def test_port_imports_no_jax():
   head, names = out.stdout.strip().splitlines()
   count, banned = head.split(" ", 1)
   assert int(count) >= 45, out.stdout  # every module of the port was loaded
-  for name in TRAINING + ENGINE + ACME + SMZ + BOARD:
+  for name in TRAINING + ENGINE + ACME + SMZ + BOARD + PIXEL:
     assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned

@@ -89,6 +89,34 @@ def test_min_max_normalize():
          jops.min_max_normalize(jnp.asarray(s)))
 
 
+@pytest.mark.parametrize("axis", [-1, (0, 2), (-3, -2)])
+def test_min_max_normalize_over_axes(axis):
+  """``dim`` takes a tuple, as JAX's ``axis`` does; the 2-D form reduces
+  the spatial dims of NCHW latents, JAX's those of NHWC."""
+  s = _values(8, (3, 5, 4), scale=2.0)
+  _close(tops.min_max_normalize(torch.from_numpy(s), axis),
+         jops.min_max_normalize(jnp.asarray(s), axis))
+  maps = _values(9, (2, 4, 3, 6), scale=2.0)  # NHWC
+  _close(tops.min_max_normalize2d(
+      torch.from_numpy(maps).permute(0, 3, 1, 2)).permute(0, 2, 3, 1),
+         jops.min_max_normalize2d(jnp.asarray(maps)))
+
+
+def test_clip_gradient_matches_jax_grad():
+  import jax
+  x = _values(10, (32,), scale=1.0)
+  w = _values(11, (32,), scale=4.0)  # upstream gradients, half above 1.0
+  ref = jax.grad(lambda t: jnp.sum(jops.clip_gradient(t, 1.0) ** 2
+                                   * jnp.asarray(w)))(jnp.asarray(x))
+  t = torch.from_numpy(x).requires_grad_()
+  out = tops.clip_gradient(t, 1.0)
+  assert torch.equal(out, t)
+  (grad,) = torch.autograd.grad(torch.sum(out ** 2 * torch.from_numpy(w)),
+                                t)
+  _close(grad, ref)
+  assert float(grad.abs().max()) == 1.0
+
+
 @pytest.mark.parametrize("shape", [(20,), (20, 6)])
 @pytest.mark.parametrize("n,lam", [(10, 1.0), (3, 0.8)])
 def test_segment_n_step_returns(shape, n, lam):
@@ -108,11 +136,36 @@ def test_n_step_bootstrapped_returns():
   rng = np.random.default_rng(7)
   r, v = (rng.standard_normal((4, 12)).astype(np.float32) for _ in range(2))
   d = np.full((4, 12), 0.99, np.float32)
-  port = tops.n_step_bootstrapped_returns(
-      torch.from_numpy(r), torch.from_numpy(d), torch.from_numpy(v), 5, 0.9)
   ref = jops.batched_n_step_returns(jnp.asarray(r), jnp.asarray(d),
                                     jnp.asarray(v), 5, 0.9)
-  _close(port, ref, atol=1e-5)
+  for fn in (tops.n_step_bootstrapped_returns, tops.batched_n_step_returns):
+    port = fn(torch.from_numpy(r), torch.from_numpy(d), torch.from_numpy(v),
+              5, 0.9)
+    _close(port, ref, atol=1e-5)
+
+
+def test_debug_guards():
+  """``assert_finite`` over a tensor, a module and a nested structure;
+  ``nan_guard`` turns on ``check_numerics`` and anomaly mode and restores
+  both."""
+  from muax_tpu_torch.utils import debug
+  debug.assert_finite({"a": [torch.ones(3)], "m": torch.nn.Linear(2, 2)})
+  layer = torch.nn.Linear(2, 2)
+  with torch.no_grad():
+    layer.bias[1] = float("nan")
+  with pytest.raises(FloatingPointError, match=r"net\.bias"):
+    debug.assert_finite(layer, "net")
+  with pytest.raises(FloatingPointError, match=r"x\[1\]"):
+    debug.assert_finite((torch.zeros(2), torch.tensor([float("inf")])), "x")
+  assert not debug.check_numerics_enabled()
+  assert not torch.is_anomaly_enabled()
+  with debug.nan_guard():
+    assert debug.check_numerics_enabled() and torch.is_anomaly_enabled()
+    with pytest.raises(FloatingPointError):
+      debug.check_numerics(torch.tensor([float("nan")]), "grads")
+  assert not debug.check_numerics_enabled()
+  assert not torch.is_anomaly_enabled()
+  debug.check_numerics(torch.tensor([float("nan")]))  # off: no check
 
 
 @pytest.mark.parametrize("step", [0, 10, 19, 20, 40, 55, 61, 74, 75, 99, 100])

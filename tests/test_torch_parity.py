@@ -4,6 +4,7 @@ tests of the converters between the two."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from muax_tpu.models import make_mlp_networks as j_make
@@ -15,6 +16,18 @@ from muax_tpu_torch.models.convert import replay_state_from_numpy
 from muax_tpu_torch.types import Transition
 
 TOWERS = ("representation", "prediction", "dynamic")
+
+
+@pytest.fixture
+def one_thread():
+  """One intra-op thread for the test, restored after it. Under the
+  suite's parallel workers, a test of many small CPU ops (the conv nets'
+  generic-engine searches) otherwise waits on contended OpenMP threads:
+  ``fit`` on pixel Catch took 700 s there against 7 s alone."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
 FIELDS = ("obs", "action", "reward", "done", "rn", "value", "pi", "weight",
           "mask")
 
