@@ -130,6 +130,24 @@ bf16 with remat against f32, both with no launch of any kernel
 undownsampled, the hybrid route through the sampler kernel on a uint8 ring
 (one launch a group).
 
+Phase 30 drives the host-environment path at ``examples/run_2048.py``'s
+full width (``muax_tpu_torch/examples/run_2048.py``: the native 2048 pool,
+the MLP triplet at embedding 64, support 300 and towers (256, 256), whose
+weights exceed a block's shared memory). It holds the search kernel's
+global-weight mode, MuZero and Gumbel, against its plain version at 64 and
+1024 boards x 50 simulations on the legal masks of real boards (phase 22's
+rule for masked roots), and the learner's global-weight mode against
+autograd over ``muzero_loss`` at batch 256, K = 5 (phase 5's tolerances,
+the scratch filled with NaN, a repeated launch bit-identical), each timed
+with its plan and bound. Then ``fit`` runs on the pool at the example's
+config (64 boards, an evaluation pool of 16 at seed + 10,000, 32 steps an
+iteration, batch 256, 16 updates, ring 2048, min_fill 128) for
+``HOST_ITERATIONS`` iterations after its warm-up, under ``torch.profiler``
+(device activity): exactly the search, sampler and learner launches the
+config implies and no other mode, every action legal under its mask,
+finite losses; ms an iteration, env-steps/s, the host's part of a step
+(the pool's C++ step, the copies) and the device's idle share.
+
 Every failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or without the package beside it, it fails the same way.
 The line before the last lists every kernel with its launches, error, times
@@ -203,9 +221,10 @@ REANALYZE_SEGMENTS, REANALYZE_SIMS = 64, 16
 # The board games' masked rollouts: 21 moves, half a Connect Four game.
 BOARD_STEPS = 21
 # bench.py's alphazero_connect4 (bench.py:236-291): 256 games x 64
-# simulations, 21 moves an iteration; three timed iterations after one
-# warm-up, and the evaluation against a random player over 64 games.
-AZ_ENVS, AZ_MOVES, AZ_TIMED, AZ_EVAL_GAMES = 256, 21, 3, 64
+# simulations, 21 moves an iteration; two timed iterations after one
+# warm-up (three until phase 30 joined the script's time limit), and the
+# evaluation against a random player over 64 games.
+AZ_ENVS, AZ_MOVES, AZ_TIMED, AZ_EVAL_GAMES = 256, 21, 2, 64
 # The conv and pixel path: bench.py's make_networks("ez_conv") on
 # make_env("ez_conv") (bench.py:76-78, 92-97): PixelCatch 10 x 5 at scale 8
 # (80 x 40 x 1 uint8 frames), 3 actions, the EfficientZero triplet at 32
@@ -233,6 +252,18 @@ RESNET_NET, RESNET_PLANES = dict(support_size=20, channels=64,
 # convolutions and matmuls 1.6e-2 and bf16 compute 2.5e-2
 # (tools/conv_precision.py).
 RESNET_CUDNN_GRAD_SHARE = 1e-3
+# The figures of phase 30's search checks that the kernel line keeps.
+WIDE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+             "l2_weight_bytes", "plan")
+# Phase 30, the host-environment path: examples/run_2048.py's 64 boards x
+# 50 simulations (its networks and config from
+# muax_tpu_torch/examples/run_2048.py), the kernels held at 64 and 1024
+# boards taken after HOST_BOARD_MOVES random legal moves (so that masks
+# have illegal moves), the learner at the example's batch 256 and unroll
+# 5; fit for HOST_ITERATIONS iterations after its two warm-up rollouts.
+HOST_ENVS, HOST_CHECK_ENVS, HOST_SIMS = 64, 1024, 50
+HOST_BOARD_MOVES, HOST_ITERATIONS = 24, 4
+HOST_BATCH, HOST_UNROLL = 256, 5
 
 
 def check(cond, message):
@@ -261,6 +292,19 @@ def time_ms(fn, reps):
   end.record()
   end.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def once_ms(fn):
+  """Device time of one call of ``fn`` with CUDA events, no warm-up: for
+  the plain versions at phase 30's widths, which have just run on the same
+  inputs and take seconds."""
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  fn()
+  end.record()
+  end.synchronize()
+  return start.elapsed_time(end)
 
 
 def search_macs(weights):
@@ -360,7 +404,8 @@ def tensor_map(fn, tree):
 
 
 def sub_launch(args, kwargs, idx):
-  """A recorded MuZero search launch's inputs for the envs ``idx`` alone."""
+  """A recorded MLP search launch's inputs (MuZero's, or Gumbel's with its
+  root score and schedule) for the envs ``idx`` alone."""
   B = args[0].shape[0]
 
   def pick(x):
@@ -368,12 +413,11 @@ def sub_launch(args, kwargs, idx):
         else x
 
   return (tuple(pick(a) for a in args[:3]) + (args[3],),
-          {k: pick(v) if k == "invalid_actions" else v
-           for k, v in kwargs.items()})
+          {k: pick(v) for k, v in kwargs.items()})
 
 
 def ulp_sensitive(args, kwargs, idx, trials=8, weights=True):
-  """Which of the envs ``idx`` of a recorded MuZero search launch are
+  """Which of the envs ``idx`` of a recorded MLP search launch are
   near-ties: their inputs alone, launched as a batch of their own in the
   plain version and in the kernel, then again ``trials`` times with every
   element of their root embeddings, and with ``weights`` of the towers'
@@ -401,7 +445,7 @@ def ulp_sensitive(args, kwargs, idx, trials=8, weights=True):
 
 
 def f64_disagrees(args, kwargs, idx):
-  """Which of the envs ``idx`` of a recorded MuZero search launch the plain
+  """Which of the envs ``idx`` of a recorded MLP search launch the plain
   version computes differently in f32 and in f64 (root value or a root q
   past rtol = atol = 1e-3), their inputs alone as a batch of their own:
   f32 rounding alone decides their trees."""
@@ -414,7 +458,7 @@ def f64_disagrees(args, kwargs, idx):
 
 
 def tie_proof(args, kwargs):
-  """Phase 21's proof that an env of a recorded MuZero search launch is a
+  """Phase 21's proof that an env of a recorded MLP search launch is a
   near-tie: an ulp of its inputs moves it (``ulp_sensitive``), or f32
   rounding alone does (``f64_disagrees``)."""
   return lambda idx: (ulp_sensitive(args, kwargs, idx)
@@ -1043,9 +1087,10 @@ def mlp_line(figures, groups, ptxas, gumbel):
       "plain_ms" + t: figures["plain_search_ms" + t],
       "bound_ms" + t: figures["bound_ms" + t],
       "instances": {
-          f"fused_search_kernel<{gumbel}><{g}>": dict(
-              ptxas.get(f"fused_search:fused_search_kernel<{gumbel}><{g}>",
-                        {}), max_abs_err=groups[f"G={g}"]["max_abs_err"])
+          f"fused_search_kernel<{gumbel}><{g}><true>": dict(
+              ptxas.get(
+                  f"fused_search:fused_search_kernel<{gumbel}><{g}><true>",
+                  {}), max_abs_err=groups[f"G={g}"]["max_abs_err"])
           for g in fused.MLP_GROUPS}}
 
 
@@ -1512,7 +1557,8 @@ def mlp_plan_figures(device, args, kwargs):
   from muax_tpu_torch.search import fused
   weights = args[3]
   B, A = args[1].shape
-  widths = [2 * SUPPORT + 1] + [w.shape[1] for w, _ in (
+  bins = 2 * kwargs.get("support_size", SUPPORT) + 1
+  widths = [bins] + [w.shape[1] for w, _ in (
       *weights.dyn_hidden, *weights.pred_hidden)]
   plan = fused.mlp_search_plan(B, A, args[0].shape[1],
                                kwargs["num_simulations"],
@@ -1807,7 +1853,7 @@ def alphazero_phase(device):
   """Phase 23: AlphaZero on Connect Four at bench.py's alphazero_connect4
   (``make_az_resnet(7, channels=32, num_blocks=4)``, 256 envs x 64
   simulations, 21 moves an iteration, batch 512, 8 updates, a ring of
-  4096, adam at 2e-3): one warm-up iteration and three timed ones through
+  4096, adam at 2e-3): one warm-up iteration and two timed ones through
   the generic engine, with no launch of any of the port's kernels; every
   move legal, the losses finite. Then the device's idle share from
   ``torch.profiler`` (device activity only) over one move and, apart, the
@@ -2438,6 +2484,317 @@ def ez_fit_phase(device, root):
           "env_steps_per_s": last["env_steps_per_s"]}
 
 
+# ---- phase 30: the host-environment path at the 2048 example's width -------
+
+def host_boards(device, envs, moves):
+  """``envs`` boards of the native 2048 pool after ``moves`` seeded random
+  legal moves: their observations [envs, 4, 4] and legal masks [envs, 4]."""
+  from muax_tpu_torch.envs.native2048 import Native2048Pool
+
+  pool = Native2048Pool(envs, seed=SEED, device=device)
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  carry = pool.reset(gen, envs)
+  for _ in range(moves):
+    action = torch.multinomial(carry.env_state, 1, generator=gen)[:, 0]
+    carry, _, _, _ = pool.step(carry, action.to(torch.int32), gen)
+  return carry.obs, carry.env_state
+
+
+def wide_search_against_plain(device, net, params, obs, legal, policy):
+  """Phase 30: the search kernel's global-weight mode in ``policy`` on the
+  roots of real boards under their legal masks, against its plain version
+  as phase 22 holds masked launches (Gumbel: also the same action on at
+  least 99 % of envs); timed, with the plan, the bound and the bytes of
+  the weights' reads from L2 (every expansion reads all the towers)."""
+  from muax_tpu_torch.replay.buffer import gumbel_noise
+  from muax_tpu_torch.search import fused
+  from muax_tpu_torch.train.inference import make_root_fn
+
+  with torch.no_grad():
+    root = make_root_fn(net)(params, obs)
+  invalid = (1.0 - legal).contiguous()
+  logits = torch.where(invalid > 0, -1e9, root.prior_logits).contiguous()
+  weights = fused.extract_fused_weights(net, params)
+  args = (root.embedding.contiguous(), logits, root.value.contiguous(),
+          weights)
+  kwargs = dict(num_simulations=HOST_SIMS, support_size=net.support_size,
+                discount=0.999, invalid_actions=invalid, max_depth=None)
+  gumbel = policy == "gumbel"
+  if gumbel:
+    noise = gumbel_noise(torch.Generator(device=device).manual_seed(SEED),
+                         tuple(logits.shape), device)
+    kwargs["root_score"], kwargs["schedule"] = fused.gumbel_root_inputs(
+        logits, noise, invalid, max_num_considered_actions=16,
+        num_simulations=HOST_SIMS)
+  check(bool((invalid > 0).any()), "the boards' masks have illegal moves")
+  out = fused_cuda(args, kwargs)
+  ref, figures = compare_masked_search(out, args, kwargs)
+  if gumbel:
+    def act(res):
+      visits, _, cq = res
+      score = torch.where(visits == visits.amax(-1, keepdim=True),
+                          kwargs["root_score"] + cq, -torch.inf)
+      return torch.argmax(torch.where(invalid > 0, -torch.inf, score), -1)
+    figures["same_action"] = float((act(out) == act(ref)).float().mean())
+    check(figures["same_action"] >= 0.99, "the Gumbel action agrees on "
+          f"{figures['same_action']:.4f} of envs (need 0.99)")
+  plan = mlp_plan_figures(device, args, kwargs)
+  check(not plan["smem_weights"], "the towers are read from device memory")
+  B, n = obs.shape[0], weights.flat().numel()
+  figures["ms"] = time_ms(lambda: fused_cuda(args, kwargs), 5)
+  figures["plain_ms"] = once_ms(lambda: fused_reference(args, kwargs))
+  figures["bound_ms"], figures["bound_by"] = search_bound_ms(
+      B, HOST_SIMS, weights, True, gumbel=gumbel)
+  figures["l2_weight_bytes"] = 4 * B * HOST_SIMS * n
+  figures["l2_weight_tb_per_s"] = (figures["l2_weight_bytes"]
+                                   / figures["ms"] / 1e9)
+  figures["plan"] = plan
+  return figures
+
+
+def wide_learner_against_plain(device, net, params, obs):
+  """Phase 30: the learner's global-weight mode (the example's triplet,
+  2.3 MB of weights) against autograd over ``muzero_loss`` at batch 256, K
+  = 5, on windows of real boards with seeded actions, rewards, returns and
+  policies, as phase 5 holds it (the scratch filled with NaN before each
+  launch, a repeated launch bit-identical); timed, each kernel's device
+  time, the plan, the bound and the bytes of the weights' reads from L2
+  (each block reads every linear's weights for each of its row blocks in
+  the forward and again in the backward)."""
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.types import Transition
+
+  B, K = HOST_BATCH, HOST_UNROLL
+  gen = torch.Generator(device=device).manual_seed(SEED + 3)
+  pick = torch.randint(0, obs.shape[0], (B, K), generator=gen, device=device)
+  lengths = torch.randint(1, K + 1, (B,), generator=gen, device=device)
+  merges = torch.rand((B, K), generator=gen, device=device) < 0.4
+  batch = Transition(
+      obs=obs.reshape(obs.shape[0], -1)[pick],
+      action=torch.randint(0, 4, (B, K), generator=gen, device=device),
+      reward=torch.where(merges, 2.0 ** torch.randint(
+          2, 9, (B, K), generator=gen, device=device).float(), 0.0),
+      done=torch.zeros((B, K), dtype=torch.bool, device=device),
+      rn=torch.rand((B, K), generator=gen, device=device) * 400.0,
+      value=torch.zeros((B, K), device=device),
+      pi=torch.softmax(torch.randn((B, K, 4), generator=gen,
+                                   device=device), -1),
+      weight=torch.rand((B,), generator=gen, device=device) + 0.5,
+      mask=(torch.arange(K, device=device)[None] < lengths[:, None]).float())
+  raw, coef, lay = fused_learner.raw_from_batch(batch, K)
+  lw = fused_learner.extract_learner_weights(net, params)
+  limits = fused_learner.device_limits(device)
+  plan = fused_learner.mlp_learner_plan(B, K, lw, limits)
+  check(not plan.smem_weights and not plan.smem_arena,
+        "the learner reads its weights from device memory")
+  kw = dict(l2_coef=1e-4, gradient_scale=0.5, priority_alpha=0.5)
+
+  def poison():
+    torch.full((plan.scratch_floats,), float("nan"), device=device)
+
+  before = fused_learner.launches
+  poison()
+  grads, metrics = fused_learner.fused_muzero_grad_raw(
+      params, raw, coef, lay, net, lw, **kw)
+  poison()
+  again, _ = fused_learner.fused_muzero_grad_raw(params, raw, coef, lay, net,
+                                                 lw, **kw)
+  torch.cuda.synchronize()
+  check(fused_learner.launches == before + 2, "the learner launched")
+  check(torch.equal(grads, again), "a repeated launch gives bit-identical "
+        "gradients")
+  ref_grads, ref_metrics = fused_learner.fused_muzero_grad_raw_reference(
+      params, raw, coef, lay, net, **kw)
+  err, used = grads_close(grads, ref_grads, 2e-4, 1e-6)
+  metrics_close(metrics, ref_metrics)
+
+  def launch():
+    return fused_learner._grad_cuda(lw, raw, coef, lay, l2_coef=1e-4,
+                                    gradient_scale=0.5)
+
+  n = lw.flat.numel()
+  towers = (sum((i + 1) * o for i, o, steps, _ in
+                fused_learner._mlp_linears(lw) if not steps),
+            sum((i + 1) * o for i, o, steps, _ in
+                fused_learner._mlp_linears(lw) if steps))
+  n_pred = sum((i + 1) * o for i, o, _, _ in
+               fused_learner._mlp_linears(lw)[len(lw.repr_layers) + 1:
+                                              len(lw.repr_layers) + 1
+                                              + len(lw.pred_layers) + 2])
+  # The representation once and the prediction once (all K steps' rows in
+  # one product), the dynamics once a step; forward and backward.
+  per_block = 2 * (towers[0] + n_pred + K * (towers[1] - n_pred))
+  ms = time_ms(launch, 10)
+  bound, bound_by = learner_bound_ms(net, lay, B, n)
+  return {"max_abs_err": err, "tolerance_used": used, "ms": ms,
+          "device_ms_by_kernel": kernel_device_ms(launch, 5),
+          "plain_ms": once_ms(lambda: fused_learner
+                              .fused_muzero_grad_raw_reference(
+                                  params, raw, coef, lay, net, **kw)),
+          "bound_ms": bound, "bound_by": bound_by,
+          "l2_weight_bytes": 4 * plan.blocks * per_block,
+          "plan": dict(plan._asdict(), runtime_blocks_per_sm=fused_learner
+                       .learner_blocks_per_sm(plan, device))}
+
+
+def host_fit_phase(device, root):
+  """Phase 30's fit: ``examples/run_2048.py``'s pool, evaluation pool,
+  networks, config and optimizer, ``HOST_ITERATIONS`` iterations with the
+  greedy evaluation at the first, under ``torch.profiler`` (device
+  activity). The launch counts are reset just before and read just after:
+  (2 warm-up + HOST_ITERATIONS) x 32 MuZero searches of 64 boards and one
+  of 16 boards a step of the evaluation, 2 sampler launches (16 updates in
+  groups of 8) and 16 learner launches an iteration, nothing else. Every
+  action of either pool is legal under the mask of the board it is taken
+  on. The pool's step is timed in parts: the wait for the device (the
+  search), then the step itself (the actions' copy to the host, the C++
+  step, the copy of observations, rewards, dones and masks to the card)."""
+  import statistics
+  import tempfile
+
+  from torch.profiler import ProfilerActivity, profile
+
+  from muax_tpu_torch.examples import run_2048
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.replay import fused_sampler
+  from muax_tpu_torch.train.fit import fit
+
+  pool, eval_pool, net, config, optimizer = run_2048.setup(seed=SEED,
+                                                           device=device)
+  tcfg = config.train
+  legal_taken = []
+  parts = {k: [] for k in ("enter", "synced", "exit", "cxx", "h2d")}
+  eval_steps = [0]
+
+  def timed(fn, key):
+    def call(*a):
+      t = time.perf_counter()
+      out = fn(*a)
+      parts[key].append(time.perf_counter() - t)
+      return out
+    return call
+
+  def instrument(p, train):
+    real = p.step
+
+    def step(carry, action, gen):
+      t0 = time.perf_counter()
+      torch.cuda.synchronize()
+      t1 = time.perf_counter()
+      legal_taken.append(carry.env_state.gather(1, action.long()[:, None]))
+      out = real(carry, action, gen)
+      if train:
+        parts["enter"].append(t0)
+        parts["synced"].append(t1)
+        parts["exit"].append(time.perf_counter())
+      else:
+        eval_steps[0] += 1
+      return out
+    p.step = step
+    if train:
+      p._host_step = timed(p._host_step, "cxx")
+      p._upload = timed(p._upload, "h2d")
+
+  instrument(pool, True)
+  instrument(eval_pool, False)
+  lines = []
+  os.makedirs(os.path.join(root, "build"), exist_ok=True)
+  reset_counts()
+  t0 = time.perf_counter()
+  with SearchRecorder() as rec, profile(
+      activities=[ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
+      _, results = fit(pool, net, config, optimizer,
+                       num_iterations=HOST_ITERATIONS, seed=SEED,
+                       eval_every=25, log_every=1, model_dir=d,
+                       eval_env=eval_pool, log_fn=lines.append)
+    torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  got = search_counts()
+  warm = max(1, config.replay.min_fill // tcfg.num_envs)
+  rollouts = (warm + HOST_ITERATIONS) * tcfg.collect_steps
+  groups = tcfg.updates_per_iteration // math.gcd(
+      tcfg.updates_per_iteration, tcfg.presample_updates)
+  check("search=on" in lines[0] and "learner=on" in lines[0]
+        and "sampler=on" in lines[0], f"fit's route: {lines[0]}")
+  check(rec.by_batch == {HOST_ENVS: rollouts, 16: eval_steps[0]},
+        f"search launches by batch {rec.by_batch}, not {rollouts} of "
+        f"{HOST_ENVS} and {eval_steps[0]} of 16")
+  check(got == (rollouts + eval_steps[0], 0, 0, 0, 0),
+        f"search launches by mode {got}")
+  check(fused_sampler.launches == HOST_ITERATIONS * groups,
+        f"{fused_sampler.launches} sampler launches")
+  check(fused_learner.launches == HOST_ITERATIONS
+        * tcfg.updates_per_iteration and
+        fused_learner.categorical_launches == 0,
+        f"{fused_learner.launches} learner launches")
+  taken = torch.cat(legal_taken)
+  check(bool((taken == 1).all()), f"{int((taken != 1).sum())} actions "
+        "illegal under their masks")
+  check(len(results["history"]) == HOST_ITERATIONS, "every iteration logged")
+  for row in results["history"]:
+    for k, v in row.items():
+      check(math.isfinite(v), f"fit metric {k} = {v} is finite")
+  kernels = [e for e in prof.key_averages()
+             if getattr(e, "device_type", None) is not None
+             and "CUDA" in str(e.device_type)]
+  busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+  # The second iteration's clock also holds the evaluation after the first.
+  steady = [row for row in results["history"] if row["iteration"] != 2]
+  sps = [row["env_steps_per_s"] for row in steady]
+  per_iter = tcfg.num_envs * tcfg.collect_steps
+  enter, synced, out = parts["enter"], parts["synced"], parts["exit"]
+  period = [b - a for a, b in zip(out, out[1:]) if b - a < 1.0]
+  step_s = [c - b for b, c in zip(synced, out)]
+  med = statistics.median
+  step_ms = med(period) * 1e3
+  host = {
+      "step_ms": step_ms,
+      "wait_device_ms": med([b - a for a, b in zip(enter, synced)]) * 1e3,
+      "pool_step_ms": med(step_s) * 1e3,
+      "cxx_step_ms": med(parts["cxx"]) * 1e3,
+      "h2d_ms": med(parts["h2d"]) * 1e3,
+      "d2h_and_glue_ms": med([s - c - h for s, c, h in zip(
+          step_s, parts["cxx"], parts["h2d"])]) * 1e3,
+  }
+  host["host_share_of_step"] = host["pool_step_ms"] / step_ms
+  last = results["history"][-1]
+  return {"seconds": seconds, "status": lines[0],
+          "launches": {"search": got[0], "search_eval": eval_steps[0],
+                       "sampler": fused_sampler.launches,
+                       "learner": fused_learner.launches},
+          "iteration_ms": [per_iter / v * 1e3 for v in sps],
+          "env_steps_per_s": sps, "host": host,
+          "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms
+          / (seconds * 1e3),
+          "kernel_launches": sum(e.count for e in kernels),
+          "test_G": results["history"][0].get("test_G"),
+          "loss": last["loss"], "mean_episode_return": [
+              row["mean_episode_return"] for row in results["history"]]}
+
+
+def host_2048_phase(device, root, ptxas):
+  """Phase 30: the wide-tower modes of the search and learner kernels
+  against their plain versions at the 2048 example's width, then fit on
+  the native pool (``host_fit_phase``)."""
+  from muax_tpu_torch.examples import run_2048
+
+  _, _, net, _, _ = run_2048.setup(num_envs=1, device=device)
+  params = net.init_params((4, 4), torch.Generator().manual_seed(SEED))
+  obs, legal = host_boards(device, HOST_CHECK_ENVS, HOST_BOARD_MOVES)
+  search = {f"{policy}_{B}": wide_search_against_plain(
+      device, net, params, obs[:B].contiguous(), legal[:B].contiguous(),
+      policy)
+            for policy in ("muzero", "gumbel")
+            for B in (HOST_ENVS, HOST_CHECK_ENVS)}
+  learner = wide_learner_against_plain(device, net, params, obs)
+  instances = {k.split(":", 1)[1]: v for k, v in ptxas.items()
+               if k.endswith("<false>") and (
+                   "fused_search_kernel" in k or "mlp_tile_kernel" in k)}
+  return {"search": search, "learner": learner, "instances": instances,
+          "fit": host_fit_phase(device, root)}
+
+
 def run(device):
   from muax_tpu_torch import _build
   from muax_tpu_torch.replay.buffer import gumbel_noise
@@ -2878,6 +3235,17 @@ def run(device):
         f"downsampling (32 x 2), {EZ_FIT_ENVS} envs x {EZ_FIT_SIMS} sims, "
         f"2 iterations, hybrid route: "
         f"{json.dumps(ez_fit)} ({time.perf_counter() - t0:.1f} s)")
+
+  t0 = time.perf_counter()
+  host = host_2048_phase(device, os.path.dirname(os.path.abspath(__file__)),
+                         ptxas)
+  print(f"phase 30 the 2048 host path at examples/run_2048.py's width "
+        f"(E=64, S=300, towers (256, 256), weights in device memory): "
+        f"search kernel vs plain at {HOST_ENVS} and {HOST_CHECK_ENVS} boards "
+        f"x {HOST_SIMS} sims under legal masks, learner vs plain at "
+        f"B={HOST_BATCH} K={HOST_UNROLL}, fit {HOST_ITERATIONS} iterations "
+        f"on Native2048Pool: {json.dumps(host)} "
+        f"({time.perf_counter() - t0:.1f} s)")
   uint8_line = {
       mode: {k: fig[k] for k in ("same_start", "max_abs_err",
                                  "bit_identical_to_f32_ring", "ms",
@@ -2890,7 +3258,8 @@ def run(device):
       "replaces": "muax_tpu/search/fused.py:759",
       "launches": train_launches[0] + 2 + reanalyze_fit["search"]
                   + masked["muzero"]["launches"]
-                  + masked["tictactoe_muzero"]["launches"],
+                  + masked["tictactoe_muzero"]["launches"]
+                  + host["fit"]["launches"]["search"],
       "max_abs_err": main_cmp["max_abs_err"],
       "ms": figures["search_ms"], "plain_ms": figures["plain_search_ms"],
       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -2899,11 +3268,18 @@ def run(device):
           "search_ms", "plain_search_ms", "bound_ms", "plan")},
       "masked_a7": {k: masked["muzero"][k] for k in (
           "search_ms", "plain_search_ms", "bound_ms", "plan")},
+      "wide_towers_2048": {k: {f: v for f, v in host["search"][
+          f"muzero_{B}"].items() if f in WIDE_KEYS}
+          for k, B in (("envs_64", HOST_ENVS),
+                       ("envs_1024", HOST_CHECK_ENVS))},
+      "wide_instances": {k: v for k, v in host["instances"].items()
+                         if "<false><" in k and "search" in k},
   }, {
       "name": "fused_sample_group", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_sampler.cu",
       "replaces": "muax_tpu/replay/fused_sampler.py:280",
-      "launches": train_launches[1] + reanalyze_fit["sampler"],
+      "launches": train_launches[1] + reanalyze_fit["sampler"]
+                  + host["fit"]["launches"]["sampler"],
       "max_abs_err": sampler_main["max_abs_err"],
       "ms": train["sampler_ms"], "plain_ms": train["plain_sampler_ms"],
       "bound_ms": sampler_bound, "bound_by": sampler_by, "library_ms": None,
@@ -2912,12 +3288,17 @@ def run(device):
       "name": "fused_muzero_grad_raw", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_learner.cu",
       "replaces": "muax_tpu/models/fused_learner.py:665",
-      "launches": train_launches[2] + reanalyze_fit["learner"],
+      "launches": train_launches[2] + reanalyze_fit["learner"]
+                  + host["fit"]["launches"]["learner"],
       "max_abs_err": learner_main["max_abs_err"],
       "ms": train["learner_kernel_ms"], "plain_ms": train["plain_learner_ms"],
       "bound_ms": learner_bound, "bound_by": learner_by, "library_ms": None,
       "device_ms": (sum(train["learner_by_kernel_ms"].values())
                     if train["learner_by_kernel_ms"] else None),
+      "wide_towers_2048": {k: v for k, v in host["learner"].items()
+                           if k != "device_ms_by_kernel"},
+      "wide_instances": {k: v for k, v in host["instances"].items()
+                         if "mlp_tile" in k},
   }, {
       "name": "fused_gumbel_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",
@@ -2931,6 +3312,12 @@ def run(device):
       **mlp_line(gumbel_figures, gumbel_groups, ptxas, "true"),
       "masked_a7": {k: masked["gumbel"][k] for k in (
           "search_ms", "plain_search_ms", "bound_ms", "plan")},
+      "wide_towers_2048": {k: {f: v for f, v in host["search"][
+          f"gumbel_{B}"].items() if f in WIDE_KEYS}
+          for k, B in (("envs_64", HOST_ENVS),
+                       ("envs_1024", HOST_CHECK_ENVS))},
+      "wide_instances": {k: v for k, v in host["instances"].items()
+                         if "<true><" in k and "search" in k},
   }, {
       "name": "fused_categorical_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",

@@ -204,7 +204,12 @@ __device__ float softmax_ce(float* z, int n, const Target& t, int lane) {
 // gradients, in rows padded to 4 mod 8 floats so that a product's lanes
 // read distinct banks) where it fits beside them; else the arena lies in a
 // device scratch (wide towers, long unrolls: `mlp_learner_plan` in
-// models/fused_learner.py decides). Each
+// models/fused_learner.py decides). Towers wider than a block's shared
+// memory (the 2048 example's 579 K floats) stay in device memory, which L2
+// holds for every block, and the products read their weight operand there,
+// a chunk of k-steps ahead of its use, as they read an arena in the
+// scratch (the instance kSmemWeights false, whose arena is in the
+// scratch too). Each
 // linear's weight gradient is one product over the block's rows, dW = dz^T
 // x, and its bias gradient a column sum, both in a fixed order, written to
 // the block's row of a [G, n_weights] scratch: the prediction tower's by
@@ -475,15 +480,17 @@ __device__ void norm_bwd_row(const float* x, const float* dy, float* dx,
 // The layout tables of g are indexed at run time: __grid_constant__ keeps
 // them in the constant bank, where a copy per thread would spill 2 KB a
 // thread to local memory.
-template <bool kSmemArena>
+template <bool kSmemArena, bool kSmemWeights>
 __global__ void __launch_bounds__(kThreads, 2)
 mlp_tile_kernel(const float* __restrict__ raw, const float* __restrict__ coef,
                 const float* __restrict__ weights, float* __restrict__ arena,
                 float* __restrict__ partial, float* __restrict__ met,
                 const __grid_constant__ MlpArgs g) {
+  static_assert(kSmemWeights || !kSmemArena,
+                "an arena in shared memory goes beside staged weights");
   constexpr bool kPrefA = !kSmemArena;  // operands in device memory
   extern __shared__ __align__(16) float smem[];
-  float* Ws = smem;
+  const float* Ws = kSmemWeights ? smem : weights;
   float* base = kSmemArena ? smem + g.smem_weights
                            : arena + blockIdx.x * g.arena_floats;
   const int w0 = blockIdx.x * kTile;
@@ -566,17 +573,17 @@ mlp_tile_kernel(const float* __restrict__ raw, const float* __restrict__ coef,
   float* ce = base + g.ce;
 
   // ---- forward ------------------------------------------------------------
-  // The weights, the start observations and the tile's raw rows (0 past
-  // the batch), the copies in flight at once (the arena's only where it
-  // lies in shared memory).
+  // The weights (where they are staged), the start observations and the
+  // tile's raw rows (0 past the batch), the copies in flight at once (the
+  // arena's only where it lies in shared memory).
   const int warp = threadIdx.x >> 5;
-  {
+  if (kSmemWeights) {
     const int n4 = reinterpret_cast<size_t>(weights) % 16 == 0
                        ? g.n_weights / 4 * 4 : 0;
     for (int i = 4 * threadIdx.x; i < n4; i += 4 * kThreads)
-      cp_float4(Ws + i, weights + i);
+      cp_float4(smem + i, weights + i);
     for (int i = n4 + threadIdx.x; i < g.n_weights; i += kThreads)
-      cp_float(Ws + i, weights + i);
+      cp_float(smem + i, weights + i);
   }
   auto copy_raw = [&](float* dst, const float* src, int t) {
     if (w0 + t >= g.B) {
@@ -891,8 +898,15 @@ bool mlp_layout(MlpArgs* g, int O, int E, int A, int S41, int K, int n_repr,
 using MlpKernel = void (*)(const float*, const float*, const float*, float*,
                            float*, float*, const MlpArgs);
 
-MlpKernel mlp_kernel(bool smem_arena) {
-  return smem_arena ? mlp_tile_kernel<true> : mlp_tile_kernel<false>;
+// The instance of a plan: the arena in shared memory beside the staged
+// weights, in the scratch beside them, or in the scratch with the weights
+// read from device memory; nullptr for an arena in shared memory without
+// staged weights (no such instance).
+MlpKernel mlp_kernel(bool smem_arena, bool smem_weights) {
+  if (!smem_weights)
+    return smem_arena ? nullptr : mlp_tile_kernel<false, false>;
+  return smem_arena ? mlp_tile_kernel<true, true>
+                    : mlp_tile_kernel<false, true>;
 }
 
 // ---- the categorical LearnerSpec: two kernels --------------------------
@@ -1559,12 +1573,13 @@ int mz_mlp_learner_floats(int O, int E, int A, int S41, int K, int n_repr,
   return 0;
 }
 
-// Blocks of mlp_tile_kernel (the instance with its arena in shared memory,
-// or in the device scratch) that one SM holds at `smem_bytes` of shared
-// memory each, by the CUDA occupancy calculator.
-int mz_learner_blocks_per_sm(int smem_arena, long smem_bytes, int device,
-                             int* out) {
-  const MlpKernel kernel = mlp_kernel(smem_arena != 0);
+// Blocks of mlp_tile_kernel (the instance with its arena in shared memory
+// or in the device scratch, its weights staged or not) that one SM holds
+// at `smem_bytes` of shared memory each, by the CUDA occupancy calculator.
+int mz_learner_blocks_per_sm(int smem_arena, int smem_weights,
+                             long smem_bytes, int device, int* out) {
+  const MlpKernel kernel = mlp_kernel(smem_arena != 0, smem_weights != 0);
+  if (kernel == nullptr) return MZ_ERR_SHAPE;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel,
@@ -1584,17 +1599,19 @@ int mz_learner_blocks_per_sm(int smem_arena, long smem_bytes, int device,
 // and reward cross-entropy sums over the valid steps, and the decoded value
 // at step 0), l2 [1]. scratch: the blocks' rows of weight gradients [G,
 // n_weights], then, unless smem_arena, their arenas (G times
-// mz_mlp_learner_floats' out[1]); smem_bytes: the shared memory of a block,
-// the weights and, with smem_arena, the arena (the launch plan's
-// figures, which this checks). Returns a cudaError_t, MZ_ERR_SHAPE or
-// MZ_ERR_SCRATCH.
+// mz_mlp_learner_floats' out[1]); smem_weights: the weights staged in
+// shared memory, else read from device memory (then the arena lies in the
+// scratch); smem_bytes: the shared memory of a block, the staged weights
+// and, with smem_arena, the arena (the launch plan's figures, which this
+// checks). Returns a cudaError_t, MZ_ERR_SHAPE or MZ_ERR_SCRATCH.
 int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
                          const float* weights, int n_weights, float* grads,
                          float* met, float* l2, float* scratch,
                          long scratch_floats, int G, int smem_arena,
-                         long smem_bytes, int B, int O, int E, int A, int S41,
-                         int support, int K, int n_repr, const int* repr_w,
-                         int n_pred, const int* pred_w, int n_dyn,
+                         int smem_weights, long smem_bytes, int B, int O,
+                         int E, int A, int S41, int support, int K,
+                         int n_repr, const int* repr_w, int n_pred,
+                         const int* pred_w, int n_dyn,
                          const int* dyn_w, int r_obs, int r_action,
                          int r_reward, int r_rn, int r_pi, int r_mask,
                          float gradient_scale, float l2_coef, int device,
@@ -1605,8 +1622,10 @@ int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
                   dyn_w) ||
       g.n_weights != n_weights)
     return MZ_ERR_SHAPE;
-  const long smem = 4L * (g.smem_weights + (smem_arena ? g.arena_floats : 0));
-  if (smem != smem_bytes) return MZ_ERR_SHAPE;
+  const MlpKernel kernel = mlp_kernel(smem_arena != 0, smem_weights != 0);
+  const long smem = 4L * ((smem_weights ? g.smem_weights : 0) +
+                          (smem_arena ? g.arena_floats : 0));
+  if (kernel == nullptr || smem != smem_bytes) return MZ_ERR_SHAPE;
   const long partial_floats = static_cast<long>(G) * n_weights;
   if (scratch_floats <
       partial_floats + (smem_arena ? 0 : static_cast<long>(G) *
@@ -1630,7 +1649,6 @@ int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   if (smem > max_smem) return MZ_ERR_SHAPE;
-  const MlpKernel kernel = mlp_kernel(smem_arena != 0);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

@@ -40,10 +40,14 @@
 // environment. The embeddings stay beside the
 // tree where every environment of the launch still fits the card at once,
 // else in a device scratch (B N E floats, 17 MB at 8192 envs, held in L2).
-// The tower weights are staged once per block. The wrapper's plan
-// (search/fused.py `mlp_search_plan`) picks G, the environments per block
-// and the embeddings' place from the batch and the card's limits, so that
-// every environment is resident in one wave where the shapes allow.
+// The tower weights are staged once per block where they fit its shared
+// memory beside one environment's slice; wider towers (the 2048 example's
+// 1.97 MB) stay in device memory, which L2 holds, and every layer reads
+// them there (a second instance of the kernel, kSmemWeights false). The
+// wrapper's plan (search/fused.py `mlp_search_plan`) picks G, the
+// environments per block, the embeddings' place and the weights' place
+// from the batch and the card's limits, so that every environment is
+// resident in one wave where the shapes allow.
 //
 // Semantics are those of the TPU kernel: node 0 starts with one visit and
 // the root value; root priors are softmax(root logits); the first maximum
@@ -109,11 +113,13 @@ struct Args {
   int pred_offset;     // floats: start of the prediction tower's weights
   int n_weights;       // floats in the flat weight buffer
   int weights_stride;  // floats of shared memory reserved for the weights
+                       // (0 where they are read from device memory)
   int act_width;       // floats per activation buffer
   int env_stride;      // floats of shared memory per environment (odd)
   int emb_offset;      // floats: the embeddings' start in an env's slice
   int envs_per_block;  // lane groups of a block
   int smem_emb;        // embeddings in shared memory, else in the scratch
+  int smem_weights;    // towers staged in shared memory, else read from L2
 };
 
 // The tree of one environment of the categorical kernel.
@@ -635,11 +641,14 @@ __device__ __forceinline__ void group_install_backup(const Tree& t, int A,
   }
 }
 
-// Every simulation of one environment per lane group, the towers staged
-// once per block in shared memory, the compact trees (and, where the launch
-// plan keeps them there, the embeddings) in shared memory at an odd
-// stride per environment.
-template <bool kGumbel, int G>
+// Every simulation of one environment per lane group, the compact trees
+// (and, where the launch plan keeps them there, the embeddings) in shared
+// memory at an odd stride per environment. With kSmemWeights the towers
+// are staged once per block in shared memory; without it (towers wider
+// than a block's shared memory: the 2048 example's 492 K floats) every
+// dense layer reads them from device memory through the read-only cache,
+// and L2 holds them for every block of the launch.
+template <bool kGumbel, int G, bool kSmemWeights>
 __global__ void __launch_bounds__(kMlpThreads, kMlpMinBlocks<G>)
 fused_search_kernel(const float* __restrict__ root_emb,
                     const float* __restrict__ root_logits,
@@ -653,9 +662,13 @@ fused_search_kernel(const float* __restrict__ root_emb,
                     float* __restrict__ out_value,
                     float* __restrict__ out_q, const Args args) {
   extern __shared__ __align__(16) float smem[];
-  for (int i = threadIdx.x; i < args.n_weights; i += blockDim.x)
-    smem[i] = weights[i];
-  __syncthreads();
+  constexpr bool kLdg = !kSmemWeights;
+  if (kSmemWeights) {
+    for (int i = threadIdx.x; i < args.n_weights; i += blockDim.x)
+      smem[i] = weights[i];
+    __syncthreads();
+  }
+  const float* towers = kSmemWeights ? smem : weights;
 
   const int local = threadIdx.x / G;
   const int env = blockIdx.x * args.envs_per_block + local;
@@ -668,8 +681,9 @@ fused_search_kernel(const float* __restrict__ root_emb,
   const float discount = args.discount;
   const size_t e = static_cast<size_t>(env);
 
-  // This environment's slice: the tree, two activation buffers, the
-  // invalid mask, the Gumbel mode's raw values and root score, and the
+  // This environment's slice (after the staged weights, where there are
+  // any; weights_stride is 0 otherwise): the tree, two activation buffers,
+  // the invalid mask, the Gumbel mode's raw values and root score, and the
   // embeddings here or in the scratch.
   float* base = smem + args.weights_stride + local * args.env_stride;
   Tree t;
@@ -719,25 +733,26 @@ fused_search_kernel(const float* __restrict__ root_emb,
     // ---- expansion: dynamics on concat(s, one_hot(a)), then prediction --
     for (int j = lane; j < E; j += G) bufs[0][j] = emb[parent * E + j];
     g.sync();
-    const float* p = smem;
+    const float* p = towers;
     const float* x = bufs[0];
     int in = E, k = 1;
     for (int l = 0; l < args.n_dyn; ++l) {
       const int out = args.dyn_width[l];
       const int rows = l == 0 ? E + A : in;  // the one-hot rows after s
-      dense_elu(g, p, p + rows * out, x, bufs[k], in, out,
-                l == 0 ? p + (E + act) * out : nullptr);
+      dense_elu<G, kLdg>(g, p, p + rows * out, x, bufs[k], in, out,
+                         l == 0 ? p + (E + act) * out : nullptr);
       p += rows * out + out;
       x = bufs[k];
       k ^= 1;
       in = out;
     }
     float* ns = bufs[k];  // the reward logits, then the next state
-    const float reward = decode_head(g, p, p + in * S41, x, in, S41,
-                                     args.support_size, ns);
+    const float reward = decode_head<G, kLdg>(g, p, p + in * S41, x, in, S41,
+                                              args.support_size, ns);
     p += in * S41 + S41;
     float lo = INFINITY, hi = -INFINITY;
-    for_outputs(g, p, p + in * E, x, in, E, nullptr, [&](int j, float v) {
+    for_outputs<G, kLdg>(g, p, p + in * E, x, in, E, nullptr,
+                         [&](int j, float v) {
       ns[j] = v;
       lo = fminf(lo, v);
       hi = fmaxf(hi, v);
@@ -751,24 +766,24 @@ fused_search_kernel(const float* __restrict__ root_emb,
     }
     g.sync();
 
-    p = smem + args.pred_offset;
+    p = towers + args.pred_offset;
     x = ns;
     in = E;
     k ^= 1;  // the dynamics' last hidden buffer is free again
     for (int l = 0; l < args.n_pred; ++l) {
       const int out = args.pred_width[l];
-      dense_elu(g, p, p + in * out, x, bufs[k], in, out, nullptr);
+      dense_elu<G, kLdg>(g, p, p + in * out, x, bufs[k], in, out, nullptr);
       p += in * out + out;
       x = bufs[k];
       k ^= 1;
       in = out;
     }
-    const float value = decode_head(g, p, p + in * S41, x, in, S41,
-                                    args.support_size, bufs[k]);
+    const float value = decode_head<G, kLdg>(g, p, p + in * S41, x, in, S41,
+                                             args.support_size, bufs[k]);
     p += in * S41 + S41;
     float* prior = t.cpri + slot * A;
-    for_outputs(g, p, p + in * A, x, in, A, nullptr,
-                [&](int a, float v) { prior[a] = v; });
+    for_outputs<G, kLdg>(g, p, p + in * A, x, in, A, nullptr,
+                         [&](int a, float v) { prior[a] = v; });
     softmax_row(g, prior, prior, A);
 
     // ---- install (running mean) and backup along parent pointers -------
@@ -1170,13 +1185,21 @@ size_t mlp_smem_bytes(const Args& args) {
          sizeof(float);
 }
 
-template <bool kGumbel>
+template <bool kGumbel, bool kSmemWeights>
 MlpKernel mlp_kernel(int group) {
   switch (group) {
-    case 4: return fused_search_kernel<kGumbel, 4>;
-    case 32: return fused_search_kernel<kGumbel, 32>;
+    case 4: return fused_search_kernel<kGumbel, 4, kSmemWeights>;
+    case 32: return fused_search_kernel<kGumbel, 32, kSmemWeights>;
     default: return nullptr;
   }
+}
+
+MlpKernel mlp_kernel(int gumbel, int group, int smem_weights) {
+  if (gumbel)
+    return smem_weights ? mlp_kernel<true, true>(group)
+                        : mlp_kernel<true, false>(group);
+  return smem_weights ? mlp_kernel<false, true>(group)
+                      : mlp_kernel<false, false>(group);
 }
 
 int launch(const Args& args, int gumbel, int group, const float* root_emb,
@@ -1185,8 +1208,7 @@ int launch(const Args& args, int gumbel, int group, const float* root_emb,
            const float* schedule, const float* weights, float* emb_scratch,
            float* out_visits, float* out_value, float* out_q, int device,
            void* stream) {
-  const MlpKernel kernel =
-      gumbel ? mlp_kernel<true>(group) : mlp_kernel<false>(group);
+  const MlpKernel kernel = mlp_kernel(gumbel, group, args.smem_weights);
   const int threads = args.envs_per_block * group;
   if (kernel == nullptr || args.envs_per_block < 1 || threads > kMlpThreads ||
       threads % 32 != 0)
@@ -1212,13 +1234,15 @@ int launch(const Args& args, int gumbel, int group, const float* root_emb,
 
 // Fills `args` from the shapes, the tower widths and the launch plan (G,
 // environments per block, embeddings in shared memory or in a scratch of
-// scratch_floats); returns 0, or kErrShape when they do not fit the kernel
-// or the flat weight buffer.
+// scratch_floats, the towers staged in shared memory or read from device
+// memory); returns 0, or kErrShape when they do not fit the kernel or the
+// flat weight buffer.
 int make_args(Args* args, int B, int A, int E, int S41, int support_size,
               int num_simulations, int max_depth, float discount,
               int n_weights, int n_dyn, const int* dyn_width, int n_pred,
               const int* pred_width, bool gumbel, int envs_per_block,
-              int smem_emb, const float* emb_scratch, long scratch_floats) {
+              int smem_emb, int smem_weights, const float* emb_scratch,
+              long scratch_floats) {
   if (n_dyn < 1 || n_dyn > kMaxLayers || n_pred < 1 || n_pred > kMaxLayers ||
       B < 1 || A < 1 || E < 1 || S41 < 1 || num_simulations < 1)
     return kErrShape;
@@ -1260,7 +1284,8 @@ int make_args(Args* args, int B, int A, int E, int S41, int support_size,
   if (dyn_floats + pred_floats != n_weights) return kErrShape;
   args->pred_offset = static_cast<int>(dyn_floats);
   args->n_weights = n_weights;
-  args->weights_stride = (n_weights + 3) / 4 * 4;
+  args->weights_stride = smem_weights ? (n_weights + 3) / 4 * 4 : 0;
+  args->smem_weights = smem_weights;
   args->act_width = act_width;
   const long N = num_simulations + 1;
   // The tree (4 N + 2 N A), two activation buffers, the invalid mask; the
@@ -1348,14 +1373,15 @@ extern "C" {
 // head, then prediction hidden layers, value head, policy head). The launch
 // plan: `group` lanes per environment (4 or 32), envs_per_block
 // groups a block (envs_per_block x group a multiple of 32, at most 256),
-// and the embeddings in shared memory (smem_emb) or in emb_scratch, B N E
-// floats, N = num_simulations + 1. Outputs: visits [B, A], value [B], q
-// [B, A] (r + discount v). Returns a cudaError_t, or MZ_ERR_SHAPE.
+// the embeddings in shared memory (smem_emb) or in emb_scratch, B N E
+// floats, N = num_simulations + 1, and the towers staged in shared memory
+// (smem_weights) or read from device memory. Outputs: visits [B, A], value
+// [B], q [B, A] (r + discount v). Returns a cudaError_t, or MZ_ERR_SHAPE.
 int mz_fused_muzero_search(const float* root_emb, const float* root_logits,
                            const float* root_value, const float* invalid,
                            const float* weights, int n_weights,
                            float* emb_scratch, long scratch_floats, int group,
-                           int envs_per_block, int smem_emb,
+                           int envs_per_block, int smem_emb, int smem_weights,
                            float* out_visits, float* out_value, float* out_q,
                            int B, int A, int E, int S41, int support_size,
                            int num_simulations, int max_depth, float discount,
@@ -1366,8 +1392,8 @@ int mz_fused_muzero_search(const float* root_emb, const float* root_logits,
   const int bad = make_args(&args, B, A, E, S41, support_size,
                             num_simulations, max_depth, discount, n_weights,
                             n_dyn, dyn_width, n_pred, pred_width, false,
-                            envs_per_block, smem_emb, emb_scratch,
-                            scratch_floats);
+                            envs_per_block, smem_emb, smem_weights,
+                            emb_scratch, scratch_floats);
   if (bad) return bad;
   args.pb_c_init = pb_c_init;
   args.pb_c_base = pb_c_base;
@@ -1387,7 +1413,7 @@ int mz_fused_gumbel_search(const float* root_emb, const float* root_logits,
                            const float* root_score, const float* schedule,
                            const float* weights, int n_weights,
                            float* emb_scratch, long scratch_floats, int group,
-                           int envs_per_block, int smem_emb,
+                           int envs_per_block, int smem_emb, int smem_weights,
                            float* out_visits, float* out_value, float* out_q,
                            int B, int A, int E, int S41, int support_size,
                            int num_simulations, int max_depth, float discount,
@@ -1398,21 +1424,21 @@ int mz_fused_gumbel_search(const float* root_emb, const float* root_logits,
   const int bad = make_args(&args, B, A, E, S41, support_size,
                             num_simulations, max_depth, discount, n_weights,
                             n_dyn, dyn_width, n_pred, pred_width, true,
-                            envs_per_block, smem_emb, emb_scratch,
-                            scratch_floats);
+                            envs_per_block, smem_emb, smem_weights,
+                            emb_scratch, scratch_floats);
   if (bad) return bad;
   return launch(args, 1, group, root_emb, root_logits, root_value, invalid,
                 root_score, schedule, weights, emb_scratch, out_visits,
                 out_value, out_q, device, stream);
 }
 
-// Blocks of the MLP kernel (mode `gumbel`, G = group) of `threads` threads
-// and smem_bytes of dynamic shared memory that one SM holds at once, as
-// the CUDA runtime reckons it from the compiled kernel; into *out.
-int mz_mlp_blocks_per_sm(int gumbel, int group, int threads, long smem_bytes,
-                         int device, int* out) {
-  const MlpKernel kernel =
-      gumbel ? mlp_kernel<true>(group) : mlp_kernel<false>(group);
+// Blocks of the MLP kernel (mode `gumbel`, G = group, the towers in shared
+// memory or not) of `threads` threads and smem_bytes of dynamic shared
+// memory that one SM holds at once, as the CUDA runtime reckons it from the
+// compiled kernel; into *out.
+int mz_mlp_blocks_per_sm(int gumbel, int group, int smem_weights, int threads,
+                         long smem_bytes, int device, int* out) {
+  const MlpKernel kernel = mlp_kernel(gumbel, group, smem_weights);
   if (kernel == nullptr) return kErrShape;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

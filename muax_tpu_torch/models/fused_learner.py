@@ -220,13 +220,13 @@ def _load_kernel():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64 = ctypes.c_long
     fn.argtypes = ([ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, i64, i32,
-                    i32, i64] + [i32] * 7 + [i32, ptr, i32, ptr, i32, ptr]
+                    i32, i32, i64] + [i32] * 7 + [i32, ptr, i32, ptr, i32, ptr]
                    + [i32] * 6 + [f32, f32, i32, ptr])
     fn.restype = i32
     lib.mz_mlp_learner_floats.argtypes = ([i32] * 5 + [i32, ptr] * 3
                                           + [ptr])
     lib.mz_mlp_learner_floats.restype = i32
-    lib.mz_learner_blocks_per_sm.argtypes = [i32, i64, i32, ptr]
+    lib.mz_learner_blocks_per_sm.argtypes = [i32, i32, i64, i32, ptr]
     lib.mz_learner_blocks_per_sm.restype = i32
     lib.mz_fused_categorical_grad.argtypes = (
         [ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ctypes.c_long, i32]
@@ -262,8 +262,9 @@ def _check_raw(lw, raw: torch.Tensor, coef: torch.Tensor, lay: RawLayout):
 # The MLP spec's launch (``mlp_tile_kernel`` in csrc/fused_learner.cu): a
 # block of ``LEARNER_THREADS`` threads per tile of ``LEARNER_TILE`` windows
 # (the M of a tensor-core tile product), the towers' weights in shared
-# memory, and at most two blocks an SM (its ``__launch_bounds__(256, 2)``
-# gives a thread 128 registers: two blocks fill the register file).
+# memory where they fit (else in device memory), and at most two blocks an
+# SM (its ``__launch_bounds__(256, 2)`` gives a thread 128 registers: two
+# blocks fill the register file).
 LEARNER_TILE = 16
 LEARNER_THREADS = 256
 _LEARNER_BLOCKS_PER_SM = 2
@@ -276,13 +277,16 @@ class LearnerPlan(NamedTuple):
   shared memory a block; ``scratch_floats`` of device scratch (the blocks'
   rows of weight gradients, then their arenas unless ``smem_arena``); an SM
   holds ``blocks_per_sm`` blocks at once, and the busiest SM
-  ``warps_per_sm`` warps (theoretical, capped by the grid)."""
+  ``warps_per_sm`` warps (theoretical, capped by the grid); the towers'
+  weights staged in each block's shared memory (``smem_weights``) or read
+  by the tile products from device memory, which L2 holds."""
   blocks: int
   smem_arena: bool
   smem_bytes: int
   scratch_floats: int
   blocks_per_sm: int
   warps_per_sm: int
+  smem_weights: bool = True
 
 
 def learner_padded(n: int) -> int:
@@ -348,9 +352,11 @@ def mlp_learner_plan(batch: int, num_steps: int, lw,
                      limits: DeviceLimits) -> LearnerPlan:
   """The MLP spec's launch plan: one block per 16 windows; the arena in
   shared memory beside the weights where both fit a block, else in the
-  device scratch. Raises RuntimeError where the weights alone do not fit
-  (the kernel refuses such shapes). ``lw``: ``LearnerWeights`` (only its
-  shapes are read). The plan of a shape is worked out once and kept."""
+  device scratch; where the weights alone do not fit a block (the 2048
+  example's towers (256, 256) at 601 bins, 2.3 MB), the weights stay in
+  device memory and the arena in the scratch. ``lw``: ``LearnerWeights``
+  (only its shapes are read). The plan of a shape is worked out once and
+  kept."""
   return _mlp_learner_plan(batch, num_steps, _shapes(lw), limits)
 
 
@@ -359,19 +365,18 @@ def _mlp_learner_plan(batch, num_steps, shapes, limits) -> LearnerPlan:
   n_weights, weights, arena = mlp_learner_floats(
       LearnerWeights(*shapes, flat=None), num_steps)
   blocks = -(-batch // LEARNER_TILE)
-  for smem_arena in (True, False):
-    smem = 4 * (weights + (arena if smem_arena else 0))
-    if smem <= limits.smem_per_block:
+  for smem_weights, smem_arena in ((True, True), (True, False),
+                                   (False, False)):
+    smem = 4 * ((weights if smem_weights else 0)
+                + (arena if smem_arena else 0))
+    if smem <= limits.smem_per_block or not smem_weights:
       per_sm = min(_LEARNER_BLOCKS_PER_SM,
                    limits.smem_per_sm // (smem + limits.smem_reserved))
       busiest = min(per_sm, -(-blocks // limits.sms))
       return LearnerPlan(
           blocks, smem_arena, smem,
           blocks * (n_weights + (0 if smem_arena else arena)), per_sm,
-          busiest * LEARNER_THREADS // 32)
-  raise RuntimeError("fused learner kernel: shapes do not fit the fused "
-                     "learner kernel (the towers' weights exceed a block's "
-                     "shared memory)")
+          busiest * LEARNER_THREADS // 32, smem_weights)
 
 
 def learner_blocks_per_sm(plan: LearnerPlan, device: torch.device) -> int:
@@ -380,8 +385,8 @@ def learner_blocks_per_sm(plan: LearnerPlan, device: torch.device) -> int:
   out = ctypes.c_int()
   lib = _load_kernel()
   err = lib.mz_learner_blocks_per_sm(
-      int(plan.smem_arena), plan.smem_bytes, _device_index(device),
-      ctypes.byref(out))
+      int(plan.smem_arena), int(plan.smem_weights), plan.smem_bytes,
+      _device_index(device), ctypes.byref(out))
   if err != 0:
     raise RuntimeError("fused learner kernel: "
                        + lib.mz_learner_error_string(err).decode())
@@ -482,9 +487,9 @@ def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
       raw.data_ptr(), raw.stride(0), coef.data_ptr(), lw.flat.data_ptr(), n,
       grads.data_ptr(), met.data_ptr(), l2.data_ptr(), scratch.data_ptr(),
       plan.scratch_floats, plan.blocks, int(plan.smem_arena),
-      plan.smem_bytes, B, lay.O, lw.embedding_dim, lw.num_actions,
-      2 * lw.support_size + 1,
-      lw.support_size, lay.K, n_repr, repr_w, n_pred, pred_w, n_dyn, dyn_w,
+      int(plan.smem_weights), plan.smem_bytes, B, lay.O, lw.embedding_dim,
+      lw.num_actions, 2 * lw.support_size + 1, lw.support_size, lay.K,
+      n_repr, repr_w, n_pred, pred_w, n_dyn, dyn_w,
       lay.obs, lay.action, lay.reward, lay.rn, lay.pi, lay.mask,
       gradient_scale, l2_coef,
       _device_index(dev),

@@ -495,7 +495,8 @@ def _load_kernel():
   if lib.mz_fused_muzero_search.argtypes is None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i32, ptr, i32, ptr, i32, ptr]  # towers, device, stream
-    plan = [ptr, ctypes.c_long, i32, i32, i32]  # emb scratch, G, envs, place
+    # emb scratch, G, envs, embeddings' place, weights' place
+    plan = [ptr, ctypes.c_long, i32, i32, i32, i32]
     lib.mz_fused_muzero_search.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, *plan, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, f32, f32, f32] + tail
@@ -507,8 +508,8 @@ def _load_kernel():
         i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
         i32, i32, f32, f32, f32,
         i32, ptr, ptr, i32, ptr, ptr, i32, ptr]
-    lib.mz_mlp_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.c_long, i32,
-                                         ptr]
+    lib.mz_mlp_blocks_per_sm.argtypes = [i32, i32, i32, i32, ctypes.c_long,
+                                         i32, ptr]
     for fn in (lib.mz_fused_muzero_search, lib.mz_fused_gumbel_search,
                lib.mz_fused_tiled_search, lib.mz_mlp_blocks_per_sm):
       fn.restype = i32
@@ -627,7 +628,9 @@ class MLPPlan(NamedTuple):
   ``envs_per_block`` environments a block, the embeddings in shared memory
   (``smem_emb``) or in a device scratch; ``grid`` blocks, of which an SM
   holds ``blocks_per_sm`` at once, ``warps_per_sm`` on the busiest SM, and
-  whether every block is resident in one wave."""
+  whether every block is resident in one wave; the towers staged in each
+  block's shared memory (``smem_weights``) or read from device memory,
+  which L2 holds (towers wider than a block's shared memory)."""
   group: int
   envs_per_block: int
   smem_emb: bool
@@ -635,6 +638,7 @@ class MLPPlan(NamedTuple):
   blocks_per_sm: int
   warps_per_sm: int
   resident: bool
+  smem_weights: bool = True
 
 
 def mlp_act_width(num_actions: int, embedding_dim: int, widths) -> int:
@@ -662,22 +666,25 @@ def mlp_env_floats(num_actions: int, embedding_dim: int,
 
 def mlp_smem_bytes(n_weights: int, envs_per_block: int, env_floats: int
                    ) -> int:
-  """Shared memory of one block: the towers, then each environment's
-  slice."""
+  """Shared memory of one block: the towers (``n_weights`` floats, 0 where
+  they stay in device memory), then each environment's slice."""
   return 4 * (-(-n_weights // 4) * 4 + envs_per_block * env_floats)
 
 
 def _mlp_candidate(batch, group, smem_emb, env_floats, n_weights,
-                   limits: DeviceLimits) -> Optional[MLPPlan]:
+                   limits: DeviceLimits, smem_weights=True
+                   ) -> Optional[MLPPlan]:
   """The launch with G = ``group``: 256 threads a block, halved while the
   block's shared memory does not fit or the grid would leave SMs without
   a block, and while halving lets an SM hold more environments of a
   launch that does not fit the card at once; down to one warp. None when
-  one warp's environments do not fit."""
+  one warp's environments do not fit. Without ``smem_weights`` the towers
+  take no shared memory."""
   least = max(1, 32 // group)
+  staged = n_weights if smem_weights else 0
 
   def plan(envs):
-    size = mlp_smem_bytes(n_weights, envs, env_floats)
+    size = mlp_smem_bytes(staged, envs, env_floats)
     if size > limits.smem_per_block:
       return None
     threads = envs * group
@@ -687,7 +694,8 @@ def _mlp_candidate(batch, group, smem_emb, env_floats, n_weights,
     grid = -(-batch // envs)
     busiest = min(per_sm, -(-grid // limits.sms))
     return MLPPlan(group, envs, smem_emb, grid, per_sm,
-                   busiest * threads // 32, grid <= per_sm * limits.sms)
+                   busiest * threads // 32, grid <= per_sm * limits.sms,
+                   smem_weights)
 
   envs = MLP_BLOCK_THREADS // group
   while envs > least and (plan(envs) is None
@@ -714,9 +722,13 @@ def mlp_search_plan(batch: int, num_actions: int, embedding_dim: int,
   fewer lanes), else the largest G (the most warps); the embeddings in
   shared memory where that keeps them all resident. Where no launch keeps
   them all, the most environments resident per SM, then the largest G.
+  The towers are staged in shared memory where some launch fits them there
+  beside one warp's environments; else every launch reads them from device
+  memory (``smem_weights`` False; the 2048 example's towers (256, 256) at
+  601 bins are 1.97 MB) and the same rules choose among those.
   ``widths``: the bins and every hidden layer's width; ``group`` fixes G
-  (for timing each). Raises RuntimeError where one environment's tree and
-  the towers do not fit a block's shared memory, as the kernel would. The
+  (for timing each). Raises RuntimeError where one environment's tree
+  alone does not fit a block's shared memory, as the kernel would. The
   plan of a shape is worked out once and kept."""
   return _mlp_search_plan(batch, num_actions, embedding_dim,
                           num_simulations, n_weights, tuple(widths), gumbel,
@@ -728,17 +740,21 @@ def _mlp_search_plan(batch, num_actions, embedding_dim, num_simulations,
                      n_weights, widths, gumbel, limits, group) -> MLPPlan:
   act_width = mlp_act_width(num_actions, embedding_dim, widths)
   plans = []
-  for g in (MLP_GROUPS if group is None else (group,)):
-    for smem_emb in (True, False):
-      floats = mlp_env_floats(num_actions, embedding_dim, num_simulations,
-                              act_width, gumbel, smem_emb)
-      plan = _mlp_candidate(batch, g, smem_emb, floats, n_weights, limits)
-      if plan is not None:
-        plans.append(plan)
+  for smem_weights in (True, False):
+    for g in (MLP_GROUPS if group is None else (group,)):
+      for smem_emb in (True, False):
+        floats = mlp_env_floats(num_actions, embedding_dim, num_simulations,
+                                act_width, gumbel, smem_emb)
+        plan = _mlp_candidate(batch, g, smem_emb, floats, n_weights, limits,
+                              smem_weights)
+        if plan is not None:
+          plans.append(plan)
+    if plans:
+      break
   if not plans:
     raise RuntimeError("fused search kernel: shapes do not fit the fused "
-                       "search kernel (one environment's tree and the "
-                       "towers exceed a block's shared memory)")
+                       "search kernel (one environment's tree exceeds a "
+                       "block's shared memory)")
   resident = [p for p in plans if p.resident]
   if resident:
     full = [p for p in resident if p.warps_per_sm >= MLP_TARGET_WARPS]
@@ -757,9 +773,11 @@ def mlp_blocks_per_sm(plan: MLPPlan, n_weights: int, env_floats: int,
       torch.cuda.current_device())
   out = ctypes.c_int(0)
   lib = _load_kernel()
+  staged = n_weights if plan.smem_weights else 0
   err = lib.mz_mlp_blocks_per_sm(
-      int(gumbel), plan.group, plan.envs_per_block * plan.group,
-      mlp_smem_bytes(n_weights, plan.envs_per_block, env_floats), index,
+      int(gumbel), plan.group, int(plan.smem_weights),
+      plan.envs_per_block * plan.group,
+      mlp_smem_bytes(staged, plan.envs_per_block, env_floats), index,
       ctypes.byref(out))
   if err != 0:
     raise RuntimeError("fused search kernel: "
@@ -788,8 +806,9 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
                        pb_c_init=1.25, pb_c_base=19652.0, root_score=None,
                        schedule=None):
   """Launch one mode of the kernel: ``FusedMLPWeights`` take the MLP modes
-  (lane groups per environment, the towers staged in shared memory, laid
-  out by ``mlp_search_plan``), a ``FusedNetSpec`` the categorical
+  (lane groups per environment, the towers staged in shared memory or read
+  from device memory, laid out by ``mlp_search_plan``), a ``FusedNetSpec``
+  the categorical
   modes (clusters of blocks per tile of environments, tensor-core products
   over weights read from device memory);
   ``root_score`` and ``schedule`` select the Gumbel policy."""
@@ -862,7 +881,8 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
     buffers = (flat.data_ptr(), flat.numel(),
                scratch.data_ptr() if n_scratch else None, n_scratch,
                plan.group, plan.envs_per_block, int(plan.smem_emb),
-               visits.data_ptr(), value.data_ptr(), qvalues.data_ptr(),
+               int(plan.smem_weights), visits.data_ptr(), value.data_ptr(),
+               qvalues.data_ptr(),
                B, A, E, bins, spec.support_size, num_simulations, max_depth,
                discount)
     tail = (len(dyn_width), _ints(dyn_width), len(pred_width),

@@ -4,9 +4,14 @@ with the temperature schedule, the samples-per-insert gate, logging,
 greedy evaluation, the best-model checkpoint and full checkpoints that
 resume deterministically.
 
-Everything runs on ``networks.device``: the card unless the networks were
-made with ``device="cpu"``. All randomness after the parameter init comes
-from one generator on that device, seeded from ``seed``.
+The env is an on-device ``Environment``, a host pool (``GymVectorPool``,
+``Native2048Pool``, ``AtariVectorPool``, ``OpenSpielVectorPool``: anything
+that speaks the ``AutoResetWrapper`` interface) or a string, which the
+registry resolves (``envs/registry.py``). Everything runs on
+``networks.device``: the card unless the networks were made with
+``device="cpu"``; a pool must lie on the same device. All randomness after
+the parameter init comes from one generator on that device, seeded from
+``seed`` (host pools draw from their own seeds).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 
 from muax_tpu_torch.config import MuZeroConfig, config_hash
 from muax_tpu_torch.device import resolve_device
+from muax_tpu_torch.envs import registry
 from muax_tpu_torch.envs.base import AutoResetWrapper, Environment
 from muax_tpu_torch.fused_status import format_fused_status, fused_status
 from muax_tpu_torch.models.networks import MZNetworks
@@ -32,20 +38,21 @@ from muax_tpu_torch.train.learner import TrainState, make_multi_update_fn
 from muax_tpu_torch.train.reanalyze import make_reanalyze_fn
 from muax_tpu_torch.train.temperature import schedule_temperature
 
-_HOST_ENVS = ("string env ids, host pools and gym adapters are not ported "
-              "yet (ROADMAP.md A.11)")
-
 
 def make_evaluate_fn(networks: MZNetworks, env: AutoResetWrapper,
-                     config: MuZeroConfig, num_envs: int = 32,
+                     config: MuZeroConfig, num_envs: Optional[int] = None,
                      device="cuda"):
   """Greedy evaluation (no root noise, temperature 0): evaluate(params,
   generator) -> mean return of each env's first episode (a 0-d tensor).
 
   It stops once every env has finished its first episode, at most after
-  ``max_episode_steps`` steps.
+  ``max_episode_steps`` steps. ``num_envs`` defaults to the env's own
+  ``num_envs`` where it has one (a host pool takes no other batch), else
+  32.
   """
   device = resolve_device(device)
+  if num_envs is None:
+    num_envs = getattr(env, "num_envs", 32)
   policy_fn = make_policy_fn(networks, config, config.train.discount,
                              eval_mode=True, device=device)
   max_steps = env.spec.max_episode_steps
@@ -76,7 +83,7 @@ def _opt_structure(opt_state) -> tuple:
 
 
 def fit(
-    env: Environment,
+    env,
     networks: MZNetworks,
     config: Optional[MuZeroConfig] = None,
     optimizer: Optional[GradientTransformation] = None,
@@ -91,13 +98,21 @@ def fit(
     log_fn: Callable[[str], None] = print,
     reanalyze_every: Optional[int] = None,
     reanalyze_segments: int = 64,
-    eval_env: Optional[Environment] = None,
+    eval_env=None,
     checkpoint_every: Optional[int] = None,
     resume_from: Optional[str] = None,
 ):
-  """Train MuZero on a batched on-device env. Returns (train_state,
-  results): ``results['model_path']`` is the best checkpoint,
-  ``results['history']`` the logged metrics.
+  """Train MuZero on a batched on-device env, a host pool or an env id.
+  Returns (train_state, results): ``results['model_path']`` is the best
+  checkpoint, ``results['history']`` the logged metrics.
+
+  A string ``env`` resolves through the registry with ``num_envs`` envs of
+  the config, a string ``eval_env`` with min(8, num_envs). Greedy
+  evaluation runs on ``eval_env`` where given, else on ``env`` for an
+  on-device env, which every reset mints anew. A host pool holds its
+  episodes on the host, so evaluating on the training pool would break
+  them: a pool without ``eval_env`` skips evaluation and tracks the best
+  model by the rollout's mean episode return.
 
   ``reanalyze_every=N`` refreshes the targets of ``reanalyze_segments``
   segments of the ring, stalest first, after every N-th iteration
@@ -112,17 +127,31 @@ def fit(
   config = config or MuZeroConfig()
   optimizer = optimizer or muzero_optimizer()
   tcfg = config.train
-  if not isinstance(env, Environment) or (
-      eval_env is not None and not isinstance(eval_env, Environment)):
-    raise NotImplementedError(_HOST_ENVS)
   device = networks.device
+  if isinstance(env, str):
+    env = registry.make(env, num_envs=tcfg.num_envs, device=device)
+  if isinstance(eval_env, str):
+    eval_env = registry.make(eval_env, num_envs=min(8, tcfg.num_envs),
+                             device=device)
 
-  wrapped = AutoResetWrapper(env)
+  # An on-device Environment gets the auto-reset wrapper; a host pool
+  # speaks the wrapper's interface already.
+  def wrap(e):
+    return AutoResetWrapper(e) if isinstance(e, Environment) else e
+
+  wrapped = wrap(env)
   rollout = make_rollout_fn(networks, wrapped, config, device=device)
   multi_update = make_multi_update_fn(networks, optimizer, config)
-  evaluate = make_evaluate_fn(
-      networks, AutoResetWrapper(eval_env) if eval_env is not None
-      else wrapped, config, device=device)
+  if eval_env is not None:
+    evaluate = make_evaluate_fn(networks, wrap(eval_env), config,
+                                device=device)
+  elif isinstance(env, Environment):
+    evaluate = make_evaluate_fn(networks, wrapped, config, num_envs=32,
+                                device=device)
+  else:
+    evaluate = None
+    log_fn("[muax_tpu_torch] host pool without eval_env: greedy eval "
+           "disabled; best model tracked by rollout mean_episode_return")
   reanalyze = (make_reanalyze_fn(networks, config, reanalyze_segments,
                                  device=device)
                if reanalyze_every else None)
@@ -136,7 +165,8 @@ def fit(
   replay_state = replay_init(
       config.replay.capacity, tcfg.collect_steps, env.spec.observation_shape,
       networks.num_actions,
-      obs_dtype=env.spec.obs_dtype or torch.float32, device=device)
+      obs_dtype=getattr(env.spec, "obs_dtype", None) or torch.float32,
+      device=device)
   log_fn("[muax_tpu_torch] " + format_fused_status(
       fused_status(networks, config, params, replay_state,
                    optimizer=optimizer)))
@@ -240,8 +270,11 @@ def fit(
       t_start, timed_steps = time.time(), 0
 
       if (it + 1) % eval_every == 0 or it == 0:
-        score = float(evaluate(train_state.params, generator))
-        metrics["test_G"] = score
+        if evaluate is not None:
+          score = float(evaluate(train_state.params, generator))
+          metrics["test_G"] = score
+        else:
+          score = metrics.get("mean_episode_return", -np.inf)
         if score > best_reward:
           best_reward = score
           if save_best:

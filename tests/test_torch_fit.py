@@ -4,8 +4,8 @@ the generic engine), a bit-exact resume as
 ``tests/test_checkpoint.py:84-115``,
 the resume guards, the checkpoint round trip, the fused-status report,
 reanalyze inside ``fit`` (bit-exact across a resume), Catch learned with the
-name-keyed adam as ``tests/test_e2e.py:39-63`` learns it, and the part that
-raises until its ROADMAP item is ported."""
+name-keyed adam as ``tests/test_e2e.py:39-63`` learns it, and string env
+ids resolved through the registry."""
 import os
 
 import numpy as np
@@ -185,8 +185,22 @@ def test_fused_status_report():
 
 
 def test_unported_parts_raise(tmp_path):
-  with pytest.raises(NotImplementedError, match="A.11"):
-    fit("CartPole-v1", _networks(), _config(), num_iterations=1)
+  # String env ids were refused until the host environments were ported;
+  # "CartPole-v1" now resolves through the registry to the port's own
+  # CartPole (the same run, bit for bit, as fit(CartPole(), ...)), and an
+  # id that neither the registry nor gymnasium knows raises.
+  _, by_name = fit("CartPole-v1", _networks(), _config(),
+                   muzero_optimizer(warmup_steps=2), num_iterations=2,
+                   eval_every=2, log_every=2, log_fn=lambda s: None,
+                   seed=11, save_best=False)
+  _, by_env = _fit(tmp_path, num_iterations=2, save_best=False)
+  for a, b in zip(by_name["history"], by_env["history"], strict=True):
+    a.pop("env_steps_per_s"), b.pop("env_steps_per_s")  # wall time
+    assert a == b
+  assert "test_G" in by_name["history"][-1]
+  pytest.importorskip("gymnasium")
+  with pytest.raises(Exception, match="NoSuchEnv"):
+    fit("NoSuchEnv-v0", _networks(), _config(), num_iterations=1)
 
 
 def test_reanalyze_resume_is_bit_exact(tmp_path):

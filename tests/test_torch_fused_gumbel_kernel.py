@@ -11,7 +11,10 @@ the visits agree. A score tie that f32 rounding (the kernel contracts
 multiply-adds into FMAs) breaks the other way moves a visit. The launches
 of 8192 trees of 400 simulations or 18 actions may have at most 8 envs whose
 value or q are further off, for the reason and with the evidence that
-``test_torch_fused_search_kernel`` gives (``assert_matches_plain``).
+``test_torch_fused_search_kernel`` gives (``assert_matches_plain``); the
+wide towers on masked roots as that file holds them
+(``assert_matches_plain_masked``), with the policy's action the same on at
+least 99 % of envs, as ``chip_smoke.py`` phases 22 and 30 hold it.
 """
 import pytest
 import torch
@@ -21,7 +24,9 @@ from muax_tpu_torch.models import make_mlp_networks
 from muax_tpu_torch.replay.buffer import gumbel_noise
 from muax_tpu_torch.search import fused
 from muax_tpu_torch.train.inference import make_root_fn
-from test_torch_fused_search_kernel import assert_matches_plain
+from test_torch_fused_search_kernel import (assert_matches_plain,
+                                            assert_matches_plain_masked,
+                                            wide_inputs)
 
 pytestmark = pytest.mark.gpu
 SUPPORT = 20
@@ -132,6 +137,33 @@ def _run_and_compare(cuda, num_actions, layers, batch, sims, max_depth,
   if invalid is not None and bool(invalid.all()):
     # No root score is eligible: every simulation takes action 0.
     assert bool((visits[:, 0] == sims).all())
+
+
+@pytest.mark.parametrize("batch", [64, 1024])
+def test_wide_towers_read_from_device_memory(cuda, batch):
+  # run_2048's triplet, its towers in device memory, under legal masks.
+  args, invalid, gen = wide_inputs(cuda, batch)
+  gumbel = gumbel_noise(gen, (batch, 4), cuda)
+  kwargs = dict(num_simulations=50, support_size=300, discount=0.999,
+                invalid_actions=invalid, max_depth=None)
+  root_score, schedule = fused.gumbel_root_inputs(
+      args[1], gumbel, invalid, max_num_considered_actions=16,
+      num_simulations=50)
+  before = fused.gumbel_launches
+  out = fused.fused_gumbel_search(
+      *args, gumbel=gumbel, max_num_considered_actions=16, **kwargs)
+  torch.cuda.synchronize()
+  assert fused.gumbel_launches == before + 1
+  kwargs.update(root_score=root_score, schedule=schedule)
+  ref = fused.fused_gumbel_search_reference(*args, **kwargs)
+  assert_matches_plain_masked(out, ref, 50, invalid, args, kwargs)
+
+  def act(res):  # the policy's action: max visits, then score + sigma(q)
+    visits, _, cq = res
+    score = torch.where(visits == visits.amax(-1, keepdim=True),
+                        root_score + cq, -torch.inf)
+    return torch.argmax(torch.where(invalid > 0, -torch.inf, score), -1)
+  assert float((act(out) == act(ref)).float().mean()) >= 0.99
 
 
 def test_wrapper_rejects_bad_schedule(cuda):

@@ -32,19 +32,20 @@ def cuda():
   return torch.device("cuda", torch.cuda.current_device())
 
 
-def _setup(device, A, repr_layers, layers, support, B, K, seed=0, E=8):
+def _setup(device, A, repr_layers, layers, support, B, K, seed=0, E=8,
+           obs_dim=4, rn_scale=5.0):
   net = make_mlp_networks(A, embedding_dim=E, support_size=support,
                           repr_layers=repr_layers, pred_layers=layers,
                           dyn_layers=layers, device=device)
-  params = net.init_params((4,), torch.Generator().manual_seed(seed))
+  params = net.init_params((obs_dim,), torch.Generator().manual_seed(seed))
   gen = torch.Generator(device=device).manual_seed(seed)
   lengths = torch.randint(1, K + 1, (B,), generator=gen, device=device)
   batch = Transition(
-      obs=torch.randn((B, K, 4), generator=gen, device=device),
+      obs=torch.randn((B, K, obs_dim), generator=gen, device=device),
       action=torch.randint(0, A, (B, K), generator=gen, device=device),
       reward=torch.randn((B, K), generator=gen, device=device),
       done=torch.zeros((B, K), dtype=torch.bool, device=device),
-      rn=torch.randn((B, K), generator=gen, device=device) * 5,
+      rn=torch.randn((B, K), generator=gen, device=device) * rn_scale,
       value=torch.zeros((B, K), device=device),
       pi=torch.softmax(torch.randn((B, K, A), generator=gen, device=device),
                        -1),
@@ -143,6 +144,32 @@ def test_raw_mode_matches_plain_at_embedding_32(cuda, seed):
   for got in (metrics.priorities, plain.priorities):
     torch.testing.assert_close(got.double(), exact.priorities, rtol=3e-4,
                                atol=3e-4)
+
+
+# examples/run_2048.py's triplet: A = 4, embedding 64, support 300 (601
+# bins), towers (256, 256) in all three nets, 16 observation features, at
+# its batch 256 and unroll 5: 2.3 MB of weights, which the kernel reads
+# from device memory (the plan's smem_weights is False).
+WIDE_CASE = dict(A=4, repr_layers=(256, 256), layers=(256, 256), support=300,
+                 B=256, K=5)
+
+
+def test_wide_towers_read_from_device_memory(cuda):
+  import ctypes
+  net, params, batch = _setup(cuda, **WIDE_CASE, E=64, obs_dim=16,
+                              rn_scale=50.0)
+  lw = fused_learner.extract_learner_weights(net, params)
+  plan = fused_learner.mlp_learner_plan(256, 5, lw,
+                                        fused_learner.device_limits(cuda))
+  assert (plan.smem_weights, plan.smem_arena, plan.smem_bytes) == (
+      False, False, 0)
+  assert fused_learner.learner_blocks_per_sm(plan, cuda) >= 1
+  lib = fused_learner._load_kernel()
+  out = (ctypes.c_long * 2)()
+  towers = fused_learner._widths(fused_learner._shapes(lw)[:3])
+  assert lib.mz_mlp_learner_floats(16, 64, 4, 601, 5, *towers, out) == 0
+  assert (out[0], out[1]) == fused_learner.mlp_learner_floats(lw, 5)[1:]
+  hold_against_plain(cuda, net, params, batch, 256, 5)
 
 
 def test_batch_mode_and_column_blocks(cuda):

@@ -8,7 +8,10 @@ runs on a machine with a card:
 Checks as in ``tests/test_fused.py``: visits sum to the simulation count,
 every env at most 2 visits apart, root value rtol = atol = 1e-3, and root q
 the same where the visits agree. A score tie that f32 rounding (the kernel
-contracts multiply-adds into FMAs) breaks the other way moves a visit.
+contracts multiply-adds into FMAs) breaks the other way moves a visit. The
+wide towers of ``examples/run_2048.py`` on masked roots are held as
+``chip_smoke.py`` holds masked launches (phase 22's rule, the near-ties
+shown by phase 21's ``tie_proof``: ``assert_matches_plain_masked``).
 
 The launches of 8192 trees of 400 simulations or 18 actions are held to the
 same, except that at most 8 envs (0.1 %) may have their value or q further
@@ -90,6 +93,37 @@ def assert_matches_plain(out, ref, sims, apart=0):
     torch.testing.assert_close(q[same], ref_q[same], rtol=1e-3, atol=1e-3)
 
 
+def assert_matches_plain_masked(out, ref, sims, invalid, args, kwargs):
+  """Kernel against plain on masked roots of the wide towers, by phase 22's
+  rule (``chip_smoke.compare_masked_search``): visits sum to ``sims`` and
+  miss every invalid action, every env within 2 visits, and the root
+  value within rtol = atol = 1e-3 on at least 99 % of envs, where every
+  other env with the same visits is a near-tie that rounding breaks,
+  shown by ``chip_smoke.tie_proof`` (phase 21's proof: one-ulp nudges of
+  its root embedding and of the weights move it past the tolerance in the
+  kernel or the plain version, or the plain version in f32 and f64
+  disagree on it). ``args`` and ``kwargs`` are the launch's, as
+  ``fused._fused_search_cuda`` takes them. The towers' 256-input sums
+  round apart in the kernel (input by input) and in the plain version
+  (torch's products), so a tie below a root breaks differently on about
+  one env in a thousand of these random boards, which an ulp of the root
+  embedding alone (phase 22's proof) does not always move."""
+  from chip_smoke import outside, tie_proof
+
+  visits, value, q = out
+  ref_visits, ref_value, _ = ref
+  assert bool((visits.sum(-1) == sims).all())
+  assert bool(torch.isfinite(q).all())
+  assert float(visits[invalid > 0].abs().max()) == 0.0
+  dv = (visits - ref_visits).abs().amax(-1)
+  assert float(dv.max()) <= 2
+  off = outside(value, ref_value)
+  assert float(off.float().mean()) <= 0.01
+  idx = torch.nonzero(off & (dv == 0))[:, 0]
+  if len(idx):
+    assert bool(tie_proof(args, kwargs)(idx).all()), idx
+
+
 def _run_and_compare(args, invalid, sims, max_depth, apart=0):
   kwargs = dict(num_simulations=sims, support_size=SUPPORT, discount=0.997,
                 invalid_actions=invalid, max_depth=max_depth)
@@ -141,6 +175,51 @@ def test_large_trees_take_whole_warps(cuda, num_actions, sims):
   args, _ = _inputs(cuda, num_actions, (16,), 8192, False)
   assert _plan(cuda, args, sims).group == 32
   _run_and_compare(args, None, sims, None, apart=8)
+
+
+def wide_inputs(device, batch, seed=0):
+  """Roots of examples/run_2048.py's triplet (A = 4, embedding 64, support
+  300, towers (256, 256): 1.97 MB of search weights, past a block's shared
+  memory) on random 4 x 4 boards of tile exponents, and a random legal
+  mask a row with at least one legal move, as the 2048 pool gives."""
+  net = make_mlp_networks(4, embedding_dim=64, support_size=300,
+                          repr_layers=(256, 256), pred_layers=(256, 256),
+                          dyn_layers=(256, 256), device=device)
+  params = net.init_params((4, 4), torch.Generator().manual_seed(seed))
+  gen = torch.Generator(device=device).manual_seed(seed + 1)
+  boards = torch.randint(0, 12, (batch, 4, 4), generator=gen,
+                         device=device).float()
+  legal = (torch.rand((batch, 4), generator=gen, device=device) < 0.7).float()
+  legal[torch.arange(batch, device=device),
+        torch.randint(0, 4, (batch,), generator=gen, device=device)] = 1.0
+  invalid = 1.0 - legal
+  with torch.no_grad():
+    root = make_root_fn(net)(params, boards)
+  logits = torch.where(invalid > 0, -1e9, root.prior_logits)
+  return ((root.embedding.contiguous(), logits.contiguous(),
+           root.value.contiguous(), fused.extract_fused_weights(net, params)),
+          invalid, gen)
+
+
+@pytest.mark.parametrize("batch", [64, 1024])
+def test_wide_towers_read_from_device_memory(cuda, batch):
+  # run_2048's 64 boards (and 1024) x 50 simulations: the towers stay in
+  # device memory (the plan's smem_weights is False), held to the plain
+  # version as the other cases are.
+  args, invalid, _ = wide_inputs(cuda, batch)
+  kwargs = dict(num_simulations=50, support_size=300, discount=0.999,
+                invalid_actions=invalid, max_depth=None)
+  emb, logits, _, weights = args
+  plan = fused.mlp_search_plan(batch, 4, 64, 50, weights.flat().numel(),
+                               [601, 256, 256, 256, 256], False,
+                               fused.device_limits(cuda))
+  assert not plan.smem_weights
+  before = fused.launches
+  out = fused.fused_muzero_search(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert fused.launches == before + 1
+  ref = fused.fused_muzero_search_reference(*args, **kwargs)
+  assert_matches_plain_masked(out, ref, 50, invalid, args, kwargs)
 
 
 def test_wrapper_rejects_bad_inputs(cuda):

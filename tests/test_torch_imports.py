@@ -46,6 +46,9 @@ BOARD = ("train.reanalyze", "envs.catch", "envs.board", "envs.tictactoe",
 PIXEL = ("models.networks", "ops.normalize", "ops.frames",
          "ops.augmentations", "ops.gradients", "ops.returns", "envs.pixel",
          "envs.wrappers", "utils.debug")
+# The host environments, their registry and the 2048 example.
+HOST = ("envs.registry", "envs.gym_adapter", "envs.native2048",
+        "envs.atari", "envs.open_spiel_adapter", "examples.run_2048")
 
 
 def test_port_imports_no_jax():
@@ -55,6 +58,6 @@ def test_port_imports_no_jax():
   head, names = out.stdout.strip().splitlines()
   count, banned = head.split(" ", 1)
   assert int(count) >= 45, out.stdout  # every module of the port was loaded
-  for name in TRAINING + ENGINE + ACME + SMZ + BOARD + PIXEL:
+  for name in TRAINING + ENGINE + ACME + SMZ + BOARD + PIXEL + HOST:
     assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned

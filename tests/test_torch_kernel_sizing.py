@@ -167,6 +167,64 @@ def test_mlp_plan_takes_every_shape_the_warp_kernel_took(gumbel, A, E,
       assert not ok  # one tree of 20,001 nodes exceeds a block
 
 
+# examples/run_2048.py's triplet: A = 4, embedding 64, support 300 (601
+# bins), towers (256, 256): 492,278 floats of dynamics and prediction, 1.97
+# MB, past a block's 227 KB of shared memory.
+T2048 = dict(A=4, E=64, bins=601, hidden=(256, 256))
+
+
+def _towers_floats(A, E, bins, hidden):
+  """Floats of the search's two towers (the kernel's flat layout)."""
+  def tower(d_in, heads):
+    n = 0
+    for h in hidden:
+      n += d_in * h + h
+      d_in = h
+    return n + sum(d_in * o + o for o in heads)
+  return tower(E + A, (bins, E)) + tower(E, (bins, A))
+
+
+@pytest.mark.parametrize("gumbel", [False, True])
+@pytest.mark.parametrize("batch,envs,warps", [(64, 1, 1), (1024, 4, 8)])
+def test_mlp_search_plan_reads_wide_towers_from_device_memory(batch, envs,
+                                                              warps, gumbel):
+  # run_2048's 64 boards (and 1024) x 50 simulations: no launch stages the
+  # towers, so every launch reads them from device memory, a warp an env.
+  n_weights = _towers_floats(**T2048)
+  assert n_weights == 492278
+  widths = [T2048["bins"], *T2048["hidden"], *T2048["hidden"]]
+  plan = fused.mlp_search_plan(batch, T2048["A"], T2048["E"], 50, n_weights,
+                               widths, gumbel, H100)
+  assert not plan.smem_weights
+  assert (plan.group, plan.envs_per_block, plan.smem_emb, plan.resident,
+          plan.warps_per_sm) == (32, envs, True, True, warps)
+  floats = fused.mlp_env_floats(T2048["A"], T2048["E"], 50,
+                                fused.mlp_act_width(T2048["A"], T2048["E"],
+                                                    widths),
+                                gumbel, plan.smem_emb)
+  assert fused.mlp_smem_bytes(n_weights, 1, floats) > H100.smem_per_block
+  smem = fused.mlp_smem_bytes(0, plan.envs_per_block, floats)
+  assert smem <= H100.smem_per_block
+  assert plan.blocks_per_sm * (smem + H100.smem_reserved) <= H100.smem_per_sm
+  # The bench-width shapes keep their staged towers.
+  assert fused.mlp_search_plan(batch, 2, FLAGSHIP_E, 64, _mlp_n_weights(2),
+                               [FLAGSHIP_BINS, 16, 16], gumbel,
+                               H100).smem_weights
+
+
+def test_mlp_search_plan_refuses_only_a_tree_past_shared_memory():
+  # With the towers in device memory only one environment's own slice has
+  # to fit a block: 2,000 simulations of run_2048's tree do, 20,000 not.
+  n_weights = _towers_floats(**T2048)
+  widths = [T2048["bins"], *T2048["hidden"], *T2048["hidden"]]
+  plan = fused.mlp_search_plan(64, T2048["A"], T2048["E"], 2000, n_weights,
+                               widths, False, H100)
+  assert not plan.smem_weights and not plan.smem_emb
+  with pytest.raises(RuntimeError, match="tree exceeds"):
+    fused.mlp_search_plan(64, T2048["A"], T2048["E"], 20000, n_weights,
+                          widths, False, H100)
+
+
 def test_mlp_env_floats():
   # The flagship tree: 4 N + 2 N A = 520 floats, two activation buffers of
   # 41 (the bins), the invalid mask: 604; Gumbel adds N + A; the embeddings
@@ -277,11 +335,34 @@ def test_learner_plan_takes_every_shape_the_warp_kernel_took():
 
 def test_learner_plan_refuses_weights_past_shared_memory():
   # Towers of (256, 256) hold about 150 K floats of weights: more than a
-  # block's 58 K, as for the one-warp-per-window kernel.
+  # block's 58 K, which the one-warp-per-window kernel refused. The plan
+  # takes them: the weights stay in device memory, the arena in the
+  # scratch, and no shared memory is left to size.
   lw = _learner_shapes(2, (256,), (256, 256), 20)
   assert not _parent_learner_accepts(lw, 5, H100)
-  with pytest.raises(RuntimeError, match="do not fit"):
-    fused_learner.mlp_learner_plan(4096, 5, lw, H100)
+  plan = fused_learner.mlp_learner_plan(4096, 5, lw, H100)
+  n_weights, weights, arena = fused_learner.mlp_learner_floats(lw, 5)
+  assert 4 * weights > H100.smem_per_block
+  assert (plan.smem_weights, plan.smem_arena, plan.smem_bytes) == (
+      False, False, 0)
+  assert plan.scratch_floats == plan.blocks * (n_weights + arena)
+
+
+@pytest.mark.parametrize("B,blocks,per_sm,warps", [(256, 16, 2, 8),
+                                                   (16, 1, 2, 8)])
+def test_learner_plan_at_the_2048_example(B, blocks, per_sm, warps):
+  # run_2048's triplet (observations 4 x 4, towers (256, 256) in all three,
+  # embedding 64, 601 bins, A = 4) at its batch 256, unroll K = 5: 2.3 MB
+  # of weights, read from device memory.
+  lw = fused_learner.LearnerWeights(
+      repr_layers=(256, 256), pred_layers=(256, 256), dyn_layers=(256, 256),
+      obs_dim=16, embedding_dim=64, num_actions=4, support_size=300,
+      flat=None)
+  n_weights, _, arena = fused_learner.mlp_learner_floats(lw, 5)
+  assert n_weights == 578870
+  plan = fused_learner.mlp_learner_plan(B, 5, lw, H100)
+  assert plan == fused_learner.LearnerPlan(
+      blocks, False, 0, blocks * (n_weights + arena), per_sm, warps, False)
 
 
 # ---- the Stochastic MuZero launch plan (``fused_smz_kernel``) ---------------
