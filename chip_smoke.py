@@ -148,6 +148,26 @@ config implies and no other mode, every action legal under its mask,
 finite losses; ms an iteration, env-steps/s, the host's part of a step
 (the pool's C++ step, the copies) and the device's idle share.
 
+Phase 31 drives the host-facing surface, on which no kernel runs (the JAX
+agents, too, search with the generic engine and learn with autograd): every
+kernel's launch count is set to 0 before it and must be 0 after. Sampled
+MuZero on ``tests/test_sampled.py``'s Gaussian bandit and delayed-reward
+case at 1024 roots x 64 simulations (every root's best slot has the most
+visits, and the pick is it or a slot that ties it); the MuZero agent at
+the CartPole notebook triplet in the reference's single-env workflow
+(CartPole on the card, ``act`` at 50 simulations, ``PNStep`` into
+``Trajectory`` into ``TrajectoryReplayBuffer``, three episodes of at most
+100 steps, ``TrainMonitor(None)`` and ``Stopwatch``), 20 updates of 256
+windows (the loss on a fixed batch falls), one update on the card and the
+CPU from the same state (rtol 1e-4 / atol 1e-6, TF32 off), save and load
+(the same action, pi and value for the same seed) and a batched ``act``
+over 256 observations with its launches and idle share; the Stochastic
+MuZero agent (``smz_mlp`` widths, 200 simulations) and the Diffusion MuZero
+agent (its defaults, 50 simulations) act over 64 observations (the weights
+sum to 1) and update on that buffer (the diffusion agent's flow loss
+before and after, and one update on the card and the CPU with the same
+injected flow draws). ``tools/agents_phase.py`` runs it alone.
+
 Every failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or without the package beside it, it fails the same way.
 The line before the last lists every kernel with its launches, error, times
@@ -264,6 +284,28 @@ WIDE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
 HOST_ENVS, HOST_CHECK_ENVS, HOST_SIMS = 64, 1024, 50
 HOST_BOARD_MOVES, HOST_ITERATIONS = 24, 4
 HOST_BATCH, HOST_UNROLL = 256, 5
+# Phase 31, the host-facing surface (no kernel on its path). Sampled
+# MuZero: tests/test_sampled.py's Gaussian-proposal bandit (K = 4) and
+# delayed-reward case (K = 2, max depth 2) at 1024 roots x 64 sims. The
+# MuZero agent at the CartPole notebook triplet (examples/run_cartpole.py:
+# 44-55: embedding 10, support 20, no representation layer, towers
+# (64, 64, 16), its optimizer, unroll 10) in the single-env workflow:
+# AGENT_EPISODES episodes of at most AGENT_EPISODE_CAP steps at 50 sims, then
+# AGENT_UPDATES updates of 32 trajectories x 8 windows, and one batched act
+# over 256 observations. Stochastic MuZero at bench.py's smz_mlp widths
+# (bench.py:80-83) and Diffusion MuZero at make_diffusion_mlp_networks'
+# defaults act over 64 observations and update on the MuZero agent's
+# buffer.
+SAMPLED_ROOTS, SAMPLED_SIMS = 1024, 64
+AGENT_NET = dict(embedding_dim=10, support_size=20, repr_layers=(),
+                 pred_layers=(64, 64, 16), dyn_layers=(64, 64, 16))
+AGENT_OPTIMIZER = dict(peak_lr=2e-2, end_lr=1e-4, warmup_steps=2000,
+                       transition_steps=10000, decay_rate=0.8)
+AGENT_UNROLL, AGENT_SIMS, AGENT_DISCOUNT = 10, 50, 0.997
+AGENT_EPISODES, AGENT_EPISODE_CAP = 3, 100
+AGENT_TRAJECTORIES, AGENT_WINDOWS, AGENT_UPDATES = 32, 8, 20
+AGENT_BATCH_OBS, SURFACE_OBS = 256, 64
+SMZ_AGENT_UPDATES, DMZ_AGENT_UPDATES = 5, 20
 
 
 def check(cond, message):
@@ -1143,8 +1185,11 @@ def profile_iteration(one, host_ops=True):
   kernel (self CUDA time summed over launches), the device's busy time and
   the count of kernel launches. Profiling slows the host, so the busy time
   is set against the unprofiled iteration time by the caller. Without
-  ``host_ops`` only the device's activity is recorded, which a window of
-  a hundred thousand launches needs to be processed in seconds."""
+  ``host_ops`` only the device's activity is recorded. The device events
+  are read from the profiler's raw results, not through ``key_averages()``,
+  whose event tree takes tens of seconds to build for the hundred thousand
+  launches of a generic-engine search."""
+  from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
   torch.cuda.synchronize()
@@ -1154,18 +1199,19 @@ def profile_iteration(one, host_ops=True):
   with profile(activities=activities) as prof:
     one()
     torch.cuda.synchronize()
-  kernels = [e for e in prof.key_averages()
-             if getattr(e, "device_type", None) is not None
-             and "CUDA" in str(e.device_type)]
-  busy_us = sum(e.self_device_time_total for e in kernels)
+  by_name = {}
+  for e in prof.profiler.kineto_results.events():
+    if e.device_type() == DeviceType.CUDA:
+      us, count = by_name.get(e.name(), (0.0, 0))
+      by_name[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+  busy_us = sum(us for us, _ in by_name.values())
   if busy_us <= 0:
     return {"device_busy_ms": None, "kernel_launches": None, "top": None}
-  top = sorted(kernels, key=lambda e: e.self_device_time_total,
-               reverse=True)[:8]
+  top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
   return {"device_busy_ms": busy_us / 1e3,
-          "kernel_launches": sum(e.count for e in kernels),
-          "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                  for e in top]}
+          "kernel_launches": sum(c for _, c in by_name.values()),
+          "top": [[name[:60], us / 1e3, count]
+                  for name, (us, count) in top]}
 
 
 def profile_window(fn, host_ops=False):
@@ -2795,6 +2841,395 @@ def host_2048_phase(device, root, ptxas):
           "fit": host_fit_phase(device, root)}
 
 
+# ---- phase 31: the host-facing surface (no kernel on its path) ------------
+
+
+def host_ms(fn):
+  """Wall time of one call of ``fn``, synchronized at both ends, and its
+  result: for the generic engine's calls, whose time is the host's."""
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  return 1e3 * (time.perf_counter() - t0), out
+
+
+def launches_and_idle(fn, ms):
+  """Kernel launches of one more call of ``fn`` (``torch.profiler``, device
+  activity) and the device's idle share against ``ms``, the unprofiled
+  call's wall time."""
+  prof = profile_iteration(fn, host_ops=False)
+  busy = prof["device_busy_ms"]
+  return {"kernel_launches": prof["kernel_launches"],
+          "device_busy_ms": busy,
+          "idle_share": None if busy is None else 1.0 - busy / ms}
+
+
+def sampled_phase(device):
+  """Phase 31 (a): Sampled MuZero on tests/test_sampled.py's Gaussian
+  bandit (reward -(a - 1)^2, discount 0, a uniform empirical prior over K =
+  4 iid draws) and its delayed-reward case (slot 0 pays 10 one step later,
+  max depth 2) at ``SAMPLED_ROOTS`` roots: every root's best slot (slot 0
+  in the delayed case) has the most visits, and every root picks it or a
+  slot that ties it on visits (at temperature 0 the action is drawn among
+  the slots of most visits; at 1024 roots about 1 % of the Gaussian roots
+  draw two candidates close enough that PUCT splits the visits evenly).
+  The share that picks the best slot itself, the ms of a policy call
+  (host clock: the generic engine is launch-bound) and its launches."""
+  from muax_tpu_torch.search import (ContinuousRecurrentFnOutput,
+                                     RootFnOutput, make_gaussian_sample_fn,
+                                     sampled_muzero_policy)
+
+  B = SAMPLED_ROOTS
+  gen = torch.Generator(device).manual_seed(SEED)
+  zeros = lambda *shape: torch.zeros(shape, device=device)
+  gaussian = make_gaussian_sample_fn(
+      lambda p, s: (zeros(s.shape[0], 1), zeros(s.shape[0], 1)),
+      num_samples=4)
+
+  def gaussian_fn(p, g, s):
+    return gaussian(p, g, s)[0], None
+
+  def quadratic(p, g, action, state):
+    reward = -torch.square(action[:, 0] - 1.0)
+    return ContinuousRecurrentFnOutput(
+        reward=reward, discount=torch.zeros_like(reward),
+        value=torch.zeros_like(reward)), state
+
+  grid = torch.tensor([0.0, 1.0], device=device)
+
+  def grid_fn(p, g, s):
+    return grid[None, :, None].expand(s.shape[0], 2, 1), None
+
+  def delayed(p, g, action, state):
+    entered = state[:, 0] > 0.5
+    reward = torch.where(entered, 10.0,
+                         torch.where(action[:, 0] > 0.5, 1.0, 0.0))
+    return ContinuousRecurrentFnOutput(
+        reward=reward, discount=torch.where(entered, 0.0, 0.9),
+        value=torch.zeros_like(reward)), torch.where(
+            action[:, 0:1] < 0.5, torch.ones_like(state),
+            torch.zeros_like(state))
+
+  cases = {
+      "gaussian_k4": (gaussian_fn, quadratic, 4, None, 1),
+      "delayed_k2_depth2": (grid_fn, delayed, 2, 2, 1)}
+  figures = {}
+  for name, (sample_fn, recurrent_fn, K, depth, dim) in cases.items():
+    root = RootFnOutput(prior_logits=zeros(B, K), value=zeros(B),
+                        embedding=zeros(B, dim))
+
+    def call():
+      return sampled_muzero_policy(
+          (), gen, root, sample_fn=sample_fn, recurrent_fn=recurrent_fn,
+          num_simulations=SAMPLED_SIMS, num_samples=K, max_depth=depth,
+          dirichlet_fraction=0.0, temperature=0.0)
+
+    t0 = time.perf_counter()
+    ms, out = host_ms(call)
+    if name == "gaussian_k4":
+      best = torch.argmin((out.sampled_actions[..., 0] - 1.0).abs(), 1)
+    else:
+      best = torch.zeros(B, dtype=torch.long, device=device)
+    visits = out.search_tree.summary().visit_counts
+    rows = torch.arange(B, device=device)
+    top = visits.amax(-1)
+    slot = out.action_slot.long()
+    picked = float((slot == best).float().mean())
+    check(bool((visits.sum(-1) == SAMPLED_SIMS).all()),
+          f"sampled {name}: visits sum to the simulation count")
+    # At temperature 0 the action is drawn among the slots of most visits;
+    # where another slot ties the best one on visits, it may be drawn.
+    check(bool((visits[rows, best] == top).all()
+               & (visits[rows, slot] == top).all()),
+          f"sampled {name}: every root's best slot has the most visits, "
+          f"and the pick ties it")
+    figures[name] = {"policy_ms": ms, "best_slot_share": picked,
+                     **launches_and_idle(call, ms)}
+    figures[name]["launches_per_simulation"] = (
+        figures[name]["kernel_launches"] / SAMPLED_SIMS
+        if figures[name]["kernel_launches"] else None)
+    figures[name]["seconds"] = time.perf_counter() - t0
+  return figures
+
+
+def cpu_twin(agent, make_agent):
+  """An agent on the CPU (``make_agent("cpu")``) with ``agent``'s
+  parameters and optimizer state."""
+  from muax_tpu_torch.train.checkpoint import to_numpy, to_torch
+
+  twin = make_agent("cpu")
+  params = twin.networks.init_params(agent.observation_shape)
+  params.load_state_dict({k: v.cpu() for k, v in
+                          agent.params.state_dict().items()})
+  twin.init(None, torch.zeros((1,) + agent.observation_shape),
+            params=params)
+  twin.opt_state = to_torch(to_numpy(agent.opt_state), "cpu")
+  return twin
+
+
+def same_step_on_cpu(agent, make_agent, batch, card_kwargs=None,
+                     cpu_kwargs=None):
+  """One update of ``agent`` and of its CPU twin from the same parameters,
+  optimizer state and batch: the parameters agree to rtol 1e-4 / atol
+  1e-6 (TF32 is off), the loss to rtol 1e-5."""
+  twin = cpu_twin(agent, make_agent)
+  loss_card = agent.update(batch, **(card_kwargs or {}))
+  loss_cpu = twin.update(batch, **(cpu_kwargs or {}))
+  err, worst = 0.0, 0.0
+  for a, b in zip(agent.params.parameters(), twin.params.parameters()):
+    diff = (a.detach().cpu() - b.detach()).abs()
+    err = max(err, float(diff.max()))
+    worst = max(worst, float((diff - 1e-4 * b.detach().abs()).max()))
+  check(worst <= 1e-6, f"{type(agent).__name__}: one update on the card "
+        f"and on the CPU agree to rtol 1e-4 / atol 1e-6 (max abs err {err})")
+  check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu),
+        f"{type(agent).__name__}: the loss on the card and on the CPU")
+  return {"max_abs_err": err, "loss_card": loss_card, "loss_cpu": loss_cpu}
+
+
+def play_cartpole(agent, device, watch, monitor):
+  """The reference's single-env workflow (README.md:99-143 of muax): one
+  CartPole on the card, ``act`` at AGENT_SIMS simulations, the popped
+  steps of a PNStep(10, 0.997) into a Trajectory an episode, each into a
+  TrajectoryReplayBuffer. Returns the buffer and every (action, pi sum)."""
+  from muax_tpu_torch import PNStep, Trajectory, TrajectoryReplayBuffer
+  from muax_tpu_torch.envs import CartPole
+
+  env = CartPole()
+  env_gen = torch.Generator(device).manual_seed(SEED)
+  act_gen = torch.Generator(device).manual_seed(SEED + 1)
+  tracer = PNStep(10, AGENT_DISCOUNT)
+  buffer = TrajectoryReplayBuffer(capacity=500, seed=SEED)
+  acts, lengths = [], []
+  for _ in range(AGENT_EPISODES):
+    state, obs = env.reset(env_gen, 1)
+    trajectory = Trajectory()
+    ret = 0.0
+    for t in range(AGENT_EPISODE_CAP):
+      with watch.time("act"):
+        a, pi, v = agent.act(act_gen, obs[0], with_pi=True, with_value=True,
+                             num_simulations=AGENT_SIMS)
+        action, pi_host, value = int(a), pi.cpu().numpy(), float(v)
+      with watch.time("env_step"):
+        state, next_obs, reward, done = env.step(state, a.reshape(1))
+        reward, done = float(reward[0]), bool(done[0])
+      last = done or t == AGENT_EPISODE_CAP - 1
+      tracer.add(obs[0].cpu().numpy(), action, reward, last, value, pi_host)
+      while tracer:
+        trajectory.add(tracer.pop())
+      acts.append((action, float(pi_host.sum())))
+      ret += reward
+      obs = next_obs
+      if last:
+        break
+    monitor.observe_rollout(t + 1, 1, ret)
+    lengths.append(t + 1)
+    buffer.add(trajectory)
+  return buffer, acts, lengths
+
+
+def muzero_agent_phase(device):
+  """Phase 31 (b): the MuZero agent at the CartPole notebook triplet on the
+  card: the single-env workflow (``play_cartpole``), counted with
+  ``TrainMonitor(None)`` and timed with ``Stopwatch``; AGENT_UPDATES
+  updates on batches of 256 windows, the first of which is the fixed
+  batch whose loss must be lower after them; one more update on the card
+  and on the CPU from the same state (``same_step_on_cpu``); save and
+  load, after which ``act`` with the same generator seed gives the same
+  action, pi and value; and one batched ``act`` over 256 observations,
+  timed, with its launches and the device's idle share."""
+  import numpy as np
+
+  from muax_tpu_torch import MuZero
+  from muax_tpu_torch.agents.muzero import transition_to_device
+  from muax_tpu_torch.models import make_mlp_networks, muzero_optimizer
+  from muax_tpu_torch.models.losses import muzero_loss
+  from muax_tpu_torch.monitor import TrainMonitor
+  from muax_tpu_torch.utils import Stopwatch
+
+  def make_agent(dev):
+    return MuZero(make_mlp_networks(2, device=dev, **AGENT_NET),
+                  optimizer=muzero_optimizer(**AGENT_OPTIMIZER),
+                  discount=AGENT_DISCOUNT, unroll_steps=AGENT_UNROLL)
+
+  agent = make_agent(device)
+  agent.init(SEED, np.zeros((1, 4), np.float32))
+  watch, monitor = Stopwatch(), TrainMonitor(None)
+  t_play = time.perf_counter()
+  buffer, acts, lengths = play_cartpole(agent, device, watch, monitor)
+  play_s = time.perf_counter() - t_play
+  check(all(a in (0, 1) for a, _ in acts), "every action lies in {0, 1}")
+  pi_err = max(abs(s - 1.0) for _, s in acts)
+  check(pi_err <= 1e-5, f"every pi sums to 1 (off by {pi_err})")
+  counters = monitor.flush()
+  check(counters["T"] == len(acts) and counters["ep"] == AGENT_EPISODES,
+        "the monitor counted every step and episode")
+
+  def sample():
+    return buffer.sample(AGENT_TRAJECTORIES, AGENT_WINDOWS,
+                         k_steps=AGENT_UNROLL)
+
+  fixed = sample()
+  fixed_dev = transition_to_device(fixed, device)
+
+  def fixed_loss():
+    with torch.no_grad():
+      return float(muzero_loss(agent.params, fixed_dev, agent.networks,
+                               num_unroll_steps=AGENT_UNROLL)[0])
+
+  loss_before = fixed_loss()
+  for i in range(AGENT_UPDATES):
+    batch = fixed if i == 0 else sample()
+    with watch.time("update"):
+      loss = agent.update(batch)
+    check(math.isfinite(loss), "finite loss")
+  loss_after = fixed_loss()
+  check(loss_after < loss_before, f"the loss on the fixed batch fell over "
+        f"{AGENT_UPDATES} updates ({loss_before} -> {loss_after})")
+  cpu = same_step_on_cpu(agent, make_agent, sample())
+
+  import tempfile
+  obs = torch.from_numpy(np.array(fixed.obs[0, 0])).to(device)
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "muzero_agent.ckpt")
+    agent.save(path)
+    loaded = make_agent(device).load(path)
+  outs = [a.act(torch.Generator(device).manual_seed(SEED + 2), obs,
+                with_pi=True, with_value=True, num_simulations=AGENT_SIMS)
+          for a in (agent, loaded)]
+  check(all(torch.equal(x, y) for x, y in zip(*outs)),
+        "after save/load, act with the same seed gives the same action, pi "
+        "and value")
+
+  obs_batch = torch.from_numpy(np.array(fixed.obs[:AGENT_BATCH_OBS, 0])).to(
+      device)
+  act_gen = torch.Generator(device).manual_seed(SEED + 3)
+
+  def batched_act():
+    return agent.act(act_gen, obs_batch, obs_from_batch=True, with_pi=True,
+                     num_simulations=AGENT_SIMS)
+
+  t_batched = time.perf_counter()
+  ms, (action, pi) = host_ms(batched_act)
+  check(bool(((action == 0) | (action == 1)).all()), "batched actions valid")
+  check(bool(torch.allclose(pi.sum(-1), torch.ones_like(pi[:, 0]),
+                            atol=1e-5)), "batched pi rows sum to 1")
+  batched = {"act_ms": ms, **launches_and_idle(batched_act, ms)}
+  batched["launches_per_simulation"] = (
+      batched["kernel_launches"] / AGENT_SIMS
+      if batched["kernel_launches"] else None)
+  batched["seconds"] = time.perf_counter() - t_batched
+  means = watch.means_ms()
+  return {"episode_lengths": lengths, "acts": len(acts), "play_s": play_s,
+          "act_ms": means["act"], "env_step_ms": means["env_step"],
+          "update_ms": means["update"], "monitor": counters,
+          "fixed_batch_loss": [loss_before, loss_after],
+          "card_vs_cpu_update": cpu, "batched_act_256": batched}, buffer
+
+
+def surface_agents_phase(device, buffer):
+  """Phase 31 (c) and (d): the Stochastic MuZero agent at bench.py's
+  smz_mlp widths (its default 200 sims) and the Diffusion MuZero agent at
+  ``make_diffusion_mlp_networks(2)``'s defaults (50 sims): a batched
+  ``act`` over SURFACE_OBS observations each (the decision weights sum to
+  1), then updates on batches from the MuZero agent's buffer; the
+  diffusion agent's flow loss on a fixed batch before and after its
+  updates, and one update on the card and on the CPU with the same
+  injected flow draws."""
+  import numpy as np
+
+  from muax_tpu_torch.agents import DiffusionMuZero, StochasticMuZero
+  from muax_tpu_torch.agents.muzero import transition_to_device
+  from muax_tpu_torch.models import (make_diffusion_mlp_networks,
+                                     make_stochastic_mlp_networks)
+  from muax_tpu_torch.models.diffusion_losses import diffusion_muzero_loss
+
+  def sample():
+    return buffer.sample(AGENT_TRAJECTORIES, AGENT_WINDOWS,
+                         k_steps=AGENT_UNROLL)
+
+  fixed = sample()
+  obs = torch.from_numpy(np.array(fixed.obs[:SURFACE_OBS, 0])).to(device)
+  makers = {
+      "stochastic": lambda dev: StochasticMuZero(
+          make_stochastic_mlp_networks(2, device=dev, **SMZ_NET)),
+      "diffusion": lambda dev: DiffusionMuZero(
+          make_diffusion_mlp_networks(2, device=dev))}
+  figures = {}
+  for name, make_agent in makers.items():
+    t_agent = time.perf_counter()
+    agent = make_agent(device)
+    agent.init(SEED, np.zeros((1, 4), np.float32))
+    sims = agent.DEFAULT_SIMULATIONS
+    gen = torch.Generator(device).manual_seed(SEED)
+
+    def act():
+      return agent.act(gen, obs, obs_from_batch=True, with_pi=True)
+
+    ms, (action, pi) = host_ms(act)
+    check(bool(((action == 0) | (action == 1)).all()),
+          f"{name} agent: actions valid")
+    check(bool(torch.allclose(pi.sum(-1), torch.ones_like(pi[:, 0]),
+                              atol=1e-5)),
+          f"{name} agent: the decision weights sum to 1")
+    fig = {"simulations": sims, "act_ms": ms, **launches_and_idle(act, ms)}
+    fig["launches_per_simulation"] = (fig["kernel_launches"] / sims
+                                      if fig["kernel_launches"] else None)
+    updates = (SMZ_AGENT_UPDATES if name == "stochastic"
+               else DMZ_AGENT_UPDATES)
+    fixed_dev = transition_to_device(fixed, device)
+
+    def flow_loss():
+      with torch.no_grad():
+        return float(diffusion_muzero_loss(
+            agent.params, fixed_dev, agent.networks,
+            torch.Generator(device).manual_seed(0),
+            num_unroll_steps=agent.unroll_steps)[1].flow_loss)
+
+    if name == "diffusion":
+      fig["flow_loss_before"] = flow_loss()
+    update_ms, losses = [], []
+    for _ in range(updates):
+      batch = sample()
+      ms, loss = host_ms(lambda: agent.update(batch))
+      check(math.isfinite(loss), f"{name} agent: finite loss")
+      update_ms.append(ms)
+      losses.append(loss)
+    fig.update(updates=updates, update_ms=sum(update_ms) / updates,
+               loss_first_last=[losses[0], losses[-1]])
+    if name == "diffusion":
+      fig["flow_loss_after"] = flow_loss()
+      B, E = AGENT_TRAJECTORIES * AGENT_WINDOWS, agent.networks.embedding_dim
+      g = torch.Generator().manual_seed(SEED)
+      draws = [(torch.rand(B, generator=g), torch.randn(B, E, generator=g))
+               for _ in range(agent.unroll_steps - 1)]
+      fig["card_vs_cpu_update"] = same_step_on_cpu(
+          agent, make_agent, sample(),
+          card_kwargs={"draws": [(t.to(device), e.to(device))
+                                 for t, e in draws]},
+          cpu_kwargs={"draws": draws})
+    fig["seconds"] = time.perf_counter() - t_agent
+    figures[name] = fig
+  return figures
+
+
+def surface_phase(device):
+  """Phase 31: the host-facing surface on the card, with every kernel's
+  launch count set to 0 just before and required to be 0 just after: the
+  JAX agents search with the generic engine and learn with autograd, on
+  the TPU too, so no kernel serves this path."""
+  reset_counts()
+  sampled = sampled_phase(device)
+  muzero, buffer = muzero_agent_phase(device)
+  others = surface_agents_phase(device, buffer)
+  launches = all_kernel_launches()
+  check(launches == 0, f"phase 31 launched no kernel ({launches})")
+  return {"sampled": sampled, "muzero_agent": muzero, **{
+      f"{k}_agent": v for k, v in others.items()},
+      "kernel_launches": launches}
+
+
 def run(device):
   from muax_tpu_torch import _build
   from muax_tpu_torch.replay.buffer import gumbel_noise
@@ -3246,6 +3681,16 @@ def run(device):
         f"B={HOST_BATCH} K={HOST_UNROLL}, fit {HOST_ITERATIONS} iterations "
         f"on Native2048Pool: {json.dumps(host)} "
         f"({time.perf_counter() - t0:.1f} s)")
+  t0 = time.perf_counter()
+  surface = surface_phase(device)
+  print(f"phase 31 the host-facing surface on {card} (no kernel): Sampled "
+        f"MuZero at {SAMPLED_ROOTS} roots x {SAMPLED_SIMS} sims, the MuZero "
+        f"agent at the CartPole notebook triplet ({AGENT_EPISODES} episodes "
+        f"of at most {AGENT_EPISODE_CAP} steps at {AGENT_SIMS} sims, "
+        f"{AGENT_UPDATES} updates of {AGENT_TRAJECTORIES * AGENT_WINDOWS} "
+        f"windows, a batched act over {AGENT_BATCH_OBS}), Stochastic and "
+        f"Diffusion MuZero agents over {SURFACE_OBS} observations: "
+        f"{json.dumps(surface)} ({time.perf_counter() - t0:.1f} s)")
   uint8_line = {
       mode: {k: fig[k] for k in ("same_start", "max_abs_err",
                                  "bit_identical_to_f32_ring", "ms",

@@ -1,6 +1,7 @@
-"""Network families (the conv triplets, Stochastic MuZero's five nets and
-the AlphaZero nets among them), the env models, the losses, the optimizers,
-the fused learner and parameter conversion."""
+"""Network families (the conv triplets, Stochastic MuZero's and Diffusion
+MuZero's five nets and the AlphaZero nets among them), the flow library,
+the env models, the losses, the optimizers, the fused learner and parameter
+conversion."""
 
 from muax_tpu_torch.models.networks import (
     ConvMZNetworks,
@@ -21,15 +22,30 @@ from muax_tpu_torch.models.stochastic_networks import (
     SMZParams,
     make_stochastic_mlp_networks,
 )
+from muax_tpu_torch.models.diffusion import (
+    RectifiedFlow,
+    SDE,
+    batch_add,
+    batch_mul,
+    flow_matching_loss,
+)
+from muax_tpu_torch.models.diffusion_networks import (
+    DMZNetworks,
+    DMZParams,
+    make_diffusion_mlp_networks,
+)
 from muax_tpu_torch.models.convert import (az_params_from_numpy,
                                            conv_grads_to_numpy,
                                            conv_params_from_numpy,
+                                           dmz_params_from_numpy,
                                            env_model_params_from_numpy,
                                            mlp_params_from_numpy,
                                            smz_params_from_numpy)
 from muax_tpu_torch.models.losses import LossMetrics, muzero_loss
 from muax_tpu_torch.models.stochastic_losses import (SMZLossMetrics,
                                                      stochastic_muzero_loss)
+from muax_tpu_torch.models.diffusion_losses import (DMZLossMetrics,
+                                                    diffusion_muzero_loss)
 from muax_tpu_torch.models.optimizers import (create_optimizer,
                                               flatten_optimizer,
                                               muzero_optimizer)

@@ -6,7 +6,8 @@ The tree has the JAX package's layout::
 
   {'representation' | 'prediction' | 'dynamic'
    (Stochastic MuZero: 'encoder' | 'representation' | 'prediction' |
-   'decision' | 'chance'):
+   'decision' | 'chance'; Diffusion MuZero: 'representation' |
+   'prediction' | 'decision' | 'velocity' | 'reward'):
       {'linear', 'linear_1', ...: {'w': [in, out], 'b': [out]},
        'layer_norm', 'block_0/layer_norm', ...: {'scale': [d], 'offset': [d]}}}
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from muax_tpu_torch.models.diffusion_networks import DMZParams
 from muax_tpu_torch.models.networks import ChannelLayerNorm, MZParams
 from muax_tpu_torch.models.stochastic_networks import SMZParams
 from muax_tpu_torch.replay.buffer import ReplayState
@@ -121,6 +123,20 @@ def smz_params_from_numpy(tree: Mapping, networks,
   return params
 
 
+def dmz_params_from_numpy(tree: Mapping, networks,
+                          temperature: float = 1.0) -> DMZParams:
+  """Build ``DMZParams`` on ``networks.device`` from the numpy haiku trees
+  of the five nets (keys ``DMZParams.TOWERS``).
+
+  Raises ``ValueError`` when the tree's modules do not fit ``networks``.
+  """
+  obs_dim = np.asarray(tree["representation"]["linear"]["w"]).shape[0]
+  params = networks.init_params((obs_dim,))
+  params.temperature.fill_(temperature)
+  _load_towers(params, tree, DMZParams.TOWERS)
+  return params
+
+
 def _modules_to_numpy(params: nn.Module, flat_grads: torch.Tensor,
                       mods) -> dict:
   """A flat vector in the order of ``params.parameters()`` as a numpy
@@ -162,6 +178,12 @@ def smz_grads_to_numpy(params: SMZParams, flat_grads: torch.Tensor) -> dict:
   """The same for the five nets, with the names of
   ``smz_params_from_numpy``'s input."""
   return _grads_to_numpy(params, flat_grads, SMZParams.TOWERS)
+
+
+def dmz_grads_to_numpy(params: DMZParams, flat_grads: torch.Tensor) -> dict:
+  """The same for the diffusion set's five nets, with the names of
+  ``dmz_params_from_numpy``'s input."""
+  return _grads_to_numpy(params, flat_grads, DMZParams.TOWERS)
 
 
 def conv_params_from_numpy(tree: Mapping, networks, observation_shape,

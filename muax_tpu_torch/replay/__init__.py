@@ -1,4 +1,5 @@
-"""On-device prioritized replay and the fused window sampler."""
+"""On-device prioritized replay, the fused window sampler, and the host-side
+episode tracers and trajectory replay."""
 
 from muax_tpu_torch.replay.buffer import (
     ReplayState,
@@ -6,4 +7,10 @@ from muax_tpu_torch.replay.buffer import (
     replay_add,
     replay_sample,
     replay_update_priorities,
+)
+from muax_tpu_torch.replay.tracer import (
+    NStep,
+    PNStep,
+    Trajectory,
+    TrajectoryReplayBuffer,
 )

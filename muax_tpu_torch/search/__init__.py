@@ -1,6 +1,7 @@
-"""Batched search: the generic engine with its MuZero, Gumbel MuZero and
-Stochastic MuZero policies, the fused search kernel in its modes with its
-policies, and the Stochastic MuZero forest kernel with its policy."""
+"""Batched search: the generic engine with its MuZero, Gumbel MuZero,
+Stochastic MuZero, Sampled MuZero and Diffusion MuZero policies, the fused
+search kernel in its modes with its policies, and the Stochastic MuZero
+forest kernel with its policy."""
 
 from muax_tpu_torch.search.types import (
     RootFnOutput,
@@ -16,6 +17,14 @@ from muax_tpu_torch.search.policies import (
     muzero_policy,
     gumbel_muzero_policy,
     stochastic_muzero_policy,
+)
+from muax_tpu_torch.search.sampled_policy import (
+    ContinuousRecurrentFnOutput,
+    SampledPolicyOutput,
+    SampledRecurrentState,
+    make_factored_bin_sample_fn,
+    make_gaussian_sample_fn,
+    sampled_muzero_policy,
 )
 from muax_tpu_torch.search import qtransforms
 from muax_tpu_torch.search import seq_halving

@@ -9,9 +9,12 @@ because the TPU has no fast per-row gather, and are not carried over. Index
 fields are int64 so that they index directly; visit counts are int32 as in
 JAX. The search updates a tree in place.
 
-An embedding is a tensor [B, ...] or a dataclass of such tensors (Stochastic
-MuZero's ``StochasticRecurrentState``: the latent and its node-type flag);
-the tree stores one [B, N, ...] tensor per field.
+An embedding is a tensor [B, ...] or a dataclass whose fields are tensors or
+dataclasses again (Stochastic MuZero's ``StochasticRecurrentState``: the
+latent and its node-type flag; Sampled MuZero's state and its [B, K, ...]
+candidate actions; Diffusion MuZero's state, its [B, C, ...] candidate next
+states and a bool flag); the tree stores one [B, N, ...] tensor per leaf, in
+the leaf's own dtype.
 """
 from __future__ import annotations
 
@@ -31,18 +34,23 @@ def batch_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def embedding_fields(embedding) -> list:
-  """The tensors of an embedding: itself, or each field of a dataclass."""
+  """The tensors of an embedding in field order, nested dataclasses
+  flattened depth first."""
   if isinstance(embedding, torch.Tensor):
     return [embedding]
-  return [getattr(embedding, f.name) for f in dataclasses.fields(embedding)]
+  return [leaf for f in dataclasses.fields(embedding)
+          for leaf in embedding_fields(getattr(embedding, f.name))]
 
 
-def map_embedding(fn, embedding):
-  """``fn`` applied to every tensor of an embedding, keeping its structure."""
+def map_embedding(fn, embedding, *others):
+  """``fn`` applied to every tensor of an embedding (with the matching
+  tensors of ``others``, embeddings of the same structure), keeping its
+  structure."""
   if isinstance(embedding, torch.Tensor):
-    return fn(embedding)
+    return fn(embedding, *others)
   return dataclasses.replace(embedding, **{
-      f.name: fn(getattr(embedding, f.name))
+      f.name: map_embedding(fn, getattr(embedding, f.name),
+                            *(getattr(o, f.name) for o in others))
       for f in dataclasses.fields(embedding)})
 
 

@@ -1,8 +1,14 @@
 """Import hygiene of the port: ``muax_tpu_torch`` (every module of it) and
-``chip_smoke`` import neither JAX nor the JAX package."""
+``chip_smoke`` import neither JAX nor the JAX package; and the port's
+packages export the JAX package's public names."""
+import importlib
+import importlib.util
+import inspect
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -12,7 +18,13 @@ import muax_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(muax_tpu_torch.__path__,
                                                 "muax_tpu_torch.")]
 for name in names:
-  importlib.import_module(name)
+  try:
+    importlib.import_module(name)
+  except ImportError as e:
+    # The sb3 bridge needs stable-baselines3, which neither machine has;
+    # its gate raises this.
+    if not (name.endswith(".sb3_bridge") and "stable-baselines3" in str(e)):
+      raise
 import chip_smoke
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "haiku", "flax",
@@ -49,6 +61,13 @@ PIXEL = ("models.networks", "ops.normalize", "ops.frames",
 # The host environments, their registry and the 2048 example.
 HOST = ("envs.registry", "envs.gym_adapter", "envs.native2048",
         "envs.atari", "envs.open_spiel_adapter", "examples.run_2048")
+# The remaining search policies and the host-facing surface.
+SURFACE = ("models.diffusion", "models.diffusion_networks",
+           "models.diffusion_losses", "search.sampled_policy",
+           "search.diffusion_policy", "replay.tracer", "agents",
+           "agents.muzero", "agents.stochastic", "agents.diffusion",
+           "monitor", "utils.profiling", "adapters", "adapters.sb3",
+           "adapters.sb3.buffers", "adapters.sb3.sb3_bridge")
 
 
 def test_port_imports_no_jax():
@@ -58,6 +77,37 @@ def test_port_imports_no_jax():
   head, names = out.stdout.strip().splitlines()
   count, banned = head.split(" ", 1)
   assert int(count) >= 45, out.stdout  # every module of the port was loaded
-  for name in TRAINING + ENGINE + ACME + SMZ + BOARD + PIXEL + HOST:
+  for name in (TRAINING + ENGINE + ACME + SMZ + BOARD + PIXEL + HOST
+               + SURFACE):
     assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned
+
+
+# Public names of the JAX package that the port leaves out on purpose:
+# the top level's ``parallel`` (queue A.10, not yet ported).
+EXPORT_EXCEPTIONS = {"": {"parallel"}}
+
+
+def _public(module):
+  return {n for n in vars(module) if not n.startswith("_")
+          and n not in ("annotations",)}
+
+
+@pytest.mark.parametrize("package", ["", "search", "models", "replay",
+                                     "utils", "agents"])
+def test_port_exports_the_jax_public_names(package):
+  """Every public name of ``muax_tpu.<package>`` is one of
+  ``muax_tpu_torch.<package>``'s; a submodule needs its counterpart
+  module."""
+  suffix = "." + package if package else ""
+  ref = importlib.import_module("muax_tpu" + suffix)
+  port = importlib.import_module("muax_tpu_torch" + suffix)
+  missing = []
+  for name in sorted(_public(ref) - EXPORT_EXCEPTIONS.get(package, set())):
+    if inspect.ismodule(getattr(ref, name)):
+      # A submodule (imported there by any module): its counterpart exists.
+      if importlib.util.find_spec(f"muax_tpu_torch{suffix}.{name}") is None:
+        missing.append(name)
+    elif not hasattr(port, name):
+      missing.append(name)
+  assert not missing, missing
