@@ -168,6 +168,26 @@ sum to 1) and update on that buffer (the diffusion agent's flow loss
 before and after, and one update on the card and the CPU with the same
 injected flow draws). ``tools/agents_phase.py`` runs it alone.
 
+Phase 32 drives the parallel layer (``muax_tpu_torch/parallel``) over
+``torch.distributed``, its ranks spawned with a file rendezvous and killed
+past a timeout (``tools/parallel_phase.py`` runs it alone). (a) The sharded
+program (``make_sharded_program``, the global config of phase 6) on a
+world of one through NCCL: exactly 20 + 10 + 160 launches an iteration,
+its iteration ms beside phase 6's, the NCCL all-reduce's ms at the flat
+gradient's size. (b) Two ranks sharing the one card through gloo, each
+with 512 envs, batch 2048 and a ring of 1024: exactly 20 + 10 + 160
+launches an iteration on each rank, the parameters and optimizer state
+bit-identical across the ranks after every iteration, each rank's
+``total_added`` its envs times the iterations, the pair's env-steps/s and
+the gloo all-reduce's ms (through host memory: no NCCL figure, and no
+figure of several cards). (c) One update's reduced gradient equals the
+mean of the two ranks' own gradients bit for bit. (d) Reanalyze of 64
+segments over the two ranks: 64 summed, each ring's newest stamp the
+step, its pi changed. (e) The AlphaZero Go tower (``make_az_resnet(362,
+256, 19)``, 19 x 19 x 17 planes, batch 8) with its channels split over the
+model axis against the replicated apply (rtol 1e-4 / atol 1e-5, TF32
+off), and the ms of both.
+
 Every failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or without the package beside it, it fails the same way.
 The line before the last lists every kernel with its launches, error, times
@@ -306,6 +326,21 @@ AGENT_EPISODES, AGENT_EPISODE_CAP = 3, 100
 AGENT_TRAJECTORIES, AGENT_WINDOWS, AGENT_UPDATES = 32, 8, 20
 AGENT_BATCH_OBS, SURFACE_OBS = 256, 64
 SMZ_AGENT_UPDATES, DMZ_AGENT_UPDATES = 5, 20
+# Phase 32, the parallel layer: (a) the sharded program at training_regime
+# on a world of one through NCCL; (b)-(e) PAR_RANKS ranks sharing the one
+# card through gloo (each 512 envs, batch 2048, ring 1024) for
+# PAR_GLOO_ITERATIONS iterations (the first a warm-up), reanalyze of
+# PAR_REANALYZE_SEGMENTS segments over the ranks, and the AlphaZero Go
+# tower (make_az_resnet(362, 256, 19), 19 x 19 x 17 planes) at batch
+# GO_BATCH split over the model axis. A group that outlives PAR_TIMEOUT_S
+# is killed and fails the phase. This torch's gloo takes CUDA tensors in
+# all-reduce, broadcast and all-gather, so (e) runs on a (1, PAR_RANKS)
+# mesh of the gloo ranks. PAR_SPLIT_UPDATES: the updates (one group) timed
+# with and without the learner's all-reduce.
+PAR_RANKS, PAR_GLOO_ITERATIONS, PAR_REANALYZE_SEGMENTS = 2, 4, 64
+PAR_TIMEOUT_S, PAR_ALL_REDUCE_REPS, PAR_SPLIT_UPDATES = 300, 50, 16
+GO_ACTIONS, GO_CHANNELS, GO_BLOCKS = 19 * 19 + 1, 256, 19
+GO_PLANES, GO_BATCH, GO_REPS = (19, 19, 17), 8, 5
 
 
 def check(cond, message):
@@ -887,27 +922,37 @@ def fill_ring(t):
   return seg, prio
 
 
+def sampler_launch_against_plain(device, gen, state, W):
+  """One sampler launch of W windows drawn from the ring ``state`` with
+  ``gen``, as the learner draws them, against the plain version on the same
+  draws (compare_raw). Returns the figures and (draws, gumbel, raw,
+  layout)."""
+  from muax_tpu_torch.replay import fused_sampler
+  from muax_tpu_torch.replay.buffer import gumbel_noise
+
+  seg_idx = fused_sampler.draw_segments(state, gen, W)
+  gumbel = gumbel_noise(gen, (MAIN_STEPS, W), device)
+  before = fused_sampler.launches
+  raw, lay = fused_sampler.fused_sample_group(state, seg_idx, gumbel,
+                                              TRAIN_UNROLL)
+  torch.cuda.synchronize()
+  check(fused_sampler.launches == before + 1, "the sampler launched")
+  ref, _ = fused_sampler.fused_sample_group_reference(state, seg_idx,
+                                                      gumbel, TRAIN_UNROLL)
+  return compare_raw(raw, ref, lay), (seg_idx, gumbel, raw, lay)
+
+
 def sampler_against_plain(device, t):
   """Phase 4: fill the ring with two rollouts of the port (2048 segments),
   draw W = 16 x 4096 windows as the learner does, kernel against plain;
   then W = 1000 from a half-filled ring of 64 segments with dones."""
-  from muax_tpu_torch.replay import fused_sampler, replay_add, replay_init
-  from muax_tpu_torch.replay.buffer import gumbel_noise
+  from muax_tpu_torch.replay import replay_add, replay_init
   from muax_tpu_torch.types import Transition
 
   seg, prio = fill_ring(t)
 
   def one(state, W):
-    seg_idx = fused_sampler.draw_segments(state, t.gen, W)
-    gumbel = gumbel_noise(t.gen, (MAIN_STEPS, W), device)
-    before = fused_sampler.launches
-    raw, lay = fused_sampler.fused_sample_group(state, seg_idx, gumbel,
-                                                TRAIN_UNROLL)
-    torch.cuda.synchronize()
-    check(fused_sampler.launches == before + 1, "the sampler launched")
-    ref, _ = fused_sampler.fused_sample_group_reference(state, seg_idx,
-                                                        gumbel, TRAIN_UNROLL)
-    return compare_raw(raw, ref, lay), (seg_idx, gumbel, raw, lay)
+    return sampler_launch_against_plain(device, t.gen, state, W)
 
   main, inputs = one(t.rs, TRAIN_GROUP * TRAIN_BATCH)
   edge_ring = replay_init(64, MAIN_STEPS, (4,), 2, device=device)
@@ -928,15 +973,40 @@ def grads_close(grads, ref, rtol, atol):
   return float(err.max()), used
 
 
-def metrics_close(metrics, ref):
+def metrics_close(metrics, ref, priorities=True):
   for name in ("total", "reward_loss", "value_loss", "policy_loss",
                "l2_loss"):
     a, b = float(getattr(metrics, name)), float(getattr(ref, name))
     check(abs(a - b) <= 1e-5 * abs(b), f"{name}: {a} against plain {b}")
   # Priorities are |v0 - rn0|^0.5, and v0 is h^-1 of a 41-bin expectation,
   # which amplifies f32 rounding: |v0| ~ 10 carries errors of ~1e-4.
-  check(torch.allclose(metrics.priorities, ref.priorities, rtol=1e-4,
-                       atol=1e-4), "priorities agree")
+  if priorities:
+    check(torch.allclose(metrics.priorities, ref.priorities, rtol=1e-4,
+                         atol=1e-4), "priorities agree")
+
+
+def priorities_against_f64(net, params, raw_b, coef, lay, kw, metrics, ref):
+  """The learner's priorities where the net's values are large, as a
+  trained net's are (|rn0| up to 50 on CartPole after phase 32's 640
+  updates): f32 rounding of v0, h^-1 of a 41-bin expectation, then
+  reaches 7e-4, and the square root magnifies it where v0 is near rn0, so
+  that the plain f32 version itself leaves rtol = atol = 1e-4 of an f64
+  computation. So |v0 - rn0| (priorities ** (1 / alpha)) of the kernel is
+  held against the plain version run in f64 on the same inputs: its
+  largest error at most twice the plain f32 version's own."""
+  import copy
+
+  from muax_tpu_torch.models import fused_learner
+  _, exact = fused_learner.fused_muzero_grad_raw_reference(
+      copy.deepcopy(params).double(), raw_b.double(), coef.double(), lay,
+      net, **kw)
+  inv = 1.0 / kw["priority_alpha"]
+  gap = exact.priorities ** inv
+  err = float((metrics.priorities.double() ** inv - gap).abs().max())
+  plain = float((ref.priorities.double() ** inv - gap).abs().max())
+  check(err <= 2.0 * plain + 1e-6, f"|v0 - rn0| off the f64 plain version "
+        f"by {err:.3g}, more than twice the plain f32 version's {plain:.3g}")
+  return {"v0_gap_err_f64": err, "plain_f32_v0_gap_err_f64": plain}
 
 
 def seeded_batch(device, A, B, K, rn_scale, reward_scale=1.0):
@@ -966,6 +1036,53 @@ NOTEBOOK_NET = dict(embedding_dim=10, support_size=20, repr_layers=(),
 NOTEBOOK_BATCH, NOTEBOOK_K = 256, 11
 
 
+def learner_batch(raw, lay, B):
+  """The first ``B`` of a sampler launch's windows and their loss
+  coefficients, as the learner's raw path takes them."""
+  raw_b = raw[:, :B]
+  w_raw = raw_b[lay.weight]
+  coef = (w_raw / torch.clamp(w_raw.mean(), min=1e-9) / raw_b[lay.denom]
+          / B).contiguous()
+  return raw_b, coef
+
+
+def learner_launch_against_plain(device, kw, net, params, raw_b, coef, lay,
+                                 trained=False):
+  """Two MLP learner launches on the same windows, the scratch's memory
+  NaN before each, bit-identical to each other and against autograd over
+  muzero_loss (gradients rtol 2e-4 / atol 1e-6, metrics_close); with
+  ``trained``, the priorities as priorities_against_f64."""
+  from muax_tpu_torch.models import fused_learner
+
+  def poison(lw, B, K):
+    # The caching allocator hands a freed block of this size back first.
+    plan = fused_learner.mlp_learner_plan(B, K, lw,
+                                          fused_learner.device_limits(device))
+    torch.full((plan.scratch_floats,), float("nan"), device=device)
+
+  lw = fused_learner.extract_learner_weights(net, params)
+  before = fused_learner.launches
+  poison(lw, raw_b.shape[1], lay.K)
+  grads, metrics = fused_learner.fused_muzero_grad_raw(
+      params, raw_b, coef, lay, net, lw, **kw)
+  poison(lw, raw_b.shape[1], lay.K)
+  again, _ = fused_learner.fused_muzero_grad_raw(params, raw_b, coef, lay,
+                                                 net, lw, **kw)
+  torch.cuda.synchronize()
+  check(fused_learner.launches == before + 2, "the learner launched")
+  check(torch.equal(grads, again), "a repeated launch gives bit-identical "
+        "gradients")
+  ref_grads, ref_metrics = fused_learner.fused_muzero_grad_raw_reference(
+      params, raw_b, coef, lay, net, **kw)
+  err, used = grads_close(grads, ref_grads, 2e-4, 1e-6)
+  metrics_close(metrics, ref_metrics, priorities=not trained)
+  figures = {"max_abs_err": err, "tolerance_used": used}
+  if trained:
+    figures.update(priorities_against_f64(net, params, raw_b, coef, lay, kw,
+                                          metrics, ref_metrics))
+  return figures
+
+
 def learner_against_plain(device, t, raw, lay):
   """Phase 5: the learner kernel against autograd over muzero_loss on the
   first 4096 of phase 4's windows (the flagship triplet), on a seeded
@@ -979,37 +1096,11 @@ def learner_against_plain(device, t, raw, lay):
 
   kw = loss_kwargs(t.config)
 
-  def poison(lw, B, K):
-    # The caching allocator hands a freed block of this size back first.
-    plan = fused_learner.mlp_learner_plan(B, K, lw,
-                                          fused_learner.device_limits(device))
-    torch.full((plan.scratch_floats,), float("nan"), device=device)
-
   def one(net, params, raw_b, coef, lay):
-    lw = fused_learner.extract_learner_weights(net, params)
-    before = fused_learner.launches
-    poison(lw, raw_b.shape[1], lay.K)
-    grads, metrics = fused_learner.fused_muzero_grad_raw(
-        params, raw_b, coef, lay, net, lw, **kw)
-    poison(lw, raw_b.shape[1], lay.K)
-    again, _ = fused_learner.fused_muzero_grad_raw(params, raw_b, coef, lay,
-                                                   net, lw, **kw)
-    torch.cuda.synchronize()
-    check(fused_learner.launches == before + 2, "the learner launched")
-    check(torch.equal(grads, again), "a repeated launch gives bit-identical "
-          "gradients")
-    ref_grads, ref_metrics = fused_learner.fused_muzero_grad_raw_reference(
-        params, raw_b, coef, lay, net, **kw)
-    err, used = grads_close(grads, ref_grads, 2e-4, 1e-6)
-    metrics_close(metrics, ref_metrics)
-    return {"max_abs_err": err, "tolerance_used": used}
+    return learner_launch_against_plain(device, kw, net, params, raw_b, coef,
+                                        lay)
 
-  B = TRAIN_BATCH
-  raw_b = raw[:, :B]
-  w_raw = raw_b[lay.weight]
-  coef = (w_raw / torch.clamp(w_raw.mean(), min=1e-9) / raw_b[lay.denom]
-          / B).contiguous()
-  main = one(t.net, t.ts.params, raw_b, coef, lay)
+  main = one(t.net, t.ts.params, *learner_batch(raw, lay, TRAIN_BATCH), lay)
 
   def seeded(net, B, K):
     params = net.init_params((4,), torch.Generator().manual_seed(SEED + 1))
@@ -1057,12 +1148,7 @@ def categorical_learner_against_plain(device, t, raw, lay):
     metrics_close(metrics, ref_metrics)
     return {"max_abs_err": err, "tolerance_used": used}
 
-  B = t.batch
-  raw_b = raw[:, :B]
-  w_raw = raw_b[lay.weight]
-  coef = (w_raw / torch.clamp(w_raw.mean(), min=1e-9) / raw_b[lay.denom]
-          / B).contiguous()
-  main = one(t.net, t.ts.params, raw_b, coef, lay)
+  main = one(t.net, t.ts.params, *learner_batch(raw, lay, t.batch), lay)
 
   A, Be, K = 3, 300, TRAIN_UNROLL
   net = make_net(device, "categorical", A, **CAT_EDGE_NET)
@@ -3230,6 +3316,389 @@ def surface_phase(device):
       "kernel_launches": launches}
 
 
+# ---- phase 32: the parallel layer over torch.distributed -----------------
+
+
+def rank_setup():
+  """A spawned rank's card (the machine's one card for every rank) with
+  TF32 off, as ``main`` sets it."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  torch.cuda.set_device(0)
+  return torch.device("cuda", 0)
+
+
+def rank_launches():
+  """(search MuZero, sampler, learner MLP) launch counts of this process."""
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.replay import fused_sampler
+  return (search_counts()[0], fused_sampler.launches, fused_learner.launches)
+
+
+def flat_state(ts):
+  """The flat parameters and the optimizer state's tensors, on the host."""
+  from muax_tpu_torch.models.optimizers import flat_parameters
+  opt = [x.reshape(-1).double() for x in ts.opt_state
+         if isinstance(x, torch.Tensor)]
+  return torch.cat([flat_parameters(ts.params).double()] + opt).cpu()
+
+
+def gathered(x):
+  """The host tensor ``x`` of every rank, gathered through the default
+  group, in rank order."""
+  import torch.distributed as dist
+  parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+  dist.all_gather(parts, x)
+  return parts
+
+
+def all_reduce_ms(numel, device):
+  """Host ms of one all-reduce over the default group of a float tensor of
+  ``numel`` on ``device`` (the flat gradient's size), synchronized: the
+  learner's one collective an update."""
+  import torch.distributed as dist
+  x = torch.ones(numel, device=device)
+  dist.all_reduce(x)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(PAR_ALL_REDUCE_REPS):
+    dist.all_reduce(x)
+  torch.cuda.synchronize()
+  return (time.perf_counter() - t0) * 1e3 / PAR_ALL_REDUCE_REPS
+
+
+def sharded_program(device, reanalyze_segments=0):
+  """``make_sharded_program`` at ``training_regime`` (the global config of
+  phase 6) on a 1-D data mesh of every rank, with phase 6's triplet."""
+  from muax_tpu_torch.envs import AutoResetWrapper, CartPole
+  from muax_tpu_torch.models import muzero_optimizer
+  from muax_tpu_torch.parallel import make_mesh, make_sharded_program
+  net, optimizer = make_net(device), muzero_optimizer()
+  mesh = make_mesh(device="cuda")
+  program = make_sharded_program(net, AutoResetWrapper(CartPole()),
+                                 training_config(), optimizer, mesh,
+                                 reanalyze_segments=reanalyze_segments)
+  return net, optimizer, program
+
+
+def sharded_iterations(program, warmup, timed, state_check=False):
+  """``warmup`` + ``timed`` iterations of ``program`` from its init, with
+  every launch count set to 0 before them. Every iteration must launch
+  exactly 20 searches, updates / 16 samplers and one learner an update on
+  this rank; with ``state_check``, after each one the parameters and the
+  optimizer state must be bit-identical on every rank."""
+  ts, rs, carry = program.init(SEED)
+  cfg = program.local_config.train
+  expected = (MAIN_STEPS, cfg.updates_per_iteration // TRAIN_GROUP,
+              cfg.updates_per_iteration)
+  reset_counts()
+  times = []
+  for i in range(warmup + timed):
+    before = rank_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, rs, carry, metrics = program.iteration(ts, rs, carry, i)
+    torch.cuda.synchronize()
+    if i >= warmup:
+      times.append((time.perf_counter() - t0) * 1e3)
+    got = tuple(a - b for a, b in zip(rank_launches(), before))
+    check(got == expected, f"rank launches (search, sampler, learner) {got} "
+          f"in one sharded iteration, not {expected}")
+    check(int(metrics["updates_done"]) == cfg.updates_per_iteration,
+          f"{float(metrics['updates_done'])} updates in a sharded iteration")
+    for k, v in metrics.items():
+      check(math.isfinite(float(v)), f"sharded metric {k} = {float(v)}")
+    if state_check:
+      parts = gathered(flat_state(ts))
+      check(all(torch.equal(p, parts[0]) for p in parts),
+            f"parameters and optimizer state differ across the ranks after "
+            f"iteration {i}")
+  check(rs.total_added == cfg.num_envs * (warmup + timed),
+        f"total_added {rs.total_added}, not {cfg.num_envs} envs x "
+        f"{warmup + timed} iterations")
+  return ts, rs, carry, {"iteration_ms": sum(times) / timed,
+                         "iteration_ms_each": times,
+                         "loss": float(metrics["loss"]),
+                         "total_added": rs.total_added}
+
+
+def reduction_meaning(net, program, ts, rs, optimizer, group):
+  """Phase 32 (c): one update, from the same state and draws, once without
+  a group (this rank's own gradient) and once over the data group, with an
+  optimizer that records the gradient ``_finish`` hands it. The mean of the
+  ranks' own gradients (summed in rank order, divided by the count) must
+  equal the reduced gradient bit for bit: a sum of two rounds the same in
+  either order."""
+  import copy
+  import dataclasses
+
+  from muax_tpu_torch.models.optimizers import GradientTransformation
+  from muax_tpu_torch.train import TrainState, make_multi_update_fn
+
+  seen = []
+
+  def update(grads, state, params):
+    seen.append(grads.detach().clone())
+    return optimizer.update(grads, state, params)
+
+  recording = GradientTransformation(optimizer.init, update)
+  local = program.local_config
+  one = dataclasses.replace(local, train=dataclasses.replace(
+      local.train, updates_per_iteration=1, presample_updates=1))
+  start = torch.Generator(device=rs.action.device).manual_seed(SEED + 1)
+  for group_or_none in (None, group):
+    gen = torch.Generator(device=rs.action.device)
+    gen.set_state(start.get_state())
+    mu = make_multi_update_fn(net, recording, one, group=group_or_none)
+    mu(TrainState(copy.deepcopy(ts.params), copy.deepcopy(ts.opt_state),
+                  ts.step), copy.deepcopy(rs), gen)
+  own, reduced = seen[0].cpu(), seen[1].cpu()
+  parts = gathered(own)
+  mean = torch.stack(parts).sum(0) / len(parts)
+  check(torch.equal(mean, reduced),
+        "the reduced gradient is the mean of the ranks' own gradients bit "
+        f"for bit (max difference {float((mean - reduced).abs().max())})")
+  return {"bit_identical": True, "own_grad_norm": float(own.norm()),
+          "reduced_grad_norm": float(reduced.norm()),
+          "ranks_differ": not torch.equal(parts[0], parts[-1])}
+
+
+def update_ms_split(net, program, ts, rs, optimizer, group):
+  """Host ms an update (synchronized) of PAR_SPLIT_UPDATES updates in one
+  group on copies of the rank's state, with the learner's all-reduce over
+  the data group and without it (this rank's own gradient): what the
+  reduction costs an update where the learner runs."""
+  import copy
+  import dataclasses
+
+  from muax_tpu_torch.train import TrainState, make_multi_update_fn
+  local = program.local_config
+  cfg = dataclasses.replace(local, train=dataclasses.replace(
+      local.train, updates_per_iteration=PAR_SPLIT_UPDATES,
+      presample_updates=PAR_SPLIT_UPDATES))
+  out = {}
+  for label, group_or_none in (("with_all_reduce", group),
+                               ("without", None)):
+    mu = make_multi_update_fn(net, optimizer, cfg, group=group_or_none)
+    runs = []
+    for _ in range(1 + TIMED_ITERATIONS):
+      state = TrainState(copy.deepcopy(ts.params),
+                         copy.deepcopy(ts.opt_state), ts.step)
+      ring = copy.deepcopy(rs)
+      gen = torch.Generator(device=rs.action.device).manual_seed(SEED)
+      runs.append(host_ms(lambda: mu(state, ring, gen))[0])
+    out[f"update_ms_{label}"] = sum(runs[1:]) / (TIMED_ITERATIONS
+                                                 * PAR_SPLIT_UPDATES)
+  return out
+
+
+def reanalyze_across_ranks(program, ts, rs):
+  """Phase 32 (d): ``program.reanalyze`` refreshes PAR_REANALYZE_SEGMENTS
+  segments over the ranks, each on its own ring in one search launch: the
+  segments summed over the ranks, the newest stamp the step, pi changed.
+  The launch, at this rank's PAR_REANALYZE_SEGMENTS / PAR_RANKS x 20 roots,
+  holds against the plain version on its own inputs by phase 21's rule
+  (compare_search with tie_proof). Returns the figures and this process's
+  launch counts (search, sampler, learner) just after the call, before the
+  comparison's own launches."""
+  pi_before = rs.pi.clone()
+  before = rank_launches()[0]
+  with SearchRecorder(keep=1) as rec:
+    rs, metrics = program.reanalyze(ts, rs, SEED + 2)
+    torch.cuda.synchronize()
+  main_path = rank_launches()
+  launches = main_path[0] - before
+  roots = PAR_REANALYZE_SEGMENTS // PAR_RANKS * MAIN_STEPS
+  check(rec.by_batch == {roots: 1}, f"reanalyze launched the search at "
+        f"batches {rec.by_batch}, not once at {roots} roots")
+  args, kwargs, out = rec.calls[0]
+  cmp = compare_search(out, fused_reference(args, kwargs),
+                       kwargs["num_simulations"],
+                       tie_proof=tie_proof(args, kwargs))
+  check(int(metrics["reanalyzed_segments"]) == PAR_REANALYZE_SEGMENTS,
+        f"{float(metrics['reanalyzed_segments'])} segments reanalyzed, not "
+        f"{PAR_REANALYZE_SEGMENTS}")
+  check(int(rs.target_step.max()) == ts.step,
+        f"newest target_step {int(rs.target_step.max())}, not {ts.step}")
+  check(not torch.equal(pi_before, rs.pi), "reanalyze changed the ring's pi")
+  check(launches == 1, f"{launches} search launches in one reanalyze call")
+  return {"reanalyzed_segments": int(metrics["reanalyzed_segments"]),
+          "value_shift": float(metrics["reanalyze_value_shift"]),
+          "search_launches": launches, "roots": roots,
+          "against_plain": dict(cmp, plan=mlp_plan_figures(
+              rs.pi.device, args, kwargs))}, main_path
+
+
+def rank_kernels_against_plain(device, net, program, ts, rs, carry):
+  """Phase 32 (b)'s kernels at one rank's shapes, after its iterations:
+  the MuZero search at the rank's envs, as phase 1 holds it (fresh weights
+  from SEED, compare_search) and on the rank's own state (its parameters,
+  its envs' observations, root noise from its generator; phase 21's rule,
+  as a trained net meets near-ties), with the launch plan mlp_search_plan
+  picks at that batch; the sampler at W = TRAIN_GROUP x the rank's batch
+  on the rank's own ring (phase 4's rule); the learner on the first
+  batch of those windows under the rank's parameters (phase 5's rule for
+  the gradients and the losses; priorities_against_f64 for the
+  priorities, as the rank's net is trained)."""
+  from muax_tpu_torch.search import fused
+  from muax_tpu_torch.train.inference import make_root_fn
+
+  cfg = program.local_config
+  envs, batch = cfg.train.num_envs, cfg.train.batch_size
+  fresh = search_against_plain(device, "muzero", "mlp", 2, envs)
+  gen = torch.Generator(device=device).manual_seed(SEED + 4)
+  with torch.no_grad():
+    root = make_root_fn(net)(ts.params, carry.obs)
+  args = (root.embedding.contiguous(),
+          fused.noised_root_logits(gen, root.prior_logits),
+          root.value.contiguous(), fused.extract_search_weights(net,
+                                                                ts.params))
+  kwargs = dict(num_simulations=MAIN_SIMS, discount=cfg.train.discount,
+                support_size=net.support_size, invalid_actions=None,
+                max_depth=None)
+  before = search_counts()[0]
+  out = fused_cuda(args, kwargs)
+  torch.cuda.synchronize()
+  check(search_counts()[0] == before + 1, "the search launched once")
+  own = compare_search(out, fused_reference(args, kwargs), MAIN_SIMS,
+                       tie_proof=tie_proof(args, kwargs))
+  sampler, (_, _, raw, lay) = sampler_launch_against_plain(
+      device, gen, rs, TRAIN_GROUP * batch)
+  learner = learner_launch_against_plain(
+      device, loss_kwargs(cfg), net, ts.params,
+      *learner_batch(raw, lay, batch), lay, trained=True)
+  return {"envs": envs, "windows": TRAIN_GROUP * batch, "batch": batch,
+          "search_fresh": fresh, "search_rank_state": dict(
+              own, plan=mlp_plan_figures(device, args, kwargs)),
+          "sampler": sampler, "learner": learner}
+
+
+def go_tower(device, mesh):
+  """Phase 32 (e): ``make_az_resnet(362, 256, 19)`` on GO_BATCH boards of
+  19 x 19 x 17 planes, its channels split over ``mesh``'s model axis,
+  against the replicated apply on the same weights (rtol 1e-4 / atol
+  1e-5, TF32 off); the median ms of each apply."""
+  from muax_tpu_torch.models import make_az_resnet
+  from muax_tpu_torch.parallel import (make_model_parallel_apply,
+                                       shard_az_params, sharded_fraction)
+  net = make_az_resnet(GO_ACTIONS, channels=GO_CHANNELS,
+                       num_blocks=GO_BLOCKS, device=device)
+  params = net.init_params(GO_PLANES, torch.Generator().manual_seed(SEED))
+  obs = torch.randn((GO_BATCH,) + GO_PLANES,
+                    generator=torch.Generator().manual_seed(SEED + 3)).to(
+                        device)
+  sharded = shard_az_params(params, mesh)
+  apply = make_model_parallel_apply(net, mesh)
+  figures = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+             "backend": torch.distributed.get_backend(),
+             "sharded_fraction": sharded_fraction(params, mesh),
+             "conv_shard": list(sharded["blocks.0.conv_in.weight"].shape)}
+  with torch.no_grad():
+    ref = net.apply(params, obs)
+    out = apply(sharded, obs)
+    for name, a, b in zip(("logits", "value"), out, ref):
+      check(torch.allclose(a, b, rtol=1e-4, atol=1e-5),
+            f"model-parallel {name} against the replicated apply: "
+            f"max diff {float((a - b).abs().max())}")
+      figures[f"{name}_max_abs_err"] = float((a - b).abs().max())
+    for label, fn in (("replicated_ms", lambda: net.apply(params, obs)),
+                      ("model_parallel_ms", lambda: apply(sharded, obs))):
+      runs = sorted(host_ms(fn)[0] for _ in range(GO_REPS))
+      figures[label] = runs[len(runs) // 2]
+  return figures
+
+
+def nccl_world_of_one(rank, world_size, init_method):
+  """Phase 32 (a), a rank in a process of its own: the sharded program at
+  ``training_regime`` on a world of one through NCCL (two warm-up and
+  three timed iterations), the NCCL all-reduce's ms at the flat gradient's
+  size, and an update's ms with and without it."""
+  import torch.distributed as dist
+  from muax_tpu_torch.models.optimizers import flat_parameters
+  from muax_tpu_torch.parallel import DATA_AXIS
+  device = rank_setup()
+  dist.init_process_group("nccl", init_method=init_method,
+                          world_size=world_size, rank=rank)
+  try:
+    net, optimizer, program = sharded_program(device)
+    ts, rs, _, figures = sharded_iterations(program, WARMUP_ITERATIONS,
+                                            TIMED_ITERATIONS)
+    figures["launches"] = rank_launches()
+    figures["all_reduce_ms"] = all_reduce_ms(
+        flat_parameters(ts.params).numel(), device)
+    figures.update(update_ms_split(net, program, ts, rs, optimizer,
+                                   program.mesh.get_group(DATA_AXIS)))
+    return figures
+  finally:
+    dist.destroy_process_group()
+
+
+def gloo_ranks_on_one_card(rank, world_size, init_method):
+  """Phase 32 (b)-(e), one of PAR_RANKS ranks sharing the card through
+  gloo: the sharded program (each rank 512 envs, batch 2048, ring 1024),
+  its launches and the ranks' bit-identical state after every iteration,
+  reanalyze across the ranks, each kernel against its plain version at the
+  rank's shapes, the gloo all-reduce's ms and an update's ms
+  with and without it, the reduction's meaning, and the channel-sharded Go
+  tower on a (1, PAR_RANKS) mesh."""
+  import torch.distributed as dist
+  from muax_tpu_torch.models.optimizers import flat_parameters
+  from muax_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, make_mesh
+  device = rank_setup()
+  dist.init_process_group("gloo", init_method=init_method,
+                          world_size=world_size, rank=rank)
+  try:
+    net, optimizer, program = sharded_program(
+        device, reanalyze_segments=PAR_REANALYZE_SEGMENTS)
+    ts, rs, carry, figures = sharded_iterations(
+        program, 1, PAR_GLOO_ITERATIONS - 1, state_check=True)
+    figures["reanalyze"], figures["launches"] = reanalyze_across_ranks(
+        program, ts, rs)
+    figures["kernels"] = rank_kernels_against_plain(device, net, program, ts,
+                                                    rs, carry)
+    figures["all_reduce_ms"] = all_reduce_ms(
+        flat_parameters(ts.params).numel(), device)
+    group = program.mesh.get_group(DATA_AXIS)
+    figures.update(update_ms_split(net, program, ts, rs, optimizer, group))
+    figures["reduction"] = reduction_meaning(net, program, ts, rs, optimizer,
+                                             group)
+    figures["go_tower"] = go_tower(device, make_mesh(
+        (1, world_size), (DATA_AXIS, MODEL_AXIS), device="cuda"))
+    return figures
+  finally:
+    dist.destroy_process_group()
+
+
+def parallel_phase(phase6_ms=None):
+  """Phase 32: the parallel layer. (a) a world of one through NCCL in a
+  process of its own, then (b)-(e) PAR_RANKS ranks on the one card through
+  gloo, each group spawned with a file rendezvous and killed past
+  PAR_TIMEOUT_S. Returns the figures and the launches (search, sampler,
+  learner) summed over every rank's main path."""
+  from muax_tpu_torch.parallel.launch import spawn_group
+  nccl = spawn_group(nccl_world_of_one, 1, timeout=PAR_TIMEOUT_S)[0]
+  gloo = spawn_group(gloo_ranks_on_one_card, PAR_RANKS,
+                     timeout=PAR_TIMEOUT_S)
+  pair_ms = max(r["iteration_ms"] for r in gloo)
+  return {
+      "a_nccl_world_of_one": nccl,
+      "phase_6_iteration_ms": phase6_ms,
+      "b_gloo_ranks_on_one_card": {
+          "pair_iteration_ms": pair_ms,
+          "pair_env_steps_per_s": TRAIN_ENVS * MAIN_STEPS / (pair_ms / 1e3),
+          "ranks": [{k: v for k, v in r.items()
+                     if k not in ("reduction", "reanalyze", "go_tower",
+                                  "kernels")}
+                    for r in gloo]},
+      "b_kernels_against_plain": [r["kernels"] for r in gloo],
+      "c_reduction": [r["reduction"] for r in gloo],
+      "d_reanalyze": [r["reanalyze"] for r in gloo],
+      "e_go_tower": [r["go_tower"] for r in gloo],
+      "launches": [nccl["launches"][i] + sum(r["launches"][i] for r in gloo)
+                   for i in range(3)],
+  }
+
+
 def run(device):
   from muax_tpu_torch import _build
   from muax_tpu_torch.replay.buffer import gumbel_noise
@@ -3311,10 +3780,7 @@ def run(device):
   train["plain_sampler_ms"] = time_ms(
       lambda: fused_sampler.fused_sample_group_reference(*sample_args), 3)
   raw, lay = fused_sampler.fused_sample_group(*sample_args)
-  raw_b = raw[:, :TRAIN_BATCH]
-  w_raw = raw_b[lay.weight]
-  coef = (w_raw / torch.clamp(w_raw.mean(), min=1e-9) / raw_b[lay.denom]
-          / TRAIN_BATCH).contiguous()
+  raw_b, coef = learner_batch(raw, lay, TRAIN_BATCH)
   lw = fused_learner.extract_learner_weights(t.net, t.ts.params)
   kw = loss_kwargs(t.config)
   learn_args = (t.ts.params, raw_b, coef, lay, t.net)
@@ -3474,10 +3940,7 @@ def run(device):
                                               TRAIN_UNROLL)
   cat_learn_main, cat_learn_edge = categorical_learner_against_plain(
       device, tc, raw, lay)
-  raw_b = raw[:, :CAT_BATCH]
-  w_raw = raw_b[lay.weight]
-  coef = (w_raw / torch.clamp(w_raw.mean(), min=1e-9) / raw_b[lay.denom]
-          / CAT_BATCH).contiguous()
+  raw_b, coef = learner_batch(raw, lay, CAT_BATCH)
   spec = fused_learner.extract_categorical_learner_spec(tc.net, tc.ts.params)
   kw = loss_kwargs(tc.config)
   def learn():
@@ -3691,6 +4154,16 @@ def run(device):
         f"windows, a batched act over {AGENT_BATCH_OBS}), Stochastic and "
         f"Diffusion MuZero agents over {SURFACE_OBS} observations: "
         f"{json.dumps(surface)} ({time.perf_counter() - t0:.1f} s)")
+  t0 = time.perf_counter()
+  par = parallel_phase(train["iteration_ms"])
+  print(f"phase 32 the parallel layer on {card}: (a) the sharded program at "
+        f"training_regime on a world of one through NCCL, (b) {PAR_RANKS} "
+        f"ranks on the one card through gloo (each {TRAIN_ENVS // PAR_RANKS} "
+        f"envs, batch {TRAIN_BATCH // PAR_RANKS}, ring "
+        f"{TRAIN_CAPACITY // PAR_RANKS}), (c) the reduced gradient against "
+        f"the ranks' own, (d) reanalyze of {PAR_REANALYZE_SEGMENTS} segments "
+        f"over the ranks, (e) the Go tower channel-sharded at batch "
+        f"{GO_BATCH}: {json.dumps(par)} ({time.perf_counter() - t0:.1f} s)")
   uint8_line = {
       mode: {k: fig[k] for k in ("same_start", "max_abs_err",
                                  "bit_identical_to_f32_ring", "ms",
@@ -3704,7 +4177,8 @@ def run(device):
       "launches": train_launches[0] + 2 + reanalyze_fit["search"]
                   + masked["muzero"]["launches"]
                   + masked["tictactoe_muzero"]["launches"]
-                  + host["fit"]["launches"]["search"],
+                  + host["fit"]["launches"]["search"]
+                  + par["launches"][0],
       "max_abs_err": main_cmp["max_abs_err"],
       "ms": figures["search_ms"], "plain_ms": figures["plain_search_ms"],
       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -3724,7 +4198,7 @@ def run(device):
       "source": "muax_tpu_torch/csrc/fused_sampler.cu",
       "replaces": "muax_tpu/replay/fused_sampler.py:280",
       "launches": train_launches[1] + reanalyze_fit["sampler"]
-                  + host["fit"]["launches"]["sampler"],
+                  + host["fit"]["launches"]["sampler"] + par["launches"][1],
       "max_abs_err": sampler_main["max_abs_err"],
       "ms": train["sampler_ms"], "plain_ms": train["plain_sampler_ms"],
       "bound_ms": sampler_bound, "bound_by": sampler_by, "library_ms": None,
@@ -3734,7 +4208,7 @@ def run(device):
       "source": "muax_tpu_torch/csrc/fused_learner.cu",
       "replaces": "muax_tpu/models/fused_learner.py:665",
       "launches": train_launches[2] + reanalyze_fit["learner"]
-                  + host["fit"]["launches"]["learner"],
+                  + host["fit"]["launches"]["learner"] + par["launches"][2],
       "max_abs_err": learner_main["max_abs_err"],
       "ms": train["learner_kernel_ms"], "plain_ms": train["plain_learner_ms"],
       "bound_ms": learner_bound, "bound_by": learner_by, "library_ms": None,

@@ -21,6 +21,7 @@ from muax_tpu_torch import replay
 from muax_tpu_torch import train
 from muax_tpu_torch import agents
 from muax_tpu_torch import adapters
+from muax_tpu_torch import parallel
 
 from muax_tpu_torch.agents import MuZero, StochasticMuZero
 from muax_tpu_torch.replay import (

@@ -9,6 +9,12 @@ arrays; containers (dicts, lists, tuples, named tuples, dataclasses) keep
 their types. A ``torch.Generator`` goes in through ``get_state`` and comes
 back through ``set_state``. Files are pickles: load only files this program
 wrote.
+
+Several processes (a ``torch.distributed`` world): only rank 0 writes, and
+the other ranks do nothing, as in the JAX package only process 0 does.
+State of a sharded run is replicated (parameters) or the rank's own (its
+replay shard and env carry); for the latter pass ``per_host=True``, which
+writes and reads one file per rank, ``path + ".host{rank}"``.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 CHECKPOINT_VERSION = 2
 
@@ -52,13 +59,34 @@ def to_torch(tree: Any, device) -> Any:
               if isinstance(x, np.ndarray) else x, tree)
 
 
-def save_pytree(path: str, tree: Any) -> None:
-  """Pickle ``tree`` with numpy leaves; atomic (written then renamed)."""
+def _rank_and_world() -> tuple:
+  """This process's rank and the world's size; (0, 1) without a process
+  group."""
+  if dist.is_available() and dist.is_initialized():
+    return dist.get_rank(), dist.get_world_size()
+  return 0, 1
+
+
+def _write(path: str, tree: Any) -> None:
   os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
   tmp = path + ".tmp"
   with open(tmp, "wb") as f:
     pickle.dump(to_numpy(tree), f)
-  os.replace(tmp, path)
+  os.replace(tmp, path)  # atomic: a crash mid-write cannot corrupt the file
+
+
+def save_pytree(path: str, tree: Any) -> None:
+  """Pickle ``tree`` with numpy leaves; atomic (written then renamed). On a
+  rank other than 0 it writes nothing."""
+  if _rank_and_world()[0] == 0:
+    _write(path, tree)
+
+
+def _host_path(path: str, per_host: bool) -> str:
+  rank, world = _rank_and_world()
+  if per_host and world > 1:
+    return f"{path}.host{rank}"
+  return path
 
 
 def load_pytree(path: str) -> Any:
@@ -69,10 +97,13 @@ def load_pytree(path: str) -> Any:
 
 def save_checkpoint(path: str, *, train_state, replay_state, env_carry,
                     generator: torch.Generator, iteration: int,
-                    counters: Optional[dict] = None) -> None:
+                    counters: Optional[dict] = None,
+                    per_host: bool = False) -> None:
   """Snapshot everything ``fit`` needs to continue deterministically.
-  ``train_state.params`` goes in as its ``state_dict``."""
-  save_pytree(path, {
+  ``train_state.params`` goes in as its ``state_dict``. With ``per_host``
+  in a world of more than one process, every rank writes its own
+  ``path + ".host{rank}"``; otherwise only rank 0 writes ``path``."""
+  payload = {
       "version": CHECKPOINT_VERSION,
       "train_state": dataclasses.replace(
           train_state, params=dict(train_state.params.state_dict())),
@@ -81,14 +112,20 @@ def save_checkpoint(path: str, *, train_state, replay_state, env_carry,
       "generator": generator.get_state(),
       "iteration": iteration,
       "counters": dict(counters or {}),
-  })
+  }
+  target = _host_path(path, per_host)
+  if target != path:
+    _write(target, payload)
+  else:
+    save_pytree(path, payload)
 
 
-def load_checkpoint(path: str, device=None) -> dict:
+def load_checkpoint(path: str, device=None, per_host: bool = False) -> dict:
   """Load a snapshot. With ``device``, the train state, ring and env carry
   come back as tensors there; the generator state always comes back as the
-  CPU byte tensor that ``torch.Generator.set_state`` takes."""
-  payload = load_pytree(path)
+  CPU byte tensor that ``torch.Generator.set_state`` takes. ``per_host``
+  reads this rank's file of ``save_checkpoint(per_host=True)``."""
+  payload = load_pytree(_host_path(path, per_host))
   version = payload.get("version")
   if version != CHECKPOINT_VERSION:
     raise ValueError(f"checkpoint version {version} != "

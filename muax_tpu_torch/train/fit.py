@@ -305,13 +305,14 @@ def fit(
                         warmup_episodes=warmup_episodes,
                         config_hash=config_hash(config)))
       latest = os.path.join(model_dir, "ckpt_latest.pkl")
-      if os.path.lexists(latest):
-        os.remove(latest)
-      os.link(ckpt_path, latest)
-      stamped = sorted(f for f in os.listdir(model_dir)
-                       if f.startswith("ckpt_it") and f.endswith(".pkl"))
-      for old in stamped[:-5]:
-        os.remove(os.path.join(model_dir, old))
+      if os.path.exists(ckpt_path):  # only rank 0 writes in a process group
+        if os.path.lexists(latest):
+          os.remove(latest)
+        os.link(ckpt_path, latest)
+        stamped = sorted(f for f in os.listdir(model_dir)
+                         if f.startswith("ckpt_it") and f.endswith(".pkl"))
+        for old in stamped[:-5]:
+          os.remove(os.path.join(model_dir, old))
 
   return train_state, {
       "model_path": best_path,

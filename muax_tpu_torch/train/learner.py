@@ -18,11 +18,14 @@ Group paths, chosen by ``fused_group_status`` from what the setup is:
   ``replay_sample`` -> ``_interleave_chunks`` -> one gradient step per chunk
   (the fused learner in batch mode, or autograd over the family's loss).
 
-On the card both kernels run; on the CPU the same fused path runs through
-the kernels' plain versions. Training state is updated in place: the
-parameters are views of one flat buffer that the optimizer steps, and the
-ring's priorities are overwritten. The functions return the state objects
-all the same, so callers read like the JAX package's.
+With ``group`` (the JAX package's ``axis_name``), every update's gradient
+is averaged over a process group before the optimizer
+(``parallel/sharded.py``). On the card both kernels run; on the CPU the
+same fused path runs through the kernels' plain versions. Training state
+is updated in place: the parameters are views of one flat buffer that the
+optimizer steps, and the ring's priorities are overwritten. The functions
+return the state objects all the same, so callers read like the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from muax_tpu_torch.config import MuZeroConfig
 from muax_tpu_torch.models.fused_learner import (extract_learner,
@@ -62,12 +66,25 @@ class TrainState:
   step: int = 0
 
 
-def _make_finish(optimizer: GradientTransformation):
-  """The shared tail of one gradient step: check_numerics -> optimizer ->
-  apply. Returns (train_state, priorities [B], stacked metrics [6])."""
+def _make_finish(optimizer: GradientTransformation, group=None):
+  """The shared tail of one gradient step: check_numerics -> the mean over
+  ``group`` -> optimizer -> apply. Returns (train_state, priorities [B],
+  stacked metrics [6]); ``grad_norm`` is the reduced gradient's.
+
+  ``group``, a ``torch.distributed`` process group (e.g.
+  ``mesh.get_group(DATA_AXIS)``), stands for the JAX package's
+  ``axis_name``: the flat gradient is all-reduced over it once and divided
+  by its size, as ``jax.lax.pmean`` averages over the named axis. A group
+  of one issues no collective, as a ``pmean`` over an axis of size 1 costs
+  nothing: the mean of one gradient is that gradient, bit for bit."""
+  size = 1 if group is None else dist.get_world_size(group)
 
   def _finish(train_state: TrainState, grads: torch.Tensor, metrics):
     grads = check_numerics(grads, "grads")
+    if size > 1:
+      grads = grads.contiguous()
+      dist.all_reduce(grads, op=dist.ReduceOp.SUM, group=group)
+      grads = grads / size
     updates, opt_state = optimizer.update(grads, train_state.opt_state,
                                           train_state.params)
     apply_updates(train_state.params, updates)
@@ -82,14 +99,14 @@ def _make_finish(optimizer: GradientTransformation):
 
 
 def _make_grad_step(networks, optimizer: GradientTransformation,
-                    config: MuZeroConfig):
+                    config: MuZeroConfig, group=None):
   """(train_state, batch) -> (train_state, priorities [B], metrics [6]):
   the fused learner in batch mode, or autograd over ``muzero_loss`` when
   ``fused_learner`` is off or the family has no kernel (the fc-resnet, as
   in the JAX package), or over ``stochastic_muzero_loss`` for Stochastic
-  MuZero."""
+  MuZero. ``group`` as in ``_make_finish``."""
   tcfg = config.train
-  _finish = _make_finish(optimizer)
+  _finish = _make_finish(optimizer, group)
   kwargs = dict(l2_coef=tcfg.l2_coef, gradient_scale=tcfg.gradient_scale,
                 priority_alpha=config.replay.priority_alpha)
 
@@ -116,11 +133,14 @@ def _named(stacked: torch.Tensor) -> dict:
 
 
 def make_update_fn(networks, optimizer: GradientTransformation,
-                   config: MuZeroConfig):
+                   config: MuZeroConfig, group=None):
   """Build update(train_state, replay_state, generator) ->
-  (train_state, replay_state, metrics): one sampled batch, one step."""
+  (train_state, replay_state, metrics): one sampled batch, one step.
+  ``group`` (the JAX package's ``axis_name``): the process group over which
+  the gradient is averaged before the optimizer; every rank of it must call
+  ``update`` the same number of times."""
   tcfg = config.train
-  grad_step = _make_grad_step(networks, optimizer, config)
+  grad_step = _make_grad_step(networks, optimizer, config, group)
 
   def update(train_state: TrainState, replay_state: ReplayState,
              generator: torch.Generator):
@@ -183,7 +203,7 @@ def _transition_from_raw(raw: torch.Tensor, lay, obs_shape,
 
 
 def make_multi_update_fn(networks, optimizer: GradientTransformation,
-                         config: MuZeroConfig):
+                         config: MuZeroConfig, group=None):
   """N = ``updates_per_iteration`` updates per call, presampled in groups
   of ``gcd(N, presample_updates)``: every batch of a group is drawn against
   the priorities as of the group start, and the refreshed priorities land
@@ -196,17 +216,24 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
   priorities, and the sampler still draws the whole group. That is the hook
   of ``fit``'s samples-per-insert gate.
 
+  ``group`` stands for the JAX package's ``axis_name``: a process group
+  (e.g. ``mesh.get_group(DATA_AXIS)``) over which every update's gradient
+  is all-reduced and averaged before the optimizer, on the raw, hybrid and
+  generic paths alike. The all-reduce is a collective: every rank of the
+  group must make the same calls in the same order, so each must run the
+  same number of groups with the same ``num_allowed``.
+
   Returns (train_state, replay_state, metrics): each metric's mean over the
   updates that ran, ``updates_done`` and ``target_staleness``.
   """
   tcfg = config.train
-  grad_step = _make_grad_step(networks, optimizer, config)
-  _finish = _make_finish(optimizer)
+  grad_step = _make_grad_step(networks, optimizer, config, group)
+  _finish = _make_finish(optimizer, group)
   n = tcfg.updates_per_iteration
-  group = math.gcd(n, max(1, tcfg.presample_updates))
-  num_groups = n // group
+  group_size = math.gcd(n, max(1, tcfg.presample_updates))
+  num_groups = n // group_size
   B = tcfg.batch_size
-  W = group * B
+  W = group_size * B
   K = tcfg.unroll_steps
   loss_kwargs = dict(l2_coef=tcfg.l2_coef, gradient_scale=tcfg.gradient_scale,
                      priority_alpha=config.replay.priority_alpha)
@@ -240,8 +267,8 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
   def _executed(g: int, num_allowed: Optional[int]) -> int:
     """Updates of group g that run under the gate."""
     if num_allowed is None:
-      return group
-    return min(max(num_allowed - g * group, 0), group)
+      return group_size
+    return min(max(num_allowed - g * group_size, 0), group_size)
 
   def _refresh(rs, seg_idx, starts, prios, keep):
     current = rs.step_priorities[seg_idx, starts]
@@ -259,10 +286,10 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
     dev = rs.action.device
     hybrid = mode == "hybrid"
     # Lane q of the group holds mega-row perm[q]: chunk j (lanes
-    # [j*B, (j+1)*B)) gets the rows i with i % group == j, as
+    # [j*B, (j+1)*B)) gets the rows i with i % group_size == j, as
     # _interleave_chunks gives them.
     p = torch.arange(W, device=dev)
-    perm = (p % B) * group + p // B
+    perm = (p % B) * group_size + p // B
     seg_idx = segments_from_draws(rs, uniforms, offsets)[perm]
     raw, lay = fused_sample_group(rs, seg_idx, gumbel, K,
                                   per_step_obs=hybrid)
@@ -274,7 +301,7 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
 
     done = _executed(g, num_allowed)
     sums = torch.zeros(len(METRIC_KEYS) + 1, device=dev)
-    prios = torch.zeros((group, B), device=dev)
+    prios = torch.zeros((group_size, B), device=dev)
     for j in range(done):
       cols = slice(j * B, (j + 1) * B)
       if hybrid:
@@ -305,19 +332,19 @@ def make_multi_update_fn(networks, optimizer: GradientTransformation,
     if tcfg.observation_transform is not None:
       big = dataclasses.replace(
           big, obs=tcfg.observation_transform(generator, big.obs))
-    chunks = _interleave_chunks(big, group, B)
+    chunks = _interleave_chunks(big, group_size, B)
     staleness = torch.mean((ts.step - rs.target_step[seg_idx]).float())
 
     done = _executed(g, num_allowed)
     sums = torch.zeros(len(METRIC_KEYS) + 1, device=dev)
-    prios = torch.zeros((group, B), device=dev)
+    prios = torch.zeros((group_size, B), device=dev)
     for j in range(done):
       batch_j = Transition(**{f.name: getattr(chunks, f.name)[j]
                               for f in dataclasses.fields(Transition)})
       ts, prios[j], stacked = grad_step(ts, batch_j)
       sums[:-1] += stacked
     sums[-1] = staleness * done
-    keep = torch.arange(W, device=dev) % group < done
+    keep = torch.arange(W, device=dev) % group_size < done
     _refresh(rs, seg_idx, starts, _deinterleave_flat(prios, B), keep)
     return ts, sums, done
 

@@ -68,6 +68,10 @@ SURFACE = ("models.diffusion", "models.diffusion_networks",
            "agents.muzero", "agents.stochastic", "agents.diffusion",
            "monitor", "utils.profiling", "adapters", "adapters.sb3",
            "adapters.sb3.buffers", "adapters.sb3.sb3_bridge")
+# The parallel layer over torch.distributed.
+PARALLEL = ("parallel", "parallel.mesh", "parallel.sharded",
+            "parallel.multihost", "parallel.model_parallel",
+            "parallel.launch")
 
 
 def test_port_imports_no_jax():
@@ -78,14 +82,9 @@ def test_port_imports_no_jax():
   count, banned = head.split(" ", 1)
   assert int(count) >= 45, out.stdout  # every module of the port was loaded
   for name in (TRAINING + ENGINE + ACME + SMZ + BOARD + PIXEL + HOST
-               + SURFACE):
+               + SURFACE + PARALLEL):
     assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned
-
-
-# Public names of the JAX package that the port leaves out on purpose:
-# the top level's ``parallel`` (queue A.10, not yet ported).
-EXPORT_EXCEPTIONS = {"": {"parallel"}}
 
 
 def _public(module):
@@ -94,7 +93,7 @@ def _public(module):
 
 
 @pytest.mark.parametrize("package", ["", "search", "models", "replay",
-                                     "utils", "agents"])
+                                     "utils", "agents", "parallel"])
 def test_port_exports_the_jax_public_names(package):
   """Every public name of ``muax_tpu.<package>`` is one of
   ``muax_tpu_torch.<package>``'s; a submodule needs its counterpart
@@ -103,7 +102,7 @@ def test_port_exports_the_jax_public_names(package):
   ref = importlib.import_module("muax_tpu" + suffix)
   port = importlib.import_module("muax_tpu_torch" + suffix)
   missing = []
-  for name in sorted(_public(ref) - EXPORT_EXCEPTIONS.get(package, set())):
+  for name in sorted(_public(ref)):
     if inspect.ismodule(getattr(ref, name)):
       # A submodule (imported there by any module): its counterpart exists.
       if importlib.util.find_spec(f"muax_tpu_torch{suffix}.{name}") is None:
