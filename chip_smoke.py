@@ -188,6 +188,26 @@ step, its pi changed. (e) The AlphaZero Go tower (``make_az_resnet(362,
 model axis against the replicated apply (rtol 1e-4 / atol 1e-5, TF32
 off), and the ms of both.
 
+Phase 33 holds the Stochastic MuZero kernel's global-weight mode
+(``fused_smz_kernel<smem_tree, false>``: towers past a block's shared
+memory read from device memory) against its plain version at
+``examples/run_2048.py``'s widths (A = 4, 32 chance outcomes, embedding
+64, support 300, hidden (256, 256): 3.05 MB of towers), on 64 and 1024
+boards of the native pool x 200 simulations under their legal masks, by
+phase 22's rule with phase 21's ulp proof of near-ties
+(``compare_masked_smz``), a repeated launch bit-identical; it prints the
+plan, ms, plain ms, bound and the tower bytes its reads request, and drives
+``make_policy_fn(policy="stochastic")`` over the net with exactly one SMZ
+launch a call. Phase 34 runs the port's example scripts'
+``main`` (``muax_tpu_torch/examples``) for two iterations each at their
+default widths (the generic-engine scripts at 8 simulations): the
+fit-based ones (CartPole, the acme regime, pixel Catch, fake Atari) with
+fit's status pinned, every kernel's launches held to fit's schedule and,
+where the kernels run, each kernel's first launch inside the script held
+against its plain version; the AlphaZero and MCTS scripts with none;
+LunarLander only where gymnasium with Box2D imports.
+``tools/examples_phase.py`` runs both alone.
+
 Every failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or without the package beside it, it fails the same way.
 The line before the last lists every kernel with its launches, error, times
@@ -294,7 +314,7 @@ RESNET_NET, RESNET_PLANES = dict(support_size=20, channels=64,
 RESNET_CUDNN_GRAD_SHARE = 1e-3
 # The figures of phase 30's search checks that the kernel line keeps.
 WIDE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-             "l2_weight_bytes", "plan")
+             "weight_bytes_requested", "plan")
 # Phase 30, the host-environment path: examples/run_2048.py's 64 boards x
 # 50 simulations (its networks and config from
 # muax_tpu_torch/examples/run_2048.py), the kernels held at 64 and 1024
@@ -341,6 +361,22 @@ PAR_RANKS, PAR_GLOO_ITERATIONS, PAR_REANALYZE_SEGMENTS = 2, 4, 64
 PAR_TIMEOUT_S, PAR_ALL_REDUCE_REPS, PAR_SPLIT_UPDATES = 300, 50, 16
 GO_ACTIONS, GO_CHANNELS, GO_BLOCKS = 19 * 19 + 1, 256, 19
 GO_PLANES, GO_BATCH, GO_REPS = (19, 19, 17), 8, 5
+# Phase 33, Stochastic MuZero at examples/run_2048.py's widths (A = 4, 32
+# chance outcomes: 2048's spawns, 16 cells x the tiles 2 and 4; embedding
+# 64, support 300, hidden (256, 256)): 762,031 floats of towers, past a
+# block's shared memory; 64 and 1024 boards of the native pool x 200
+# simulations (bench.py's SMZ budget), the example's discount; the policy
+# called SMZ_WIDE_POLICY_CALLS times.
+SMZ_WIDE_NET = dict(num_chance_outcomes=32, embedding_dim=64,
+                    support_size=300, hidden=(256, 256))
+SMZ_WIDE_FLOATS, SMZ_WIDE_ENVS, SMZ_WIDE_DISCOUNT = 762031, (64, 1024), 0.999
+SMZ_WIDE_REPS, SMZ_WIDE_POLICY_CALLS = 3, 2
+# Phase 34, the example scripts on the card at their default widths, envs
+# and batches for EXAMPLE_ITERATIONS iterations; the scripts that search
+# with the generic engine (pixel, Atari, AlphaZero, MCTS: about 20 ms a
+# simulation of host-bound launches) at EXAMPLE_GENERIC_SIMS simulations,
+# so that the phase stays within a minute.
+EXAMPLE_ITERATIONS, EXAMPLE_GENERIC_SIMS = 2, 8
 
 
 def check(cond, message):
@@ -493,8 +529,9 @@ def sub_launch(args, kwargs, idx):
           {k: pick(v) for k, v in kwargs.items()})
 
 
-def ulp_sensitive(args, kwargs, idx, trials=8, weights=True):
-  """Which of the envs ``idx`` of a recorded MLP search launch are
+def ulp_sensitive(args, kwargs, idx, trials=8, weights=True, runs=None):
+  """Which of the envs ``idx`` of a recorded search launch (MLP, or
+  Stochastic MuZero with ``runs=(smz_reference, smz_cuda)``) are
   near-ties: their inputs alone, launched as a batch of their own in the
   plain version and in the kernel, then again ``trials`` times with every
   element of their root embeddings, and with ``weights`` of the towers'
@@ -509,7 +546,7 @@ def ulp_sensitive(args, kwargs, idx, trials=8, weights=True):
     return torch.where(up, torch.nextafter(t, torch.full_like(t, math.inf)),
                        torch.nextafter(t, torch.full_like(t, -math.inf)))
 
-  runs = (fused_reference, fused_cuda)
+  runs = runs or (fused_reference, fused_cuda)
   bases = [run(sub_args, sub_kwargs) for run in runs]
   found = torch.zeros(len(idx), dtype=torch.bool, device=args[0].device)
   for _ in range(trials):
@@ -1651,18 +1688,32 @@ def smz_against_plain(device, num_actions, batch, widths=None,
   return compare_search(out, ref, SMZ_SIMS, invalid)
 
 
+def copied(tree):
+  """A copy of a launch's inputs or outputs (tensors cloned inside tuples,
+  named tuples and dicts; the rest kept), so that a later update of the
+  parameters in place does not reach it."""
+  if torch.is_tensor(tree):
+    return tree.clone()
+  if isinstance(tree, dict):
+    return {k: copied(v) for k, v in tree.items()}
+  if isinstance(tree, tuple):
+    items = [copied(x) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+  return tree
+
+
 class SearchRecorder:
   """Wraps the MLP and categorical search kernel's wrapper
   (``fused._fused_search_cuda``) for a phase: tallies its launches by batch
-  size and keeps the arguments and outputs of the first ``keep`` launches
-  and of the last, so the phase can hold what the kernel computed on the
-  main path against the plain version on the same inputs. The wrapper
-  itself counts as always."""
+  size and keeps the arguments and outputs of the first ``keep`` launches,
+  of the last, and a copy of the first at each batch size (``first``), so
+  the phase can hold what the kernel computed on the main path against the
+  plain version on the same inputs. The wrapper itself counts as always."""
 
   def __init__(self, keep=0):
     from muax_tpu_torch.search import fused
     self.fused, self.keep = fused, keep
-    self.by_batch, self.calls, self.last = {}, [], None
+    self.by_batch, self.calls, self.last, self.first = {}, [], None, {}
 
   def __enter__(self):
     self.inner = self.fused._fused_search_cuda
@@ -1674,6 +1725,8 @@ class SearchRecorder:
       self.last = (args, kwargs, out)
       if len(self.calls) < self.keep:
         self.calls.append(self.last)
+      if batch not in self.first:
+        self.first[batch] = copied(self.last)
       return out
 
     self.fused._fused_search_cuda = recording
@@ -1681,6 +1734,29 @@ class SearchRecorder:
 
   def __exit__(self, *exc):
     self.fused._fused_search_cuda = self.inner
+
+
+class FirstCall:
+  """Wraps ``owner.name`` for a phase and keeps ``copy`` of the arguments
+  (args, kwargs) and a copy of the outputs of its first call (``kept``)."""
+
+  def __init__(self, owner, name, copy):
+    self.owner, self.name, self.copy, self.kept = owner, name, copy, None
+
+  def __enter__(self):
+    self.inner = getattr(self.owner, self.name)
+
+    def recording(*args, **kwargs):
+      out = self.inner(*args, **kwargs)
+      if self.kept is None:
+        self.kept = self.copy((args, kwargs)) + (copied(out),)
+      return out
+
+    setattr(self.owner, self.name, recording)
+    return self
+
+  def __exit__(self, *exc):
+    setattr(self.owner, self.name, self.inner)
 
 
 def mlp_plan_figures(device, args, kwargs):
@@ -1786,6 +1862,33 @@ def fused_cuda(args, kwargs):
   return fused._fused_search_cuda(*args, **kwargs)
 
 
+def smz_cuda(args, kwargs):
+  """A Stochastic MuZero search launch on the card (its wrapper counts
+  it)."""
+  from muax_tpu_torch.search import fused
+  return fused.fused_smz_search(*args, **kwargs)
+
+
+def smz_reference(args, kwargs):
+  from muax_tpu_torch.search import fused
+  return fused.fused_smz_search_reference(*args, **kwargs)
+
+
+def compare_masked_smz(out, args, kwargs):
+  """Phase 33's rule for one masked Stochastic MuZero launch: phase 22's
+  (``compare_masked_search``), where an env whose value leaves the
+  tolerance with the same visits must be a near-tie by phase 21's ulp
+  nudges of its root embedding and of the towers' weights, in the kernel
+  or in the plain version (``ulp_sensitive``; the plain version runs in
+  f32 only). The kernel sums each 256-input layer input by input and the
+  plain version through torch's products, so a tie below a root can
+  break differently."""
+  runs = (smz_reference, smz_cuda)
+  return compare_masked_search(
+      out, args, kwargs, reference_fn=smz_reference,
+      proof=lambda idx: ulp_sensitive(args, kwargs, idx, runs=runs))
+
+
 def fused_reference(args, kwargs):
   """The plain version of a recorded MLP search launch, in its mode."""
   from muax_tpu_torch.search import fused
@@ -1865,19 +1968,24 @@ def drive_reanalyze_fit(device, root):
           "test_G": results["history"][-1].get("test_G")}
 
 
-def compare_masked_search(out, args, kwargs):
+def compare_masked_search(out, args, kwargs, reference_fn=None,
+                          proof=None):
   """Phase 22's check of one masked launch against the plain version on
   its inputs: visits sum to the simulations and miss every invalid action,
   at least 99 % of envs within 2 visits, and root values within rtol =
   atol = 1e-3 on at least 99 % of envs, where every env outside it is a
   near-tie that rounding breaks: a root visit moved, or one ulp more or
   less on the root embedding moves that env's value past the tolerance in
-  the kernel or in the plain version. Deep trees of the board games' nets
-  meet such ties: a tie broken the other way changes the subtree, so its
-  values, while the root visits may stay."""
+  the kernel or in the plain version (with ``proof``, envs -> which are
+  near-ties, that proof instead, as ``tie_proof`` gives it). Deep trees of
+  the board games' nets meet such ties: a tie broken the other way changes
+  the subtree, so its values, while the root visits may stay. The launch
+  is the MLP search's unless ``reference_fn`` (its plain version) and
+  ``proof`` say otherwise."""
+  reference_fn = reference_fn or fused_reference
   invalid = kwargs["invalid_actions"]
   sims = kwargs["num_simulations"]
-  ref = fused_reference(args, kwargs)
+  ref = reference_fn(args, kwargs)
   visits, value, _ = out
   check(bool((visits.sum(-1) == sims).all()) and bool(
       (ref[0].sum(-1) == sims).all()), "visits sum to num_simulations")
@@ -1889,11 +1997,14 @@ def compare_masked_search(out, args, kwargs):
 
   off = outside(value, ref[1])
   unexplained = off & (dv == 0)
-  if bool(unexplained.any()):
+  if bool(unexplained.any()) and proof is not None:
+    idx = torch.nonzero(unexplained)[:, 0]
+    unexplained[idx] = ~proof(idx)
+  elif bool(unexplained.any()):
     for scale in (1 + 2 ** -23, 1 - 2 ** -23):
       nudged = (args[0] * scale,) + tuple(args[1:])
       unexplained &= ~outside(fused_cuda(nudged, kwargs)[1], value)
-      unexplained &= ~outside(fused_reference(nudged, kwargs)[1], ref[1])
+      unexplained &= ~outside(reference_fn(nudged, kwargs)[1], ref[1])
   check(not bool(unexplained.any()), f"{int(unexplained.sum())} envs whose "
         "root value leaves rtol = atol = 1e-3 with the same visits and no "
         "sensitivity to an ulp of the embedding")
@@ -2636,8 +2747,9 @@ def wide_search_against_plain(device, net, params, obs, legal, policy):
   """Phase 30: the search kernel's global-weight mode in ``policy`` on the
   roots of real boards under their legal masks, against its plain version
   as phase 22 holds masked launches (Gumbel: also the same action on at
-  least 99 % of envs); timed, with the plan, the bound and the bytes of
-  the weights' reads from L2 (every expansion reads all the towers)."""
+  least 99 % of envs); timed, with the plan, the bound and the weight
+  bytes the kernel requests (every expansion reads all the towers; how
+  many of those reads L1 serves is not measured)."""
   from muax_tpu_torch.replay.buffer import gumbel_noise
   from muax_tpu_torch.search import fused
   from muax_tpu_torch.train.inference import make_root_fn
@@ -2677,9 +2789,9 @@ def wide_search_against_plain(device, net, params, obs, legal, policy):
   figures["plain_ms"] = once_ms(lambda: fused_reference(args, kwargs))
   figures["bound_ms"], figures["bound_by"] = search_bound_ms(
       B, HOST_SIMS, weights, True, gumbel=gumbel)
-  figures["l2_weight_bytes"] = 4 * B * HOST_SIMS * n
-  figures["l2_weight_tb_per_s"] = (figures["l2_weight_bytes"]
-                                   / figures["ms"] / 1e9)
+  figures["weight_bytes_requested"] = 4 * B * HOST_SIMS * n
+  figures["weight_tb_per_s_requested"] = (
+      figures["weight_bytes_requested"] / figures["ms"] / 1e9)
   figures["plan"] = plan
   return figures
 
@@ -2690,7 +2802,7 @@ def wide_learner_against_plain(device, net, params, obs):
   = 5, on windows of real boards with seeded actions, rewards, returns and
   policies, as phase 5 holds it (the scratch filled with NaN before each
   launch, a repeated launch bit-identical); timed, each kernel's device
-  time, the plan, the bound and the bytes of the weights' reads from L2
+  time, the plan, the bound and the weight bytes the kernel requests
   (each block reads every linear's weights for each of its row blocks in
   the forward and again in the backward)."""
   from muax_tpu_torch.models import fused_learner
@@ -2764,7 +2876,7 @@ def wide_learner_against_plain(device, net, params, obs):
                               .fused_muzero_grad_raw_reference(
                                   params, raw, coef, lay, net, **kw)),
           "bound_ms": bound, "bound_by": bound_by,
-          "l2_weight_bytes": 4 * plan.blocks * per_block,
+          "weight_bytes_requested": 4 * plan.blocks * per_block,
           "plan": dict(plan._asdict(), runtime_blocks_per_sm=fused_learner
                        .learner_blocks_per_sm(plan, device))}
 
@@ -3699,6 +3811,368 @@ def parallel_phase(phase6_ms=None):
   }
 
 
+# ---- phase 33: Stochastic MuZero with towers in device memory (C.4) -------
+
+def wide_smz_launch(net, params, obs, legal, gen):
+  """One Stochastic MuZero launch of phase 33 on the roots of ``obs``
+  under the legal masks ``legal``: (args, kwargs) as ``fused_smz_search``
+  takes them, the root prior noised as the policy noises it."""
+  from muax_tpu_torch.search import fused
+  from muax_tpu_torch.train.inference import make_smz_fns
+
+  with torch.no_grad():
+    root = make_smz_fns(net, SMZ_WIDE_DISCOUNT)[0](params, obs)
+  invalid = (1.0 - legal).contiguous()
+  args = (root.embedding.contiguous(),
+          fused.noised_root_logits(gen, root.prior_logits, invalid),
+          root.value.contiguous(),
+          fused.extract_smz_fused_weights(net, params))
+  kwargs = dict(num_simulations=SMZ_SIMS, support_size=net.support_size,
+                discount=SMZ_WIDE_DISCOUNT, invalid_actions=invalid,
+                max_depth=None)
+  return args, kwargs
+
+
+def wide_smz_phase(device):
+  """Phase 33: the Stochastic MuZero kernel's global-weight mode
+  (``fused_smz_kernel<smem_tree, false>``) at examples/run_2048.py's
+  widths, on the roots of real boards of the native pool under their legal
+  masks, at SMZ_WIDE_ENVS roots x SMZ_SIMS simulations: its plan (towers
+  in device memory), a repeated launch bit-identical, the outputs against
+  the plain version by ``compare_masked_smz``, the ms, the plain
+  version's ms, the bound and the tower bytes the kernel requests (an
+  expansion reads the decision tower under a decision parent, the chance
+  and prediction towers under a chance parent; counted as if every read
+  missed L1, which is not measured); then ``make_policy_fn``
+  with ``policy="stochastic"`` over the same net, one SMZ launch a call
+  and nothing else."""
+  from muax_tpu_torch.config import MuZeroConfig, SearchConfig
+  from muax_tpu_torch.models import make_stochastic_mlp_networks
+  from muax_tpu_torch.search import fused
+  from muax_tpu_torch.train.actor import make_policy_fn
+
+  net = make_stochastic_mlp_networks(4, device=device, **SMZ_WIDE_NET)
+  params = net.init_params((4, 4), torch.Generator().manual_seed(SEED))
+  obs, legal = host_boards(device, max(SMZ_WIDE_ENVS), HOST_BOARD_MOVES)
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  figures = {}
+  for B in SMZ_WIDE_ENVS:
+    args, kwargs = wide_smz_launch(net, params, obs[:B].contiguous(),
+                                   legal[:B].contiguous(), gen)
+    check(bool((kwargs["invalid_actions"] > 0).any()),
+          "the boards' masks have illegal moves")
+    weights = args[3]
+    n = weights.flat().numel()
+    check(n == SMZ_WIDE_FLOATS, f"{n} floats of towers")
+    plan = fused.smz_launch_plan(args[0], weights, **kwargs)
+    check(not plan.smem_weights, "the towers are read from device memory")
+    before = search_counts()
+    out = fused.fused_smz_search(*args, **kwargs)
+    again = fused.fused_smz_search(*args, **kwargs)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(search_counts(), before))
+    check(got == (0, 0, 0, 0, 2), f"two SMZ launches, not {got}")
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          "a repeated launch gives the same bits")
+    check(bool(torch.isfinite(out[2]).all()), "finite q")
+    _, fig = compare_masked_smz(out, args, kwargs)
+    fig["ms"] = time_ms(lambda: fused.fused_smz_search(*args, **kwargs),
+                        SMZ_WIDE_REPS)
+    fig["plain_ms"] = once_ms(lambda: smz_reference(args, kwargs))
+    fig.update(smz_bound_ms(args, kwargs))
+    dec = sum(w.numel() + b.numel() for w, b in (
+        *weights.dec_layers, weights.dec_state, weights.dec_chance,
+        weights.dec_value))
+    expansions = B * SMZ_SIMS
+    chance = fig["chance_parent_share"] * expansions
+    fig["tower_bytes_requested"] = 4 * ((expansions - chance) * dec
+                                        + chance * (n - dec))
+    fig["tower_tb_per_s_requested"] = (fig["tower_bytes_requested"]
+                                       / fig["ms"] / 1e9)
+    fig["plan"] = dict(plan._asdict(), runtime_blocks_per_sm=(
+        fused.smz_blocks_per_sm(plan, device)))
+    figures[f"envs_{B}"] = fig
+
+  config = MuZeroConfig(search=SearchConfig(policy="stochastic",
+                                            num_simulations=SMZ_SIMS))
+  policy_fn = make_policy_fn(net, config, SMZ_WIDE_DISCOUNT, device=device)
+  B = min(SMZ_WIDE_ENVS)
+  invalid = (1.0 - legal[:B]).contiguous()
+  reset_counts()
+  for _ in range(SMZ_WIDE_POLICY_CALLS):
+    action, pi, value = policy_fn(params, gen, obs[:B].contiguous(), 1.0,
+                                  invalid)
+  torch.cuda.synchronize()
+  launches = search_counts()
+  check(launches == (0, 0, 0, 0, SMZ_WIDE_POLICY_CALLS)
+        and all_kernel_launches() == SMZ_WIDE_POLICY_CALLS,
+        f"the stochastic policy launched {launches}")
+  check(bool((legal[:B].gather(1, action.long()[:, None]) == 1).all()),
+        "every action legal")
+  check(bool(torch.allclose(pi.sum(-1), torch.ones_like(value)))
+        and float(pi[invalid > 0].abs().max()) == 0.0,
+        "pi sums to 1 and misses illegal moves")
+  figures["policy"] = {"calls": SMZ_WIDE_POLICY_CALLS,
+                       "smz_launches": launches[4],
+                       "ms": time_ms(lambda: policy_fn(
+                           params, gen, obs[:B].contiguous(), 1.0, invalid),
+                                     SMZ_WIDE_REPS)}
+  return figures, SMZ_WIDE_POLICY_CALLS
+
+
+# ---- phase 34: the example scripts on the card -------------------------
+
+def fit_schedule(config, iterations):
+  """What ``fit`` runs for ``iterations`` iterations of ``config``: (the
+  warm-up rollouts, the learner groups, the updates), the updates held by
+  the samples-per-insert gate where the config has one, as fit computes
+  it."""
+  import numpy as np
+  tcfg = config.train
+  warm = max(1, config.replay.min_fill // tcfg.num_envs)
+  per_iter = tcfg.num_envs * tcfg.collect_steps
+  n = tcfg.updates_per_iteration
+  groups = n // math.gcd(n, max(1, tcfg.presample_updates))
+  inserted, sampled, updates = warm * per_iter, 0, 0
+  for _ in range(iterations):
+    inserted += per_iter
+    allowed = n
+    if tcfg.samples_per_insert is not None:
+      budget = tcfg.samples_per_insert * inserted * (1.0 + tcfg.spi_tolerance)
+      allowed = int(np.clip((budget - sampled) // tcfg.batch_size, 0, n))
+      sampled += allowed * tcfg.batch_size
+    updates += allowed
+  return warm, groups * iterations, updates
+
+
+def run_main(module, argv):
+  """``module.main(argv)`` on the card with the launch counts set to 0
+  just before and read just after: (its return, its standard output, the
+  seconds it took, the search recorder, the first sampler and learner
+  launches with their inputs (``FirstCall``), the config ``fit`` was
+  called with (None where the script calls no fit), the steps of every
+  ``AutoResetWrapper`` and host pool by batch size, the launches of each
+  search mode, the sampler's and the learner's)."""
+  import contextlib
+  import copy
+  import io
+
+  from muax_tpu_torch.envs.base import AutoResetWrapper
+  from muax_tpu_torch.envs.gym_adapter import HostPool
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.replay import fused_sampler
+  from muax_tpu_torch.train import learner
+
+  steps, fit_config = {}, []
+  stepping = (AutoResetWrapper, HostPool)
+  real = [cls.step for cls in stepping]
+
+  def counting(step):
+    def counted(self, carry, action, generator):
+      batch = action.shape[0]
+      steps[batch] = steps.get(batch, 0) + 1
+      return step(self, carry, action, generator)
+    return counted
+
+  real_fit = getattr(module, "fit", None)
+
+  def fitting(env, networks, config=None, *args, **kwargs):
+    fit_config.append(config)
+    return real_fit(env, networks, config, *args, **kwargs)
+
+  def ring_copy(call):
+    (state, *rest), kwargs = call
+    return (copy.deepcopy(state), *copied(tuple(rest))), kwargs
+
+  def params_copy(call):
+    (params, *rest), kwargs = call
+    return (copy.deepcopy(params), *copied(tuple(rest))), kwargs
+
+  out = io.StringIO()
+  for cls, step in zip(stepping, real):
+    cls.step = counting(step)
+  if real_fit is not None:
+    module.fit = fitting
+  try:
+    reset_counts()
+    t0 = time.perf_counter()
+    with SearchRecorder() as rec, FirstCall(
+        fused_sampler, "_sample_cuda", ring_copy) as sampled, FirstCall(
+            learner, "fused_muzero_grad_raw", params_copy) as learned, \
+        contextlib.redirect_stdout(out):
+      ret = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+  finally:
+    for cls, step in zip(stepping, real):
+      cls.step = step
+    if real_fit is not None:
+      module.fit = real_fit
+  counts = {"search_by_mode": search_counts(),
+            "sampler": fused_sampler.launches,
+            "learner": fused_learner.launches
+            + fused_learner.categorical_launches}
+  return (ret, out.getvalue(), seconds, rec, sampled.kept, learned.kept,
+          fit_config[0] if fit_config else None, steps, counts)
+
+
+def example_launches_against_plain(rec, sampled, learned):
+  """Phase 34's check of what the kernels computed inside a fit-based
+  script: the first search launch at each batch size (the training
+  rollout's and the greedy evaluation's) against the plain version on its
+  own inputs (phase 21's rule: compare_search with tie_proof, as a trained
+  net meets near-ties), the first sampler launch against the plain version
+  on a copy of the ring as it was (phase 4's rule: compare_raw), and the
+  first learner launch against autograd over muzero_loss under the
+  parameters and loss settings it ran with (phase 5's rule: gradients
+  rtol 2e-4 / atol 1e-6, metrics_close)."""
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.replay import fused_sampler
+
+  figures = {}
+  for batch, (args, kwargs, out) in sorted(rec.first.items()):
+    figures[f"search_{batch}"] = compare_search(
+        out, fused_reference(args, kwargs), kwargs["num_simulations"],
+        invalid=kwargs.get("invalid_actions"),
+        tie_proof=tie_proof(args, kwargs))
+  args, kwargs, (raw, lay) = sampled
+  ref, _ = fused_sampler.fused_sample_group_reference(*args, **kwargs)
+  figures["sampler"] = dict(compare_raw(raw, ref, lay), windows=raw.shape[1])
+  args, kwargs, (grads, metrics) = learned
+  ref_grads, ref_metrics = fused_learner.fused_muzero_grad_raw_reference(
+      *args[:5], **kwargs)
+  err, used = grads_close(grads, ref_grads, 2e-4, 1e-6)
+  metrics_close(metrics, ref_metrics)
+  figures["learner"] = {"batch": args[1].shape[1], "max_abs_err": err,
+                        "tolerance_used": used}
+  return figures
+
+
+def fit_example(name, argv, kernels, iterations):
+  """One fit-based example (``name``) at ``argv``. ``kernels`` pins what
+  fit's status line must say: search=on learner=on sampler=on (True), or
+  all three OFF (False: the conv family's scripts). Its launches are held
+  to fit's schedule for the config the script passed to fit: with
+  ``kernels`` the MLP MuZero search once a step of the training batch
+  ((warm-up + iterations) x collect steps) and once a step of the
+  evaluation's batch (every step of an ``AutoResetWrapper`` at that batch),
+  the sampler once a learner group and the learner once an update, and
+  each kernel's first launch held against its plain version
+  (``example_launches_against_plain``); else none. Returns the launches,
+  the comparisons and the iteration's ms."""
+  import importlib
+  module = importlib.import_module(f"muax_tpu_torch.examples.{name}")
+  (ret, text, seconds, rec, sampled, learned, config, steps,
+   counts) = run_main(module, argv)
+  tcfg = config.train
+  status = next(line for line in text.splitlines() if "fused:" in line)
+  for part in ("search", "learner", "sampler"):
+    check((f"{part}=on" in status) == kernels,
+          f"{name}: {part} {'on' if kernels else 'OFF'} in {status!r}")
+  warm, groups, updates = fit_schedule(config, iterations)
+  rollout_steps = (warm + iterations) * tcfg.collect_steps
+  want_search = {}
+  if kernels:
+    want_search = {b: n for b, n in steps.items() if b != tcfg.num_envs}
+    want_search[tcfg.num_envs] = rollout_steps
+  check(rec.by_batch == want_search, f"{name}: search launches by batch "
+        f"{rec.by_batch}, not {want_search}")
+  check(steps.get(tcfg.num_envs) == rollout_steps,
+        f"{name}: env steps by batch {steps}, not {rollout_steps} of "
+        f"{tcfg.num_envs}")
+  by_mode = [0] * 5
+  by_mode[search_mode(config.search.policy, "mlp")] = sum(
+      want_search.values())
+  want = {"search_by_mode": tuple(by_mode),
+          "sampler": groups if kernels else 0,
+          "learner": updates if kernels else 0}
+  check(counts == want, f"{name}: launches {counts}, not {want}")
+  _, results = ret
+  history = results["history"]
+  check(len(history) >= 1, f"{name}: an iteration logged")
+  for row in history:
+    for k, v in row.items():
+      check(math.isfinite(v), f"{name}: fit metric {k} = {v} is finite")
+  first = history[0]
+  figures = {"status": status, "launches": dict(counts, search_by_batch={
+      str(b): n for b, n in rec.by_batch.items()}),
+             "main_s": seconds,
+             "iteration_1_ms": tcfg.num_envs * tcfg.collect_steps
+             / first["env_steps_per_s"] * 1e3,
+             "test_G": first.get("test_G"), "loss": first["loss"]}
+  if kernels:
+    figures["against_plain"] = example_launches_against_plain(
+        rec, sampled, learned)
+  return figures
+
+
+def kernel_free_example(name, argv, iterations):
+  """One example of the generic engine (AlphaZero, the MCTS agents): its
+  main at ``argv`` launches none of the port's kernels; ms an
+  iteration."""
+  import importlib
+  module = importlib.import_module(f"muax_tpu_torch.examples.{name}")
+  ret, _, seconds, rec, *_, counts = run_main(module, argv)
+  check(all_kernel_launches() == 0 and not rec.by_batch,
+        f"{name}: launched {counts}")
+  return ret, {"launches": 0, "main_s": seconds,
+               "ms_per_iteration": seconds / iterations * 1e3}
+
+
+def examples_phase(root):
+  """Phase 34: each example script's ``main`` on the card (its default
+  ``--device``) at its default widths for EXAMPLE_ITERATIONS iterations
+  (the generic-engine scripts at EXAMPLE_GENERIC_SIMS simulations), each
+  kernel's launches exact and, in the scripts that run kernels, each
+  kernel's first launch held against its plain version (``fit_example``);
+  the LunarLander script where gymnasium with Box2D imports, else a line
+  that says it is not run."""
+  import importlib.util
+  import tempfile
+
+  n = str(EXAMPLE_ITERATIONS)
+  sims = ["--num_simulations", str(EXAMPLE_GENERIC_SIMS)]
+  out = {}
+  os.makedirs(os.path.join(root, "build"), exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
+    out["run_cartpole"] = fit_example(
+        "run_cartpole",
+        ["--num_iterations", n, "--model_dir", os.path.join(d, "cartpole")],
+        True, EXAMPLE_ITERATIONS)
+    out["run_acme_regime"] = fit_example(
+        "run_acme_regime", ["--num_iterations", n], True, EXAMPLE_ITERATIONS)
+    out["run_pixel"] = fit_example(
+        "run_pixel",
+        ["--num_iterations", n, "--model_dir", os.path.join(d, "pixel")]
+        + sims, False, EXAMPLE_ITERATIONS)
+    if (importlib.util.find_spec("gymnasium") is None
+        or importlib.util.find_spec("Box2D") is None):
+      out["run_lunarlander"] = ("not run on this machine: it has no "
+                                "gymnasium with Box2D")
+    else:
+      out["run_lunarlander"] = fit_example(
+          "run_lunarlander",
+          ["--num_iterations", n, "--model_dir",
+           os.path.join(d, "lunarlander")], True, EXAMPLE_ITERATIONS)
+  out["run_atari --fake"] = fit_example(
+      "run_atari", ["--fake", "--iterations", n] + sims, False,
+      EXAMPLE_ITERATIONS)
+  rate, _ = kernel_free_example("run_atari", ["--fake", "--measure_pool"],
+                                1)
+  out["run_atari --fake --measure_pool"] = {"env_steps_per_s": rate}
+  for name in ("run_tictactoe_alphazero", "run_connect4"):
+    curve, out[name] = kernel_free_example(name, ["--iterations", n] + sims,
+                                           EXAMPLE_ITERATIONS)
+    check(curve == [], f"{name}: no evaluation within {n} iterations")
+  for mode in ("--simulator", "--nosimulator"):
+    (loss, rate, model), fig = kernel_free_example(
+        "run_mcts", [mode, "--iterations", n] + sims, EXAMPLE_ITERATIONS)
+    check(math.isfinite(loss) and 0.0 <= rate <= 1.0,
+          f"run_mcts {mode}: loss {loss}, catch rate {rate}")
+    out[f"run_mcts {mode}"] = dict(fig, loss=loss, catch_rate=rate)
+  return out
+
+
 def run(device):
   from muax_tpu_torch import _build
   from muax_tpu_torch.replay.buffer import gumbel_noise
@@ -4164,6 +4638,29 @@ def run(device):
         f"the ranks' own, (d) reanalyze of {PAR_REANALYZE_SEGMENTS} segments "
         f"over the ranks, (e) the Go tower channel-sharded at batch "
         f"{GO_BATCH}: {json.dumps(par)} ({time.perf_counter() - t0:.1f} s)")
+  t0 = time.perf_counter()
+  wide_smz, wide_smz_launches = wide_smz_phase(device)
+  print(f"phase 33 Stochastic MuZero at examples/run_2048.py's width (A=4 "
+        f"C=32 E=64 S=300, hidden (256, 256), towers in device memory): "
+        f"kernel vs plain at {' and '.join(map(str, SMZ_WIDE_ENVS))} boards "
+        f"x {SMZ_SIMS} sims under legal masks, make_policy_fn(policy="
+        f"'stochastic') {SMZ_WIDE_POLICY_CALLS} calls: "
+        f"{json.dumps(wide_smz)} ({time.perf_counter() - t0:.1f} s)")
+  t0 = time.perf_counter()
+  examples = examples_phase(os.path.dirname(os.path.abspath(__file__)))
+  # The fit-based scripts' launches (the others launch none).
+  fits = [fig["launches"] for fig in examples.values()
+          if isinstance(fig, dict) and isinstance(fig.get("launches"), dict)]
+  example_search, example_gumbel = (sum(f["search_by_mode"][i] for f in fits)
+                                    for i in (0, 1))
+  example_sampler = sum(f["sampler"] for f in fits)
+  example_learner = sum(f["learner"] for f in fits)
+  print(f"phase 34 the example scripts on {card}, {EXAMPLE_ITERATIONS} "
+        f"iterations each at their default widths (generic-engine scripts "
+        f"at {EXAMPLE_GENERIC_SIMS} sims): {json.dumps(examples)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+  if isinstance(examples["run_lunarlander"], str):
+    print(f"phase 34 run_lunarlander: {examples['run_lunarlander']}")
   uint8_line = {
       mode: {k: fig[k] for k in ("same_start", "max_abs_err",
                                  "bit_identical_to_f32_ring", "ms",
@@ -4178,7 +4675,7 @@ def run(device):
                   + masked["muzero"]["launches"]
                   + masked["tictactoe_muzero"]["launches"]
                   + host["fit"]["launches"]["search"]
-                  + par["launches"][0],
+                  + par["launches"][0] + example_search,
       "max_abs_err": main_cmp["max_abs_err"],
       "ms": figures["search_ms"], "plain_ms": figures["plain_search_ms"],
       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -4198,7 +4695,8 @@ def run(device):
       "source": "muax_tpu_torch/csrc/fused_sampler.cu",
       "replaces": "muax_tpu/replay/fused_sampler.py:280",
       "launches": train_launches[1] + reanalyze_fit["sampler"]
-                  + host["fit"]["launches"]["sampler"] + par["launches"][1],
+                  + host["fit"]["launches"]["sampler"] + par["launches"][1]
+                  + example_sampler,
       "max_abs_err": sampler_main["max_abs_err"],
       "ms": train["sampler_ms"], "plain_ms": train["plain_sampler_ms"],
       "bound_ms": sampler_bound, "bound_by": sampler_by, "library_ms": None,
@@ -4208,7 +4706,8 @@ def run(device):
       "source": "muax_tpu_torch/csrc/fused_learner.cu",
       "replaces": "muax_tpu/models/fused_learner.py:665",
       "launches": train_launches[2] + reanalyze_fit["learner"]
-                  + host["fit"]["launches"]["learner"] + par["launches"][2],
+                  + host["fit"]["launches"]["learner"] + par["launches"][2]
+                  + example_learner,
       "max_abs_err": learner_main["max_abs_err"],
       "ms": train["learner_kernel_ms"], "plain_ms": train["plain_learner_ms"],
       "bound_ms": learner_bound, "bound_by": learner_by, "library_ms": None,
@@ -4223,7 +4722,7 @@ def run(device):
       "source": "muax_tpu_torch/csrc/fused_search.cu",
       "replaces": 'muax_tpu/search/fused.py:759 (policy="gumbel")',
       "launches": gumbel_train_launches[0] + masked["gumbel"]["launches"]
-                  + masked["tictactoe_gumbel"]["launches"],
+                  + masked["tictactoe_gumbel"]["launches"] + example_gumbel,
       "max_abs_err": gumbel_main["max_abs_err"],
       "ms": gumbel_figures["search_ms"],
       "plain_ms": gumbel_figures["plain_search_ms"],
@@ -4272,7 +4771,7 @@ def run(device):
       "name": "fused_smz_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_smz.cu",
       "replaces": "muax_tpu/search/fused.py:1369",
-      "launches": smz_train_launches[0],
+      "launches": smz_train_launches[0] + wide_smz_launches,
       "max_abs_err": smz_main["max_abs_err"],
       "ms": smz_roll["search_ms"], "plain_ms": smz_roll["plain_search_ms"],
       "bound_ms": smz_roll["bound_ms"], "bound_by": smz_roll["bound_by"],
@@ -4280,6 +4779,10 @@ def run(device):
       "theoretical_warps_per_sm": smz_roll["theoretical_warps_per_sm"],
       "instances": {k.split(":", 1)[1]: v for k, v in ptxas.items()
                     if k.startswith("fused_smz:")},
+      "wide_towers_2048": {k: {f: v for f, v in fig.items()
+                               if f in WIDE_KEYS}
+                           for k, fig in wide_smz.items()
+                           if k.startswith("envs_")},
   }, {
       "name": "fused_sample_group_per_step_obs", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_sampler.cu",

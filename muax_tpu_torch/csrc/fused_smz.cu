@@ -56,6 +56,12 @@
 //   live; where a tree does not fit beside the weights it goes to a device
 //   scratch, held in L2). Each environment has four warps and a named
 //   barrier of its own.
+// - Towers wider than a block's shared memory (the 2048 example's widths:
+//   embedding 64, 601 bins, hidden (256, 256), 3.05 MB) are not staged:
+//   the instance <kSmemTree, false> reads every weight from device memory
+//   through the read-only cache (L1, then L2, which holds them) and keeps
+//   the trees in shared memory. An expansion then reads 1-2 MB of towers,
+//   so that mode waits on those reads, not on the tree walks.
 // - The first warp walks the tree: lanes split the slots of a node, every
 //   load of a level is issued at once, and shuffle rounds (or redux.sync
 //   on order-keyed integers, past 4 lanes) find the first maximum with the
@@ -352,9 +358,22 @@ __device__ __forceinline__ void env_sync(int barrier) {
                : "memory");
 }
 
+// A weight (or bias) of a tower: a plain load from shared memory where the
+// block staged the towers, else from device memory through the read-only
+// cache (`__ldg`), where L2 holds them (group_mlp.cuh's weight<kLdg>).
+template <bool kSmemWeights>
+__device__ __forceinline__ float weight(const float* w) {
+  if constexpr (kSmemWeights) {
+    return *w;
+  } else {
+    return __ldg(w);
+  }
+}
+
 // y[out] = x[in] @ W[rows, out] + b (+ extra, one row of W for a one-hot
 // input after x), ELU if `elu_out`: the environment's lanes split the
 // outputs, each sums its inputs in order.
+template <bool kSmemWeights>
 __device__ __forceinline__ void env_dense(const float* W, const float* b,
                                           const float* x, float* y, int in,
                                           int out, const float* extra,
@@ -365,14 +384,15 @@ __device__ __forceinline__ void env_dense(const float* W, const float* b,
 #pragma unroll 4
     for (int i = 0; i < in4; i += 4) {
       const float4 xv = *reinterpret_cast<const float4*>(x + i);
-      acc = fmaf(xv.x, W[i * out + j], acc);
-      acc = fmaf(xv.y, W[(i + 1) * out + j], acc);
-      acc = fmaf(xv.z, W[(i + 2) * out + j], acc);
-      acc = fmaf(xv.w, W[(i + 3) * out + j], acc);
+      acc = fmaf(xv.x, weight<kSmemWeights>(W + i * out + j), acc);
+      acc = fmaf(xv.y, weight<kSmemWeights>(W + (i + 1) * out + j), acc);
+      acc = fmaf(xv.z, weight<kSmemWeights>(W + (i + 2) * out + j), acc);
+      acc = fmaf(xv.w, weight<kSmemWeights>(W + (i + 3) * out + j), acc);
     }
-    for (int i = in4; i < in; ++i) acc = fmaf(x[i], W[i * out + j], acc);
-    if (extra != nullptr) acc += extra[j];
-    acc += b[j];
+    for (int i = in4; i < in; ++i)
+      acc = fmaf(x[i], weight<kSmemWeights>(W + i * out + j), acc);
+    if (extra != nullptr) acc += weight<kSmemWeights>(extra + j);
+    acc += weight<kSmemWeights>(b + j);
     y[j] = elu_out ? elu(acc) : acc;
   }
 }
@@ -380,6 +400,7 @@ __device__ __forceinline__ void env_dense(const float* W, const float* b,
 // Up to three heads on h[in], laid out one after the other in the flat
 // weights from p (W [in, w] then b [w] each), as one layer: y holds their
 // outputs side by side.
+template <bool kSmemWeights>
 __device__ __forceinline__ void env_heads(const float* p, const float* h,
                                           int in, int w0, int w1, int w2,
                                           float* y, int tid) {
@@ -402,13 +423,14 @@ __device__ __forceinline__ void env_heads(const float* p, const float* h,
 #pragma unroll 4
     for (int i = 0; i < in4; i += 4) {
       const float4 hv = *reinterpret_cast<const float4*>(h + i);
-      acc = fmaf(hv.x, W[i * out + j], acc);
-      acc = fmaf(hv.y, W[(i + 1) * out + j], acc);
-      acc = fmaf(hv.z, W[(i + 2) * out + j], acc);
-      acc = fmaf(hv.w, W[(i + 3) * out + j], acc);
+      acc = fmaf(hv.x, weight<kSmemWeights>(W + i * out + j), acc);
+      acc = fmaf(hv.y, weight<kSmemWeights>(W + (i + 1) * out + j), acc);
+      acc = fmaf(hv.z, weight<kSmemWeights>(W + (i + 2) * out + j), acc);
+      acc = fmaf(hv.w, weight<kSmemWeights>(W + (i + 3) * out + j), acc);
     }
-    for (int i = in4; i < in; ++i) acc = fmaf(h[i], W[i * out + j], acc);
-    y[o] = acc + W[in * out + j];
+    for (int i = in4; i < in; ++i)
+      acc = fmaf(h[i], weight<kSmemWeights>(W + i * out + j), acc);
+    y[o] = acc + weight<kSmemWeights>(W + in * out + j);
   }
 }
 
@@ -416,6 +438,7 @@ __device__ __forceinline__ void env_heads(const float* p, const float* h,
 // one-hot row `hot` of W when hot >= 0), through bufs[0], bufs[1], ...;
 // `p` walks the flat weights. Returns the last hidden activation and leaves
 // its width in *width. Ends with the environment's barrier.
+template <bool kSmemWeights>
 __device__ const float* env_hidden(const float*& p, const float* x, int in,
                                    int hot_rows, int hot, const int* widths,
                                    int n, float* bufs0, float* bufs1,
@@ -424,9 +447,9 @@ __device__ const float* env_hidden(const float*& p, const float* x, int in,
     const int out = widths[l];
     const int rows = l == 0 ? in + hot_rows : in;
     float* y = (l & 1) ? bufs1 : bufs0;
-    env_dense(p, p + rows * out, x, y, in, out,
-              l == 0 && hot >= 0 ? p + (in + hot) * out : nullptr, true,
-              tid);
+    env_dense<kSmemWeights>(
+        p, p + rows * out, x, y, in, out,
+        l == 0 && hot >= 0 ? p + (in + hot) * out : nullptr, true, tid);
     p += rows * out + out;
     x = y;
     in = out;
@@ -490,7 +513,10 @@ __device__ void warp_normalize(float* y, float* to, int E, int lane) {
 enum Ctl { kParent, kAct, kSlot, kExisting, kDepth, kDecisionParent,
            kValue, kReward };
 
-template <bool kSmemTree>
+// kSmemWeights: the towers staged once per block in shared memory, else
+// read from device memory (towers wider than a block's shared memory: the
+// 2048 example's are 3.05 MB), the same sums in the same order.
+template <bool kSmemTree, bool kSmemWeights>
 __global__ void __launch_bounds__(kEnvThreads * kMaxEnvs, 1)
 fused_smz_kernel(const float* __restrict__ root_emb,
                  const float* __restrict__ root_logits,
@@ -501,18 +527,21 @@ fused_smz_kernel(const float* __restrict__ root_emb,
                  float* __restrict__ out_value, float* __restrict__ out_q,
                  const __grid_constant__ Args g) {
   extern __shared__ __align__(16) float smem[];
-  if ((reinterpret_cast<uintptr_t>(weights) & 15) == 0) {
-    const int n4 = g.n_weights / 4;
-    for (int i = threadIdx.x; i < n4; i += blockDim.x)
-      reinterpret_cast<float4*>(smem)[i] =
-          reinterpret_cast<const float4*>(weights)[i];
-    for (int i = 4 * n4 + threadIdx.x; i < g.n_weights; i += blockDim.x)
-      smem[i] = weights[i];
-  } else {
-    for (int i = threadIdx.x; i < g.n_weights; i += blockDim.x)
-      smem[i] = weights[i];
+  if constexpr (kSmemWeights) {
+    if ((reinterpret_cast<uintptr_t>(weights) & 15) == 0) {
+      const int n4 = g.n_weights / 4;
+      for (int i = threadIdx.x; i < n4; i += blockDim.x)
+        reinterpret_cast<float4*>(smem)[i] =
+            reinterpret_cast<const float4*>(weights)[i];
+      for (int i = 4 * n4 + threadIdx.x; i < g.n_weights; i += blockDim.x)
+        smem[i] = weights[i];
+    } else {
+      for (int i = threadIdx.x; i < g.n_weights; i += blockDim.x)
+        smem[i] = weights[i];
+    }
+    __syncthreads();
   }
-  __syncthreads();
+  const float* towers = kSmemWeights ? smem : weights;
 
   const int local = threadIdx.x / kEnvThreads;
   const int env = blockIdx.x * g.envs_per_block + local;
@@ -611,11 +640,11 @@ fused_smz_kernel(const float* __restrict__ root_emb,
     float* to = emb + static_cast<size_t>(slot) * E;
     int hw;
     if (ctl[kDecisionParent]) {
-      const float* p = smem;
-      const float* h = env_hidden(p, X, E, A, act, g.dec_width, g.n_dec, H0,
-                                  H1, &hw, tid, barrier);
+      const float* p = towers;
+      const float* h = env_hidden<kSmemWeights>(
+          p, X, E, A, act, g.dec_width, g.n_dec, H0, H1, &hw, tid, barrier);
       // afterstate [E], chance prior [C], afterstate value [S41]
-      env_heads(p, h, hw, E, C, S41, Y, tid);
+      env_heads<kSmemWeights>(p, h, hw, E, C, S41, Y, tid);
       env_sync(barrier);
       if (warp == 0) {
         warp_normalize(Y, to, E, lane);
@@ -629,11 +658,11 @@ fused_smz_kernel(const float* __restrict__ root_emb,
         }
       }
     } else {
-      const float* p = smem + g.ch_offset;
-      const float* h = env_hidden(p, X, E, C, act - A, g.ch_width, g.n_ch,
-                                  H0, H1, &hw, tid, barrier);
+      const float* p = towers + g.ch_offset;
+      const float* h = env_hidden<kSmemWeights>(
+          p, X, E, C, act - A, g.ch_width, g.n_ch, H0, H1, &hw, tid, barrier);
       // next state [E], reward [S41]
-      env_heads(p, h, hw, E, S41, 0, Y, tid);
+      env_heads<kSmemWeights>(p, h, hw, E, S41, 0, Y, tid);
       env_sync(barrier);
       if (warp == 0) {
         warp_normalize(Y, to, E, lane);
@@ -642,11 +671,11 @@ fused_smz_kernel(const float* __restrict__ root_emb,
         if (lane == 0) ctlf[kReward] = reward;
       }
       env_sync(barrier);
-      p = smem + g.pred_offset;
-      h = env_hidden(p, Y, E, 0, -1, g.pred_width, g.n_pred, H0, H1, &hw,
-                     tid, barrier);
+      p = towers + g.pred_offset;
+      h = env_hidden<kSmemWeights>(p, Y, E, 0, -1, g.pred_width, g.n_pred, H0,
+                                   H1, &hw, tid, barrier);
       // policy [A], value [S41]
-      env_heads(p, h, hw, A, S41, 0, Z, tid);
+      env_heads<kSmemWeights>(p, h, hw, A, S41, 0, Z, tid);
       env_sync(barrier);
       if (warp == 0) {
         warp_softmax(Z, srow, A, lane);
@@ -741,6 +770,17 @@ long tower_floats(int in, const int* widths, int n, const int* heads,
   return floats;
 }
 
+using SMZKernel = decltype(&fused_smz_kernel<true, true>);
+
+// The instance of a plan: trees and towers in shared memory or not.
+SMZKernel smz_instance(int smem_tree, int smem_weights) {
+  if (smem_weights)
+    return smem_tree ? fused_smz_kernel<true, true>
+                     : fused_smz_kernel<false, true>;
+  return smem_tree ? fused_smz_kernel<true, false>
+                   : fused_smz_kernel<false, false>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -770,7 +810,8 @@ void mz_smz_env_bytes(int A, int C, int E, int S41, int num_simulations,
 // head [H, A], value head [H, S41]. The launch plan (search/fused.py
 // `smz_search_plan`): envs_per_block environments a block, the trees in
 // shared memory or not (smem_tree), the embeddings in shared memory or not
-// (smem_emb), smem_bytes of shared memory a block and scratch_bytes of
+// (smem_emb), the towers staged in shared memory or read from device memory
+// (smem_weights), smem_bytes of shared memory a block and scratch_bytes of
 // device scratch (scratch, per environment the tree where it is not in
 // shared memory, then the embeddings where they are not). Outputs: visits
 // [B, A], value [B], q [B, A]. Returns a cudaError_t, or MZ_ERR_SHAPE when
@@ -779,8 +820,9 @@ int mz_fused_smz_search(const float* root_emb, const float* root_logits,
                         const float* root_value, const float* invalid,
                         const float* weights, int n_weights, void* scratch,
                         long scratch_bytes, int envs_per_block, int smem_tree,
-                        int smem_emb, long smem_bytes, float* out_visits,
-                        float* out_value, float* out_q, int B, int A, int C,
+                        int smem_emb, int smem_weights, long smem_bytes,
+                        float* out_visits, float* out_value, float* out_q,
+                        int B, int A, int C,
                         int E, int S41, int support, int num_simulations,
                         int max_depth, float discount, float pb_c_init,
                         float pb_c_base, int n_dec, const int* dec_width,
@@ -834,7 +876,7 @@ int mz_fused_smz_search(const float* root_emb, const float* root_logits,
   g.ch_offset = static_cast<int>(dec);
   g.pred_offset = static_cast<int>(dec + ch);
   g.n_weights = n_weights;
-  g.weights_stride = (n_weights + 3) / 4 * 4;
+  g.weights_stride = smem_weights ? (n_weights + 3) / 4 * 4 : 0;
   g.max_hidden = max_hidden;
   long parts[3];
   mz_smz_env_bytes(A, C, E, S41, num_simulations, max_depth, max_hidden,
@@ -860,7 +902,7 @@ int mz_fused_smz_search(const float* root_emb, const float* root_logits,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   if (smem > max_smem) return kErrShape;
-  auto kernel = smem_tree ? fused_smz_kernel<true> : fused_smz_kernel<false>;
+  auto kernel = smz_instance(smem_tree, smem_weights);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -875,11 +917,11 @@ int mz_fused_smz_search(const float* root_emb, const float* root_logits,
 
 // Blocks of the plan that one SM of `device` holds at once, as the CUDA
 // runtime reckons it from the compiled kernel (its registers included).
-int mz_smz_blocks_per_sm(int envs_per_block, int smem_tree, long smem_bytes,
-                         int device, int* out) {
+int mz_smz_blocks_per_sm(int envs_per_block, int smem_tree, int smem_weights,
+                         long smem_bytes, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  auto kernel = smem_tree ? fused_smz_kernel<true> : fused_smz_kernel<false>;
+  auto kernel = smz_instance(smem_tree, smem_weights);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_bytes));

@@ -14,11 +14,10 @@ False in their plans). From the root of a checkout, on the card:
 """
 from __future__ import annotations
 
-import argparse
-
 from muax_tpu_torch.config import (MuZeroConfig, ReplayConfig, SearchConfig,
                                    TrainConfig)
 from muax_tpu_torch.envs.native2048 import Native2048Pool
+from muax_tpu_torch.examples import flags
 from muax_tpu_torch.models import make_mlp_networks, muzero_optimizer
 from muax_tpu_torch.train.fit import fit
 
@@ -53,7 +52,9 @@ def setup(num_envs: int = 64, num_simulations: int = 50,
 
 
 def main(argv=None):
-  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  """Parses ``argv`` (the command line by default), trains, and returns
+  fit's (train_state, results)."""
+  parser = flags.parser(__doc__)
   parser.add_argument("--num_iterations", type=int, default=500)
   parser.add_argument("--num_simulations", type=int, default=50)
   parser.add_argument("--num_envs", type=int, default=64)
@@ -61,17 +62,17 @@ def main(argv=None):
   parser.add_argument("--updates_per_iteration", type=int, default=16)
   parser.add_argument("--seed", type=int, default=0)
   parser.add_argument("--policy", default="muzero", help="muzero | gumbel")
-  parser.add_argument("--model_dir", default="models/2048")
-  parser.add_argument("--device", default="cuda")
+  parser.add_argument("--model_dir", default="models/torch/2048")
   opts = parser.parse_args(argv)
   pool, eval_pool, networks, config, optimizer = setup(
       opts.num_envs, opts.num_simulations, opts.batch_size,
       opts.updates_per_iteration, opts.seed, opts.policy, opts.device)
-  _, results = fit(pool, networks, config, optimizer,
-                   num_iterations=opts.num_iterations, seed=opts.seed,
-                   eval_every=25, log_every=10, model_dir=opts.model_dir,
-                   eval_env=eval_pool)
+  state, results = fit(pool, networks, config, optimizer,
+                       num_iterations=opts.num_iterations, seed=opts.seed,
+                       eval_every=25, log_every=10,
+                       model_dir=opts.model_dir, eval_env=eval_pool)
   print("best mean score:", results["best_reward"])
+  return state, results
 
 
 if __name__ == "__main__":

@@ -1367,10 +1367,13 @@ def fused_smz_search_reference(
       max_depth=max_depth, pb_c_init=pb_c_init, pb_c_base=pb_c_base)[:3]
 
 
-# The Stochastic MuZero launch (``fused_smz_kernel<smem_tree>``): four warps
-# an environment and one to three environments a block (its
-# ``__launch_bounds__(384, 1)``: at most 168 registers a thread), the three
-# towers staged once per block in shared memory. Each environment's compact
+# The Stochastic MuZero launch (``fused_smz_kernel<smem_tree,
+# smem_weights>``): four warps an environment and one to three environments
+# a block (its ``__launch_bounds__(384, 1)``: at most 168 registers a
+# thread; ``ptxas`` gives each instance fewer, ``_SMZ_REGISTERS``), the
+# three towers staged once per block in shared memory where
+# they fit beside one environment, else read from device memory (the 2048
+# example's widths: 762,031 floats). Each environment's compact
 # tree (a float4 per node: visits, value, reward, and the PUCT prior scale
 # or the children's visits; per slot of a row of max(A, C) the child index
 # and prior; the last descent's path) and its embeddings [N, E] lie in
@@ -1378,7 +1381,13 @@ def fused_smz_search_reference(
 # work buffers always in shared memory.
 SMZ_ENV_THREADS = 128
 SMZ_MAX_ENVS = 3
-_SMZ_REGISTERS = 168
+# Registers a thread of each instance, by (smem_tree, smem_weights), as
+# ``ptxas`` reports them for sm_90a (chip_smoke.py phase 0); an SM allocates
+# them in steps of 8 a thread. ``smz_blocks_per_sm`` reads the CUDA
+# runtime's count for the compiled kernel, and the gpu tests hold the two
+# to agree.
+_SMZ_REGISTERS = {(True, True): 119, (True, False): 128, (False, True): 128,
+                  (False, False): 146}
 _SMZ_MAX_NODES = 32767  # int16 node indices
 
 
@@ -1388,7 +1397,8 @@ class SMZPlan(NamedTuple):
   shared memory or in the device scratch; ``grid`` blocks, of which an SM
   holds ``blocks_per_sm`` at once, in ``waves`` waves; ``smem_bytes`` of
   shared memory a block and ``scratch_bytes`` of device scratch an
-  environment."""
+  environment; the towers staged in shared memory (``smem_weights``) or
+  read from device memory."""
   envs_per_block: int
   smem_tree: bool
   smem_emb: bool
@@ -1397,6 +1407,7 @@ class SMZPlan(NamedTuple):
   waves: int
   smem_bytes: int
   scratch_bytes: int
+  smem_weights: bool = True
 
 
 def _round16(n: int) -> int:
@@ -1425,12 +1436,15 @@ def smz_search_plan(batch: int, num_actions: int, num_outcomes: int,
                     embedding_dim: int, bins: int, num_simulations: int,
                     max_depth: int, n_weights: int, max_hidden: int,
                     limits: DeviceLimits) -> SMZPlan:
-  """The Stochastic MuZero launch plan. The trees in shared memory where
-  one fits a block beside the towers (a level of a walk is then a
-  shared-memory access, not an L2 round trip), then the fewest waves, then
-  the embeddings in shared memory, then the fewest environments a block
-  (the most SMs at work). Raises RuntimeError where the towers and one
-  environment's work buffers do not fit a block's shared memory, or the
+  """The Stochastic MuZero launch plan. The towers staged in shared memory
+  where some plan fits them there beside one environment's work buffers;
+  else every plan reads them from device memory (``smem_weights`` False)
+  and the same rules choose among those: the trees in shared memory where
+  one fits a block (a level of a walk is then a shared-memory access, not
+  an L2 round trip), then the fewest waves, then the embeddings in shared
+  memory, then the fewest environments a block (the most SMs at work).
+  Raises RuntimeError where one environment's work buffers alone exceed a
+  block's shared memory (its tree can go to the device scratch), or the
   tree's nodes pass int16, as the kernel would. The plan of a shape is
   worked out once and kept."""
   return _smz_search_plan(batch, num_actions, num_outcomes, embedding_dim,
@@ -1449,30 +1463,33 @@ def _smz_search_plan(batch, num_actions, num_outcomes, embedding_dim, bins,
   tree, work, emb = smz_env_bytes(num_actions, num_outcomes, embedding_dim,
                                   bins, num_simulations, max_depth,
                                   max_hidden)
-  weights = 16 * -(-n_weights // 4)
   best = None
-  for smem_tree, smem_emb in ((True, True), (True, False), (False, False)):
-    env_smem = work + tree * smem_tree + emb * smem_emb
-    for envs in range(1, SMZ_MAX_ENVS + 1):
-      size = weights + envs * env_smem
-      if size > limits.smem_per_block:
-        break
-      threads = envs * SMZ_ENV_THREADS
-      per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
-                   limits.regs_per_sm // (_SMZ_REGISTERS * threads),
-                   limits.smem_per_sm // (size + limits.smem_reserved))
-      grid = -(-batch // envs)
-      waves = -(-grid // (per_sm * limits.sms))
-      plan = SMZPlan(envs, smem_tree, smem_emb, grid, per_sm, waves, size,
-                     tree * (not smem_tree) + emb * (not smem_emb))
-      key = (not smem_tree, waves, not smem_emb, envs)
-      if best is None or key < best[0]:
-        best = (key, plan)
-  if best is None:
-    raise RuntimeError("fused SMZ search kernel: shapes do not fit the "
-                       "kernel (the towers and one environment's buffers "
-                       "exceed a block's shared memory)")
-  return best[1]
+  for smem_weights in (True, False):
+    weights = 16 * -(-n_weights // 4) if smem_weights else 0
+    for smem_tree, smem_emb in ((True, True), (True, False), (False, False)):
+      env_smem = work + tree * smem_tree + emb * smem_emb
+      for envs in range(1, SMZ_MAX_ENVS + 1):
+        size = weights + envs * env_smem
+        if size > limits.smem_per_block:
+          break
+        threads = envs * SMZ_ENV_THREADS
+        regs = -(-_SMZ_REGISTERS[smem_tree, smem_weights] // 8) * 8
+        per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
+                     limits.regs_per_sm // (regs * threads),
+                     limits.smem_per_sm // (size + limits.smem_reserved))
+        grid = -(-batch // envs)
+        waves = -(-grid // (per_sm * limits.sms))
+        plan = SMZPlan(envs, smem_tree, smem_emb, grid, per_sm, waves, size,
+                       tree * (not smem_tree) + emb * (not smem_emb),
+                       smem_weights)
+        key = (not smem_tree, waves, not smem_emb, envs)
+        if best is None or key < best[0]:
+          best = (key, plan)
+    if best is not None:
+      return best[1]
+  raise RuntimeError("fused SMZ search kernel: shapes do not fit the "
+                     "kernel (one environment's work buffers exceed a "
+                     "block's shared memory)")
 
 
 def _smz_widths(weights: "FusedSMZWeights"):
@@ -1503,7 +1520,8 @@ def smz_blocks_per_sm(plan: SMZPlan, device: torch.device) -> int:
   out = ctypes.c_int(0)
   lib = _load_smz_kernel()
   err = lib.mz_smz_blocks_per_sm(plan.envs_per_block, int(plan.smem_tree),
-                                 plan.smem_bytes, index, ctypes.byref(out))
+                                 int(plan.smem_weights), plan.smem_bytes,
+                                 index, ctypes.byref(out))
   if err != 0:
     raise RuntimeError("fused SMZ search kernel: "
                        + lib.mz_smz_error_string(err).decode())
@@ -1517,13 +1535,13 @@ def _load_smz_kernel():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64 = ctypes.c_long
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, i64, i32, i32, i32,
-                   i64, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-                   i32, f32, f32, f32, i32, ptr, i32, ptr, i32, ptr, i32,
-                   ptr]
+                   i32, i64, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                   i32, i32, f32, f32, f32, i32, ptr, i32, ptr, i32, ptr,
+                   i32, ptr]
     fn.restype = i32
     lib.mz_smz_env_bytes.argtypes = [i32] * 7 + [ptr]
     lib.mz_smz_env_bytes.restype = None
-    lib.mz_smz_blocks_per_sm.argtypes = [i32, i32, i64, i32, ptr]
+    lib.mz_smz_blocks_per_sm.argtypes = [i32, i32, i32, i64, i32, ptr]
     lib.mz_smz_blocks_per_sm.restype = i32
     lib.mz_smz_error_string.argtypes = [i32]
     lib.mz_smz_error_string.restype = ctypes.c_char_p
@@ -1577,7 +1595,8 @@ def _fused_smz_search_cuda(root_embedding, root_prior_logits, root_value,
       flat.data_ptr(), flat.numel(),
       scratch.data_ptr() if n_scratch else None, n_scratch,
       plan.envs_per_block, int(plan.smem_tree), int(plan.smem_emb),
-      plan.smem_bytes, visits.data_ptr(), value.data_ptr(),
+      int(plan.smem_weights), plan.smem_bytes, visits.data_ptr(),
+      value.data_ptr(),
       qvalues.data_ptr(),
       B, A, C, E, S41, support_size, num_simulations, max_depth, discount,
       pb_c_init, pb_c_base,

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: ``muax_tpu_torch`` (every module of it) and
-``chip_smoke`` import neither JAX nor the JAX package; and the port's
-packages export the JAX package's public names."""
+"""Import hygiene of the port: ``muax_tpu_torch`` (every module of it, the
+example scripts included) and ``chip_smoke`` import neither JAX, optax,
+absl nor the JAX package; and the port's packages export the JAX
+package's public names."""
 import importlib
 import importlib.util
 import inspect
@@ -28,7 +29,7 @@ for name in names:
 import chip_smoke
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "haiku", "flax",
-                                       "optax", "muax_tpu"))
+                                       "optax", "absl", "muax_tpu"))
 print(len(names), banned)
 print(" ".join(names))
 """
@@ -72,6 +73,12 @@ SURFACE = ("models.diffusion", "models.diffusion_networks",
 PARALLEL = ("parallel", "parallel.mesh", "parallel.sharded",
             "parallel.multihost", "parallel.model_parallel",
             "parallel.launch")
+# The example scripts (the JAX package's examples/ and their flags).
+EXAMPLES = ("examples.flags", "examples.run_cartpole",
+            "examples.run_acme_regime", "examples.run_lunarlander",
+            "examples.run_pixel",
+            "examples.run_tictactoe_alphazero", "examples.run_connect4",
+            "examples.run_mcts", "examples.run_atari")
 
 
 def test_port_imports_no_jax():
@@ -82,7 +89,7 @@ def test_port_imports_no_jax():
   count, banned = head.split(" ", 1)
   assert int(count) >= 45, out.stdout  # every module of the port was loaded
   for name in (TRAINING + ENGINE + ACME + SMZ + BOARD + PIXEL + HOST
-               + SURFACE + PARALLEL):
+               + SURFACE + PARALLEL + EXAMPLES):
     assert "muax_tpu_torch." + name in names.split(), name
   assert banned == "[]", banned
 

@@ -372,11 +372,18 @@ def test_learner_plan_at_the_2048_example(B, blocks, per_sm, warps):
 SMZ_MLP = dict(A=2, C=32, E=32, hidden=64, bins=41)
 
 
-def _smz_n_weights(A, C, E, hidden, bins):
-  """Floats of the three towers at one hidden layer (the kernel's flat
-  layout: per linear W then b)."""
+# examples/run_2048.py's widths in make_stochastic_mlp_networks (A = 4, 32
+# chance outcomes, embedding 64, support 300: 601 bins, hidden (256, 256)):
+# 762,031 floats, 3.05 MB of towers, past a block's shared memory.
+WIDE_2048 = dict(A=4, C=32, E=64, hidden=256, bins=601, layers=2)
+
+
+def _smz_n_weights(A, C, E, hidden, bins, layers=1):
+  """Floats of the three towers at ``layers`` hidden layers of width
+  ``hidden`` (the kernel's flat layout: per linear W then b)."""
   def tower(inputs, heads):
-    return inputs * hidden + hidden + sum(hidden * h + h for h in heads)
+    return (inputs * hidden + hidden + (layers - 1) * (hidden + 1) * hidden
+            + sum(hidden * h + h for h in heads))
   return (tower(E + A, (E, C, bins)) + tower(E + C, (E, bins))
           + tower(E, (A, bins)))
 
@@ -480,13 +487,64 @@ def test_smz_plan_takes_every_shape_the_warp_kernel_took(widths):
 
 def test_smz_plan_refuses_what_the_kernel_cannot_take():
   # Towers past a block's shared memory (hidden 256 at C = 64: 67 K
-  # floats), and trees past int16 node indices.
+  # floats) are read from device memory, the trees kept in shared memory;
+  # only trees past int16 node indices are refused.
   wide = dict(A=2, C=64, E=64, hidden=256, bins=101)
   n_weights = _smz_n_weights(**wide)
   assert 4 * n_weights > H100.smem_per_block
-  with pytest.raises(RuntimeError, match="do not fit"):
-    fused.smz_search_plan(256, 2, 64, 64, 101, 200, 200, n_weights, 256,
-                          H100)
+  plan = fused.smz_search_plan(256, 2, 64, 64, 101, 200, 200, n_weights,
+                               256, H100)
+  assert not plan.smem_weights and plan.smem_tree
+  tree, work, emb = fused.smz_env_bytes(2, 64, 64, 101, 200, 200, 256)
+  assert plan.smem_bytes == plan.envs_per_block * (
+      work + tree + emb * plan.smem_emb) <= H100.smem_per_block
   with pytest.raises(RuntimeError, match="do not fit"):
     fused.smz_search_plan(256, 2, 32, 32, 41, 32767, 32767,
                           _smz_n_weights(**SMZ_MLP), 64, H100)
+  with pytest.raises(RuntimeError, match="do not fit"):
+    fused.smz_search_plan(256, 2, 32, 32, 41, 32767, 32767, n_weights, 256,
+                          H100)
+
+
+def test_smz_env_bytes_at_2048_widths():
+  # N = 201, K = 32: the tree as at smz_mlp (42,224 bytes); the work
+  # buffers X 64, H0 and H1 256, Y 64 + 32 + 601 (to 700), Z 4 + 601 (to
+  # 608), the mask 4 and 8 control words: 1,896 floats; the embeddings
+  # 201 x 64 floats.
+  assert _smz_n_weights(**WIDE_2048) == 762031
+  assert fused.smz_env_bytes(4, 32, 64, 601, 200, 200, 256) == (
+      42224, 4 * 1896, 4 * 201 * 64)
+
+
+@pytest.mark.parametrize("batch,envs,smem_emb,grid,per_sm,waves", [
+    # 64 boards: one env a block with its tree and embeddings, two blocks
+    # an SM, every env resident.
+    (64, 1, True, 64, 2, 1),
+    # 1024 boards: the embeddings go to the scratch so that four blocks
+    # fit an SM (the limit of the instance's 128 registers a thread), two
+    # waves instead of four.
+    (1024, 1, False, 1024, 4, 2),
+])
+def test_smz_plan_reads_wide_towers_from_device_memory(batch, envs, smem_emb,
+                                                       grid, per_sm, waves):
+  A, C, E, hidden, bins = 4, 32, 64, 256, 601
+  n_weights = _smz_n_weights(**WIDE_2048)
+  assert 4 * n_weights > H100.smem_per_block
+  plan = fused.smz_search_plan(batch, A, C, E, bins, 200, 200, n_weights,
+                               hidden, H100)
+  tree, work, emb = fused.smz_env_bytes(A, C, E, bins, 200, 200, hidden)
+  assert plan == fused.SMZPlan(
+      envs, True, smem_emb, grid, per_sm, waves,
+      envs * (work + tree + emb * smem_emb), emb * (not smem_emb), False)
+  # Two environments' trees, work buffers and embeddings fit a block; a
+  # third does not.
+  assert 2 * (tree + work + emb) <= H100.smem_per_block
+  assert 3 * (tree + work + emb) > H100.smem_per_block
+
+
+def test_smz_plan_at_smz_mlp_keeps_its_staged_towers():
+  # bench.py's smz_mlp at 256 envs x 200 simulations: the plan it had
+  # before the towers could stay in device memory.
+  plan = fused.smz_search_plan(256, 2, 32, 32, 41, 200, 200,
+                               _smz_n_weights(**SMZ_MLP), 64, H100)
+  assert plan == fused.SMZPlan(2, True, True, 128, 1, 1, 230016, 0, True)

@@ -15,8 +15,10 @@ embeddings in shared memory), a deep-tree net (one action and one outcome
 made to dominate, so that the simulations extend one chain) with and
 without the depth cap, and trees that go to the device scratch (800
 simulations, or 256 chance outcomes), whose memory is filled with NaN
-before each launch. Sampler: where both pick the same start, every raw row
-is exactly equal (both copy the same values).
+before each launch; and the towers of examples/run_2048.py's widths (3.05
+MB, read from device memory) on masked roots, held by the rule of
+``chip_smoke.py``'s phase 33. Sampler: where both pick the same start,
+every raw row is exactly equal (both copy the same values).
 """
 import pytest
 import torch
@@ -120,6 +122,56 @@ def test_smz_kernel_matches_plain(cuda, B, sims, A, C, E, hidden,
     assert float(visits[invalid > 0].abs().max()) == 0.0
 
 
+def wide_smz_inputs(device, batch, seed=0):
+  """Roots of Stochastic MuZero at examples/run_2048.py's widths (A = 4, 32
+  chance outcomes, embedding 64, support 300, hidden (256, 256): 762,031
+  floats of towers, past a block's shared memory) on random 4 x 4 boards
+  of tile exponents, and a random legal mask a row with at least one legal
+  move, as the 2048 pool gives; the logits masked with -1e9."""
+  net = make_stochastic_mlp_networks(4, num_chance_outcomes=32,
+                                     embedding_dim=64, support_size=300,
+                                     hidden=(256, 256), device=device)
+  params = net.init_params((4, 4), torch.Generator().manual_seed(seed))
+  gen = torch.Generator(device=device).manual_seed(seed + 1)
+  boards = torch.randint(0, 12, (batch, 4, 4), generator=gen,
+                         device=device).float()
+  legal = (torch.rand((batch, 4), generator=gen, device=device) < 0.7).float()
+  legal[torch.arange(batch, device=device),
+        torch.randint(0, 4, (batch,), generator=gen, device=device)] = 1.0
+  invalid = 1.0 - legal
+  with torch.no_grad():
+    root = make_smz_fns(net, 0.999)[0](params, boards)
+  logits = torch.where(invalid > 0, -1e9, root.prior_logits)
+  return ((root.embedding.contiguous(), logits.contiguous(),
+           root.value.contiguous(),
+           fused.extract_smz_fused_weights(net, params)), invalid)
+
+
+@pytest.mark.parametrize("batch", [64, 1024])
+def test_wide_towers_read_from_device_memory(cuda, batch):
+  # 64 boards (and 1024) x 200 simulations: the towers stay in device
+  # memory (the plan's smem_weights is False), the trees in shared memory;
+  # a repeated launch gives the same bits, and the outputs hold against
+  # the plain version by phase 33's rule (chip_smoke.compare_masked_smz).
+  from chip_smoke import compare_masked_smz
+
+  args, invalid = wide_smz_inputs(cuda, batch)
+  kwargs = dict(num_simulations=200, support_size=300, discount=0.999,
+                invalid_actions=invalid, max_depth=None)
+  plan = _poison_scratch(args, kwargs)
+  assert not plan.smem_weights and plan.smem_tree
+  before = fused.smz_launches
+  out = fused.fused_smz_search(*args, **kwargs)
+  _poison_scratch(args, kwargs)
+  again = fused.fused_smz_search(*args, **kwargs)
+  torch.cuda.synchronize()
+  assert fused.smz_launches == before + 2
+  for a, b in zip(out, again):
+    assert torch.equal(a, b)
+  assert bool(torch.isfinite(out[2]).all())
+  compare_masked_smz(out, args, kwargs)
+
+
 def test_smz_plan_agrees_with_the_kernel(cuda):
   """The plan's Python copy of an environment's layout against the
   kernel's own (``mz_smz_env_bytes``), and its blocks per SM against the
@@ -133,9 +185,22 @@ def test_smz_plan_agrees_with_the_kernel(cuda):
     lib.mz_smz_env_bytes(A, C, E, bins, sims, depth, hidden, out)
     assert tuple(out) == fused.smz_env_bytes(A, C, E, bins, sims, depth,
                                              hidden)
+  # Each instance: smz_mlp's towers staged with the trees in shared memory
+  # (200 simulations) or in the scratch (800); the 2048 widths' towers in
+  # device memory with the trees in shared memory (64 and 1024 boards) or
+  # in the scratch (4000 simulations).
   args, _ = _search_inputs(cuda, 256, 2, 32, 32, (64,), 20, False)
-  plan = fused.smz_launch_plan(args[0], args[3], num_simulations=200)
-  assert fused.smz_blocks_per_sm(plan, cuda) == plan.blocks_per_sm
+  wide = {batch: wide_smz_inputs(cuda, batch)[0] for batch in (64, 1024)}
+  for args, sims, smem_tree, smem_weights in (
+      (args, 200, True, True), (args, 800, False, True),
+      (wide[64], 200, True, False), (wide[1024], 200, True, False),
+      (wide[64], 4000, False, False)):
+    plan = fused.smz_launch_plan(args[0], args[3], num_simulations=sims)
+    assert (plan.smem_tree, plan.smem_weights) == (smem_tree, smem_weights)
+    assert fused.smz_blocks_per_sm(plan, cuda) == plan.blocks_per_sm, plan
+  out = (ctypes.c_long * 3)()
+  lib.mz_smz_env_bytes(4, 32, 64, 601, 200, 200, 256, out)
+  assert tuple(out) == fused.smz_env_bytes(4, 32, 64, 601, 200, 200, 256)
 
 
 def test_smz_wrapper_rejects_bad_inputs(cuda):
