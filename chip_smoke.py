@@ -134,17 +134,22 @@ Phase 30 drives the host-environment path at ``examples/run_2048.py``'s
 full width (``muax_tpu_torch/examples/run_2048.py``: the native 2048 pool,
 the MLP triplet at embedding 64, support 300 and towers (256, 256), whose
 weights exceed a block's shared memory). It holds the search kernel's
-global-weight mode, MuZero and Gumbel, against its plain version at 64 and
+wide mode (``fused_search_wide_kernel``: tiles of environments sharing
+every tower read), MuZero and Gumbel, against its plain version at 64 and
 1024 boards x 50 simulations on the legal masks of real boards (phase 22's
-rule for masked roots), and the learner's global-weight mode against
-autograd over ``muzero_loss`` at batch 256, K = 5 (phase 5's tolerances,
-the scratch filled with NaN, a repeated launch bit-identical), each timed
-with its plan and bound. Then ``fit`` runs on the pool at the example's
+rule for masked roots, a repeated launch bit-identical), and the learner's
+wide mode (the cluster pass ``mlp_cluster_kernel``, then the weight-
+gradient pass) against autograd over ``muzero_loss`` at batch 256, K = 5
+(phase 5's tolerances, the scratch filled with NaN, a repeated launch
+bit-identical), each timed with its plan (the runtime's clusters at once),
+its bound in f32 FMA and 3xTF32 and its weight bytes. Then ``fit`` runs on
+the pool at the example's
 config (64 boards, an evaluation pool of 16 at seed + 10,000, 32 steps an
 iteration, batch 256, 16 updates, ring 2048, min_fill 128) for
 ``HOST_ITERATIONS`` iterations after its warm-up, under ``torch.profiler``
 (device activity): exactly the search, sampler and learner launches the
-config implies and no other mode, every action legal under its mask,
+config implies and no other mode, every search launch the tile kernel's
+and every update the cluster pass's, every action legal under its mask,
 finite losses; ms an iteration, env-steps/s, the host's part of a step
 (the pool's C++ step, the copies) and the device's idle share.
 
@@ -201,7 +206,8 @@ plan, ms, plain ms, bound and the tower bytes its reads request, and drives
 launch a call. Phase 34 runs the port's example scripts'
 ``main`` (``muax_tpu_torch/examples``) for two iterations each at their
 default widths (the generic-engine scripts at 8 simulations): the
-fit-based ones (CartPole, the acme regime, pixel Catch, fake Atari) with
+fit-based ones (CartPole, the acme regime, 2048 on the native pool, whose
+launches all go through the wide kernels, pixel Catch, fake Atari) with
 fit's status pinned, every kernel's launches held to fit's schedule and,
 where the kernels run, each kernel's first launch inside the script held
 against its plain version; the AlphaZero and MCTS scripts with none;
@@ -313,8 +319,9 @@ RESNET_NET, RESNET_PLANES = dict(support_size=20, channels=64,
 # (tools/conv_precision.py).
 RESNET_CUDNN_GRAD_SHARE = 1e-3
 # The figures of phase 30's search checks that the kernel line keeps.
-WIDE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-             "weight_bytes_requested", "plan")
+WIDE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_ms_3xtf32", "bound_by",
+             "max_abs_err", "weight_bytes_requested",
+             "weight_bytes_from_l2", "plan")
 # Phase 30, the host-environment path: examples/run_2048.py's 64 boards x
 # 50 simulations (its networks and config from
 # muax_tpu_torch/examples/run_2048.py), the kernels held at 64 and 1024
@@ -608,10 +615,12 @@ def reset_counts():
   from muax_tpu_torch.replay import fused_sampler
   from muax_tpu_torch.search import fused
   fused.launches = fused.gumbel_launches = 0
+  fused.wide_launches = fused.wide_gumbel_launches = 0
   fused.categorical_launches = fused.categorical_gumbel_launches = 0
   fused.smz_launches = 0
   fused_sampler.launches = 0
   fused_learner.launches = fused_learner.categorical_launches = 0
+  fused_learner.wide_launches = 0
 
 
 def search_mode(policy, family):
@@ -682,7 +691,7 @@ def search_against_plain(device, policy, family, num_actions, batch,
       return fused.fused_muzero_search_reference(*args, **kwargs)
   chosen = fused.mlp_search_plan
   if group is not None:
-    fused.mlp_search_plan = lambda *a: chosen(*a, group=group)
+    fused.mlp_search_plan = lambda *a, **kw: chosen(*a, group=group, **kw)
   try:
     before = search_counts()
     out = launch()
@@ -1761,18 +1770,23 @@ class FirstCall:
 
 def mlp_plan_figures(device, args, kwargs):
   """The launch plan ``mlp_search_plan`` picks for one recorded launch of
-  the MLP search (G, envs per block, embeddings in shared memory or not)."""
+  the MLP search (G, envs per block, embeddings in shared memory or not;
+  for towers past a block's shared memory the tile kernel's tile, cluster,
+  resident or streamed towers and the runtime's clusters at once)."""
   from muax_tpu_torch.search import fused
   weights = args[3]
   B, A = args[1].shape
   bins = 2 * kwargs.get("support_size", SUPPORT) + 1
   widths = [bins] + [w.shape[1] for w, _ in (
       *weights.dyn_hidden, *weights.pred_hidden)]
-  plan = fused.mlp_search_plan(B, A, args[0].shape[1],
-                               kwargs["num_simulations"],
-                               weights.flat().numel(), widths,
-                               "root_score" in kwargs,
-                               fused.device_limits(device))
+  index = device.index if device.index is not None else 0
+  plan = fused.mlp_search_plan(
+      B, A, args[0].shape[1], kwargs["num_simulations"],
+      weights.flat().numel(), widths, "root_score" in kwargs,
+      fused.device_limits(device),
+      towers=([w.shape[1] for w, _ in weights.dyn_hidden],
+              [w.shape[1] for w, _ in weights.pred_hidden]),
+      clusters=fused.wide_active_clusters(index))
   return plan._asdict()
 
 
@@ -2744,12 +2758,16 @@ def host_boards(device, envs, moves):
 
 
 def wide_search_against_plain(device, net, params, obs, legal, policy):
-  """Phase 30: the search kernel's global-weight mode in ``policy`` on the
+  """Phase 30: the search kernel's wide mode (``fused_search_wide_kernel``:
+  tiles of environments sharing every tower read) in ``policy`` on the
   roots of real boards under their legal masks, against its plain version
   as phase 22 holds masked launches (Gumbel: also the same action on at
-  least 99 % of envs); timed, with the plan, the bound and the weight
-  bytes the kernel requests (every expansion reads all the towers; how
-  many of those reads L1 serves is not measured)."""
+  least 99 % of envs), a repeated launch bit-identical; timed, with the
+  plan, the bound (f32 FMA and 3xTF32) and the weight bytes: those the
+  launch's products use (every tile reads every weight each simulation)
+  and those its blocks copy from L2 into shared memory (each rank's share
+  once where resident, once a simulation where streamed; a model from the
+  plan's layout, not a measured L2 count)."""
   from muax_tpu_torch.replay.buffer import gumbel_noise
   from muax_tpu_torch.search import fused
   from muax_tpu_torch.train.inference import make_root_fn
@@ -2771,8 +2789,20 @@ def wide_search_against_plain(device, net, params, obs, legal, policy):
         logits, noise, invalid, max_num_considered_actions=16,
         num_simulations=HOST_SIMS)
   check(bool((invalid > 0).any()), "the boards' masks have illegal moves")
+  before = fused.wide_gumbel_launches if gumbel else fused.wide_launches
   out = fused_cuda(args, kwargs)
-  ref, figures = compare_masked_search(out, args, kwargs)
+  again = fused_cuda(args, kwargs)
+  torch.cuda.synchronize()
+  check((fused.wide_gumbel_launches if gumbel else fused.wide_launches)
+        == before + 2, "the wide search kernel launched")
+  check(all(torch.equal(a, b) for a, b in zip(out, again)),
+        "a repeated wide search launch gives the same bits")
+  # Phase 21's proof for the envs outside the tolerance: the tile kernel's
+  # 3xTF32 products sum each layer in another order than the plain
+  # version, so a tie below a root can break the other way where an ulp
+  # of the root embedding alone (phase 22's proof) does not move it.
+  ref, figures = compare_masked_search(out, args, kwargs,
+                                       proof=tie_proof(args, kwargs))
   if gumbel:
     def act(res):
       visits, _, cq = res
@@ -2783,28 +2813,42 @@ def wide_search_against_plain(device, net, params, obs, legal, policy):
     check(figures["same_action"] >= 0.99, "the Gumbel action agrees on "
           f"{figures['same_action']:.4f} of envs (need 0.99)")
   plan = mlp_plan_figures(device, args, kwargs)
-  check(not plan["smem_weights"], "the towers are read from device memory")
+  check("tile" in plan, f"the tile kernel takes the wide towers: {plan}")
   B, n = obs.shape[0], weights.flat().numel()
   figures["ms"] = time_ms(lambda: fused_cuda(args, kwargs), 5)
   figures["plain_ms"] = once_ms(lambda: fused_reference(args, kwargs))
   figures["bound_ms"], figures["bound_by"] = search_bound_ms(
       B, HOST_SIMS, weights, True, gumbel=gumbel)
-  figures["weight_bytes_requested"] = 4 * B * HOST_SIMS * n
-  figures["weight_tb_per_s_requested"] = (
-      figures["weight_bytes_requested"] / figures["ms"] / 1e9)
+  figures["bound_ms_3xtf32"], _ = search_bound_ms(
+      B, HOST_SIMS, weights, True, gumbel=gumbel, peak=PEAK_3XTF32_FLOPS)
+  tiles = -(-B // plan["tile"])
+  figures["weight_bytes_requested"] = 4 * tiles * HOST_SIMS * n
+  lay = fused.wide_layout(
+      plan["tile"], plan["cluster"], 1 << 20, 4, net.embedding_dim,
+      2 * net.support_size + 1, HOST_SIMS, net.dyn_layers, net.pred_layers,
+      plan["resident"], plan["ring"], plan["smem_trees"])
+  weight_floats = lay.rank_floats - lay.bias_floats
+  figures["weight_bytes_from_l2"] = 4 * tiles * plan["cluster"] * (
+      lay.bias_floats + weight_floats * (1 if plan["resident"]
+                                         else HOST_SIMS))
+  figures["weight_tb_per_s_from_l2"] = (
+      figures["weight_bytes_from_l2"] / figures["ms"] / 1e9)
   figures["plan"] = plan
   return figures
 
 
 def wide_learner_against_plain(device, net, params, obs):
-  """Phase 30: the learner's global-weight mode (the example's triplet,
-  2.3 MB of weights) against autograd over ``muzero_loss`` at batch 256, K
-  = 5, on windows of real boards with seeded actions, rewards, returns and
-  policies, as phase 5 holds it (the scratch filled with NaN before each
-  launch, a repeated launch bit-identical); timed, each kernel's device
-  time, the plan, the bound and the weight bytes the kernel requests
-  (each block reads every linear's weights for each of its row blocks in
-  the forward and again in the backward)."""
+  """Phase 30: the learner's wide mode (the example's triplet, 2.3 MB of
+  weights: ``mlp_cluster_kernel`` on clusters of blocks per 16 windows,
+  then the weight-gradient pass) against autograd over ``muzero_loss`` at
+  batch 256, K = 5, on windows of real boards with seeded actions,
+  rewards, returns and policies, as phase 5 holds it (the scratch filled
+  with NaN before each launch, a repeated launch bit-identical); timed,
+  each kernel's device time, the plan (with the runtime's blocks an SM
+  and clusters at once), the bound (f32 FMA and 3xTF32) and the weight
+  bytes the cluster pass requests (each tile reads every linear's weights
+  for each of its row blocks in the forward and again in the backward,
+  its blocks each a share of the columns)."""
   from muax_tpu_torch.models import fused_learner
   from muax_tpu_torch.types import Transition
 
@@ -2829,8 +2873,9 @@ def wide_learner_against_plain(device, net, params, obs):
   lw = fused_learner.extract_learner_weights(net, params)
   limits = fused_learner.device_limits(device)
   plan = fused_learner.mlp_learner_plan(B, K, lw, limits)
-  check(not plan.smem_weights and not plan.smem_arena,
-        "the learner reads its weights from device memory")
+  check(not plan.smem_arena and plan.cluster > 0,
+        f"the learner's cluster pass takes the wide towers: {plan}")
+  wide_before = fused_learner.wide_launches
   kw = dict(l2_coef=1e-4, gradient_scale=0.5, priority_alpha=0.5)
 
   def poison():
@@ -2844,7 +2889,9 @@ def wide_learner_against_plain(device, net, params, obs):
   again, _ = fused_learner.fused_muzero_grad_raw(params, raw, coef, lay, net,
                                                  lw, **kw)
   torch.cuda.synchronize()
-  check(fused_learner.launches == before + 2, "the learner launched")
+  check(fused_learner.launches == before + 2
+        and fused_learner.wide_launches == wide_before + 2,
+        "the learner's cluster pass launched")
   check(torch.equal(grads, again), "a repeated launch gives bit-identical "
         "gradients")
   ref_grads, ref_metrics = fused_learner.fused_muzero_grad_raw_reference(
@@ -2870,15 +2917,24 @@ def wide_learner_against_plain(device, net, params, obs):
   per_block = 2 * (towers[0] + n_pred + K * (towers[1] - n_pred))
   ms = time_ms(launch, 10)
   bound, bound_by = learner_bound_ms(net, lay, B, n)
+  bound_tc, _ = learner_bound_ms(net, lay, B, n, peak=PEAK_3XTF32_FLOPS)
+  runtime = fused_learner.learner_blocks_per_sm(plan, device)
+  check(runtime == plan.blocks_per_sm, f"the plan's {plan.blocks_per_sm} "
+        f"blocks an SM are the runtime's {runtime}")
+  clusters = fused_learner.learner_active_clusters(plan, device)
+  check(clusters * plan.cluster >= plan.blocks, f"{clusters} clusters of "
+        f"{plan.cluster} at once hold the launch's {plan.blocks} blocks")
   return {"max_abs_err": err, "tolerance_used": used, "ms": ms,
           "device_ms_by_kernel": kernel_device_ms(launch, 5),
           "plain_ms": once_ms(lambda: fused_learner
                               .fused_muzero_grad_raw_reference(
                                   params, raw, coef, lay, net, **kw)),
-          "bound_ms": bound, "bound_by": bound_by,
-          "weight_bytes_requested": 4 * plan.blocks * per_block,
-          "plan": dict(plan._asdict(), runtime_blocks_per_sm=fused_learner
-                       .learner_blocks_per_sm(plan, device))}
+          "bound_ms": bound, "bound_ms_3xtf32": bound_tc,
+          "bound_by": bound_by,
+          "weight_bytes_requested": 4 * (plan.blocks // plan.cluster)
+          * per_block,
+          "plan": dict(plan._asdict(), runtime_blocks_per_sm=runtime,
+                       runtime_active_clusters=clusters)}
 
 
 def host_fit_phase(device, root):
@@ -2901,6 +2957,7 @@ def host_fit_phase(device, root):
   from muax_tpu_torch.examples import run_2048
   from muax_tpu_torch.models import fused_learner
   from muax_tpu_torch.replay import fused_sampler
+  from muax_tpu_torch.search import fused
   from muax_tpu_torch.train.fit import fit
 
   pool, eval_pool, net, config, optimizer = run_2048.setup(seed=SEED,
@@ -2966,6 +3023,12 @@ def host_fit_phase(device, root):
         f"{HOST_ENVS} and {eval_steps[0]} of 16")
   check(got == (rollouts + eval_steps[0], 0, 0, 0, 0),
         f"search launches by mode {got}")
+  check((fused.wide_launches, fused.wide_gumbel_launches)
+        == (rollouts + eval_steps[0], 0),
+        f"{fused.wide_launches} of the searches went through the tile kernel")
+  check(fused_learner.wide_launches == fused_learner.launches,
+        f"{fused_learner.wide_launches} of {fused_learner.launches} learner "
+        "launches went through the cluster pass")
   check(fused_sampler.launches == HOST_ITERATIONS * groups,
         f"{fused_sampler.launches} sampler launches")
   check(fused_learner.launches == HOST_ITERATIONS
@@ -3005,8 +3068,10 @@ def host_fit_phase(device, root):
   last = results["history"][-1]
   return {"seconds": seconds, "status": lines[0],
           "launches": {"search": got[0], "search_eval": eval_steps[0],
+                       "search_wide": fused.wide_launches,
                        "sampler": fused_sampler.launches,
-                       "learner": fused_learner.launches},
+                       "learner": fused_learner.launches,
+                       "learner_wide": fused_learner.wide_launches},
           "iteration_ms": [per_iter / v * 1e3 for v in sps],
           "env_steps_per_s": sps, "host": host,
           "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms
@@ -3033,8 +3098,8 @@ def host_2048_phase(device, root, ptxas):
             for B in (HOST_ENVS, HOST_CHECK_ENVS)}
   learner = wide_learner_against_plain(device, net, params, obs)
   instances = {k.split(":", 1)[1]: v for k, v in ptxas.items()
-               if k.endswith("<false>") and (
-                   "fused_search_kernel" in k or "mlp_tile_kernel" in k)}
+               if "fused_search_wide_kernel" in k
+               or "mlp_cluster_kernel" in k or "categorical_dw_kernel" in k}
   return {"search": search, "learner": learner, "instances": instances,
           "fit": host_fit_phase(device, root)}
 
@@ -3959,12 +4024,14 @@ def run_main(module, argv):
 
   from muax_tpu_torch.envs.base import AutoResetWrapper
   from muax_tpu_torch.envs.gym_adapter import HostPool
+  from muax_tpu_torch.envs.native2048 import Native2048Pool
   from muax_tpu_torch.models import fused_learner
   from muax_tpu_torch.replay import fused_sampler
   from muax_tpu_torch.train import learner
 
+  # Native2048Pool steps on its own, not through HostPool.step.
   steps, fit_config = {}, []
-  stepping = (AutoResetWrapper, HostPool)
+  stepping = (AutoResetWrapper, HostPool, Native2048Pool)
   real = [cls.step for cls in stepping]
 
   def counting(step):
@@ -4130,6 +4197,9 @@ def examples_phase(root):
   import importlib.util
   import tempfile
 
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.search import fused
+
   n = str(EXAMPLE_ITERATIONS)
   sims = ["--num_simulations", str(EXAMPLE_GENERIC_SIMS)]
   out = {}
@@ -4141,6 +4211,17 @@ def examples_phase(root):
         True, EXAMPLE_ITERATIONS)
     out["run_acme_regime"] = fit_example(
         "run_acme_regime", ["--num_iterations", n], True, EXAMPLE_ITERATIONS)
+    # run_2048: the native pool and the wide towers, every search launch
+    # the tile kernel's and every update the learner's cluster pass (the
+    # counts as fit_example's run left them).
+    out["run_2048"] = fit_example(
+        "run_2048",
+        ["--num_iterations", n, "--model_dir", os.path.join(d, "2048")],
+        True, EXAMPLE_ITERATIONS)
+    got = out["run_2048"]["launches"]
+    check((fused.wide_launches, fused_learner.wide_launches)
+          == (got["search_by_mode"][0], got["learner"]),
+          f"run_2048: the wide kernels' launches {got}")
     out["run_pixel"] = fit_example(
         "run_pixel",
         ["--num_iterations", n, "--model_dir", os.path.join(d, "pixel")]
@@ -4661,6 +4742,16 @@ def run(device):
         f"({time.perf_counter() - t0:.1f} s)")
   if isinstance(examples["run_lunarlander"], str):
     print(f"phase 34 run_lunarlander: {examples['run_lunarlander']}")
+  # The wide kernels' launches on the main paths that run them: phase 30's
+  # fit and phase 34's run_2048 (MuZero; no path runs the wide Gumbel
+  # mode, which phase 30 holds against its plain version).
+  wide_search_launches = (host["fit"]["launches"]["search_wide"]
+                          + examples["run_2048"]["launches"][
+                              "search_by_mode"][0])
+  wide_learner_launches = (host["fit"]["launches"]["learner_wide"]
+                           + examples["run_2048"]["launches"]["learner"])
+  check(wide_search_launches > 0 and wide_learner_launches > 0,
+        "the main paths launched the wide kernels")
   uint8_line = {
       mode: {k: fig[k] for k in ("same_start", "max_abs_err",
                                  "bit_identical_to_f32_ring", "ms",
@@ -4684,12 +4775,14 @@ def run(device):
           "search_ms", "plain_search_ms", "bound_ms", "plan")},
       "masked_a7": {k: masked["muzero"][k] for k in (
           "search_ms", "plain_search_ms", "bound_ms", "plan")},
-      "wide_towers_2048": {k: {f: v for f, v in host["search"][
-          f"muzero_{B}"].items() if f in WIDE_KEYS}
-          for k, B in (("envs_64", HOST_ENVS),
-                       ("envs_1024", HOST_CHECK_ENVS))},
+      "wide_towers_2048": {
+          "launches": wide_search_launches,
+          **{k: {f: v for f, v in host["search"][f"muzero_{B}"].items()
+                 if f in WIDE_KEYS}
+             for k, B in (("envs_64", HOST_ENVS),
+                          ("envs_1024", HOST_CHECK_ENVS))}},
       "wide_instances": {k: v for k, v in host["instances"].items()
-                         if "<false><" in k and "search" in k},
+                         if k.startswith("fused_search_wide_kernel<false>")},
   }, {
       "name": "fused_sample_group", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_sampler.cu",
@@ -4713,10 +4806,11 @@ def run(device):
       "bound_ms": learner_bound, "bound_by": learner_by, "library_ms": None,
       "device_ms": (sum(train["learner_by_kernel_ms"].values())
                     if train["learner_by_kernel_ms"] else None),
-      "wide_towers_2048": {k: v for k, v in host["learner"].items()
-                           if k != "device_ms_by_kernel"},
+      "wide_towers_2048": dict(
+          {k: v for k, v in host["learner"].items()
+           if k != "device_ms_by_kernel"}, launches=wide_learner_launches),
       "wide_instances": {k: v for k, v in host["instances"].items()
-                         if "mlp_tile" in k},
+                         if "search" not in k},
   }, {
       "name": "fused_gumbel_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",
@@ -4730,12 +4824,14 @@ def run(device):
       **mlp_line(gumbel_figures, gumbel_groups, ptxas, "true"),
       "masked_a7": {k: masked["gumbel"][k] for k in (
           "search_ms", "plain_search_ms", "bound_ms", "plan")},
-      "wide_towers_2048": {k: {f: v for f, v in host["search"][
-          f"gumbel_{B}"].items() if f in WIDE_KEYS}
-          for k, B in (("envs_64", HOST_ENVS),
-                       ("envs_1024", HOST_CHECK_ENVS))},
+      "wide_towers_2048": {
+          "launches": 0,
+          **{k: {f: v for f, v in host["search"][f"gumbel_{B}"].items()
+                 if f in WIDE_KEYS}
+             for k, B in (("envs_64", HOST_ENVS),
+                          ("envs_1024", HOST_CHECK_ENVS))}},
       "wide_instances": {k: v for k, v in host["instances"].items()
-                         if "<true><" in k and "search" in k},
+                         if k.startswith("fused_search_wide_kernel<true>")},
   }, {
       "name": "fused_categorical_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_search.cu",

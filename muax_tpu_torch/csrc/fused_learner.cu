@@ -23,6 +23,7 @@
 // Nothing uses float atomics and every sum runs in a fixed order, so two
 // launches on the same inputs give bit-identical gradients.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -182,7 +183,8 @@ __device__ float softmax_ce(float* z, int n, const Target& t, int lane) {
   return ce;
 }
 
-// ---- the MLP spec: a tile pass and a finish pass --------------------------
+// ---- the MLP spec: a tile pass and a finish pass, or, for wide towers, a
+// cluster pass and the weight-gradient pass --------------------------------
 //
 // Replaces the TPU kernel with the MLP spec (elu towers, h-support heads).
 // The TPU kernel lays the batch across the 128 lanes and the features on
@@ -203,13 +205,9 @@ __device__ float softmax_ce(float* z, int n, const Target& t, int lane) {
 // and so does the arena (the forward's activations and the backward's
 // gradients, in rows padded to 4 mod 8 floats so that a product's lanes
 // read distinct banks) where it fits beside them; else the arena lies in a
-// device scratch (wide towers, long unrolls: `mlp_learner_plan` in
+// device scratch (long unrolls: `mlp_learner_plan` in
 // models/fused_learner.py decides). Towers wider than a block's shared
-// memory (the 2048 example's 579 K floats) stay in device memory, which L2
-// holds for every block, and the products read their weight operand there,
-// a chunk of k-steps ahead of its use, as they read an arena in the
-// scratch (the instance kSmemWeights false, whose arena is in the
-// scratch too). Each
+// memory take mlp_cluster_kernel below. Each
 // linear's weight gradient is one product over the block's rows, dW = dz^T
 // x, and its bias gradient a column sum, both in a fixed order, written to
 // the block's row of a [G, n_weights] scratch: the prediction tower's by
@@ -311,6 +309,19 @@ struct Out {
   float scale;
 };
 
+// Stores the sum v of a product at (m, n) as o says.
+__device__ __forceinline__ void store_out(const Out& o, int m, int n,
+                                          float v) {
+  float* c = o.C + m * o.ldc + n;
+  switch (o.mode) {
+    case kLinear: *c = v + o.aux[n]; break;
+    case kElu: *c = elu(v + o.aux[n]); break;
+    case kEluGrad: *c = v * elu_grad(o.aux[m * o.ldc + n]); break;
+    case kSet: *c = v; break;
+    default: *c = *c + o.scale * v;
+  }
+}
+
 // One warp's kTM x kTN tile at (m0, n0) of p, its terms added into one set
 // of sums in order, stored as o says.
 template <bool kPrefA>
@@ -328,16 +339,8 @@ __device__ __forceinline__ void tile_job(const Prod& p, const Out& o,
   };
   term(p.t0);
   if (p.nterm > 1) term(p.t1);
-  mz_tc::for_each(acc, m0, n0, p.M, p.N, [&](int m, int n, float v) {
-    float* c = o.C + m * o.ldc + n;
-    switch (o.mode) {
-      case kLinear: *c = v + o.aux[n]; break;
-      case kElu: *c = elu(v + o.aux[n]); break;
-      case kEluGrad: *c = v * elu_grad(o.aux[m * o.ldc + n]); break;
-      case kSet: *c = v; break;
-      default: *c = *c + o.scale * v;
-    }
-  });
+  mz_tc::for_each(acc, m0, n0, p.M, p.N,
+                  [&](int m, int n, float v) { store_out(o, m, n, v); });
 }
 
 // A stage of the tile pass: the tiles of p1 and then of p2 (none when
@@ -480,17 +483,15 @@ __device__ void norm_bwd_row(const float* x, const float* dy, float* dx,
 // The layout tables of g are indexed at run time: __grid_constant__ keeps
 // them in the constant bank, where a copy per thread would spill 2 KB a
 // thread to local memory.
-template <bool kSmemArena, bool kSmemWeights>
+template <bool kSmemArena>
 __global__ void __launch_bounds__(kThreads, 2)
 mlp_tile_kernel(const float* __restrict__ raw, const float* __restrict__ coef,
                 const float* __restrict__ weights, float* __restrict__ arena,
                 float* __restrict__ partial, float* __restrict__ met,
                 const __grid_constant__ MlpArgs g) {
-  static_assert(kSmemWeights || !kSmemArena,
-                "an arena in shared memory goes beside staged weights");
   constexpr bool kPrefA = !kSmemArena;  // operands in device memory
   extern __shared__ __align__(16) float smem[];
-  const float* Ws = kSmemWeights ? smem : weights;
+  const float* Ws = smem;
   float* base = kSmemArena ? smem + g.smem_weights
                            : arena + blockIdx.x * g.arena_floats;
   const int w0 = blockIdx.x * kTile;
@@ -573,11 +574,11 @@ mlp_tile_kernel(const float* __restrict__ raw, const float* __restrict__ coef,
   float* ce = base + g.ce;
 
   // ---- forward ------------------------------------------------------------
-  // The weights (where they are staged), the start observations and the
-  // tile's raw rows (0 past the batch), the copies in flight at once (the
-  // arena's only where it lies in shared memory).
+  // The weights, the start observations and the tile's raw rows (0 past
+  // the batch), the copies in flight at once (the arena's only where it
+  // lies in shared memory).
   const int warp = threadIdx.x >> 5;
-  if (kSmemWeights) {
+  {
     const int n4 = reinterpret_cast<size_t>(weights) % 16 == 0
                        ? g.n_weights / 4 * 4 : 0;
     for (int i = 4 * threadIdx.x; i < n4; i += 4 * kThreads)
@@ -805,6 +806,434 @@ mlp_finish_kernel(const float* __restrict__ partial, int G, int n,
   if (threadIdx.x == 0) l2[0] = 0.5f * l2_coef * red[0];
 }
 
+// ---- the MLP spec with towers wider than a block's shared memory ---------
+//
+// mlp_cluster_kernel: a tile of kTile = 16 windows on a cluster of kc
+// blocks (8, 4 or 2; `mlp_learner_plan` picks), so that the 2048 example's
+// batch of 256 windows runs on 128 blocks rather than 16. It runs the tile
+// pass's chain of stages as mlp_tile_kernel does, with the same products
+// and row passes in the same order. Each product's columns are split over
+// the cluster: block r takes a contiguous run of its 16-wide column tiles
+// (of the two products of a stage, dealt as one list) with every row, and
+// stages its columns' weights, a chunk of k at a time, into shared memory
+// by cp.async, one copy for all its warps, kSlots chunks in flight (a
+// ring). Its warps take the block's 16 x 16 warp tiles, reading the rows'
+// input from the arena a few k-steps ahead of their use (tc_tile.cuh's
+// prefetch) and the weights from the ring; where there are fewer tiles
+// than warps, each chunk's k is split among the warps of a tile and their
+// sums added in a fixed order. (Staging the rows' input as well measured
+// slower on the H100.) The row passes run over the cluster's threads; a
+// cluster barrier ends each stage. The tile's arena lies in the device
+// scratch, which every block of the cluster reads and writes (the barrier
+// orders their writes, at cluster scope, before the next stage's reads).
+// The kernel leaves every linear's input rows and dz in the arena; the
+// weight gradients are products over the whole batch in
+// categorical_dw_kernel (each 32 x 32 tile of dW = dz^T x summed over
+// every tile's rows, in a fixed order, and grads = l2_coef w + dW written
+// directly), so there is no row of partial sums per block to add up. No
+// float atomics, one order of every sum: a repeated launch gives the same
+// bits.
+
+constexpr int kSlots = 3;            // chunks of a pass in flight
+constexpr int kSlotFloats = 4096;    // a chunk's weights
+constexpr int kPassRowTiles = 8;     // row tiles of a pass
+constexpr int kPassColTiles = 8;     // column tiles of a pass
+constexpr int kItems = 4;            // warp tiles of a warp in a pass
+constexpr int kRedFloats = kWarps * kTM * kTN;  // split-k sums
+// Shared memory of a block of mlp_cluster_kernel: two blocks an SM.
+constexpr int kClusterSmemFloats = kSlots * kSlotFloats + kRedFloats;
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kSlots - 1 of the thread's groups are in flight:
+// after a pass has issued chunk c + kSlots - 1, chunk c has landed.
+__device__ __forceinline__ void cp_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kSlots - 1) : "memory");
+}
+
+// Where copy_runs puts a run's first float in its row of shared memory:
+// src's offset in floats from a 16-byte boundary, so that the row's quads
+// line up with the source's (0 where the rows' stride ss is not a multiple
+// of 4 floats).
+__device__ __forceinline__ int run_shift(const float* src, long ss) {
+  return ss % 4 ? 0
+                : static_cast<int>((reinterpret_cast<size_t>(src) >> 2) & 3);
+}
+
+// Copies `runs` runs of `len` floats, run r from src + r ss (device
+// memory) to dst + r ds + run_shift(src, ss) (shared memory; dst 16-byte
+// aligned, ds a multiple of 4 floats and at least len + 6), by the block's
+// threads with cp.async: where ss is a multiple of 4 floats, the aligned
+// 16-byte quads that hold each run (up to 3 floats of the neighbouring
+// rows or parameters on either side, which no product reads), else a float
+// at a time.
+__device__ void copy_runs(float* dst, int ds, const float* src, long ss,
+                          int runs, int len) {
+  if (ss % 4 == 0) {
+    const int sh = run_shift(src, ss);
+    const int q = (sh + len + 3) / 4;
+    for (int i = threadIdx.x; i < runs * q; i += kThreads) {
+      const int r = i / q, c = 4 * (i % q);
+      cp_float4(dst + r * ds + c, src + r * ss - sh + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < runs * len; i += kThreads) {
+      const int r = i / len, c = i % len;
+      cp_float(dst + r * ds + c, src + r * ss + c);
+    }
+  }
+}
+
+__device__ __forceinline__ int round8(int n) { return (n + 7) / 8 * 8; }
+
+// The block's pass over row tiles [ra, ra + rt) and column tiles [ca, ca +
+// ct) of p (at most kItems x kWarps warp tiles). Both terms' k run in
+// chunks of at most kc, term 0's first: chunk c's weights of the pass's
+// columns go to slot c mod kSlots (as [n][k], rows of kc + 12 floats, where
+// a product reads x W^T, else as [k][n], rows of ct kTN + 8; so that a
+// warp's fragment loads fall in distinct banks, with room for copy_runs'
+// shift). Every warp tile's sums go over the chunks in order; a warp's part
+// of a chunk's k with kparts > 1.
+__device__ void block_pass(const Prod& p, const Out& o, int ra, int rt,
+                           int ca, int ct, float* sm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool kmajor = p.t0.sbk == 1;  // B(k, n) = W[n][k]
+  const int cols = ct * kTN;
+  const int kmax = (kmajor ? kSlotFloats / cols - 12
+                           : kSlotFloats / (cols + 8)) / 8 * 8;
+  const int K0 = p.t0.K, K1 = p.nterm > 1 ? p.t1.K : 0;
+  const int c0 = (K0 + kmax - 1) / kmax, c1 = (K1 + kmax - 1) / kmax;
+  const int kc0 = round8((K0 + c0 - 1) / c0);
+  const int kc1 = c1 ? round8((K1 + c1 - 1) / c1) : 0;
+  const int kc = max(kc0, kc1);
+  const int bs = kmajor ? kc + 12 : cols + 8;
+  const int nchunks = c0 + c1;
+  const int items = rt * ct;
+  const int kparts = items >= kWarps ? 1 : kWarps / items;
+  const int part = items >= kWarps ? 0 : warp / items;
+  const int m_lo = ra * kTM, n_lo = ca * kTN;
+  auto chunk = [&](int c, const Term*& t, int& k0, int& klen) {
+    t = c < c0 ? &p.t0 : &p.t1;
+    const int step = c < c0 ? kc0 : kc1, K = c < c0 ? K0 : K1;
+    k0 = (c < c0 ? c : c - c0) * step;
+    klen = min(step, K - k0);
+  };
+  // Chunk c's first row of A and of the weights in device memory, and the
+  // stride between the weights' rows.
+  auto a_src = [&](const Term* t, int k0) {
+    return t->A + static_cast<long>(m_lo) * t->sam + k0;
+  };
+  auto b_src = [&](const Term* t, int k0) {
+    return kmajor ? t->B + static_cast<long>(n_lo) * t->sbn + k0
+                  : t->B + static_cast<long>(k0) * t->sbk + n_lo;
+  };
+  auto b_stride = [&](const Term* t) { return kmajor ? t->sbn : t->sbk; };
+  auto issue = [&](int c) {
+    if (c < nchunks) {
+      const Term* t;
+      int k0, klen;
+      chunk(c, t, k0, klen);
+      const int nb = min(cols, p.N - n_lo);
+      copy_runs(sm + (c % kSlots) * kSlotFloats, bs, b_src(t, k0),
+                b_stride(t), kmajor ? nb : klen, kmajor ? klen : nb);
+    }
+    cp_commit();
+  };
+  float acc[kItems][1][2][4];
+#pragma unroll
+  for (int q = 0; q < kItems; ++q)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[q][0][j][h] = 0.f;
+  // Warp tile q of this warp: it = warp + kWarps q, or, split over k, the
+  // (warp mod items)-th, part warp / items of kparts.
+  auto item = [&](int q) {
+    return kparts > 1 ? (q == 0 && part < kparts ? warp % items : items)
+                      : warp + kWarps * q;
+  };
+  for (int c = 0; c < kSlots - 1; ++c) issue(c);
+  for (int c = 0; c < nchunks; ++c) {
+    issue(c + kSlots - 1);
+    cp_wait_ring();
+    __syncthreads();
+    const Term* t;
+    int k0, klen;
+    chunk(c, t, k0, klen);
+    const float* As = a_src(t, k0);
+    const float* Bs = sm + (c % kSlots) * kSlotFloats +
+                      run_shift(b_src(t, k0), b_stride(t));
+    const int sub = kparts > 1 ? round8((klen + kparts - 1) / kparts) : klen;
+    const int kb = part * sub, ke = min(klen, kb + sub);
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      const int it = item(q);
+      if (it >= items || kb >= ke) continue;
+      const int i = it / ct, j = it % ct;
+      mz_tc::warp_tile<1, 2, mz_tc::chunk_steps<1, 2, true>(), true>(
+          p.M - m_lo - i * kTM, p.N - n_lo - j * kTN, ke - kb,
+          As + static_cast<long>(i) * kTM * t->sam + kb, t->sam, 1,
+          kmajor ? Bs + j * kTN * bs + kb : Bs + kb * bs + j * kTN,
+          kmajor ? 1 : bs, kmajor ? bs : 1, acc[q]);
+    }
+    __syncthreads();
+  }
+  if (kparts > 1) {  // parts 1.. leave their sums, part 0 adds them in order
+    float* red = sm + kSlots * kSlotFloats;
+    const int it = warp % items;
+    if (part > 0 && part < kparts)
+#pragma unroll
+      for (int h = 0; h < 8; ++h)
+        red[((part - 1) * items + it) * 256 + h * 32 + lane] =
+            acc[0][0][h / 4][h % 4];
+    __syncthreads();
+    if (part == 0)
+      for (int u = 1; u < kparts; ++u)
+#pragma unroll
+        for (int h = 0; h < 8; ++h)
+          acc[0][0][h / 4][h % 4] +=
+              red[((u - 1) * items + it) * 256 + h * 32 + lane];
+  }
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    const int it = item(q);
+    if (it >= items || part > 0) continue;
+    mz_tc::for_each(acc[q], m_lo + it / ct * kTM, n_lo + it % ct * kTN, p.M,
+                    p.N, [&](int m, int n, float v) { store_out(o, m, n, v); });
+  }
+  if (kparts > 1) __syncthreads();  // red is free again
+}
+
+// The block's share of p: every row, column tiles [ja, jb), in passes of at
+// most kPassRowTiles x kPassColTiles warp tiles and kItems a warp.
+__device__ void block_product(const Prod& p, const Out& o, int ja, int jb,
+                              float* sm) {
+  const int row_tiles = (p.M + kTM - 1) / kTM;
+  for (int ra = 0; ra < row_tiles; ra += kPassRowTiles) {
+    const int rt = min(kPassRowTiles, row_tiles - ra);
+    const int cpp = min(kPassColTiles, kItems * kWarps / rt);
+    for (int ca = ja; ca < jb; ca += cpp)
+      block_pass(p, o, ra, rt, ca, min(cpp, jb - ca), sm);
+  }
+}
+
+// A stage of the cluster pass: the column tiles of p1 and then of p2 (none
+// when p2.M is 0), dealt in contiguous runs to the cluster's blocks, then
+// the cluster's barrier.
+__device__ void cluster_stage(const Prod& p1, const Out& o1, const Prod& p2,
+                              const Out& o2, float* sm) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int kc = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n1 = (p1.N + kTN - 1) / kTN;
+  const int n = n1 + (p2.M > 0 ? (p2.N + kTN - 1) / kTN : 0);
+  const int lo = rank * n / kc, hi = (rank + 1) * n / kc;
+  if (lo < min(hi, n1)) block_product(p1, o1, lo, min(hi, n1), sm);
+  if (max(lo, n1) < hi) block_product(p2, o2, max(lo, n1) - n1, hi - n1, sm);
+  cluster.sync();
+}
+
+__device__ __forceinline__ void cluster_stage(const Prod& p1, const Out& o1,
+                                              float* sm) {
+  Prod none = p1;
+  none.M = 0;
+  cluster_stage(p1, o1, none, o1, sm);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+mlp_cluster_kernel(const float* __restrict__ raw,
+                   const float* __restrict__ coef,
+                   const float* __restrict__ weights,
+                   float* __restrict__ arena, float* __restrict__ met,
+                   const __grid_constant__ MlpArgs g) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int kc = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = static_cast<int>(blockIdx.x) / kc;
+  const int cw = rank * kWarps + (threadIdx.x >> 5), cws = kc * kWarps;
+  const int ct = rank * kThreads + threadIdx.x, cts = kc * kThreads;
+  extern __shared__ __align__(16) float smem[];
+  const float* Ws = weights;
+  float* base = arena + static_cast<long>(tile) * g.arena_floats;
+  const int w0 = tile * kTile;
+  const int T = kTile, K = g.K, R = K * T, E = g.E, A = g.A, S41 = g.S41;
+  const size_t ld = static_cast<size_t>(g.ld);
+  const int l_rhead = g.n_repr, l_pred0 = l_rhead + 1;
+  const int l_value = l_pred0 + g.n_pred, l_policy = l_value + 1;
+  const int l_dyn0 = l_policy + 1, l_reward = l_dyn0 + g.n_dyn;
+  const int l_state = l_reward + 1;
+  float* rt = base + g.rt;
+  auto tile_raw = [&](int first, int i, int t) {
+    return rt[(first + i) * T + t];
+  };
+  const int q_pi = 3 * K, q_mask = q_pi + K * A, q_coef = q_mask + K;
+  auto cm_of = [&](int i, int t) {
+    return tile_raw(q_coef, 0, t) * tile_raw(q_mask, i, t);
+  };
+  auto at = [&](long off, int row, int stride) {
+    return base + off + static_cast<long>(row) * stride;
+  };
+  auto fwd_term = [&](int l, int r0) {
+    return Term{at(g.x[l], r0, g.xs[l]), g.xs[l], 1, Ws + g.off[l], 1,
+                g.din[l], g.din[l]};
+  };
+  auto bwd_term = [&](int l, int r0) {
+    return Term{at(g.dz[l], r0, g.ys[l]), g.ys[l], 1, Ws + g.off[l],
+                g.din[l], 1, g.dout[l]};
+  };
+  auto fwd_out = [&](int l, int r0, bool act) {
+    return Out{at(g.y[l], r0, g.ys[l]), Ws + g.off[l] + g.din[l] * g.dout[l],
+               g.ys[l], act ? kElu : kLinear, 0.f};
+  };
+  auto bwd_out = [&](int lp, int r0) {
+    return Out{at(g.dz[lp], r0, g.ys[lp]), at(g.y[lp], r0, g.ys[lp]),
+               g.ys[lp], kEluGrad, 0.f};
+  };
+  auto fwd = [&](int l, int r0, int M, bool act) {
+    cluster_stage(prod(M, g.dout[l], fwd_term(l, r0)), fwd_out(l, r0, act),
+                  smem);
+  };
+  auto bwd = [&](int l, int r0, int M) {
+    cluster_stage(prod(M, g.din[l], bwd_term(l, r0)), bwd_out(l - 1, r0),
+                  smem);
+  };
+  const int lane = threadIdx.x & 31;
+  const int nl = threadIdx.x % kNormLanes;
+  const unsigned nmask = ((1u << kNormLanes) - 1) << (lane & -kNormLanes);
+  auto next_state = [&](int l, int src, int i) {
+    for (int t = ct / kNormLanes; t < T; t += cts / kNormLanes) {
+      float* s = at(g.sa, i * T + t, g.sas);
+      minmax<kNormLanes>(at(g.y[l], src + t, g.ys[l]), s, E, nl, nmask);
+      const int a = static_cast<int>(tile_raw(0, i, t));
+      for (int j = nl; j < A; j += kNormLanes) s[E + j] = j == a ? 1.f : 0.f;
+    }
+    cluster.sync();
+  };
+  auto norm_bwd = [&](int l, int r0, int ds0) {
+    for (int t = ct / kNormLanes; t < T; t += cts / kNormLanes)
+      norm_bwd_row<kNormLanes>(at(g.y[l], r0 + t, g.ys[l]),
+                               at(g.ds, ds0 + t, g.dss),
+                               at(g.dz[l], r0 + t, g.ys[l]), E, nl, nmask);
+    cluster.sync();
+  };
+  float* ce = base + g.ce;
+  // ---- cluster forward: the start observations and the tile's raw rows
+  // (0 past the batch) into the arena
+  auto copy_raw = [&](float* dst, const float* src, int t) {
+    *dst = w0 + t >= g.B ? 0.f : src[w0 + t];
+  };
+  for (int i = ct; i < T * g.O; i += cts)
+    copy_raw(base + g.x0 + (i % T) * g.x0s + i / T,
+             raw + (g.r_obs + i / T) * ld, i % T);
+  for (int i = ct; i < q_coef * T; i += cts) {
+    const int q = i / T;
+    const int row = q < K        ? g.r_action + q
+                    : q < 2 * K  ? g.r_reward + q - K
+                    : q < q_pi   ? g.r_rn + q - 2 * K
+                    : q < q_mask ? g.r_pi + q - q_pi
+                                 : g.r_mask + q - q_mask;
+    copy_raw(rt + i, raw + row * ld, i % T);
+  }
+  for (int t = ct; t < T; t += cts) copy_raw(rt + q_coef * T + t, coef, t);
+  {  // the last step's next state feeds nothing: its gradient is 0
+    float* d = at(g.dz[l_state], (K - 1) * T, g.ys[l_state]);
+    for (int i = ct; i < T * g.ys[l_state]; i += cts) d[i] = 0.f;
+  }
+  cluster.sync();
+  for (int l = 0; l <= l_rhead; ++l) fwd(l, 0, T, l < l_rhead);
+  next_state(l_rhead, 0, 0);
+  for (int i = 0; i < K; ++i) {
+    const int r0 = i * T;
+    for (int l = l_dyn0; l < l_reward; ++l) fwd(l, r0, T, true);
+    cluster_stage(prod(T, S41, fwd_term(l_reward, r0)),
+                  fwd_out(l_reward, r0, false),
+                  prod(T, E, fwd_term(l_state, r0)),
+                  fwd_out(l_state, r0, false), smem);
+    if (i + 1 < K) next_state(l_state, r0, i + 1);
+  }
+  for (int l = l_pred0; l < l_value; ++l) fwd(l, 0, R, true);
+  cluster_stage(prod(R, S41, fwd_term(l_value, 0)),
+                fwd_out(l_value, 0, false),
+                prod(R, A, fwd_term(l_policy, 0)),
+                fwd_out(l_policy, 0, false), smem);
+  // v0 = h^-1 of the first step's expected value, a warp a window, summed
+  // as mlp_tile_kernel sums it.
+  for (int t = cw; t < T; t += cws) {
+    const float* z = at(g.y[l_value], t, g.ys[l_value]);
+    float m = -INFINITY;
+    for (int j = lane; j < S41; j += 32) m = fmaxf(m, z[j]);
+    m = warp_max(m);
+    float s = 0.f;
+    for (int j = lane; j < S41; j += 32) s += expf(z[j] - m);
+    const float log_s = logf(warp_sum(s));
+    float ev = 0.f;
+    for (int j = lane; j < S41; j += 32)
+      ev += expf((z[j] - m) - log_s) * static_cast<float>(j - g.support);
+    ev = warp_sum(ev);
+    if (lane == 0) ce[3 * R + t] = inv_value_transform(ev);
+  }
+  cluster.sync();
+  // The three heads' cross-entropies and dz over every step.
+  for (int q = ct; q < 3 * R; q += cts) {
+    const int r = q % R, i = r / T, t = r % T;
+    if (q >= 2 * R) {
+      ce[q] = softmax_ce_grad(at(g.y[l_reward], r, g.ys[l_reward]), S41,
+                              two_hot(tile_raw(K, i, t), g.support),
+                              cm_of(i, t));
+    } else if (q < R) {
+      ce[q] = softmax_ce_grad(at(g.y[l_value], r, g.ys[l_value]), S41,
+                              two_hot(tile_raw(2 * K, i, t), g.support),
+                              cm_of(i, t));
+    } else {
+      ce[q] = softmax_ce_grad(
+          at(g.y[l_policy], r, g.ys[l_policy]), A,
+          [&](int j) { return tile_raw(q_pi + i * A, j, t); }, cm_of(i, t));
+    }
+  }
+  cluster.sync();
+  for (int t = ct; t < T && w0 + t < g.B; t += cts) {
+    float v_sum = 0.f, p_sum = 0.f, r_sum = 0.f;
+    for (int i = 0; i < K; ++i) {
+      const float mask = tile_raw(q_mask, i, t);
+      v_sum += mask * ce[i * T + t];
+      p_sum += mask * ce[R + i * T + t];
+      r_sum += mask * ce[2 * R + i * T + t];
+    }
+    const int w = w0 + t;
+    met[w] = v_sum;
+    met[g.B + w] = p_sum;
+    met[2 * g.B + w] = r_sum;
+    met[3 * g.B + w] = ce[3 * R + t];
+  }
+
+  // ---- cluster backward: prediction over every step, then the dynamics
+  // from the last step, then the representation
+  cluster_stage(prod(R, g.din[l_value], bwd_term(l_value, 0),
+                     bwd_term(l_policy, 0)),
+                bwd_out(l_value - 1, 0), smem);
+  for (int l = l_value - 1; l > l_pred0; --l) bwd(l, 0, R);
+  cluster_stage(prod(R, E, bwd_term(l_pred0, 0)),
+                Out{base + g.ds, nullptr, g.dss, kSet, 0.f}, smem);
+  for (int i = K - 1; i >= 0; --i) {
+    const int r0 = i * T;
+    if (i + 1 < K) norm_bwd(l_state, r0, r0 + T);
+    cluster_stage(prod(T, g.din[l_reward], bwd_term(l_reward, r0),
+                       bwd_term(l_state, r0)),
+                  bwd_out(l_reward - 1, r0), smem);
+    for (int l = l_reward - 1; l > l_dyn0; --l) bwd(l, r0, T);
+    cluster_stage(prod(T, E, bwd_term(l_dyn0, r0)),
+                  Out{at(g.ds, r0, g.dss), nullptr, g.dss, kAddScaled,
+                      g.gradient_scale},
+                  smem);
+  }
+  norm_bwd(l_rhead, 0, 0);
+  for (int l = l_rhead; l > 0; --l) bwd(l, 0, T);
+}
+
 // The linear table and a block's arena; false when the shapes do not fit
 // the kernel. models/fused_learner.py `mlp_learner_floats` repeats the
 // arena's arithmetic for the launch plan (which the CPU tests size without
@@ -898,15 +1327,10 @@ bool mlp_layout(MlpArgs* g, int O, int E, int A, int S41, int K, int n_repr,
 using MlpKernel = void (*)(const float*, const float*, const float*, float*,
                            float*, float*, const MlpArgs);
 
-// The instance of a plan: the arena in shared memory beside the staged
-// weights, in the scratch beside them, or in the scratch with the weights
-// read from device memory; nullptr for an arena in shared memory without
-// staged weights (no such instance).
-MlpKernel mlp_kernel(bool smem_arena, bool smem_weights) {
-  if (!smem_weights)
-    return smem_arena ? nullptr : mlp_tile_kernel<false, false>;
-  return smem_arena ? mlp_tile_kernel<true, true>
-                    : mlp_tile_kernel<false, true>;
+// The instance of a plan with staged weights: the arena in shared memory
+// beside them, or in the scratch.
+MlpKernel mlp_kernel(bool smem_arena) {
+  return smem_arena ? mlp_tile_kernel<true> : mlp_tile_kernel<false>;
 }
 
 // ---- the categorical LearnerSpec: two kernels --------------------------
@@ -980,11 +1404,12 @@ struct CatArgs {
 // One linear of the towers as the weight-gradient pass reads it: the
 // scratch offsets of its input rows X and of dZ (and, for a LayerNorm
 // layer, x-hat and dU; -1 otherwise), its shape, the rows each block of the
-// first kernel holds, and where W [out, in] starts in the flat parameters
-// (b [out] follows, then the LayerNorm's scale and offset).
+// first kernel holds, where W [out, in] starts in the flat parameters
+// (b [out] follows, then the LayerNorm's scale and offset), and the floats
+// a row of X and of dZ take (in and out where the rows are packed).
 struct DwLinear {
   long x, dz, xh, du;
-  int in, out, rows, w_off;
+  int in, out, rows, w_off, ldx, ldz;
 };
 
 constexpr int kDwTile = 32;   // dW tiles are kDwTile x kDwTile
@@ -1333,7 +1758,8 @@ __device__ void dw_tile(const DwArgs& g, const DwLinear& L, int m0, int n0,
       const float* dz = scratch + b * g.block_floats + L.dz;  // [rows, out]
       const float* x = scratch + b * g.block_floats + L.x;    // [rows, in]
       mz_tc::warp_tile<1, 4, mz_tc::chunk_steps<1, 4, true>(), true>(
-          out - mh, in - n0, L.rows, dz + mh, 1, out, x + n0, in, 1, acc);
+          out - mh, in - n0, L.rows, dz + mh, 1, L.ldz, x + n0, L.ldx, 1,
+          acc);
     }
   }
   float* mine = red + warp * 16 * kDwTile;
@@ -1371,7 +1797,7 @@ __device__ void dw_columns(const DwArgs& g, const DwLinear& L, int c0,
 #pragma unroll 8
       for (int r = 0; r < L.rows; ++r) {
         const long at = static_cast<long>(r) * out;
-        db += blk[L.dz + at];
+        db += blk[L.dz + static_cast<long>(r) * L.ldz];
         if (ln) {
           const float du = blk[L.du + at];
           dscale += du * blk[L.xh + at];
@@ -1515,6 +1941,19 @@ bool cat_layout(CatArgs* g, int O, int E, int A, int bins, int K,
   return true;
 }
 
+// The weight-gradient pass's block table: each linear's dW tiles, then its
+// column-sum blocks, then the l2 block.
+void dw_blocks(DwArgs* d) {
+  auto up = [](int n, int by) { return (n + by - 1) / by; };
+  d->tile0[0] = 0;
+  for (int l = 0; l < d->n_lin; ++l)
+    d->tile0[l + 1] = d->tile0[l] + up(d->lin[l].out, kDwTile) *
+                                        up(d->lin[l].in, kDwTile);
+  d->col0[0] = d->tile0[d->n_lin];
+  for (int l = 0; l < d->n_lin; ++l)
+    d->col0[l + 1] = d->col0[l] + up(d->lin[l].out, kColChunk);
+}
+
 // The weight-gradient pass's linears (the parameters' order) and its block
 // table for G blocks of the first kernel.
 void dw_layout(DwArgs* d, const CatArgs& g, int G, float l2_coef) {
@@ -1525,7 +1964,8 @@ void dw_layout(DwArgs* d, const CatArgs& g, int G, float l2_coef) {
   d->l2_coef = l2_coef;
   auto add = [&](long x, long dz, long xh, long du, int in, int out,
                  int rows, int w_off) {
-    d->lin[d->n_lin++] = DwLinear{x, dz, xh, du, in, out, rows, w_off};
+    d->lin[d->n_lin++] = DwLinear{x, dz, xh, du, in, out, rows, w_off, in,
+                                  out};
   };
   const CatTower* towers[3] = {&g.repr, &g.pred, &g.dyn};
   for (int t = 0; t < 3; ++t) {
@@ -1541,14 +1981,21 @@ void dw_layout(DwArgs* d, const CatArgs& g, int G, float l2_coef) {
       add(tw.y[tw.n - 1], tw.dh[h], -1, -1, in, tw.head_out[h], rows,
           tw.head_off[h]);
   }
-  auto up = [](int n, int by) { return (n + by - 1) / by; };
-  d->tile0[0] = 0;
-  for (int l = 0; l < d->n_lin; ++l)
-    d->tile0[l + 1] = d->tile0[l] + up(d->lin[l].out, kDwTile) *
-                                        up(d->lin[l].in, kDwTile);
-  d->col0[0] = d->tile0[d->n_lin];
-  for (int l = 0; l < d->n_lin; ++l)
-    d->col0[l + 1] = d->col0[l] + up(d->lin[l].out, kColChunk);
+  dw_blocks(d);
+}
+
+// The weight-gradient pass over the arenas of G tiles of the MLP spec's
+// cluster pass: each linear's input rows and dz as mlp_layout lays them.
+void mlp_dw_layout(DwArgs* d, const MlpArgs& g, int G, float l2_coef) {
+  d->n_lin = g.n_lin;
+  d->G = G;
+  d->n_weights = g.n_weights;
+  d->block_floats = g.arena_floats;
+  d->l2_coef = l2_coef;
+  for (int l = 0; l < g.n_lin; ++l)
+    d->lin[l] = DwLinear{g.x[l], g.dz[l], -1, -1, g.din[l], g.dout[l],
+                         g.rows[l], g.off[l], g.xs[l], g.ys[l]};
+  dw_blocks(d);
 }
 
 }  // namespace
@@ -1574,41 +2021,76 @@ int mz_mlp_learner_floats(int O, int E, int A, int S41, int K, int n_repr,
 }
 
 // Blocks of mlp_tile_kernel (the instance with its arena in shared memory
-// or in the device scratch, its weights staged or not) that one SM holds
-// at `smem_bytes` of shared memory each, by the CUDA occupancy calculator.
-int mz_learner_blocks_per_sm(int smem_arena, int smem_weights,
-                             long smem_bytes, int device, int* out) {
-  const MlpKernel kernel = mlp_kernel(smem_arena != 0, smem_weights != 0);
-  if (kernel == nullptr) return MZ_ERR_SHAPE;
+// or in the device scratch), or with `cluster` of mlp_cluster_kernel, that
+// one SM holds at `smem_bytes` of shared memory each, by the CUDA
+// occupancy calculator.
+int mz_learner_blocks_per_sm(int smem_arena, int cluster, long smem_bytes,
+                             int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_bytes));
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, kernel, kThreads, static_cast<size_t>(smem_bytes));
+  auto blocks = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes));
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, kThreads, static_cast<size_t>(smem_bytes));
+  };
+  return cluster ? blocks(mlp_cluster_kernel)
+                 : blocks(mlp_kernel(smem_arena != 0));
 }
 
-// Launch the MLP learner on `stream`: mlp_tile_kernel over G =
-// ceil(B / 16) blocks, then mlp_finish_kernel. raw: the fused sampler's
+// Shared-memory bytes of a block of mlp_cluster_kernel (its staging ring
+// and split-k sums), which the launch plan repeats.
+long mz_learner_cluster_smem_bytes() { return 4L * kClusterSmemFloats; }
+
+// Clusters of mlp_cluster_kernel of `cluster` blocks that the card holds
+// at once, as the CUDA runtime reckons it (cudaOccupancyMaxActiveClusters);
+// into *out.
+int mz_learner_active_clusters(int cluster, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(mlp_cluster_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             4 * kClusterSmemFloats);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = 4 * kClusterSmemFloats;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, mlp_cluster_kernel, &config);
+}
+
+// Launch the MLP learner on `stream`: with cluster 0 (staged weights)
+// mlp_tile_kernel over G = ceil(B / 16) blocks, then mlp_finish_kernel;
+// with cluster 2, 4 or 8 (towers wider than a block's shared memory)
+// mlp_cluster_kernel over G clusters of `cluster` blocks, then
+// categorical_dw_kernel over the G arenas. raw: the fused sampler's
 // rows, row r of window w at raw[r * ld + w] (ld >= B); coef [B]; weights:
 // the flat parameters in the modules' order (per linear W [out, in] then
 // b; towers representation, prediction, dynamics, heads as in MlpArgs).
 // Outputs: grads [n_weights] in the same layout, met [4, B] (value, policy
 // and reward cross-entropy sums over the valid steps, and the decoded value
-// at step 0), l2 [1]. scratch: the blocks' rows of weight gradients [G,
-// n_weights], then, unless smem_arena, their arenas (G times
-// mz_mlp_learner_floats' out[1]); smem_weights: the weights staged in
-// shared memory, else read from device memory (then the arena lies in the
-// scratch); smem_bytes: the shared memory of a block, the staged weights
-// and, with smem_arena, the arena (the launch plan's figures, which this
-// checks). Returns a cudaError_t, MZ_ERR_SHAPE or MZ_ERR_SCRATCH.
+// at step 0), l2 [1]. scratch: with staged weights the blocks' rows of
+// weight gradients [G, n_weights], then, unless smem_arena, their arenas
+// (G times mz_mlp_learner_floats' out[1]); with clusters the G arenas
+// alone. smem_bytes: the shared memory of a block, the staged weights and,
+// with smem_arena, the arena (with clusters the staging ring,
+// mz_learner_cluster_smem_bytes; the launch plan's figures, which this
+// checks). Returns a cudaError_t, MZ_ERR_SHAPE or
+// MZ_ERR_SCRATCH.
 int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
                          const float* weights, int n_weights, float* grads,
                          float* met, float* l2, float* scratch,
                          long scratch_floats, int G, int smem_arena,
-                         int smem_weights, long smem_bytes, int B, int O,
+                         int cluster, long smem_bytes, int B, int O,
                          int E, int A, int S41, int support, int K,
                          int n_repr, const int* repr_w, int n_pred,
                          const int* pred_w, int n_dyn,
@@ -1620,13 +2102,16 @@ int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
   if (B < 1 || ld < B || G != (B + kTile - 1) / kTile ||
       !mlp_layout(&g, O, E, A, S41, K, n_repr, repr_w, n_pred, pred_w, n_dyn,
                   dyn_w) ||
-      g.n_weights != n_weights)
+      g.n_weights != n_weights ||
+      (cluster != 0 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      (cluster != 0 && smem_arena))
     return MZ_ERR_SHAPE;
-  const MlpKernel kernel = mlp_kernel(smem_arena != 0, smem_weights != 0);
-  const long smem = 4L * ((smem_weights ? g.smem_weights : 0) +
-                          (smem_arena ? g.arena_floats : 0));
-  if (kernel == nullptr || smem != smem_bytes) return MZ_ERR_SHAPE;
-  const long partial_floats = static_cast<long>(G) * n_weights;
+  const MlpKernel kernel = mlp_kernel(smem_arena != 0);
+  const long smem = cluster ? 4L * kClusterSmemFloats
+                           : 4L * (g.smem_weights +
+                                   (smem_arena ? g.arena_floats : 0));
+  if (smem != smem_bytes) return MZ_ERR_SHAPE;
+  const long partial_floats = cluster ? 0 : static_cast<long>(G) * n_weights;
   if (scratch_floats <
       partial_floats + (smem_arena ? 0 : static_cast<long>(G) *
                                              g.arena_floats))
@@ -1644,6 +2129,35 @@ int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster) {
+    err = cudaFuncSetAttribute(mlp_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(G * cluster);
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = smem;
+    config.stream = st;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    config.attrs = &attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, mlp_cluster_kernel, raw, coef, weights,
+                             scratch, met, g);
+    if (err != cudaSuccess) return err;
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    DwArgs d;
+    mlp_dw_layout(&d, g, G, l2_coef);
+    categorical_dw_kernel<<<d.col0[d.n_lin] + 1, kDwThreads, 0, st>>>(
+        scratch, weights, grads, l2, d);
+    return cudaGetLastError();
+  }
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -1653,7 +2167,6 @@ int mz_fused_muzero_grad(const float* raw, int ld, const float* coef,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   kernel<<<G, kThreads, smem, st>>>(raw, coef, weights,
                                     scratch + partial_floats, scratch, met, g);
   err = cudaGetLastError();

@@ -1,10 +1,13 @@
 // Fused search: every simulation of every environment in one launch, for
 // Hopper (sm_90a), in the two policy modes of the TPU kernel, for the MLP
 // triplet (fused_search_kernel: a group of lanes per environment over a
-// compact tree in shared memory) and for the acme categorical family
-// (fused_search_tiled_kernel, entry mz_fused_tiled_search: LayerNorm-tanh
-// layers and the linear two-hot decode, `decode="linear"` with ln_tanh
-// towers in the TPU kernel; its design is described at the kernel).
+// compact tree in shared memory; fused_search_wide_kernel, entry
+// mz_fused_wide_search, for towers wider than a block's shared memory:
+// tiles of environments sharing every tower read) and for the acme
+// categorical family (fused_search_tiled_kernel, entry
+// mz_fused_tiled_search: LayerNorm-tanh layers and the linear two-hot
+// decode, `decode="linear"` with ln_tanh towers in the TPU kernel). The
+// designs of the last two are described at the kernels.
 //
 // Replaces the TPU kernel muax_tpu/search/fused.py `_make_kernel` with
 // decode="h_support" and elu towers, which `_fused_search` launches through
@@ -40,14 +43,12 @@
 // environment. The embeddings stay beside the
 // tree where every environment of the launch still fits the card at once,
 // else in a device scratch (B N E floats, 17 MB at 8192 envs, held in L2).
-// The tower weights are staged once per block where they fit its shared
-// memory beside one environment's slice; wider towers (the 2048 example's
-// 1.97 MB) stay in device memory, which L2 holds, and every layer reads
-// them there (a second instance of the kernel, kSmemWeights false). The
-// wrapper's plan (search/fused.py `mlp_search_plan`) picks G, the
-// environments per block, the embeddings' place and the weights' place
-// from the batch and the card's limits, so that every environment is
-// resident in one wave where the shapes allow.
+// The tower weights are staged once per block in its shared memory beside
+// the environments' slices; towers wider than that (the 2048 example's
+// 1.97 MB) take fused_search_wide_kernel. The wrapper's plan
+// (search/fused.py `mlp_search_plan`) picks G, the environments per block
+// and the embeddings' place from the batch and the card's limits, so that
+// every environment is resident in one wave where the shapes allow.
 //
 // Semantics are those of the TPU kernel: node 0 starts with one visit and
 // the root value; root priors are softmax(root logits); the first maximum
@@ -74,6 +75,7 @@
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "tc_tile.cuh"
 #include "warp_mlp.cuh"
@@ -113,13 +115,11 @@ struct Args {
   int pred_offset;     // floats: start of the prediction tower's weights
   int n_weights;       // floats in the flat weight buffer
   int weights_stride;  // floats of shared memory reserved for the weights
-                       // (0 where they are read from device memory)
   int act_width;       // floats per activation buffer
   int env_stride;      // floats of shared memory per environment (odd)
   int emb_offset;      // floats: the embeddings' start in an env's slice
   int envs_per_block;  // lane groups of a block
   int smem_emb;        // embeddings in shared memory, else in the scratch
-  int smem_weights;    // towers staged in shared memory, else read from L2
 };
 
 // The tree of one environment of the categorical kernel.
@@ -643,12 +643,10 @@ __device__ __forceinline__ void group_install_backup(const Tree& t, int A,
 
 // Every simulation of one environment per lane group, the compact trees
 // (and, where the launch plan keeps them there, the embeddings) in shared
-// memory at an odd stride per environment. With kSmemWeights the towers
-// are staged once per block in shared memory; without it (towers wider
-// than a block's shared memory: the 2048 example's 492 K floats) every
-// dense layer reads them from device memory through the read-only cache,
-// and L2 holds them for every block of the launch.
-template <bool kGumbel, int G, bool kSmemWeights>
+// memory at an odd stride per environment, the towers staged once per
+// block in shared memory. (Towers wider than that take the tile kernel
+// below, fused_search_wide_kernel.)
+template <bool kGumbel, int G>
 __global__ void __launch_bounds__(kMlpThreads, kMlpMinBlocks<G>)
 fused_search_kernel(const float* __restrict__ root_emb,
                     const float* __restrict__ root_logits,
@@ -662,13 +660,10 @@ fused_search_kernel(const float* __restrict__ root_emb,
                     float* __restrict__ out_value,
                     float* __restrict__ out_q, const Args args) {
   extern __shared__ __align__(16) float smem[];
-  constexpr bool kLdg = !kSmemWeights;
-  if (kSmemWeights) {
-    for (int i = threadIdx.x; i < args.n_weights; i += blockDim.x)
-      smem[i] = weights[i];
-    __syncthreads();
-  }
-  const float* towers = kSmemWeights ? smem : weights;
+  for (int i = threadIdx.x; i < args.n_weights; i += blockDim.x)
+    smem[i] = weights[i];
+  __syncthreads();
+  const float* towers = smem;
 
   const int local = threadIdx.x / G;
   const int env = blockIdx.x * args.envs_per_block + local;
@@ -681,8 +676,8 @@ fused_search_kernel(const float* __restrict__ root_emb,
   const float discount = args.discount;
   const size_t e = static_cast<size_t>(env);
 
-  // This environment's slice (after the staged weights, where there are
-  // any; weights_stride is 0 otherwise): the tree, two activation buffers,
+  // This environment's slice (after the staged weights): the tree, two
+  // activation buffers,
   // the invalid mask, the Gumbel mode's raw values and root score, and the
   // embeddings here or in the scratch.
   float* base = smem + args.weights_stride + local * args.env_stride;
@@ -739,7 +734,7 @@ fused_search_kernel(const float* __restrict__ root_emb,
     for (int l = 0; l < args.n_dyn; ++l) {
       const int out = args.dyn_width[l];
       const int rows = l == 0 ? E + A : in;  // the one-hot rows after s
-      dense_elu<G, kLdg>(g, p, p + rows * out, x, bufs[k], in, out,
+      dense_elu<G>(g, p, p + rows * out, x, bufs[k], in, out,
                          l == 0 ? p + (E + act) * out : nullptr);
       p += rows * out + out;
       x = bufs[k];
@@ -747,11 +742,11 @@ fused_search_kernel(const float* __restrict__ root_emb,
       in = out;
     }
     float* ns = bufs[k];  // the reward logits, then the next state
-    const float reward = decode_head<G, kLdg>(g, p, p + in * S41, x, in, S41,
+    const float reward = decode_head<G>(g, p, p + in * S41, x, in, S41,
                                               args.support_size, ns);
     p += in * S41 + S41;
     float lo = INFINITY, hi = -INFINITY;
-    for_outputs<G, kLdg>(g, p, p + in * E, x, in, E, nullptr,
+    for_outputs<G>(g, p, p + in * E, x, in, E, nullptr,
                          [&](int j, float v) {
       ns[j] = v;
       lo = fminf(lo, v);
@@ -772,17 +767,17 @@ fused_search_kernel(const float* __restrict__ root_emb,
     k ^= 1;  // the dynamics' last hidden buffer is free again
     for (int l = 0; l < args.n_pred; ++l) {
       const int out = args.pred_width[l];
-      dense_elu<G, kLdg>(g, p, p + in * out, x, bufs[k], in, out, nullptr);
+      dense_elu<G>(g, p, p + in * out, x, bufs[k], in, out, nullptr);
       p += in * out + out;
       x = bufs[k];
       k ^= 1;
       in = out;
     }
-    const float value = decode_head<G, kLdg>(g, p, p + in * S41, x, in, S41,
+    const float value = decode_head<G>(g, p, p + in * S41, x, in, S41,
                                              args.support_size, bufs[k]);
     p += in * S41 + S41;
     float* prior = t.cpri + slot * A;
-    for_outputs<G, kLdg>(g, p, p + in * A, x, in, A, nullptr,
+    for_outputs<G>(g, p, p + in * A, x, in, A, nullptr,
                          [&](int a, float v) { prior[a] = v; });
     softmax_row(g, prior, prior, A);
 
@@ -1185,21 +1180,17 @@ size_t mlp_smem_bytes(const Args& args) {
          sizeof(float);
 }
 
-template <bool kGumbel, bool kSmemWeights>
+template <bool kGumbel>
 MlpKernel mlp_kernel(int group) {
   switch (group) {
-    case 4: return fused_search_kernel<kGumbel, 4, kSmemWeights>;
-    case 32: return fused_search_kernel<kGumbel, 32, kSmemWeights>;
+    case 4: return fused_search_kernel<kGumbel, 4>;
+    case 32: return fused_search_kernel<kGumbel, 32>;
     default: return nullptr;
   }
 }
 
-MlpKernel mlp_kernel(int gumbel, int group, int smem_weights) {
-  if (gumbel)
-    return smem_weights ? mlp_kernel<true, true>(group)
-                        : mlp_kernel<true, false>(group);
-  return smem_weights ? mlp_kernel<false, true>(group)
-                      : mlp_kernel<false, false>(group);
+MlpKernel mlp_kernel(int gumbel, int group) {
+  return gumbel ? mlp_kernel<true>(group) : mlp_kernel<false>(group);
 }
 
 int launch(const Args& args, int gumbel, int group, const float* root_emb,
@@ -1208,7 +1199,7 @@ int launch(const Args& args, int gumbel, int group, const float* root_emb,
            const float* schedule, const float* weights, float* emb_scratch,
            float* out_visits, float* out_value, float* out_q, int device,
            void* stream) {
-  const MlpKernel kernel = mlp_kernel(gumbel, group, args.smem_weights);
+  const MlpKernel kernel = mlp_kernel(gumbel, group);
   const int threads = args.envs_per_block * group;
   if (kernel == nullptr || args.envs_per_block < 1 || threads > kMlpThreads ||
       threads % 32 != 0)
@@ -1234,15 +1225,13 @@ int launch(const Args& args, int gumbel, int group, const float* root_emb,
 
 // Fills `args` from the shapes, the tower widths and the launch plan (G,
 // environments per block, embeddings in shared memory or in a scratch of
-// scratch_floats, the towers staged in shared memory or read from device
-// memory); returns 0, or kErrShape when they do not fit the kernel or the
-// flat weight buffer.
+// scratch_floats); returns 0, or kErrShape when they do not fit the kernel
+// or the flat weight buffer.
 int make_args(Args* args, int B, int A, int E, int S41, int support_size,
               int num_simulations, int max_depth, float discount,
               int n_weights, int n_dyn, const int* dyn_width, int n_pred,
               const int* pred_width, bool gumbel, int envs_per_block,
-              int smem_emb, int smem_weights, const float* emb_scratch,
-              long scratch_floats) {
+              int smem_emb, const float* emb_scratch, long scratch_floats) {
   if (n_dyn < 1 || n_dyn > kMaxLayers || n_pred < 1 || n_pred > kMaxLayers ||
       B < 1 || A < 1 || E < 1 || S41 < 1 || num_simulations < 1)
     return kErrShape;
@@ -1284,8 +1273,7 @@ int make_args(Args* args, int B, int A, int E, int S41, int support_size,
   if (dyn_floats + pred_floats != n_weights) return kErrShape;
   args->pred_offset = static_cast<int>(dyn_floats);
   args->n_weights = n_weights;
-  args->weights_stride = smem_weights ? (n_weights + 3) / 4 * 4 : 0;
-  args->smem_weights = smem_weights;
+  args->weights_stride = (n_weights + 3) / 4 * 4;
   args->act_width = act_width;
   const long N = num_simulations + 1;
   // The tree (4 N + 2 N A), two activation buffers, the invalid mask; the
@@ -1362,6 +1350,765 @@ int tiled_tree_floats(int A, int num_simulations) {
   return 5 * N + 5 * N * A;
 }
 
+// ---- wide MLP modes: a cluster of blocks per tile of environments ---------
+//
+// Towers wider than a block's shared memory (the 2048 example's (256, 256)
+// towers with 601-bin heads: 492,278 floats, 1.97 MB) take this kernel, in
+// both policies. Its rule: a tile of kT environments shares every read
+// of the towers. Each simulation expands the whole tile at once (16 or 48
+// environments), phase by phase: the dynamics' hidden layers, one
+// phase for both of its heads (the reward logits and the next state side
+// by side as the columns of one product), the prediction's hidden layers,
+// one phase for the value and policy heads. A phase is one [kT, in] x
+// [in, width] product on the tensor cores, 3xTF32 as in tc_tile.cuh, so
+// that the sums keep f32 accuracy. A tile belongs to a cluster of kC
+// blocks (16 or 4);
+// each block computes a kC-th of every phase's columns, for all kT rows,
+// and writes them where they are read (distributed shared memory): a hidden
+// layer's and the next state's into every block of the cluster, a head's
+// logits into the block that walks the environment, which decodes them
+// with whole rows. A cluster barrier ends each phase. Each block walks the
+// trees of its kT / kC environments, a warp an environment at a time,
+// between the products (the categorical kernel's Forest, descent, install
+// and backup).
+//
+// The weights reach a block already cut to its columns: the wrapper packs
+// the flat towers once a launch into one run per cluster rank (biases,
+// then each phase's [in, nb] slice, zero-padded to whole k-steps and to
+// nb, a multiple of 8, columns; search/fused.py `pack_wide_towers`). Where
+// a rank's run fits shared memory beside the tile's buffers (16 blocks a
+// tile at the 2048 widths: 132 KB a block), one TMA bulk copy stages it at
+// the start and it stays for the whole launch (resident towers). Else the
+// towers stream: every phase's slice is cut into pieces of kPieceRows rows
+// (one TMA bulk copy each, into a ring of `ring` slots, completion on an
+// mbarrier a slot); thread 0 issues piece q + ring as soon as every warp
+// has released piece q (a second mbarrier a slot), so the copies run ahead
+// of the products across phases and simulations, one copy per block for
+// all its warps.
+//
+// A warp owns whole output tiles of 8 columns over all kT rows; where a
+// phase has fewer column tiles than warps, the warps split its k-steps as
+// well and add their partial sums in a fixed order. No float atomics; every
+// sum runs in one order, so that a repeated launch gives the same bits.
+//
+// What bounds it: per expansion the towers' 492 K multiply-adds, so 64
+// boards x 50 simulations are 3.15 GFLOP (0.047 ms at the f32 FMA peak,
+// 0.019 ms at the TF32 tensor-core peak taken three times) and 1024
+// boards 50.4 GFLOP (0.75 and 0.31 ms). With tiles of 16 at 64 boards the
+// launch holds 64 blocks, with resident towers; at 1024 boards tiles of
+// 48 over clusters of 4 (88 blocks: the H100 holds 30 clusters of 4 at
+// once, too few for 32 tiles of 32) stream 1.97 MB a tile and simulation
+// from L2, 2.17 GB a launch. Its real limit is the chain of dependent
+// phases of each simulation, each ended by a cluster barrier, and the walks
+// between them.
+
+// The node and edge arrays of one tree of the wide kernel (as
+// tiled_forest's), at `base`.
+__device__ __forceinline__ Forest wide_forest(float* base, int N, int A) {
+  const int NA = N * A;
+  Forest f;
+  f.nvis = base;
+  f.nval = base + N;
+  f.nraw = base + 2 * N;
+  f.npar = reinterpret_cast<int*>(base + 3 * N);
+  f.nact = reinterpret_cast<int*>(base + 4 * N);
+  f.cidx = reinterpret_cast<int*>(base + 5 * N);
+  f.cpri = base + 5 * N + NA;
+  f.cvis = base + 5 * N + 2 * NA;
+  f.crew = base + 5 * N + 3 * NA;
+  f.cval = base + 5 * N + 4 * NA;
+  return f;
+}
+
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kMaxPhases = 2 * kMaxLayers + 2;
+constexpr int kPieceRows = 32;   // weight rows of a streamed piece
+constexpr int kMaxRing = 8;      // slots of the ring of pieces
+constexpr int kBarrierFloats = 64;  // the mbarriers, at the start
+constexpr int kCopyFloats = 8192;   // floats of one staging bulk copy
+
+struct WideArgs {
+  int B, A, E, S41, support;
+  int num_simulations, max_depth, num_nodes;
+  float discount, pb_c_init, pb_c_base;
+  int n_dyn, n_phases, n_pieces;
+  // Phase p: its input width `in` (in8 rows in the pack, a multiple of 8),
+  // its output width, the columns nb of every block (block r computes
+  // [r nb, r nb + nb) of them), its weights' and biases' offsets in a rank's
+  // pack, and its first piece in a simulation's sequence.
+  int in[kMaxPhases], in8[kMaxPhases], width[kMaxPhases], nb[kMaxPhases];
+  int w_off[kMaxPhases], b_off[kMaxPhases], piece0[kMaxPhases + 1];
+  int rank_floats;  // floats of one rank's pack: biases, then weights
+  int bias_floats;
+  int resident;     // the whole pack in shared memory, else a ring
+  int ring, slot_floats;
+  int smem_trees;   // the trees in shared memory, else in the scratch
+  // Floats per row of the hidden, dynamics-input, next-state, head-logit
+  // and policy buffers: each 4 more than a multiple of 32.
+  int ld, ld_x, ld_z, ld_l, ld_p;
+  int tree_floats;
+  long tree_base;   // scratch floats before the trees: B N E embeddings
+  // Shared memory (floats from its start): the pack (resident) or the
+  // biases and the ring, the two hidden buffers, the dynamics input, the
+  // next state, the block's head logits and policy logits, the warps'
+  // partial sums, the invalid masks, the per-env slots, the trees.
+  int s_pack, s_ring, s_d0, s_d1, s_x0, s_z, s_logit, s_pol, s_red,
+      s_inval, s_slots, s_trees, smem_floats;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into this block's shared memory, completing
+// on `bar`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The weight pieces of a launch: piece q = sim n_pieces + i is the i-th of
+// a simulation's sequence, phase after phase, each phase's slice in rows
+// of kPieceRows.
+struct WidePieces {
+  const float* pack;  // this rank's pack in device memory
+  float* spack;       // the pack (resident) or the biases, in shared memory
+  float* ring;
+  uint64_t* full;     // [ring] a slot's piece has landed
+  uint64_t* empty;    // [ring] every warp has released a slot's piece
+  long total;         // pieces in the launch
+
+  // Piece q's phase p and index i in it, its rows and its place in the
+  // rank's pack.
+  __device__ __forceinline__ void locate(const WideArgs& wa, long q, int* p,
+                                         int* i) const {
+    const int local = static_cast<int>(q % wa.n_pieces);
+    int ph = 0;
+    while (local >= wa.piece0[ph + 1]) ++ph;
+    *p = ph;
+    *i = local - wa.piece0[ph];
+  }
+  __device__ __forceinline__ int rows(const WideArgs& wa, int p,
+                                      int i) const {
+    return min(kPieceRows, wa.in8[p] - kPieceRows * i);
+  }
+  __device__ __forceinline__ int offset(const WideArgs& wa, int p,
+                                        int i) const {
+    return wa.w_off[p] + kPieceRows * i * wa.nb[p];
+  }
+
+  // Thread 0: the copy of piece q into its slot, once every warp has
+  // released the slot's previous piece.
+  __device__ void issue(const WideArgs& wa, long q) const {
+    const int slot = static_cast<int>(q % wa.ring);
+    const long round = q / wa.ring;
+    if (round > 0)
+      mbar_wait(empty + slot, static_cast<uint32_t>((round - 1) & 1));
+    int p, i;
+    locate(wa, q, &p, &i);
+    const uint32_t bytes = 4u * rows(wa, p, i) * wa.nb[p];
+    mbar_expect_tx(full + slot, bytes);
+    bulk_copy(ring + static_cast<long>(slot) * wa.slot_floats,
+              pack + offset(wa, p, i), bytes, full + slot);
+  }
+
+  // Piece i of phase p (sequence number q), in shared memory: waits for
+  // its copy where the towers stream.
+  __device__ __forceinline__ const float* acquire(const WideArgs& wa, long q,
+                                                  int p, int i) const {
+    if (wa.resident) return spack + offset(wa, p, i);
+    const int slot = static_cast<int>(q % wa.ring);
+    mbar_wait(full + slot, static_cast<uint32_t>((q / wa.ring) & 1));
+    return ring + static_cast<long>(slot) * wa.slot_floats;
+  }
+
+  // The warp is done with piece q: it releases the slot, and thread 0
+  // refills it with piece q + ring.
+  __device__ __forceinline__ void release(const WideArgs& wa, long q) const {
+    if (wa.resident) return;
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + q % wa.ring);
+    if (threadIdx.x == 0 && q + wa.ring < total) issue(wa, q + wa.ring);
+    __syncwarp();
+  }
+};
+
+// What a phase does with its sums: a hidden layer's ELU into every block's
+// buffer; the dynamics' heads (the reward logits into the owning block's
+// logit rows, the next state into every block); the prediction's heads (the
+// value logits and the policy logits into the owning block).
+enum WideKind { kWideHidden, kWideDynHeads, kWidePredHeads };
+
+// One phase: acc = X [kT, in] W[:, this block's columns] over the phase's
+// pieces, the warps' split-k partial sums added in order, the bias added
+// and the sums stored as `kind` says; the caller ends it with a cluster
+// barrier. X lies in shared memory with rows of ldx floats; columns at or
+// past `in` read 0.
+template <int kT, int kC, int kNTW>
+__device__ void wide_phase(const WideArgs& wa, const WidePieces& st, int p,
+                           long q0, const float* X, int ldx, int kind,
+                           float* out, int ldo, float* red, float* logit,
+                           float* pol, int rank, int warp, int lane) {
+  namespace cg = cooperative_groups;
+  constexpr int FM = kT / 16;
+  constexpr int kRankEnvs = kT / kC;
+  const int gq = lane >> 2, t = lane & 3;
+  const int nbs = wa.nb[p], nt = nbs / 8, in = wa.in[p];
+  // Warps split the k-steps S ways where there are fewer column tiles than
+  // warps: warp w takes the tiles w / S + (8 / S) j and the k-steps
+  // congruent to w mod S.
+  int S = 1;
+  while (nt * S * 2 <= kWideWarps) S *= 2;
+  const int groups = kWideWarps / S, ng = warp / S, ks0 = warp % S;
+  float acc[FM][kNTW][4];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[i][j][h] = 0.f;
+
+  const int pieces = wa.piece0[p + 1] - wa.piece0[p];
+  for (int pi = 0; pi < pieces; ++pi) {
+    const long q = q0 + pi;
+    const float* B = st.acquire(wa, q, p, pi);
+    const int steps = st.rows(wa, p, pi) / 8;
+    for (int s = ks0; s < steps; s += S) {
+      const int k = pi * kPieceRows + 8 * s;
+      uint32_t ab[FM][4], as[FM][4];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int row = 16 * i + gq + 8 * (h & 1);
+          const int col = k + t + 4 * (h >> 1);
+          mz_tc::split(col < in ? X[row * ldx + col] : 0.f, ab[i][h],
+                       as[i][h]);
+        }
+      const float* brow = B + (8 * s + t) * nbs + gq;
+#pragma unroll
+      for (int j = 0; j < kNTW; ++j) {
+        const int tile = ng + groups * j;
+        if (tile >= nt) break;
+        uint32_t bb0, bs0, bb1, bs1;
+        mz_tc::split(brow[8 * tile], bb0, bs0);
+        mz_tc::split(brow[8 * tile + 4 * nbs], bb1, bs1);
+#pragma unroll
+        for (int i = 0; i < FM; ++i) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mz_tc::mma(part, as[i], bb0, bb1);
+          mz_tc::mma(part, ab[i], bs0, bs1);
+          mz_tc::mma(part, ab[i], bb0, bb1);
+#pragma unroll
+          for (int h = 0; h < 4; ++h) acc[i][j][h] += part[h];
+        }
+      }
+    }
+    st.release(wa, q);
+  }
+
+  if (S > 1) {  // one column tile a warp: the S partial sums, in order
+    float* mine = red + warp * FM * 128;
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) mine[(i * 4 + h) * 32 + lane] = acc[i][0][h];
+    __syncthreads();
+    if (ks0 == 0) {
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          float v = 0.f;
+          for (int u = 0; u < S; ++u)
+            v += red[(warp + u) * FM * 128 + (i * 4 + h) * 32 + lane];
+          acc[i][0][h] = v;
+        }
+    }
+  }
+  if (ks0 != 0) return;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const float* bias = st.spack + wa.b_off[p];
+  const int c0 = rank * nbs, width = wa.width[p], S41 = wa.S41;
+#pragma unroll
+  for (int j = 0; j < kNTW; ++j) {
+    const int tile = ng + groups * j;
+    if (tile >= nt) break;
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int m = 16 * i + gq + 8 * (h >> 1);
+        const int n = 8 * tile + 2 * t + (h & 1);
+        const int col = c0 + n;
+        if (col >= width) continue;
+        const float v = acc[i][j][h] + bias[n];
+        const int owner = m / kRankEnvs, row = m % kRankEnvs;
+        if (kind == kWideHidden) {
+          const float y = elu(v);
+          for (int r = 0; r < kC; ++r)
+            cluster.map_shared_rank(out, r)[m * ldo + col] = y;
+        } else if (col < S41) {
+          cluster.map_shared_rank(logit, owner)[row * wa.ld_l + col] = v;
+        } else if (kind == kWideDynHeads) {
+          for (int r = 0; r < kC; ++r)
+            cluster.map_shared_rank(out, r)[m * ldo + col - S41] = v;
+        } else {
+          cluster.map_shared_rank(pol, owner)[row * wa.ld_p + col - S41] = v;
+        }
+      }
+  }
+}
+
+template <bool kGumbel, int kT, int kC, int kNTW>
+__global__ void __launch_bounds__(kWideThreads, 1)
+fused_search_wide_kernel(const float* __restrict__ root_emb,
+                         const float* __restrict__ root_logits,
+                         const float* __restrict__ root_value,
+                         const float* __restrict__ invalid,
+                         const float* __restrict__ root_score,
+                         const float* __restrict__ schedule,
+                         const float* __restrict__ pack,
+                         float* __restrict__ scratch,
+                         float* __restrict__ out_visits,
+                         float* __restrict__ out_value,
+                         float* __restrict__ out_q,
+                         const __grid_constant__ WideArgs wa) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kRankEnvs = kT / kC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int A = wa.A, E = wa.E, N = wa.num_nodes;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = rank * kRankEnvs;  // this block's rows of the tile
+  const int env0 = static_cast<int>(blockIdx.x) / kC * kT + row0;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  WidePieces st;
+  st.pack = pack + static_cast<long>(rank) * wa.rank_floats;
+  st.spack = smem + wa.s_pack;
+  st.ring = smem + wa.s_ring;
+  st.full = bars + 1;
+  st.empty = bars + 1 + kMaxRing;
+  st.total = static_cast<long>(wa.num_simulations) * wa.n_pieces;
+  float* D[2] = {smem + wa.s_d0, smem + wa.s_d1};
+  float* X0 = smem + wa.s_x0;     // the dynamics input [kT, ld_x]
+  float* Z = smem + wa.s_z;       // the next state [kT, ld_z]
+  float* Lg = smem + wa.s_logit;  // the block's head logits [kRankEnvs, ld_l]
+  float* Pl = smem + wa.s_pol;    // its policy logits [kRankEnvs, ld_p]
+  float* red = smem + wa.s_red;
+  float* inval = smem + wa.s_inval;  // [kRankEnvs, A]
+  int* s_parent = reinterpret_cast<int*>(smem + wa.s_slots);
+  int* s_act = s_parent + kRankEnvs;
+  int* s_slot = s_act + kRankEnvs;
+  float* s_reward = reinterpret_cast<float*>(s_slot + kRankEnvs);
+  float* trees = wa.smem_trees
+                     ? smem + wa.s_trees
+                     : scratch + wa.tree_base +
+                           static_cast<long>(env0) * wa.tree_floats;
+
+  // ---- staging: the biases, and the towers (resident) or the first pieces
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < wa.ring; ++s) {
+      mbar_init(st.full + s, 1);
+      mbar_init(st.empty + s, kWideWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const int first = wa.resident ? wa.rank_floats : wa.bias_floats;
+    mbar_expect_tx(bars, 4u * first);
+    for (int off = 0; off < first; off += kCopyFloats)
+      bulk_copy(st.spack + off, st.pack + off,
+                4u * min(kCopyFloats, first - off), bars);
+    if (!wa.resident)
+      for (long q = 0; q < wa.ring && q < st.total; ++q) st.issue(wa, q);
+  }
+  for (int i = warp; i < kRankEnvs; i += kWideWarps) {
+    const int env = env0 + i;
+    for (int a = lane; a < A; a += 32)
+      inval[i * A + a] =
+          (env < wa.B && invalid) ? invalid[static_cast<size_t>(env) * A + a]
+                                  : 0.f;
+    if (env >= wa.B) continue;
+    float* emb = scratch + static_cast<long>(env) * N * E;
+    const Forest f = wide_forest(trees + i * wa.tree_floats, N, A);
+    init_forest<kGumbel>(f, N, A, root_value[env], lane);
+    for (int j = lane; j < E; j += 32)
+      emb[j] = root_emb[static_cast<size_t>(env) * E + j];
+    softmax_into(root_logits + static_cast<size_t>(env) * A, f.cpri, A,
+                 lane);
+  }
+  cluster.sync();  // the barriers initialised; every block of the cluster runs
+  mbar_wait(bars, 0);
+
+  for (int sim = 0; sim < wa.num_simulations; ++sim) {
+    // ---- walk: each env's descent, and the dynamics input
+    // concat(s, one_hot(a)) into every block of the cluster
+    for (int i = warp; i < kRankEnvs; i += kWideWarps) {
+      const int env = env0 + i;
+      const int row = (row0 + i) * wa.ld_x;
+      if (env >= wa.B) {
+        for (int j = lane; j < E + A; j += 32)
+          for (int r = 0; r < kC; ++r)
+            cluster.map_shared_rank(X0, r)[row + j] = 0.f;
+        if (lane == 0) s_slot[i] = -1;
+        continue;
+      }
+      const float* emb = scratch + static_cast<long>(env) * N * E;
+      const Forest f = wide_forest(trees + i * wa.tree_floats, N, A);
+      const float sched =
+          kGumbel ? schedule[static_cast<size_t>(env) * wa.num_simulations +
+                             sim]
+                  : 0.f;
+      int parent, act;
+      descend<kGumbel>(f, A, wa.discount, wa.pb_c_init, wa.pb_c_base,
+                       wa.max_depth, inval + i * A,
+                       kGumbel ? root_score + static_cast<size_t>(env) * A
+                               : nullptr,
+                       sched, lane, &parent, &act);
+      const int existing = f.cidx[parent * A + act];
+      for (int j = lane; j < E + A; j += 32) {
+        const float v =
+            j < E ? emb[parent * E + j] : (j - E == act ? 1.f : 0.f);
+        for (int r = 0; r < kC; ++r)
+          cluster.map_shared_rank(X0, r)[row + j] = v;
+      }
+      if (lane == 0) {
+        s_parent[i] = parent;
+        s_act[i] = act;
+        s_slot[i] = existing < 0 ? sim + 1 : existing;
+      }
+    }
+    cluster.sync();
+
+    // ---- dynamics: hidden layers, then both heads in one phase
+    long q = static_cast<long>(sim) * wa.n_pieces;
+    const float* x = X0;
+    int ldx = wa.ld_x, buf = 0;
+    for (int p = 0; p < wa.n_dyn; ++p) {
+      wide_phase<kT, kC, kNTW>(wa, st, p, q, x, ldx, kWideHidden, D[buf],
+                               wa.ld, red, Lg, Pl, rank, warp, lane);
+      q += wa.piece0[p + 1] - wa.piece0[p];
+      cluster.sync();  // the dynamics' layer p is whole in every block
+      x = D[buf];
+      ldx = wa.ld;
+      buf ^= 1;
+    }
+    wide_phase<kT, kC, kNTW>(wa, st, wa.n_dyn, q, x, ldx, kWideDynHeads, Z,
+                             wa.ld_z, red, Lg, Pl, rank, warp, lane);
+    q += wa.piece0[wa.n_dyn + 1] - wa.piece0[wa.n_dyn];
+    cluster.sync();  // the dynamics' heads are whole where they are read
+
+    // ---- reward decode and the next state's min-max normaliser
+    for (int i = warp; i < kRankEnvs; i += kWideWarps) {
+      if (env0 + i >= wa.B) continue;
+      const float r = decode_support(Lg + i * wa.ld_l, wa.S41, wa.support,
+                                     lane);
+      if (lane == 0) s_reward[i] = r;
+    }
+    for (int i = warp; i < kT; i += kWideWarps) {
+      float* ns = Z + i * wa.ld_z;
+      float lo = INFINITY, hi = -INFINITY;
+      for (int j = lane; j < E; j += 32) {
+        lo = fminf(lo, ns[j]);
+        hi = fmaxf(hi, ns[j]);
+      }
+      lo = warp_min(lo);
+      hi = warp_max(hi);
+      const float span = fmaxf(hi - lo, 1e-8f);
+      const int local = i - row0;
+      const bool mine =
+          local >= 0 && local < kRankEnvs && env0 + local < wa.B;
+      float* emb =
+          mine ? scratch + static_cast<long>(env0 + local) * N * E : nullptr;
+      for (int j = lane; j < E; j += 32) {
+        ns[j] = (ns[j] - lo) / span;
+        if (mine) emb[s_slot[local] * E + j] = ns[j];
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+
+    // ---- prediction: hidden layers, then the value and policy heads
+    x = Z;
+    ldx = wa.ld_z;
+    buf = 0;
+    const int p_pred = wa.n_dyn + 1, p_heads = wa.n_phases - 1;
+    for (int p = p_pred; p < p_heads; ++p) {
+      wide_phase<kT, kC, kNTW>(wa, st, p, q, x, ldx, kWideHidden, D[buf],
+                               wa.ld, red, Lg, Pl, rank, warp, lane);
+      q += wa.piece0[p + 1] - wa.piece0[p];
+      cluster.sync();  // the prediction's layer p is whole in every block
+      x = D[buf];
+      ldx = wa.ld;
+      buf ^= 1;
+    }
+    wide_phase<kT, kC, kNTW>(wa, st, p_heads, q, x, ldx, kWidePredHeads,
+                             nullptr, 0, red, Lg, Pl, rank, warp, lane);
+    cluster.sync();  // the prediction's heads are whole where they are read
+
+    // ---- value decode, install and backup, one warp an environment
+    for (int i = warp; i < kRankEnvs; i += kWideWarps) {
+      const int env = env0 + i;
+      if (env >= wa.B) continue;
+      const float value = decode_support(Lg + i * wa.ld_l, wa.S41,
+                                         wa.support, lane);
+      const Forest f = wide_forest(trees + i * wa.tree_floats, N, A);
+      const int slot = s_slot[i];
+      softmax_into(Pl + i * wa.ld_p, f.cpri + slot * A, A, lane);
+      if (lane == 0)
+        install_and_backup<kGumbel>(f, A, wa.discount, slot, s_parent[i],
+                                    s_act[i], value, s_reward[i]);
+      __syncwarp();
+    }
+  }
+
+  // ---- the root summary of each env
+  for (int i = warp; i < kRankEnvs; i += kWideWarps) {
+    const int env = env0 + i;
+    if (env >= wa.B) continue;
+    const Forest f = wide_forest(trees + i * wa.tree_floats, N, A);
+    write_summary<kGumbel>(f, A, wa.discount, static_cast<size_t>(env),
+                           out_visits, out_value, out_q, lane);
+  }
+  cluster.sync();  // no block exits while another may still write into it
+}
+
+// ---- the wide kernel's launch ---------------------------------------------
+
+// The instances: tile rows kT, blocks kC a cluster, and the column tiles a
+// warp can own in a phase (kNTW).
+using WideKernel = void (*)(const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, float*, float*, float*, float*,
+                            const WideArgs);
+
+template <bool kGumbel>
+WideKernel wide_kernel(int tile, int cluster, int* ntw) {
+  if (tile == 16 && cluster == 16) {
+    *ntw = 1;
+    return fused_search_wide_kernel<kGumbel, 16, 16, 1>;
+  }
+  if (tile == 48 && cluster == 4) {
+    *ntw = 3;
+    return fused_search_wide_kernel<kGumbel, 48, 4, 3>;
+  }
+  return nullptr;
+}
+
+WideKernel wide_kernel(int gumbel, int tile, int cluster, int* ntw) {
+  return gumbel ? wide_kernel<true>(tile, cluster, ntw)
+                : wide_kernel<false>(tile, cluster, ntw);
+}
+
+// Fills the phases, the pack's layout and the shared memory's from the
+// shapes and the plan (tile rows, cluster blocks, the towers resident or
+// streamed through `ring` slots, the trees in shared memory or not);
+// returns 0, or kErrShape where the plan does not fit the instance (a
+// phase with more column tiles than its warps can own) or the limits.
+// search/fused.py `wide_layout` repeats the arithmetic for the plan.
+int wide_layout(WideArgs* wa, int B, int A, int E, int S41, int support,
+                int num_simulations, int n_dyn, const int* dyn_width,
+                int n_pred, const int* pred_width, int tile, int cluster,
+                int ntw, int resident, int ring, int smem_trees) {
+  if (n_dyn < 1 || n_dyn > kMaxLayers || n_pred < 1 || n_pred > kMaxLayers ||
+      B < 1 || A < 1 || E < 1 || S41 < 1 || num_simulations < 1 ||
+      ring < (resident ? 0 : 2) || ring > kMaxRing)
+    return kErrShape;
+  wa->B = B;
+  wa->A = A;
+  wa->E = E;
+  wa->S41 = S41;
+  wa->support = support;
+  wa->num_simulations = num_simulations;
+  wa->num_nodes = num_simulations + 1;
+  wa->n_dyn = n_dyn;
+  wa->n_phases = n_dyn + n_pred + 2;
+  int in = E + A, hidden = 1, n = 0;
+  auto phase = [&](int width) {
+    wa->in[n] = in;
+    wa->in8[n] = (in + 7) / 8 * 8;
+    wa->width[n] = width;
+    wa->nb[n] = ((width + cluster - 1) / cluster + 7) / 8 * 8;
+    ++n;
+  };
+  for (int l = 0; l < n_dyn; ++l) {
+    phase(dyn_width[l]);
+    in = dyn_width[l];
+    if (in > hidden) hidden = in;
+  }
+  phase(S41 + E);
+  in = E;
+  for (int l = 0; l < n_pred; ++l) {
+    phase(pred_width[l]);
+    in = pred_width[l];
+    if (in > hidden) hidden = in;
+  }
+  phase(S41 + A);
+  int bias = 0, weights = 0, pieces = 0, slot = 0;
+  for (int p = 0; p < n; ++p) {
+    const int nt = wa->nb[p] / 8;
+    int S = 1;
+    while (nt * S * 2 <= kWideWarps) S *= 2;
+    if ((nt + kWideWarps / S - 1) / (kWideWarps / S) > ntw) return kErrShape;
+    wa->b_off[p] = bias;
+    bias += wa->nb[p];
+    wa->piece0[p] = pieces;
+    pieces += (wa->in8[p] + kPieceRows - 1) / kPieceRows;
+    if (kPieceRows * wa->nb[p] > slot) slot = kPieceRows * wa->nb[p];
+  }
+  wa->piece0[n] = pieces;
+  wa->n_pieces = pieces;
+  wa->bias_floats = (bias + 7) / 8 * 8;
+  weights = wa->bias_floats;
+  for (int p = 0; p < n; ++p) {
+    wa->w_off[p] = weights;
+    weights += wa->in8[p] * wa->nb[p];
+  }
+  wa->rank_floats = weights;
+  wa->resident = resident;
+  wa->ring = resident ? 0 : ring;
+  wa->slot_floats = slot;
+  wa->smem_trees = smem_trees;
+  auto row = [](int k) { return (k + 31) / 32 * 32 + 4; };
+  wa->ld = row(hidden);
+  wa->ld_x = row(E + A);
+  wa->ld_z = row(E);
+  wa->ld_l = row(S41);
+  wa->ld_p = row(A);
+  const int N = num_simulations + 1;
+  wa->tree_floats = (5 * N + 5 * N * A + 3) / 4 * 4;
+  wa->tree_base = static_cast<long>(B) * N * E;
+  const int envs = tile / cluster;
+  const long fm = tile / 16;
+  long cur = kBarrierFloats;
+  auto take = [&](long floats) {
+    const long at = cur;
+    cur += (floats + 3) / 4 * 4;
+    return static_cast<int>(at);
+  };
+  wa->s_pack = take(resident ? wa->rank_floats : wa->bias_floats);
+  wa->s_ring = take(resident ? 0 : static_cast<long>(ring) * slot);
+  wa->s_d0 = take(static_cast<long>(tile) * wa->ld);
+  wa->s_d1 = take(static_cast<long>(tile) * wa->ld);
+  wa->s_x0 = take(static_cast<long>(tile) * wa->ld_x);
+  wa->s_z = take(static_cast<long>(tile) * wa->ld_z);
+  wa->s_logit = take(static_cast<long>(envs) * wa->ld_l);
+  wa->s_pol = take(static_cast<long>(envs) * wa->ld_p);
+  wa->s_red = take(kWideWarps * fm * 128);
+  wa->s_inval = take(static_cast<long>(envs) * A);
+  wa->s_slots = take(4L * envs);
+  wa->s_trees = take(smem_trees ? static_cast<long>(envs) * wa->tree_floats
+                                : 0);
+  if (cur > INT_MAX / 4) return kErrShape;
+  wa->smem_floats = static_cast<int>(cur);
+  return 0;
+}
+
+// Sets the wide kernel's attributes for `smem` bytes of shared memory and
+// fills a launch configuration of `grid` blocks in clusters of `cluster`.
+int wide_config(WideKernel kernel, int cluster, size_t smem, int grid,
+                cudaStream_t stream, cudaLaunchConfig_t* config,
+                cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *config = {};
+  config->gridDim = dim3(grid);
+  config->blockDim = dim3(kWideThreads);
+  config->dynamicSmemBytes = smem;
+  config->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config->attrs = attr;
+  config->numAttrs = 1;
+  return 0;
+}
+
+// The launch of one wide mode over ceil(B / tile) clusters.
+int launch_wide(const WideArgs& wa, int gumbel, int tile, int cluster,
+                const float* root_emb, const float* root_logits,
+                const float* root_value, const float* invalid,
+                const float* root_score, const float* schedule,
+                const float* pack, float* scratch, float* out_visits,
+                float* out_value, float* out_q, int device, void* stream) {
+  int ntw = 0;
+  const WideKernel kernel = wide_kernel(gumbel, tile, cluster, &ntw);
+  if (kernel == nullptr) return kErrShape;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = static_cast<size_t>(wa.smem_floats) * sizeof(float);
+  if (smem > static_cast<size_t>(max_smem)) return kErrShape;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  const int bad = wide_config(kernel, cluster, smem,
+                              (wa.B + tile - 1) / tile * cluster,
+                              static_cast<cudaStream_t>(stream), &config,
+                              &attr);
+  if (bad) return bad;
+  err = cudaLaunchKernelEx(&config, kernel, root_emb, root_logits, root_value,
+                           invalid, root_score, schedule, pack, scratch,
+                           out_visits, out_value, out_q, wa);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1374,14 +2121,14 @@ extern "C" {
 // plan: `group` lanes per environment (4 or 32), envs_per_block
 // groups a block (envs_per_block x group a multiple of 32, at most 256),
 // the embeddings in shared memory (smem_emb) or in emb_scratch, B N E
-// floats, N = num_simulations + 1, and the towers staged in shared memory
-// (smem_weights) or read from device memory. Outputs: visits [B, A], value
-// [B], q [B, A] (r + discount v). Returns a cudaError_t, or MZ_ERR_SHAPE.
+// floats, N = num_simulations + 1; the towers are staged in each block's
+// shared memory. Outputs: visits [B, A], value [B], q [B, A] (r + discount
+// v). Returns a cudaError_t, or MZ_ERR_SHAPE.
 int mz_fused_muzero_search(const float* root_emb, const float* root_logits,
                            const float* root_value, const float* invalid,
                            const float* weights, int n_weights,
                            float* emb_scratch, long scratch_floats, int group,
-                           int envs_per_block, int smem_emb, int smem_weights,
+                           int envs_per_block, int smem_emb,
                            float* out_visits, float* out_value, float* out_q,
                            int B, int A, int E, int S41, int support_size,
                            int num_simulations, int max_depth, float discount,
@@ -1392,8 +2139,8 @@ int mz_fused_muzero_search(const float* root_emb, const float* root_logits,
   const int bad = make_args(&args, B, A, E, S41, support_size,
                             num_simulations, max_depth, discount, n_weights,
                             n_dyn, dyn_width, n_pred, pred_width, false,
-                            envs_per_block, smem_emb, smem_weights,
-                            emb_scratch, scratch_floats);
+                            envs_per_block, smem_emb, emb_scratch,
+                            scratch_floats);
   if (bad) return bad;
   args.pb_c_init = pb_c_init;
   args.pb_c_base = pb_c_base;
@@ -1413,7 +2160,7 @@ int mz_fused_gumbel_search(const float* root_emb, const float* root_logits,
                            const float* root_score, const float* schedule,
                            const float* weights, int n_weights,
                            float* emb_scratch, long scratch_floats, int group,
-                           int envs_per_block, int smem_emb, int smem_weights,
+                           int envs_per_block, int smem_emb,
                            float* out_visits, float* out_value, float* out_q,
                            int B, int A, int E, int S41, int support_size,
                            int num_simulations, int max_depth, float discount,
@@ -1424,21 +2171,20 @@ int mz_fused_gumbel_search(const float* root_emb, const float* root_logits,
   const int bad = make_args(&args, B, A, E, S41, support_size,
                             num_simulations, max_depth, discount, n_weights,
                             n_dyn, dyn_width, n_pred, pred_width, true,
-                            envs_per_block, smem_emb, smem_weights,
-                            emb_scratch, scratch_floats);
+                            envs_per_block, smem_emb, emb_scratch,
+                            scratch_floats);
   if (bad) return bad;
   return launch(args, 1, group, root_emb, root_logits, root_value, invalid,
                 root_score, schedule, weights, emb_scratch, out_visits,
                 out_value, out_q, device, stream);
 }
 
-// Blocks of the MLP kernel (mode `gumbel`, G = group, the towers in shared
-// memory or not) of `threads` threads and smem_bytes of dynamic shared
-// memory that one SM holds at once, as the CUDA runtime reckons it from the
-// compiled kernel; into *out.
-int mz_mlp_blocks_per_sm(int gumbel, int group, int smem_weights, int threads,
-                         long smem_bytes, int device, int* out) {
-  const MlpKernel kernel = mlp_kernel(gumbel, group, smem_weights);
+// Blocks of the MLP kernel (mode `gumbel`, G = group) of `threads` threads
+// and smem_bytes of dynamic shared memory that one SM holds at once, as the
+// CUDA runtime reckons it from the compiled kernel; into *out.
+int mz_mlp_blocks_per_sm(int gumbel, int group, int threads, long smem_bytes,
+                         int device, int* out) {
+  const MlpKernel kernel = mlp_kernel(gumbel, group);
   if (kernel == nullptr) return kErrShape;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -1563,6 +2309,92 @@ int mz_fused_tiled_search(const float* root_emb, const float* root_logits,
              ? trees(launch_tiled<false, 2, true>, launch_tiled<false, 2, false>)
              : trees(launch_tiled<false, 4, true>,
                      launch_tiled<false, 4, false>);
+}
+
+// Launch a wide mode (towers wider than a block's shared memory): MuZero
+// when root_score and schedule are NULL, Gumbel otherwise (inputs as
+// mz_fused_gumbel_search). pack: the towers cut by columns for each of the
+// `cluster` ranks (search/fused.py `pack_wide_towers`; pack_floats =
+// cluster x mz_wide_layout's out[1]); scratch: the trees' embeddings, B N E
+// floats, N = num_simulations + 1, then, unless smem_trees, their node and
+// edge arrays. The plan: tiles of `tile` envs on clusters of `cluster`
+// blocks (16 x 16 or 48 x 4), the towers resident in shared memory or
+// streamed through `ring` slots. Outputs as mz_fused_muzero_search or
+// mz_fused_gumbel_search. Returns a cudaError_t, or MZ_ERR_SHAPE.
+int mz_fused_wide_search(const float* root_emb, const float* root_logits,
+                         const float* root_value, const float* invalid,
+                         const float* root_score, const float* schedule,
+                         const float* pack, long pack_floats, float* scratch,
+                         long scratch_floats, int tile, int cluster,
+                         int resident, int ring, int smem_trees,
+                         float* out_visits, float* out_value, float* out_q,
+                         int B, int A, int E, int S41, int support_size,
+                         int num_simulations, int max_depth, float discount,
+                         float pb_c_init, float pb_c_base, int n_dyn,
+                         const int* dyn_width, int n_pred,
+                         const int* pred_width, int device, void* stream) {
+  if ((root_score == nullptr) != (schedule == nullptr)) return MZ_ERR_SHAPE;
+  int ntw = 0;
+  if (wide_kernel(0, tile, cluster, &ntw) == nullptr) return MZ_ERR_SHAPE;
+  WideArgs wa;
+  const int bad = wide_layout(&wa, B, A, E, S41, support_size,
+                              num_simulations, n_dyn, dyn_width, n_pred,
+                              pred_width, tile, cluster, ntw, resident, ring,
+                              smem_trees);
+  if (bad) return bad;
+  if (pack_floats != static_cast<long>(cluster) * wa.rank_floats ||
+      scratch_floats <
+          wa.tree_base +
+              (smem_trees ? 0 : static_cast<long>(B) * wa.tree_floats))
+    return MZ_ERR_SHAPE;
+  wa.max_depth = max_depth;
+  wa.discount = discount;
+  wa.pb_c_init = pb_c_init;
+  wa.pb_c_base = pb_c_base;
+  return launch_wide(wa, root_score != nullptr, tile, cluster, root_emb,
+                     root_logits, root_value, invalid, root_score, schedule,
+                     pack, scratch, out_visits, out_value, out_q, device,
+                     stream);
+}
+
+// The wide kernel's layout for the plan (arguments as mz_fused_wide_search):
+// out = {shared memory bytes a block, floats of a rank's pack, floats of
+// its biases, pieces a simulation, floats of a ring slot}.
+int mz_wide_layout(int B, int A, int E, int S41, int num_simulations,
+                   int n_dyn, const int* dyn_width, int n_pred,
+                   const int* pred_width, int tile, int cluster, int resident,
+                   int ring, int smem_trees, long* out) {
+  int ntw = 0;
+  if (wide_kernel(0, tile, cluster, &ntw) == nullptr) return MZ_ERR_SHAPE;
+  WideArgs wa;
+  const int bad = wide_layout(&wa, B, A, E, S41, 0, num_simulations, n_dyn,
+                              dyn_width, n_pred, pred_width, tile, cluster,
+                              ntw, resident, ring, smem_trees);
+  if (bad) return bad;
+  out[0] = 4L * wa.smem_floats;
+  out[1] = wa.rank_floats;
+  out[2] = wa.bias_floats;
+  out[3] = wa.n_pieces;
+  out[4] = wa.slot_floats;
+  return 0;
+}
+
+// Clusters of the wide kernel (mode `gumbel`, tile rows x cluster blocks,
+// smem_bytes of shared memory a block) that the card holds at once, as the
+// CUDA runtime reckons it (cudaOccupancyMaxActiveClusters); into *out.
+int mz_wide_active_clusters(int gumbel, int tile, int cluster,
+                            long smem_bytes, int device, int* out) {
+  int ntw = 0;
+  const WideKernel kernel = wide_kernel(gumbel, tile, cluster, &ntw);
+  if (kernel == nullptr) return MZ_ERR_SHAPE;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  const int bad = wide_config(kernel, cluster, static_cast<size_t>(smem_bytes),
+                              cluster, nullptr, &config, &attr);
+  if (bad) return bad;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &config);
 }
 
 // The limits the wrapper sizes the searches' launches by: SMs, shared

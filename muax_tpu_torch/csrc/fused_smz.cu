@@ -360,7 +360,7 @@ __device__ __forceinline__ void env_sync(int barrier) {
 
 // A weight (or bias) of a tower: a plain load from shared memory where the
 // block staged the towers, else from device memory through the read-only
-// cache (`__ldg`), where L2 holds them (group_mlp.cuh's weight<kLdg>).
+// cache (`__ldg`), where L2 holds them.
 template <bool kSmemWeights>
 __device__ __forceinline__ float weight(const float* w) {
   if constexpr (kSmemWeights) {

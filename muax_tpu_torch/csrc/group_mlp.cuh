@@ -5,9 +5,7 @@
 // one warp may diverge; the dense layers split their outputs over the
 // group's lanes and sum their inputs in order.
 //
-// The dense layers read the towers' weights from shared memory, or, with
-// kLdg (towers wider than a block's shared memory), from device memory
-// through the read-only cache (`__ldg`), where L2 holds them.
+// The dense layers read the towers' weights from the block's shared memory.
 //
 // Every butterfly below combines a lane's value with its partner's by a
 // commutative operation, so all lanes of a group end with the same bits. A
@@ -115,17 +113,6 @@ __device__ __forceinline__ float warp_order_sum(const Group<G>& g, int n,
   return g.sum(leaf_tree<32 / G, 0, 1>(leaf));
 }
 
-// A weight (or bias) of a tower: from device memory through the read-only
-// cache with kLdg, else a plain load (shared memory).
-template <bool kLdg>
-__device__ __forceinline__ float weight(const float* w) {
-  if constexpr (kLdg) {
-    return __ldg(w);
-  } else {
-    return *w;
-  }
-}
-
 // Each output y[j] = x[in] @ W[in, out] + b (+ extra[j]) of this lane:
 // j = lane, lane + G, ..., R at a time so that R independent chains of
 // multiply-adds share each x[i]; every chain sums its inputs in order, and
@@ -135,7 +122,7 @@ __device__ __forceinline__ float weight(const float* w) {
 // and 2 for whole warps, whose four chains would mostly be past the end of
 // the layer (two measured faster at G = 32, four at G = 4).
 // Inlined: out-of-line copies measured slower.
-template <int G, bool kLdg = false, typename F>
+template <int G, typename F>
 __device__ __forceinline__ void for_outputs(const Group<G>& g,
                                             const float* W, const float* b,
                                             const float* x, int in, int out,
@@ -155,26 +142,25 @@ __device__ __forceinline__ void for_outputs(const Group<G>& g,
       const float* w = W + i * out;
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        acc[r] = fmaf(xi, weight<kLdg>(w + col[r]), acc[r]);
+        acc[r] = fmaf(xi, w[col[r]], acc[r]);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int j = j0 + r * G;
       if (j < out)
-        f(j, (extra != nullptr ? acc[r] + weight<kLdg>(extra + j) : acc[r]) +
-                 weight<kLdg>(b + j));
+        f(j, (extra != nullptr ? acc[r] + extra[j] : acc[r]) + b[j]);
     }
   }
 }
 
 // y[out] = ELU(x[in] @ W + b (+ extra)); the group's lanes split the
 // outputs. y must not alias x.
-template <int G, bool kLdg = false>
+template <int G>
 __device__ __forceinline__ void dense_elu(const Group<G>& g, const float* W,
                                           const float* b, const float* x,
                                           float* y, int in, int out,
                                           const float* extra) {
-  for_outputs<G, kLdg>(g, W, b, x, in, out, extra,
+  for_outputs<G>(g, W, b, x, in, out, extra,
               [&](int j, float v) { y[j] = elu(v); });
   g.sync();
 }
@@ -184,13 +170,13 @@ __device__ __forceinline__ void dense_elu(const Group<G>& g, const float* W,
 // its closed form, the plain version's (each lane reads back only the bins
 // it wrote; the sums in a warp's order). Every lane returns the value; buf is free again when
 // it returns.
-template <int G, bool kLdg = false>
+template <int G>
 __device__ __forceinline__ float decode_head(const Group<G>& g,
                                              const float* W, const float* b,
                                              const float* h, int in, int n,
                                              int support, float* buf) {
   float m = -INFINITY;
-  for_outputs<G, kLdg>(g, W, b, h, in, n, nullptr, [&](int j, float l) {
+  for_outputs<G>(g, W, b, h, in, n, nullptr, [&](int j, float l) {
     buf[j] = l;
     m = fmaxf(m, l);
   });

@@ -5,8 +5,10 @@ updates an iteration, a ring of 2048 segments of 32 steps, min_fill 128,
 and a greedy evaluation pool of 16 boards at seed + 10,000).
 
 The towers are wider than a block's shared memory, so the search and the
-learner kernels read their weights from device memory (``smem_weights``
-False in their plans). From the root of a checkout, on the card:
+learner kernels take their wide modes (the search's tile kernel, a
+``WidePlan``; the learner's cluster pass, ``cluster`` 8 in its plan), which
+stage the weights from device memory. From the root of a checkout, on the
+card:
 
   python -m muax_tpu_torch.examples.run_2048 --num_iterations 500
 

@@ -41,6 +41,7 @@ from muax_tpu_torch.types import Transition
 
 # Launches of the CUDA kernel, by mode; the plain version does not count.
 launches = 0              # MLP triplet
+wide_launches = 0         # of those, the cluster pass (towers past a block)
 categorical_launches = 0  # categorical LearnerSpec
 
 
@@ -228,6 +229,10 @@ def _load_kernel():
     lib.mz_mlp_learner_floats.restype = i32
     lib.mz_learner_blocks_per_sm.argtypes = [i32, i32, i64, i32, ptr]
     lib.mz_learner_blocks_per_sm.restype = i32
+    lib.mz_learner_active_clusters.argtypes = [i32, i32, ptr]
+    lib.mz_learner_active_clusters.restype = i32
+    lib.mz_learner_cluster_smem_bytes.argtypes = []
+    lib.mz_learner_cluster_smem_bytes.restype = i64
     lib.mz_fused_categorical_grad.argtypes = (
         [ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ctypes.c_long, i32]
         + [i32] * 5 + [f32, f32, i32]
@@ -268,25 +273,33 @@ def _check_raw(lw, raw: torch.Tensor, coef: torch.Tensor, lay: RawLayout):
 LEARNER_TILE = 16
 LEARNER_THREADS = 256
 _LEARNER_BLOCKS_PER_SM = 2
+# Blocks a tile of the cluster pass (``mlp_cluster_kernel``), in the order
+# the plan prefers them, and the shared memory of each block: its ring of
+# three staged chunks of 4,096 floats and the split-k sums of 8 warp tiles
+# (the kernel's ``mz_learner_cluster_smem_bytes``).
+LEARNER_CLUSTERS = (8, 4, 2)
+LEARNER_CLUSTER_SMEM = 4 * (3 * 4096 + 8 * 16 * 16)
 
 
 class LearnerPlan(NamedTuple):
-  """How an MLP-spec launch runs: ``blocks`` blocks of one tile each; the
-  arena (the forward's activations and the backward's gradients) in shared
-  memory (``smem_arena``) or in the device scratch; ``smem_bytes`` of
-  shared memory a block; ``scratch_floats`` of device scratch (the blocks'
-  rows of weight gradients, then their arenas unless ``smem_arena``); an SM
-  holds ``blocks_per_sm`` blocks at once, and the busiest SM
-  ``warps_per_sm`` warps (theoretical, capped by the grid); the towers'
-  weights staged in each block's shared memory (``smem_weights``) or read
-  by the tile products from device memory, which L2 holds."""
+  """How an MLP-spec launch runs: ``blocks`` blocks, one tile each
+  (``cluster`` 0) or ``cluster`` a tile; the arena (the forward's
+  activations and the backward's gradients) in shared memory
+  (``smem_arena``) or in the device scratch; ``smem_bytes`` of shared
+  memory a block; ``scratch_floats`` of device scratch (the blocks' rows of
+  weight gradients, then their arenas unless ``smem_arena``; with clusters
+  the tiles' arenas alone); an SM holds ``blocks_per_sm`` blocks at once,
+  and the busiest SM ``warps_per_sm`` warps (theoretical, capped by the
+  grid). With clusters the towers' weights lie in device memory, and each
+  block stages its columns' chunks through ``smem_bytes`` of shared
+  memory."""
   blocks: int
   smem_arena: bool
   smem_bytes: int
   scratch_floats: int
   blocks_per_sm: int
   warps_per_sm: int
-  smem_weights: bool = True
+  cluster: int = 0
 
 
 def learner_padded(n: int) -> int:
@@ -353,8 +366,10 @@ def mlp_learner_plan(batch: int, num_steps: int, lw,
   """The MLP spec's launch plan: one block per 16 windows; the arena in
   shared memory beside the weights where both fit a block, else in the
   device scratch; where the weights alone do not fit a block (the 2048
-  example's towers (256, 256) at 601 bins, 2.3 MB), the weights stay in
-  device memory and the arena in the scratch. ``lw``: ``LearnerWeights``
+  example's towers (256, 256) at 601 bins, 2.3 MB), a cluster of blocks
+  per 16 windows (``LEARNER_CLUSTERS``: the largest whose blocks the card
+  holds at once, two an SM) with the arenas in the scratch and the weights
+  in device memory, staged a chunk at a time. ``lw``: ``LearnerWeights``
   (only its shapes are read). The plan of a shape is worked out once and
   kept."""
   return _mlp_learner_plan(batch, num_steps, _shapes(lw), limits)
@@ -364,29 +379,50 @@ def mlp_learner_plan(batch: int, num_steps: int, lw,
 def _mlp_learner_plan(batch, num_steps, shapes, limits) -> LearnerPlan:
   n_weights, weights, arena = mlp_learner_floats(
       LearnerWeights(*shapes, flat=None), num_steps)
-  blocks = -(-batch // LEARNER_TILE)
-  for smem_weights, smem_arena in ((True, True), (True, False),
-                                   (False, False)):
-    smem = 4 * ((weights if smem_weights else 0)
-                + (arena if smem_arena else 0))
-    if smem <= limits.smem_per_block or not smem_weights:
+  tiles = -(-batch // LEARNER_TILE)
+  for smem_arena in (True, False):
+    smem = 4 * (weights + (arena if smem_arena else 0))
+    if smem <= limits.smem_per_block:
       per_sm = min(_LEARNER_BLOCKS_PER_SM,
                    limits.smem_per_sm // (smem + limits.smem_reserved))
-      busiest = min(per_sm, -(-blocks // limits.sms))
+      busiest = min(per_sm, -(-tiles // limits.sms))
       return LearnerPlan(
-          blocks, smem_arena, smem,
-          blocks * (n_weights + (0 if smem_arena else arena)), per_sm,
-          busiest * LEARNER_THREADS // 32, smem_weights)
+          tiles, smem_arena, smem,
+          tiles * (n_weights + (0 if smem_arena else arena)), per_sm,
+          busiest * LEARNER_THREADS // 32)
+  cluster = next((c for c in LEARNER_CLUSTERS
+                  if tiles * c <= _LEARNER_BLOCKS_PER_SM * limits.sms),
+                 LEARNER_CLUSTERS[-1])
+  blocks = tiles * cluster
+  smem = LEARNER_CLUSTER_SMEM
+  per_sm = min(_LEARNER_BLOCKS_PER_SM,
+               limits.smem_per_sm // (smem + limits.smem_reserved))
+  busiest = min(per_sm, -(-blocks // limits.sms))
+  return LearnerPlan(blocks, False, smem, tiles * arena, per_sm,
+                     busiest * LEARNER_THREADS // 32, cluster)
 
 
 def learner_blocks_per_sm(plan: LearnerPlan, device: torch.device) -> int:
-  """Blocks of the plan's tile pass that one SM of ``device`` holds at
-  once, by the CUDA occupancy calculator."""
+  """Blocks of the plan's tile pass (or cluster pass) that one SM of
+  ``device`` holds at once, by the CUDA occupancy calculator."""
   out = ctypes.c_int()
   lib = _load_kernel()
   err = lib.mz_learner_blocks_per_sm(
-      int(plan.smem_arena), int(plan.smem_weights), plan.smem_bytes,
+      int(plan.smem_arena), plan.cluster, plan.smem_bytes,
       _device_index(device), ctypes.byref(out))
+  if err != 0:
+    raise RuntimeError("fused learner kernel: "
+                       + lib.mz_learner_error_string(err).decode())
+  return out.value
+
+
+def learner_active_clusters(plan: LearnerPlan, device: torch.device) -> int:
+  """Clusters of the plan's cluster pass that ``device`` holds at once
+  (``cudaOccupancyMaxActiveClusters``)."""
+  out = ctypes.c_int()
+  lib = _load_kernel()
+  err = lib.mz_learner_active_clusters(plan.cluster, _device_index(device),
+                                       ctypes.byref(out))
   if err != 0:
     raise RuntimeError("fused learner kernel: "
                        + lib.mz_learner_error_string(err).decode())
@@ -468,7 +504,7 @@ def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
                lay: RawLayout, *, l2_coef: float, gradient_scale: float):
   """Launch the kernel in the mode of ``lw`` (``LearnerWeights`` or
   ``LearnerSpec``); returns (grads [n], met [4, B], l2 [])."""
-  global launches
+  global launches, wide_launches
   if isinstance(lw, LearnerSpec):
     return _categorical_grad_cuda(lw, raw, coef, lay, l2_coef=l2_coef,
                                   gradient_scale=gradient_scale)
@@ -486,8 +522,9 @@ def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
   err = lib.mz_fused_muzero_grad(
       raw.data_ptr(), raw.stride(0), coef.data_ptr(), lw.flat.data_ptr(), n,
       grads.data_ptr(), met.data_ptr(), l2.data_ptr(), scratch.data_ptr(),
-      plan.scratch_floats, plan.blocks, int(plan.smem_arena),
-      int(plan.smem_weights), plan.smem_bytes, B, lay.O, lw.embedding_dim,
+      plan.scratch_floats, plan.blocks // max(plan.cluster, 1),
+      int(plan.smem_arena), plan.cluster, plan.smem_bytes, B, lay.O,
+      lw.embedding_dim,
       lw.num_actions, 2 * lw.support_size + 1, lw.support_size, lay.K,
       n_repr, repr_w, n_pred, pred_w, n_dyn, dyn_w,
       lay.obs, lay.action, lay.reward, lay.rn, lay.pi, lay.mask,
@@ -498,6 +535,7 @@ def _grad_cuda(lw: LearnerWeights, raw: torch.Tensor, coef: torch.Tensor,
     raise RuntimeError("fused learner kernel: "
                        + lib.mz_learner_error_string(err).decode())
   launches += 1
+  wide_launches += plan.cluster > 0
   return grads, met, l2[0]
 
 

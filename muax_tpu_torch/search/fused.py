@@ -33,8 +33,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,6 +59,9 @@ _VALUE_SCALE, _MAXVISIT_INIT = 0.1, 50.0
 # Launches of the CUDA kernel, by mode; the plain version does not count.
 launches = 0                     # MLP triplet, policy="muzero"
 gumbel_launches = 0              # MLP triplet, policy="gumbel"
+# Of those, the launches of the wide-tower kernel (fused_search_wide_kernel).
+wide_launches = 0                # policy="muzero"
+wide_gumbel_launches = 0         # policy="gumbel"
 categorical_launches = 0         # categorical family, policy="muzero"
 categorical_gumbel_launches = 0  # categorical family, policy="gumbel"
 smz_launches = 0                 # Stochastic MuZero forest (csrc/fused_smz.cu)
@@ -495,8 +499,8 @@ def _load_kernel():
   if lib.mz_fused_muzero_search.argtypes is None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i32, ptr, i32, ptr, i32, ptr]  # towers, device, stream
-    # emb scratch, G, envs, embeddings' place, weights' place
-    plan = [ptr, ctypes.c_long, i32, i32, i32, i32]
+    # emb scratch, G, envs, embeddings' place
+    plan = [ptr, ctypes.c_long, i32, i32, i32]
     lib.mz_fused_muzero_search.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, *plan, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, f32, f32, f32] + tail
@@ -508,10 +512,20 @@ def _load_kernel():
         i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
         i32, i32, f32, f32, f32,
         i32, ptr, ptr, i32, ptr, ptr, i32, ptr]
-    lib.mz_mlp_blocks_per_sm.argtypes = [i32, i32, i32, i32, ctypes.c_long,
-                                         i32, ptr]
+    lib.mz_mlp_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.c_long, i32,
+                                         ptr]
+    lib.mz_fused_wide_search.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_long, ptr,
+        ctypes.c_long, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, f32, f32, f32] + tail
+    lib.mz_wide_layout.argtypes = [i32, i32, i32, i32, i32, i32, ptr, i32,
+                                   ptr, i32, i32, i32, i32, i32, ptr]
+    lib.mz_wide_active_clusters.argtypes = [i32, i32, i32, ctypes.c_long,
+                                            i32, ptr]
     for fn in (lib.mz_fused_muzero_search, lib.mz_fused_gumbel_search,
-               lib.mz_fused_tiled_search, lib.mz_mlp_blocks_per_sm):
+               lib.mz_fused_tiled_search, lib.mz_mlp_blocks_per_sm,
+               lib.mz_fused_wide_search, lib.mz_wide_layout,
+               lib.mz_wide_active_clusters):
       fn.restype = i32
     lib.mz_error_string.argtypes = [i32]
     lib.mz_error_string.restype = ctypes.c_char_p
@@ -624,13 +638,12 @@ MLP_TARGET_WARPS = 8
 
 
 class MLPPlan(NamedTuple):
-  """How an MLP-mode launch runs: ``group`` lanes per environment,
-  ``envs_per_block`` environments a block, the embeddings in shared memory
-  (``smem_emb``) or in a device scratch; ``grid`` blocks, of which an SM
-  holds ``blocks_per_sm`` at once, ``warps_per_sm`` on the busiest SM, and
-  whether every block is resident in one wave; the towers staged in each
-  block's shared memory (``smem_weights``) or read from device memory,
-  which L2 holds (towers wider than a block's shared memory)."""
+  """How an MLP-mode launch with the towers staged in each block's shared
+  memory runs: ``group`` lanes per environment, ``envs_per_block``
+  environments a block, the embeddings in shared memory (``smem_emb``) or
+  in a device scratch; ``grid`` blocks, of which an SM holds
+  ``blocks_per_sm`` at once, ``warps_per_sm`` on the busiest SM, and
+  whether every block is resident in one wave."""
   group: int
   envs_per_block: int
   smem_emb: bool
@@ -638,7 +651,6 @@ class MLPPlan(NamedTuple):
   blocks_per_sm: int
   warps_per_sm: int
   resident: bool
-  smem_weights: bool = True
 
 
 def mlp_act_width(num_actions: int, embedding_dim: int, widths) -> int:
@@ -666,25 +678,22 @@ def mlp_env_floats(num_actions: int, embedding_dim: int,
 
 def mlp_smem_bytes(n_weights: int, envs_per_block: int, env_floats: int
                    ) -> int:
-  """Shared memory of one block: the towers (``n_weights`` floats, 0 where
-  they stay in device memory), then each environment's slice."""
+  """Shared memory of one block: the towers (``n_weights`` floats), then
+  each environment's slice."""
   return 4 * (-(-n_weights // 4) * 4 + envs_per_block * env_floats)
 
 
 def _mlp_candidate(batch, group, smem_emb, env_floats, n_weights,
-                   limits: DeviceLimits, smem_weights=True
-                   ) -> Optional[MLPPlan]:
+                   limits: DeviceLimits) -> Optional[MLPPlan]:
   """The launch with G = ``group``: 256 threads a block, halved while the
   block's shared memory does not fit or the grid would leave SMs without
   a block, and while halving lets an SM hold more environments of a
   launch that does not fit the card at once; down to one warp. None when
-  one warp's environments do not fit. Without ``smem_weights`` the towers
-  take no shared memory."""
+  one warp's environments do not fit beside the towers."""
   least = max(1, 32 // group)
-  staged = n_weights if smem_weights else 0
 
   def plan(envs):
-    size = mlp_smem_bytes(staged, envs, env_floats)
+    size = mlp_smem_bytes(n_weights, envs, env_floats)
     if size > limits.smem_per_block:
       return None
     threads = envs * group
@@ -694,8 +703,7 @@ def _mlp_candidate(batch, group, smem_emb, env_floats, n_weights,
     grid = -(-batch // envs)
     busiest = min(per_sm, -(-grid // limits.sms))
     return MLPPlan(group, envs, smem_emb, grid, per_sm,
-                   busiest * threads // 32, grid <= per_sm * limits.sms,
-                   smem_weights)
+                   busiest * threads // 32, grid <= per_sm * limits.sms)
 
   envs = MLP_BLOCK_THREADS // group
   while envs > least and (plan(envs) is None
@@ -715,46 +723,64 @@ def _mlp_candidate(batch, group, smem_emb, env_floats, n_weights,
 def mlp_search_plan(batch: int, num_actions: int, embedding_dim: int,
                     num_simulations: int, n_weights: int, widths,
                     gumbel: bool, limits: DeviceLimits,
-                    group: Optional[int] = None) -> MLPPlan:
-  """The MLP modes' launch plan. Among the launches that keep every
-  environment resident in one wave, the smallest G that still gives the
-  busiest SM ``MLP_TARGET_WARPS`` warps (fewer lanes per environment waste
-  fewer lanes), else the largest G (the most warps); the embeddings in
-  shared memory where that keeps them all resident. Where no launch keeps
-  them all, the most environments resident per SM, then the largest G.
-  The towers are staged in shared memory where some launch fits them there
-  beside one warp's environments; else every launch reads them from device
-  memory (``smem_weights`` False; the 2048 example's towers (256, 256) at
-  601 bins are 1.97 MB) and the same rules choose among those.
-  ``widths``: the bins and every hidden layer's width; ``group`` fixes G
-  (for timing each). Raises RuntimeError where one environment's tree
-  alone does not fit a block's shared memory, as the kernel would. The
-  plan of a shape is worked out once and kept."""
+                    group: Optional[int] = None, towers=None,
+                    clusters: Optional[Callable] = None
+                    ) -> Union[MLPPlan, "WidePlan"]:
+  """The MLP modes' launch plan. Where some launch stages the towers in
+  shared memory beside one warp's environments, an ``MLPPlan``: among the
+  launches that keep every environment resident in one wave, the smallest
+  G that still gives the busiest SM ``MLP_TARGET_WARPS`` warps (fewer lanes
+  per environment waste fewer lanes), else the largest G (the most warps);
+  the embeddings in shared memory where that keeps them all resident.
+  Where no launch keeps them all, the most environments resident per SM,
+  then the largest G. Towers wider than that (the 2048 example's (256,
+  256) at 601 bins: 1.97 MB) take the tile kernel: ``wide_search_plan``'s
+  ``WidePlan``. ``widths``: the bins and every hidden layer's width;
+  ``towers``: (dynamics widths, prediction widths), by default the hidden
+  widths of ``widths`` halved between the two; ``group`` fixes G (for
+  timing each); ``clusters`` as ``wide_search_plan`` takes it, which the
+  wide plan needs. Raises RuntimeError where one environment's tree alone
+  does not fit a block's shared memory, as the kernels would. The plan of
+  a shape is worked out once and kept."""
+  widths = tuple(widths)
+  if towers is None:
+    half = (len(widths) - 1) // 2
+    towers = (widths[1:1 + half], widths[1 + half:])
+  towers = (tuple(towers[0]), tuple(towers[1]))
   return _mlp_search_plan(batch, num_actions, embedding_dim,
-                          num_simulations, n_weights, tuple(widths), gumbel,
-                          limits, group)
+                          num_simulations, n_weights, widths, gumbel,
+                          limits, group, towers, clusters)
 
 
 @functools.lru_cache(maxsize=None)
 def _mlp_search_plan(batch, num_actions, embedding_dim, num_simulations,
-                     n_weights, widths, gumbel, limits, group) -> MLPPlan:
+                     n_weights, widths, gumbel, limits, group, towers,
+                     clusters):
   act_width = mlp_act_width(num_actions, embedding_dim, widths)
   plans = []
-  for smem_weights in (True, False):
-    for g in (MLP_GROUPS if group is None else (group,)):
-      for smem_emb in (True, False):
-        floats = mlp_env_floats(num_actions, embedding_dim, num_simulations,
-                                act_width, gumbel, smem_emb)
-        plan = _mlp_candidate(batch, g, smem_emb, floats, n_weights, limits,
-                              smem_weights)
-        if plan is not None:
-          plans.append(plan)
-    if plans:
-      break
+  for g in (MLP_GROUPS if group is None else (group,)):
+    for smem_emb in (True, False):
+      floats = mlp_env_floats(num_actions, embedding_dim, num_simulations,
+                              act_width, gumbel, smem_emb)
+      plan = _mlp_candidate(batch, g, smem_emb, floats, n_weights, limits)
+      if plan is not None:
+        plans.append(plan)
   if not plans:
-    raise RuntimeError("fused search kernel: shapes do not fit the fused "
-                       "search kernel (one environment's tree exceeds a "
-                       "block's shared memory)")
+    # The tile kernel takes the towers no block can stage, where one
+    # environment's compact tree alone would fit a block (past that, the
+    # shapes are refused, as before the tile kernel).
+    floats = mlp_env_floats(num_actions, embedding_dim, num_simulations,
+                            act_width, gumbel, False)
+    if mlp_smem_bytes(0, 1, floats) > limits.smem_per_block:
+      raise RuntimeError("fused search kernel: shapes do not fit the fused "
+                         "search kernel (one environment's tree exceeds a "
+                         "block's shared memory)")
+    if clusters is None:
+      raise ValueError("the wide plan needs clusters: the card's count of "
+                       "clusters it holds at once")
+    return wide_search_plan(batch, num_actions, embedding_dim,
+                            num_simulations, widths[0], *towers, gumbel,
+                            limits, clusters)
   resident = [p for p in plans if p.resident]
   if resident:
     full = [p for p in resident if p.warps_per_sm >= MLP_TARGET_WARPS]
@@ -773,16 +799,284 @@ def mlp_blocks_per_sm(plan: MLPPlan, n_weights: int, env_floats: int,
       torch.cuda.current_device())
   out = ctypes.c_int(0)
   lib = _load_kernel()
-  staged = n_weights if plan.smem_weights else 0
   err = lib.mz_mlp_blocks_per_sm(
-      int(gumbel), plan.group, int(plan.smem_weights),
-      plan.envs_per_block * plan.group,
-      mlp_smem_bytes(staged, plan.envs_per_block, env_floats), index,
+      int(gumbel), plan.group, plan.envs_per_block * plan.group,
+      mlp_smem_bytes(n_weights, plan.envs_per_block, env_floats), index,
       ctypes.byref(out))
   if err != 0:
     raise RuntimeError("fused search kernel: "
                        + lib.mz_error_string(err).decode())
   return out.value
+
+
+# The wide modes' launch (``fused_search_wide_kernel<policy, tile, cluster,
+# ntw>``): a tile of ``tile`` environments on a cluster of ``cluster``
+# blocks of 256 threads, each block a ``cluster``-th of every phase's
+# columns (a hidden layer; the dynamics' reward and next-state heads side
+# by side; the prediction's value and policy heads side by side), at most
+# ``ntw`` tiles of 8 columns a warp. The instances the kernel has, in the
+# order the plan prefers them: 16 x 16 keeps a small batch's towers
+# resident (64 boards), 48 x 4 streams them for a large one (1024).
+WIDE_INSTANCES = ((16, 16, 1), (48, 4, 3))
+WIDE_THREADS = 256
+WIDE_PIECE_ROWS = 32  # rows of a streamed piece of a phase's weights
+WIDE_MAX_RING = 8
+_WIDE_BARRIER_FLOATS = 64
+
+
+class WideLayout(NamedTuple):
+  """The wide kernel's layout (its ``wide_layout``): per phase its input
+  width, rows in the pack (a multiple of 8), output width, columns ``nb``
+  of each block, and the offsets of its biases and weights in a rank's
+  pack; pieces a simulation, the floats of a rank's pack, of its biases and
+  of a ring slot, and a block's shared memory in bytes."""
+  ins: tuple
+  in8: tuple
+  widths: tuple
+  nb: tuple
+  b_off: tuple
+  w_off: tuple
+  n_pieces: int
+  rank_floats: int
+  bias_floats: int
+  slot_floats: int
+  smem_bytes: int
+
+
+def _round(n: int, k: int) -> int:
+  return -(-n // k) * k
+
+
+def wide_layout(tile: int, cluster: int, ntw: int, num_actions: int,
+                embedding_dim: int, bins: int, num_simulations: int,
+                dyn_widths, pred_widths, resident: bool, ring: int,
+                smem_trees: bool) -> Optional[WideLayout]:
+  """The layout of one wide launch, or None where a phase has more column
+  tiles than the instance's warps can own. A copy of the kernel's
+  ``wide_layout`` (``mz_wide_layout``), so that the CPU tests size the plan
+  without the library; a ``gpu`` test ties the two."""
+  A, E = num_actions, embedding_dim
+  phases, d_in = [], E + A
+  for w in dyn_widths:
+    phases.append((d_in, w))
+    d_in = w
+  phases.append((d_in, bins + E))
+  d_in = E
+  for w in pred_widths:
+    phases.append((d_in, w))
+    d_in = w
+  phases.append((d_in, bins + A))
+  ins = tuple(i for i, _ in phases)
+  widths = tuple(w for _, w in phases)
+  in8 = tuple(_round(i, 8) for i in ins)
+  nb = tuple(_round(-(-w // cluster), 8) for w in widths)
+  for n in nb:
+    nt, split = n // 8, 1
+    while nt * split * 2 <= WIDE_THREADS // 32:
+      split *= 2
+    if -(-nt // (WIDE_THREADS // 32 // split)) > ntw:
+      return None
+  b_off = tuple(sum(nb[:p]) for p in range(len(nb)))
+  bias_floats = _round(sum(nb), 8)
+  w_off = tuple(bias_floats + sum(in8[q] * nb[q] for q in range(p))
+                for p in range(len(nb)))
+  rank_floats = bias_floats + sum(i * n for i, n in zip(in8, nb))
+  slot = max(WIDE_PIECE_ROWS * n for n in nb)
+  n_pieces = sum(-(-i // WIDE_PIECE_ROWS) for i in in8)
+  row = _padded_row
+  hidden = max([1, *dyn_widths, *pred_widths])
+  envs = tile // cluster
+  tree = _round(5 * (num_simulations + 1) * (1 + A), 4)
+  floats = _WIDE_BARRIER_FLOATS + sum(_round(n, 4) for n in (
+      rank_floats if resident else bias_floats,
+      0 if resident else ring * slot,
+      tile * row(hidden), tile * row(hidden), tile * row(E + A),
+      tile * row(E), envs * row(bins), envs * row(A),
+      (WIDE_THREADS // 32) * (tile // 16) * 128, envs * A, 4 * envs,
+      envs * tree if smem_trees else 0))
+  return WideLayout(ins, in8, widths, nb, b_off, w_off, n_pieces,
+                    rank_floats, bias_floats, slot, 4 * floats)
+
+
+class WidePlan(NamedTuple):
+  """How a wide-mode launch runs: tiles of ``tile`` environments on
+  clusters of ``cluster`` blocks; the towers ``resident`` in shared memory
+  for the launch, or streamed through a ring of ``ring`` pieces; the trees
+  in shared memory (``smem_trees``) or in the device scratch;
+  ``smem_bytes`` a block; ``grid`` blocks; ``active_clusters`` clusters the
+  card holds at once (the CUDA runtime's count on the card) and whether
+  every tile is resident in one wave."""
+  tile: int
+  cluster: int
+  resident: bool
+  ring: int
+  smem_trees: bool
+  smem_bytes: int
+  grid: int
+  active_clusters: int
+  one_wave: bool
+
+
+def wide_search_plan(batch: int, num_actions: int, embedding_dim: int,
+                     num_simulations: int, bins: int, dyn_widths,
+                     pred_widths, gumbel: bool, limits: DeviceLimits,
+                     clusters: Callable) -> WidePlan:
+  """The wide modes' plan. For each instance (``WIDE_INSTANCES``): the
+  towers resident where a rank's pack fits a block beside the tile's
+  buffers, else streamed through as many ring slots as fit (two to
+  ``WIDE_MAX_RING``); the trees in shared memory where they fit, else in
+  the device scratch. The first instance whose tiles are all resident in
+  one wave of clusters wins, else the one with the most environments in
+  flight (then the larger tile). ``clusters(gumbel, tile, cluster,
+  smem_bytes)`` gives the clusters the card holds at once
+  (``wide_active_clusters``: the CUDA runtime's count). Raises
+  RuntimeError where no instance fits."""
+  plans = []
+  for tile, cluster, ntw in WIDE_INSTANCES:
+    for smem_trees in (True, False):
+      def layout(resident, ring):
+        lay = wide_layout(tile, cluster, ntw, num_actions, embedding_dim,
+                          bins, num_simulations, dyn_widths, pred_widths,
+                          resident, ring, smem_trees)
+        return lay if lay and lay.smem_bytes <= limits.smem_per_block \
+            else None
+      resident, ring, lay = True, 0, layout(True, 0)
+      if lay is None:
+        resident, ring, lay = False, 2, layout(False, 2)
+        if lay is not None:
+          ring = min(WIDE_MAX_RING, 2 + (limits.smem_per_block
+                                         - lay.smem_bytes)
+                     // (4 * lay.slot_floats))
+          lay = layout(False, ring)
+      if lay is not None:
+        break
+    if lay is None:
+      continue
+    active = clusters(gumbel, tile, cluster, lay.smem_bytes)
+    tiles = -(-batch // tile)
+    plans.append(WidePlan(tile, cluster, resident, ring, smem_trees,
+                          lay.smem_bytes, tiles * cluster, active,
+                          0 < tiles <= active))
+  plans = [p for p in plans if p.active_clusters > 0]
+  if not plans:
+    raise RuntimeError("fused search kernel: shapes do not fit the fused "
+                       "search kernel (one environment's tree exceeds a "
+                       "block's shared memory)")
+  for p in plans:
+    if p.one_wave:
+      return p
+  return max(plans, key=lambda p: (p.active_clusters * p.tile, p.tile))
+
+
+@functools.lru_cache(maxsize=None)
+def wide_active_clusters(index: int) -> Callable:
+  """``clusters`` for ``wide_search_plan`` on card ``index``: the CUDA
+  runtime's ``cudaOccupancyMaxActiveClusters`` for the compiled instance
+  (one function a card, so that plans stay cached)."""
+  @functools.lru_cache(maxsize=None)
+  def clusters(gumbel, tile, cluster, smem_bytes):
+    out = ctypes.c_int(0)
+    lib = _load_kernel()
+    err = lib.mz_wide_active_clusters(int(gumbel), tile, cluster,
+                                      smem_bytes, index, ctypes.byref(out))
+    if err != 0:
+      raise RuntimeError("fused search kernel: "
+                         + lib.mz_error_string(err).decode())
+    return out.value
+  return clusters
+
+
+def wide_plan_layout(plan: WidePlan, num_actions: int, embedding_dim: int,
+                     bins: int, num_simulations: int, dyn_widths,
+                     pred_widths) -> WideLayout:
+  """The layout of ``plan`` (its instance's ``wide_layout``)."""
+  ntw = {(t, c): n for t, c, n in WIDE_INSTANCES}[plan.tile, plan.cluster]
+  return wide_layout(plan.tile, plan.cluster, ntw, num_actions,
+                     embedding_dim, bins, num_simulations, dyn_widths,
+                     pred_widths, plan.resident, plan.ring, plan.smem_trees)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_pack_index(cluster: int, num_actions: int, embedding_dim: int,
+                     bins: int, dyn_widths, pred_widths) -> np.ndarray:
+  """Indices into the flat towers with one zero appended (index n_weights)
+  of every float of the packs of ``cluster`` ranks (``pack_wide_towers``)."""
+  A, E = num_actions, embedding_dim
+  lay = wide_layout(16, cluster, 1 << 20, A, E, bins, 0, dyn_widths,
+                    pred_widths, False, 2, False)
+  # Each phase's linears as (W offset, in, out) in the flat buffer, whose
+  # columns lie side by side in the phase's output.
+  linears, off, d_in = [], 0, E + A
+  def take(d_in, d_out):
+    nonlocal off
+    at = off
+    off += d_in * d_out + d_out
+    return (at, d_in, d_out)
+  for w in dyn_widths:
+    linears.append([take(d_in, w)])
+    d_in = w
+  linears.append([take(d_in, bins), take(d_in, E)])
+  d_in = E
+  for w in pred_widths:
+    linears.append([take(d_in, w)])
+    d_in = w
+  linears.append([take(d_in, bins), take(d_in, A)])
+  zero = off
+  idx = np.full((cluster, lay.rank_floats), zero, dtype=np.int64)
+  for p, parts in enumerate(linears):
+    col_w, col_b, col_out = [], [], []  # per output column
+    for at, d_in, d_out in parts:
+      col_w += [at + c for c in range(d_out)]
+      col_b += [at + d_in * d_out + c for c in range(d_out)]
+      col_out += [d_out] * d_out
+    col_w, col_b, col_out = map(np.asarray, (col_w, col_b, col_out))
+    nb, rows = lay.nb[p], lay.ins[p]
+    for r in range(cluster):
+      cols = r * nb + np.arange(nb)
+      ok = cols < lay.widths[p]
+      c = np.where(ok, cols, 0)
+      idx[r, lay.b_off[p]:lay.b_off[p] + nb] = np.where(ok, col_b[c], zero)
+      k = np.arange(lay.in8[p])[:, None]
+      w = col_w[c][None, :] + k * col_out[c][None, :]
+      w = np.where(ok[None, :] & (k < rows), w, zero)
+      idx[r, lay.w_off[p]:lay.w_off[p] + lay.in8[p] * nb] = w.reshape(-1)
+  return idx.reshape(-1)
+
+
+@functools.lru_cache(maxsize=8)
+def _wide_pack_index_on(device: torch.device, *key) -> torch.Tensor:
+  return torch.from_numpy(_wide_pack_index(*key)).to(device)
+
+
+def pack_wide_towers(flat: torch.Tensor, cluster: int, num_actions: int,
+                     embedding_dim: int, bins: int, dyn_widths,
+                     pred_widths) -> torch.Tensor:
+  """The flat towers cut for the wide kernel: for each of the ``cluster``
+  ranks its biases, then each phase's [in8, nb] slice of its columns
+  (zeros past the input rows and the phase's width): one gather a launch."""
+  index = _wide_pack_index_on(flat.device, cluster, num_actions,
+                              embedding_dim, bins, tuple(dyn_widths),
+                              tuple(pred_widths))
+  return torch.cat((flat, flat.new_zeros(1)))[index]
+
+
+def wide_kernel_layout(plan: WidePlan, batch: int, num_actions: int,
+                       embedding_dim: int, bins: int, num_simulations: int,
+                       dyn_widths, pred_widths) -> Tuple[int, ...]:
+  """The kernel's own layout of ``plan`` (``mz_wide_layout``): shared
+  memory bytes a block, floats of a rank's pack, of its biases, pieces a
+  simulation, floats of a ring slot."""
+  lib = _load_kernel()
+  out = (ctypes.c_long * 5)()
+  err = lib.mz_wide_layout(
+      batch, num_actions, embedding_dim, bins, num_simulations,
+      len(dyn_widths), _ints(dyn_widths), len(pred_widths),
+      _ints(pred_widths), plan.tile, plan.cluster, int(plan.resident),
+      plan.ring, int(plan.smem_trees), out)
+  if err != 0:
+    raise RuntimeError("fused search kernel: "
+                       + lib.mz_error_string(err).decode())
+  return tuple(out)
 
 
 def _check(name: str, t: torch.Tensor, shape, device: torch.device):
@@ -806,13 +1100,14 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
                        pb_c_init=1.25, pb_c_base=19652.0, root_score=None,
                        schedule=None):
   """Launch one mode of the kernel: ``FusedMLPWeights`` take the MLP modes
-  (lane groups per environment, the towers staged in shared memory or read
-  from device memory, laid out by ``mlp_search_plan``), a ``FusedNetSpec``
+  (lane groups per environment with the towers staged in shared memory, or,
+  for towers wider than that, clusters of blocks per tile of environments
+  sharing every tower read; ``mlp_search_plan`` picks), a ``FusedNetSpec``
   the categorical
   modes (clusters of blocks per tile of environments, tensor-core products
   over weights read from device memory);
   ``root_score`` and ``schedule`` select the Gumbel policy."""
-  global launches, gumbel_launches
+  global launches, gumbel_launches, wide_launches, wide_gumbel_launches
   global categorical_launches, categorical_gumbel_launches
   device = root_embedding.device
   B, E = root_embedding.shape
@@ -875,13 +1170,32 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
   else:
     plan = mlp_search_plan(B, A, E, num_simulations, flat.numel(),
                            [bins, *dyn_width, *pred_width], gumbel,
-                           device_limits(device))
+                           device_limits(device),
+                           towers=(dyn_width, pred_width),
+                           clusters=wide_active_clusters(dev_index))
+  if not tiled and isinstance(plan, WidePlan):
+    pack = pack_wide_towers(flat, plan.cluster, A, E, bins, dyn_width,
+                            pred_width)
+    n_scratch = B * (num_simulations + 1) * E + (
+        0 if plan.smem_trees
+        else B * _round(tiled_tree_floats(A, num_simulations), 4))
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=device)
+    err = lib.mz_fused_wide_search(
+        *roots, root_score.data_ptr() if gumbel else None,
+        schedule.data_ptr() if gumbel else None, pack.data_ptr(),
+        pack.numel(), scratch.data_ptr(), n_scratch, plan.tile,
+        plan.cluster, int(plan.resident), plan.ring, int(plan.smem_trees),
+        visits.data_ptr(), value.data_ptr(), qvalues.data_ptr(),
+        B, A, E, bins, spec.support_size, num_simulations, max_depth,
+        discount, pb_c_init, pb_c_base, len(dyn_width), _ints(dyn_width),
+        len(pred_width), _ints(pred_width), dev_index, stream)
+  elif not tiled:
     n_scratch = 0 if plan.smem_emb else B * (num_simulations + 1) * E
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=device)
     buffers = (flat.data_ptr(), flat.numel(),
                scratch.data_ptr() if n_scratch else None, n_scratch,
                plan.group, plan.envs_per_block, int(plan.smem_emb),
-               int(plan.smem_weights), visits.data_ptr(), value.data_ptr(),
+               visits.data_ptr(), value.data_ptr(),
                qvalues.data_ptr(),
                B, A, E, bins, spec.support_size, num_simulations, max_depth,
                discount)
@@ -903,8 +1217,10 @@ def _fused_search_cuda(root_embedding, root_prior_logits, root_value,
     categorical_launches += 1
   elif gumbel:
     gumbel_launches += 1
+    wide_gumbel_launches += isinstance(plan, WidePlan)
   else:
     launches += 1
+    wide_launches += isinstance(plan, WidePlan)
   return visits, value, qvalues
 
 

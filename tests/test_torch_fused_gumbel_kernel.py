@@ -69,8 +69,9 @@ def forced_plan(monkeypatch):
   chosen = fused.mlp_search_plan
 
   def force(group, smem_emb):
-    def plan(*args):
-      return chosen(*args, group=group)._replace(smem_emb=smem_emb)
+    def plan(*args, **kwargs):
+      return chosen(*args, group=group, **kwargs)._replace(
+          smem_emb=smem_emb)
     monkeypatch.setattr(fused, "mlp_search_plan", plan)
   return force
 
@@ -141,7 +142,9 @@ def _run_and_compare(cuda, num_actions, layers, batch, sims, max_depth,
 
 @pytest.mark.parametrize("batch", [64, 1024])
 def test_wide_towers_read_from_device_memory(cuda, batch):
-  # run_2048's triplet, its towers in device memory, under legal masks.
+  # run_2048's triplet under legal masks: the tile kernel's Gumbel mode
+  # (its towers resident at 64 boards, streamed at 1024); a repeated
+  # launch gives the same bits.
   args, invalid, gen = wide_inputs(cuda, batch)
   gumbel = gumbel_noise(gen, (batch, 4), cuda)
   kwargs = dict(num_simulations=50, support_size=300, discount=0.999,
@@ -149,11 +152,15 @@ def test_wide_towers_read_from_device_memory(cuda, batch):
   root_score, schedule = fused.gumbel_root_inputs(
       args[1], gumbel, invalid, max_num_considered_actions=16,
       num_simulations=50)
-  before = fused.gumbel_launches
+  before, wide = fused.gumbel_launches, fused.wide_gumbel_launches
   out = fused.fused_gumbel_search(
       *args, gumbel=gumbel, max_num_considered_actions=16, **kwargs)
+  again = fused.fused_gumbel_search(
+      *args, gumbel=gumbel, max_num_considered_actions=16, **kwargs)
   torch.cuda.synchronize()
-  assert fused.gumbel_launches == before + 1
+  assert (fused.gumbel_launches, fused.wide_gumbel_launches) == (
+      before + 2, wide + 2)
+  assert all(torch.equal(a, b) for a, b in zip(out, again))
   kwargs.update(root_score=root_score, schedule=schedule)
   ref = fused.fused_gumbel_search_reference(*args, **kwargs)
   assert_matches_plain_masked(out, ref, 50, invalid, args, kwargs)

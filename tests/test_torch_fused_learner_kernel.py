@@ -148,8 +148,10 @@ def test_raw_mode_matches_plain_at_embedding_32(cuda, seed):
 
 # examples/run_2048.py's triplet: A = 4, embedding 64, support 300 (601
 # bins), towers (256, 256) in all three nets, 16 observation features, at
-# its batch 256 and unroll 5: 2.3 MB of weights, which the kernel reads
-# from device memory (the plan's smem_weights is False).
+# its batch 256 and unroll 5: 2.3 MB of weights, which the cluster pass
+# stages from device memory a chunk at a time (the plan's cluster is 8: 8
+# blocks a tile of 16 windows), then the weight-gradient pass over every
+# tile.
 WIDE_CASE = dict(A=4, repr_layers=(256, 256), layers=(256, 256), support=300,
                  B=256, K=5)
 
@@ -161,15 +163,22 @@ def test_wide_towers_read_from_device_memory(cuda):
   lw = fused_learner.extract_learner_weights(net, params)
   plan = fused_learner.mlp_learner_plan(256, 5, lw,
                                         fused_learner.device_limits(cuda))
-  assert (plan.smem_weights, plan.smem_arena, plan.smem_bytes) == (
-      False, False, 0)
-  assert fused_learner.learner_blocks_per_sm(plan, cuda) >= 1
+  assert (plan.smem_arena, plan.smem_bytes) == (
+      False, fused_learner.LEARNER_CLUSTER_SMEM)
+  assert (plan.cluster, plan.blocks) == (8, 128)
+  # The plan's blocks an SM are the runtime's for the compiled cluster
+  # pass, and the card holds every cluster of the launch at once.
+  assert fused_learner.learner_blocks_per_sm(plan, cuda) == plan.blocks_per_sm
+  assert fused_learner.learner_active_clusters(plan, cuda) >= 16
+  wide = fused_learner.wide_launches
   lib = fused_learner._load_kernel()
   out = (ctypes.c_long * 2)()
   towers = fused_learner._widths(fused_learner._shapes(lw)[:3])
   assert lib.mz_mlp_learner_floats(16, 64, 4, 601, 5, *towers, out) == 0
   assert (out[0], out[1]) == fused_learner.mlp_learner_floats(lw, 5)[1:]
+  assert lib.mz_learner_cluster_smem_bytes() == plan.smem_bytes
   hold_against_plain(cuda, net, params, batch, 256, 5)
+  assert fused_learner.wide_launches == wide + 2
 
 
 def test_batch_mode_and_column_blocks(cuda):
@@ -207,7 +216,9 @@ def test_plan_agrees_with_the_kernel(cuda, layers, K, smem_arena):
   assert lib.mz_mlp_learner_floats(4, 8, 2, 41, K, *towers, out) == 0
   assert (out[0], out[1]) == (weights, arena)
   assert n_weights == lw.flat.numel()
-  assert fused_learner.learner_blocks_per_sm(plan, cuda) >= 1
+  # The plan's blocks an SM are the runtime's (which counts the compiled
+  # instance's registers, as ptxas gave them).
+  assert fused_learner.learner_blocks_per_sm(plan, cuda) == plan.blocks_per_sm
   raw, coef, lay = fused_learner.raw_from_batch(batch, K)
   wrong = plan._replace(smem_bytes=plan.smem_bytes + 4)
   chosen = fused_learner.mlp_learner_plan

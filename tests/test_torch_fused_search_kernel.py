@@ -67,8 +67,9 @@ def forced_plan(monkeypatch):
   chosen = fused.mlp_search_plan
 
   def force(group, smem_emb):
-    def plan(*args):
-      return chosen(*args, group=group)._replace(smem_emb=smem_emb)
+    def plan(*args, **kwargs):
+      return chosen(*args, group=group, **kwargs)._replace(
+          smem_emb=smem_emb)
     monkeypatch.setattr(fused, "mlp_search_plan", plan)
   return force
 
@@ -201,25 +202,90 @@ def wide_inputs(device, batch, seed=0):
           invalid, gen)
 
 
+def wide_plan(cuda, batch, gumbel=False):
+  """The plan the wrapper takes for run_2048's towers on ``batch`` roots."""
+  index = cuda.index if cuda.index is not None else 0
+  return fused.mlp_search_plan(batch, 4, 64, 50, 492278,
+                               [601, 256, 256, 256, 256], gumbel,
+                               fused.device_limits(cuda),
+                               clusters=fused.wide_active_clusters(index))
+
+
+@pytest.fixture
+def forced_wide(monkeypatch):
+  """Fix the tile kernel's instance (tile rows, cluster blocks)."""
+  def force(tile, cluster):
+    only = [i for i in fused.WIDE_INSTANCES if i[:2] == (tile, cluster)]
+    monkeypatch.setattr(fused, "WIDE_INSTANCES", tuple(only))
+
+    def plan(batch, A, E, sims, n_weights, widths, gumbel, limits, **kw):
+      return fused.wide_search_plan(batch, A, E, sims, widths[0],
+                                    *kw["towers"], gumbel, limits,
+                                    kw["clusters"])
+    monkeypatch.setattr(fused, "mlp_search_plan", plan)
+  return force
+
+
 @pytest.mark.parametrize("batch", [64, 1024])
 def test_wide_towers_read_from_device_memory(cuda, batch):
-  # run_2048's 64 boards (and 1024) x 50 simulations: the towers stay in
-  # device memory (the plan's smem_weights is False), held to the plain
-  # version as the other cases are.
+  # run_2048's 64 boards (and 1024) x 50 simulations: no block stages the
+  # whole towers, so the tile kernel runs (at 64 boards its blocks keep
+  # their shares resident, at 1024 they stream them), held to the plain
+  # version as the other cases are; a repeated launch gives the same bits.
   args, invalid, _ = wide_inputs(cuda, batch)
   kwargs = dict(num_simulations=50, support_size=300, discount=0.999,
                 invalid_actions=invalid, max_depth=None)
-  emb, logits, _, weights = args
-  plan = fused.mlp_search_plan(batch, 4, 64, 50, weights.flat().numel(),
-                               [601, 256, 256, 256, 256], False,
-                               fused.device_limits(cuda))
-  assert not plan.smem_weights
-  before = fused.launches
+  plan = wide_plan(cuda, batch)
+  assert isinstance(plan, fused.WidePlan)
+  assert plan.resident == (batch == 64)
+  before, wide = fused.launches, fused.wide_launches
   out = fused.fused_muzero_search(*args, **kwargs)
+  again = fused.fused_muzero_search(*args, **kwargs)
   torch.cuda.synchronize()
-  assert fused.launches == before + 1
+  assert (fused.launches, fused.wide_launches) == (before + 2, wide + 2)
+  assert all(torch.equal(a, b) for a, b in zip(out, again))
   ref = fused.fused_muzero_search_reference(*args, **kwargs)
   assert_matches_plain_masked(out, ref, 50, invalid, args, kwargs)
+
+
+@pytest.mark.parametrize("tile,cluster", [(16, 16), (48, 4)])
+def test_each_wide_instance(cuda, forced_wide, tile, cluster):
+  # Every instance of the tile kernel, resident (16 x 16) or streaming its
+  # share of the towers through the ring (48 x 4, whose trees lie in the
+  # device scratch), on 64 boards and a ragged 77, with a depth cap.
+  forced_wide(tile, cluster)
+  for batch, depth in ((64, None), (77, 3)):
+    args, invalid, _ = wide_inputs(cuda, batch, seed=batch)
+    kwargs = dict(num_simulations=50, support_size=300, discount=0.999,
+                  invalid_actions=invalid, max_depth=depth)
+    out = fused.fused_muzero_search(*args, **kwargs)
+    ref = fused.fused_muzero_search_reference(*args, **kwargs)
+    assert_matches_plain_masked(out, ref, 50, invalid, args, kwargs)
+
+
+@pytest.mark.parametrize("batch", [64, 1024])
+@pytest.mark.parametrize("gumbel", [False, True])
+def test_wide_plan_agrees_with_the_kernel(cuda, batch, gumbel):
+  # The plan's layout is the kernel's own (mz_wide_layout), its count of
+  # clusters the card holds at once the runtime's
+  # (cudaOccupancyMaxActiveClusters for the compiled instance), and every
+  # tile of run_2048's 64 and 1024 boards is resident in one wave.
+  plan = wide_plan(cuda, batch, gumbel)
+  lay = fused.wide_plan_layout(plan, 4, 64, 601, 50, (256, 256), (256, 256))
+  assert fused.wide_kernel_layout(plan, batch, 4, 64, 601, 50, (256, 256),
+                                  (256, 256)) == (
+      plan.smem_bytes, lay.rank_floats, lay.bias_floats, lay.n_pieces,
+      lay.slot_floats)
+  assert lay.smem_bytes == plan.smem_bytes
+  index = cuda.index if cuda.index is not None else 0
+  lib = fused._load_kernel()
+  import ctypes
+  out = ctypes.c_int(0)
+  assert lib.mz_wide_active_clusters(int(gumbel), plan.tile, plan.cluster,
+                                     plan.smem_bytes, index,
+                                     ctypes.byref(out)) == 0
+  assert plan.active_clusters == out.value > 0
+  assert plan.one_wave
 
 
 def test_wrapper_rejects_bad_inputs(cuda):

@@ -17,6 +17,13 @@ H100 = fused.DeviceLimits(sms=132, smem_per_sm=233472, smem_per_block=232448,
 BENCH_WIDTHS = [51] + [256] * 6
 
 
+def runtime_clusters(gumbel, tile, cluster, smem_bytes):
+  """The clusters of 16 and 4 blocks that the H100 held at once for the
+  wide instances at the 2048 widths, one block an SM
+  (``cudaOccupancyMaxActiveClusters``, chip_smoke.py phase 30): 7 and 30."""
+  return {16: 7, 4: 30}[cluster]
+
+
 @pytest.mark.parametrize("batch,A,sims,cluster,smem_trees,grid", [
     (1, 2, 64, 4, True, 4),
     (203, 2, 64, 4, True, 52),
@@ -157,7 +164,7 @@ def test_mlp_plan_takes_every_shape_the_warp_kernel_took(gumbel, A, E,
                              H100)
     try:
       fused.mlp_search_plan(8192, A, E, sims, n_weights, [bins, hidden],
-                            gumbel, H100)
+                            gumbel, H100, clusters=runtime_clusters)
       ok = True
     except RuntimeError as err:
       assert "do not fit" in str(err)
@@ -185,44 +192,137 @@ def _towers_floats(A, E, bins, hidden):
 
 
 @pytest.mark.parametrize("gumbel", [False, True])
-@pytest.mark.parametrize("batch,envs,warps", [(64, 1, 1), (1024, 4, 8)])
-def test_mlp_search_plan_reads_wide_towers_from_device_memory(batch, envs,
-                                                              warps, gumbel):
+@pytest.mark.parametrize("batch,tile,cluster,resident,smem_trees",
+                         [(64, 16, 16, True, True),
+                          (1024, 48, 4, False, False)],
+                         ids=["64-1-1", "1024-4-8"])  # names kept
+def test_mlp_search_plan_reads_wide_towers_from_device_memory(
+    batch, tile, cluster, resident, smem_trees, gumbel):
   # run_2048's 64 boards (and 1024) x 50 simulations: no launch stages the
-  # towers, so every launch reads them from device memory, a warp an env.
+  # whole towers in a block, so the plan takes the tile kernel, whose
+  # blocks each read a cluster's share of the towers' columns from device
+  # memory: at 64 boards tiles of 16 on clusters of 16 blocks, each
+  # holding its 132 KB share resident for the launch; at 1024 tiles of 48
+  # on clusters of 4, streaming their shares, their trees in the device
+  # scratch; every tile in one wave.
   n_weights = _towers_floats(**T2048)
   assert n_weights == 492278
   widths = [T2048["bins"], *T2048["hidden"], *T2048["hidden"]]
   plan = fused.mlp_search_plan(batch, T2048["A"], T2048["E"], 50, n_weights,
-                               widths, gumbel, H100)
-  assert not plan.smem_weights
-  assert (plan.group, plan.envs_per_block, plan.smem_emb, plan.resident,
-          plan.warps_per_sm) == (32, envs, True, True, warps)
+                               widths, gumbel, H100,
+                               clusters=runtime_clusters)
+  assert isinstance(plan, fused.WidePlan)
+  assert (plan.tile, plan.cluster, plan.resident, plan.smem_trees,
+          plan.one_wave) == (tile, cluster, resident, smem_trees, True)
+  assert plan.grid == -(-batch // tile) * cluster
+  assert plan.smem_bytes <= H100.smem_per_block
   floats = fused.mlp_env_floats(T2048["A"], T2048["E"], 50,
                                 fused.mlp_act_width(T2048["A"], T2048["E"],
                                                     widths),
-                                gumbel, plan.smem_emb)
+                                gumbel, False)
   assert fused.mlp_smem_bytes(n_weights, 1, floats) > H100.smem_per_block
-  smem = fused.mlp_smem_bytes(0, plan.envs_per_block, floats)
-  assert smem <= H100.smem_per_block
-  assert plan.blocks_per_sm * (smem + H100.smem_reserved) <= H100.smem_per_sm
   # The bench-width shapes keep their staged towers.
-  assert fused.mlp_search_plan(batch, 2, FLAGSHIP_E, 64, _mlp_n_weights(2),
-                               [FLAGSHIP_BINS, 16, 16], gumbel,
-                               H100).smem_weights
+  assert isinstance(fused.mlp_search_plan(
+      batch, 2, FLAGSHIP_E, 64, _mlp_n_weights(2), [FLAGSHIP_BINS, 16, 16],
+      gumbel, H100), fused.MLPPlan)
 
 
 def test_mlp_search_plan_refuses_only_a_tree_past_shared_memory():
-  # With the towers in device memory only one environment's own slice has
-  # to fit a block: 2,000 simulations of run_2048's tree do, 20,000 not.
+  # Towers past a block go to the tile kernel where one environment's
+  # compact tree alone would fit a block: 2,000 simulations of run_2048's
+  # tree do (the tile kernel then keeps its trees in the device scratch),
+  # 20,000 not.
   n_weights = _towers_floats(**T2048)
   widths = [T2048["bins"], *T2048["hidden"], *T2048["hidden"]]
   plan = fused.mlp_search_plan(64, T2048["A"], T2048["E"], 2000, n_weights,
-                               widths, False, H100)
-  assert not plan.smem_weights and not plan.smem_emb
+                               widths, False, H100,
+                               clusters=runtime_clusters)
+  assert isinstance(plan, fused.WidePlan) and not plan.smem_trees
   with pytest.raises(RuntimeError, match="tree exceeds"):
     fused.mlp_search_plan(64, T2048["A"], T2048["E"], 20000, n_weights,
+                          widths, False, H100, clusters=runtime_clusters)
+  # The wide plan takes the card's count of clusters; without it, none.
+  with pytest.raises(ValueError, match="clusters"):
+    fused.mlp_search_plan(64, T2048["A"], T2048["E"], 2000, n_weights,
                           widths, False, H100)
+
+
+
+def _wide_plan(batch, gumbel=False, clusters=runtime_clusters, sims=50):
+  return fused.wide_search_plan(batch, T2048["A"], T2048["E"], sims,
+                                T2048["bins"], T2048["hidden"],
+                                T2048["hidden"], gumbel, H100, clusters)
+
+
+@pytest.mark.parametrize("tile,cluster,ntw,nb,pieces,rank_floats", [
+    # Phases: dynamics (68 -> 256, 256 -> 256), its heads (256 -> 601 +
+    # 64), prediction (64 -> 256, 256 -> 256), its heads (256 -> 601 + 4);
+    # each block's columns rounded up to a multiple of 8.
+    (16, 16, 1, (16, 16, 48, 16, 16, 40), 37, 152 + 32896),
+    (16, 8, 2, (32, 32, 88, 32, 32, 80), 37, 296 + 63744),
+    (32, 4, 3, (64, 64, 168, 64, 64, 152), 37, 576 + 123392),
+    (48, 4, 3, (64, 64, 168, 64, 64, 152), 37, 576 + 123392),
+])
+def test_wide_layout_at_the_2048_widths(tile, cluster, ntw, nb, pieces,
+                                        rank_floats):
+  lay = fused.wide_layout(tile, cluster, ntw, T2048["A"], T2048["E"],
+                          T2048["bins"], 50, T2048["hidden"],
+                          T2048["hidden"], False, 2, True)
+  assert lay.nb == nb and lay.n_pieces == pieces
+  assert lay.rank_floats == rank_floats
+  assert lay.ins == (68, 256, 256, 64, 256, 256)
+  assert lay.widths == (256, 256, 665, 256, 256, 605)
+  # The ranks' columns cover each phase's width: a rank's share is the
+  # least multiple of 8 not below width / cluster.
+  assert all(cluster * n >= w and n - 8 < w / cluster
+             for n, w in zip(lay.nb, lay.widths))
+  assert lay.slot_floats == 32 * max(nb)
+  # Fewer column tiles a warp than a phase needs: the instance refuses.
+  assert fused.wide_layout(tile, cluster, ntw - 1 or 0, T2048["A"],
+                           T2048["E"], T2048["bins"], 50, T2048["hidden"],
+                           T2048["hidden"], False, 2, True) is None
+
+
+@pytest.mark.parametrize("gumbel", [False, True])
+def test_wide_plan_keeps_the_towers_resident_at_64_boards(gumbel):
+  # 64 boards: four tiles of 16 on clusters of 16 blocks; each block's
+  # share of the towers (33,048 floats, 132 KB) stays in its shared memory
+  # beside the tile's buffers and its one tree, 188 KB in all.
+  plan = _wide_plan(64, gumbel)
+  assert plan == fused.WidePlan(16, 16, True, 0, True, 188304, 64, 7, True)
+  lay = fused.wide_plan_layout(plan, T2048["A"], T2048["E"], T2048["bins"],
+                               50, T2048["hidden"], T2048["hidden"])
+  assert lay.rank_floats * 4 < plan.smem_bytes <= H100.smem_per_block
+
+
+@pytest.mark.parametrize("gumbel", [False, True])
+def test_wide_plan_streams_the_towers_at_1024_boards(gumbel):
+  # 1024 boards: 64 tiles of 16 would need 64 clusters of 16 at once, past
+  # the card's 7; 22 tiles of 48 on clusters of 4 take 88 blocks, one wave
+  # of the card's 30, each block streaming its share (496 KB) through a
+  # ring of 2 pieces of 32 rows, its twelve trees in the device scratch.
+  plan = _wide_plan(1024, gumbel)
+  assert (plan.tile, plan.cluster, plan.resident, plan.ring,
+          plan.smem_trees, plan.grid, plan.active_clusters,
+          plan.one_wave) == (48, 4, False, 2, False, 88, 30, True)
+  lay = fused.wide_plan_layout(plan, T2048["A"], T2048["E"], T2048["bins"],
+                               50, T2048["hidden"], T2048["hidden"])
+  assert lay.rank_floats * 4 > H100.smem_per_block
+  assert plan.smem_bytes + 4 * lay.slot_floats > H100.smem_per_block
+
+
+def test_wide_plan_follows_the_runtime_cluster_count():
+  # Where the card holds fewer clusters of 16 than the tiles (the runtime's
+  # count), the next instance that holds every tile at once wins; where
+  # none does, the most environments in flight.
+  def few(gumbel, tile, cluster, smem):
+    return {16: 3, 4: 33}[cluster]
+  assert (_wide_plan(48, clusters=few).cluster, _wide_plan(
+      64, clusters=few).cluster, _wide_plan(256, clusters=few).cluster) == (
+          16, 4, 4)
+  plan = _wide_plan(8192, clusters=few)
+  assert (plan.tile, plan.cluster, plan.one_wave) == (48, 4, False)
+  assert plan.grid == -(-8192 // 48) * 4
 
 
 def test_mlp_env_floats():
@@ -336,24 +436,34 @@ def test_learner_plan_takes_every_shape_the_warp_kernel_took():
 def test_learner_plan_refuses_weights_past_shared_memory():
   # Towers of (256, 256) hold about 150 K floats of weights: more than a
   # block's 58 K, which the one-warp-per-window kernel refused. The plan
-  # takes them: the weights stay in device memory, the arena in the
-  # scratch, and no shared memory is left to size.
+  # takes them: the weights stay in device memory, staged a chunk at a
+  # time through the cluster pass's ring, and the arena in the scratch.
   lw = _learner_shapes(2, (256,), (256, 256), 20)
   assert not _parent_learner_accepts(lw, 5, H100)
   plan = fused_learner.mlp_learner_plan(4096, 5, lw, H100)
   n_weights, weights, arena = fused_learner.mlp_learner_floats(lw, 5)
   assert 4 * weights > H100.smem_per_block
-  assert (plan.smem_weights, plan.smem_arena, plan.smem_bytes) == (
-      False, False, 0)
-  assert plan.scratch_floats == plan.blocks * (n_weights + arena)
+  assert (plan.smem_arena, plan.smem_bytes) == (
+      False, fused_learner.LEARNER_CLUSTER_SMEM)
+  assert 2 * (plan.smem_bytes + H100.smem_reserved) <= H100.smem_per_sm
+  # The cluster pass: 256 tiles of 16 windows, two blocks a tile (the most
+  # that keep two blocks an SM), each tile's arena in the scratch, each
+  # block's staging ring in its shared memory.
+  assert (plan.cluster, plan.blocks) == (2, 512)
+  assert plan.scratch_floats == plan.blocks // plan.cluster * arena
 
 
-@pytest.mark.parametrize("B,blocks,per_sm,warps", [(256, 16, 2, 8),
-                                                   (16, 1, 2, 8)])
+@pytest.mark.parametrize("B,blocks,per_sm,warps", [(256, 128, 2, 8),
+                                                   (16, 8, 2, 8)],
+                         ids=["256-16-2-8", "16-1-2-8"])
 def test_learner_plan_at_the_2048_example(B, blocks, per_sm, warps):
   # run_2048's triplet (observations 4 x 4, towers (256, 256) in all three,
   # embedding 64, 601 bins, A = 4) at its batch 256, unroll K = 5: 2.3 MB
-  # of weights, read from device memory.
+  # of weights, staged from device memory by the cluster pass, 8 blocks a
+  # tile of 16 windows (128 blocks at batch 256 rather than 16; ids: the
+  # batch, its tiles, blocks an SM, warps on the busiest SM), each block's
+  # staging ring in shared memory, the tiles' arenas in the scratch and no
+  # rows of partial sums.
   lw = fused_learner.LearnerWeights(
       repr_layers=(256, 256), pred_layers=(256, 256), dyn_layers=(256, 256),
       obs_dim=16, embedding_dim=64, num_actions=4, support_size=300,
@@ -362,7 +472,8 @@ def test_learner_plan_at_the_2048_example(B, blocks, per_sm, warps):
   assert n_weights == 578870
   plan = fused_learner.mlp_learner_plan(B, 5, lw, H100)
   assert plan == fused_learner.LearnerPlan(
-      blocks, False, 0, blocks * (n_weights + arena), per_sm, warps, False)
+      blocks, False, fused_learner.LEARNER_CLUSTER_SMEM, blocks // 8 * arena,
+      per_sm, warps, 8)
 
 
 # ---- the Stochastic MuZero launch plan (``fused_smz_kernel``) ---------------

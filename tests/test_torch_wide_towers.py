@@ -4,21 +4,24 @@ support 300: 601 bins, towers (256, 256); Stochastic MuZero with 32 chance
 outcomes), whose weights no longer fit a block's shared memory, against
 the JAX package on the CPU: the searches against the Pallas kernels in
 interpret mode (4 envs x 16 simulations, under legal masks), the learner
-against the Pallas learner in interpret mode (batch 16, K = 5).
+against the Pallas learner in interpret mode (batch 16, K = 5); and the
+tile kernel's towers as each cluster rank's pack holds them.
 
 Tolerances as ``tests/test_fused.py:56-60`` (at most 2 visits apart, root
 value rtol = atol = 1e-3, q where the visits agree) and
 ``tests/test_fused_learner.py:67-79`` (gradients rtol 2e-4 / atol 1e-6,
 loss metrics rtol 1e-5, priorities rtol 1e-4); the Stochastic MuZero
 search as ``tests/test_fused_smz.py:58-66`` (decision visits within 2,
-root values rtol = atol = 1e-3). The kernels' global-weight modes are
-held against these plain versions on the card
+root values rtol = atol = 1e-3). The kernels' wide modes (the MLP
+search's tile kernel, the MLP learner's cluster pass, the SMZ search's
+global-weight instance) are held against these plain versions on the card
 (``tests/test_torch_fused_search_kernel.py``,
 ``tests/test_torch_fused_gumbel_kernel.py``,
 ``tests/test_torch_fused_learner_kernel.py``,
 ``tests/test_torch_smz_kernels.py``).
 """
 import jax.numpy as jnp
+import pytest
 import numpy as np
 import torch
 
@@ -115,3 +118,48 @@ def test_plain_smz_search_matches_jax_kernel_at_2048_widths():
   np.testing.assert_allclose(root_value.numpy(), np.asarray(ref[1]),
                              rtol=1e-3, atol=1e-3)
   assert float(visits[torch.from_numpy(invalid) > 0].abs().max()) == 0.0
+
+
+# The kernel's instances (fused.WIDE_INSTANCES: 16 x 16 and 48 x 4) and
+# two other cuts of the same packing, by 8 and by 4 ranks.
+@pytest.mark.parametrize("tile,cluster,ntw", [(16, 16, 1), (16, 8, 2),
+                                              (32, 4, 3), (48, 4, 3)])
+def test_wide_pack_holds_every_weight_once_at_2048_widths(tile, cluster,
+                                                          ntw):
+  # The tile kernel reads the towers as each cluster rank's pack
+  # (pack_wide_towers): per phase the rank's columns of the phase's
+  # linears side by side, zero past the input rows and the width. Put back
+  # together over the ranks, every phase's [in, width] matrix and bias are
+  # the towers' own, bit for bit, and the rank-by-rank products add up to
+  # the plain layer's.
+  _, _, net, params = nets(WIDE, obs_dim=16)
+  weights = fused.extract_fused_weights(net, params)
+  flat = weights.flat()
+  lay = fused.wide_layout(tile, cluster, ntw, 4, 64, 601, 50, (256, 256),
+                          (256, 256), False, 2, True)
+  pack = fused.pack_wide_towers(flat, cluster, 4, 64, 601, (256, 256),
+                                (256, 256)).view(cluster, lay.rank_floats)
+  assert pack.shape[1] == lay.rank_floats
+  phases = [[weights.dyn_hidden[0]], [weights.dyn_hidden[1]],
+            [weights.dyn_reward, weights.dyn_state],
+            [weights.pred_hidden[0]], [weights.pred_hidden[1]],
+            [weights.pred_value, weights.pred_policy]]
+  rng = np.random.default_rng(3)
+  for p, linears in enumerate(phases):
+    W = torch.cat([w for w, _ in linears], 1)
+    b = torch.cat([bias for _, bias in linears])
+    d_in, width, nb, in8 = lay.ins[p], lay.widths[p], lay.nb[p], lay.in8[p]
+    got_w = torch.cat([pack[r, lay.w_off[p]:lay.w_off[p] + in8 * nb]
+                       .view(in8, nb) for r in range(cluster)], 1)
+    got_b = torch.cat([pack[r, lay.b_off[p]:lay.b_off[p] + nb]
+                       for r in range(cluster)])
+    assert torch.equal(got_w[:d_in, :width], W)
+    assert torch.equal(got_b[:width], b)
+    assert not got_w[d_in:].any() and not got_w[:, width:].any()
+    assert not got_b[width:].any()
+    x = torch.from_numpy(rng.standard_normal((tile, in8)).astype(np.float32))
+    x[:, d_in:] = 0.0
+    parts = torch.cat([x @ got_w[:, r * nb:(r + 1) * nb]
+                       for r in range(cluster)], 1)[:, :width]
+    torch.testing.assert_close(parts + b, x[:, :d_in] @ W + b, rtol=0,
+                               atol=0)

@@ -1,10 +1,12 @@
 """Phase 30 of ``chip_smoke.py`` alone: the 2048 host path at
 ``examples/run_2048.py``'s width.
 
-Builds every kernel (printing the ``ptxas`` figures of the MLP search's
-and learner's instances), then holds the search kernel's global-weight
-mode (MuZero and Gumbel, 64 and 1024 boards x 50 simulations under legal
-masks) and the learner's (batch 256, K = 5) against their plain versions,
+Builds every kernel (printing the ``ptxas`` figures of the wide search's
+and learner's instances), then holds the search kernel's wide mode
+(``fused_search_wide_kernel``, MuZero and Gumbel, 64 and 1024 boards x 50
+simulations under legal masks) and the learner's (``mlp_cluster_kernel``
+with the weight-gradient pass, batch 256, K = 5) against their plain
+versions,
 and runs ``fit`` on the native 2048 pool at the example's config, printing
 one JSON line. Needs a CUDA card; run from the repository's root:
 
@@ -37,7 +39,8 @@ def main():
   print(card)
   ptxas = cs.ptxas_figures(_build.build_all())
   for label, fig in ptxas.items():
-    if "fused_search_kernel" in label or "mlp_tile_kernel" in label:
+    if ("fused_search_wide_kernel" in label or "mlp_cluster_kernel" in label
+        or "categorical_dw_kernel" in label):
       print(f"  ptxas {label}: {json.dumps(fig)}")
   t0 = time.perf_counter()
   out = {"card": card, "30": cs.host_2048_phase(dev, os.getcwd(), ptxas)}

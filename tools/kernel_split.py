@@ -4,7 +4,8 @@ Run from the root of a checkout (its ``muax_tpu_torch`` package and
 ``csrc/`` are the ones measured):
 
   python3 tools/kernel_split.py [--out FILE]
-      [--only mlp|learner|categorical|smz|sampler] [--against OTHER]
+      [--only mlp|learner|categorical|smz|sampler|wide|digests]
+      [--against OTHER]
 
 The MLP search (``fused_search_kernel``, both policies) is timed at 8192
 and 1024 envs x 64 simulations at the flagship widths (A = 2, embedding 8,
@@ -13,7 +14,14 @@ with each lane-group size G; then a copy of its source
 with per-warp ``clock64()`` stamps at the kernel's section comments (the
 descent, the expansion, the install and backup) and around the Gumbel mode's
 mix value gives each section's share of the warp-cycles (lane 0 of each
-warp stamps; the mix value's share is part of the descent's).
+warp stamps; the mix value's share is part of the descent's). Then its
+wide mode at ``examples/run_2048.py``'s widths (``fused_search_wide_kernel``
+for towers past a block's shared memory; in a checkout before it, the
+global-weight instance) at 64 and 1024 boards x 50 simulations on phase
+30's roots, both policies: CUDA events, then a stamped copy's cycles of
+each section (the walk, each phase of products, the decodes, the install
+and backup; per block, or per warp in the older instance) and their
+shares.
 
 The MLP learner (``--only learner``) is timed at batch 4096 and the
 flagship widths (embedding 8, support 20, hidden (16,), K = 5; a seeded
@@ -25,7 +33,11 @@ pass's block-cycles (the forward with the staging of the weights; the
 backward, with the prediction tower's weight gradients on the warps its
 stages leave idle; the other weight gradients) and the share of the
 stages of tile products; the finish pass, which adds the blocks' rows, is
-a kernel of its own, timed by the profiler.
+a kernel of its own, timed by the profiler. Then the wide learner (batch
+256, K = 5, phase 30's windows): CUDA events, each kernel's device time,
+and the shares of a stamped copy (the cluster pass's forward and
+backward, or the older tile pass's sections). ``--only wide`` runs the two
+wide cases alone.
 
 For the categorical family it times the learner at batch 1024 (``categorical_training``'s
 batch, bench widths: embedding 64, towers (256, 256, 256), 51 bins) and the
@@ -68,8 +80,13 @@ lines must keep.
 With ``--against OTHER`` (the root of another checkout, such as the parent
 commit unpacked with ``git archive``) it instead compares the two
 checkouts, each run a fresh process with its checkout's own package (and
-``chip_smoke.py``), after both have built their kernels: the MLP learner
-as above (CUDA events, each kernel, a digest of its outputs), its
+``chip_smoke.py``), after both have built their kernels: first a digest of
+the outputs of every staged and categorical instance (``DIGEST_RUN``;
+``digests_equal`` says which agree; ``--only digests`` stops there), then
+the MLP learner
+as above (CUDA events, each kernel, a digest of its outputs) and the
+categorical learner at batch 1024 (CUDA events, each kernel), the MLP
+learner's
 priorities at embedding 32 against the plain version in float32 and in
 float64 (``priority_probe``, once per checkout), then the MLP
 training iterations, ``chip_smoke.py``'s phases 6 and 10, each in the order
@@ -214,8 +231,10 @@ _LEARNER_END = ("  cat_tower_bwd(rp, weights, base, 0, T, dx0, dx1, nullptr, 0,"
                 " warp, lane);\n}")
 LEARNER_MARKS = [
     (_LEARNER_START, _LEARNER_START + "  STAMP_INIT\n"),
-    ("  // ---- backward: prediction over every step",
-     "  STAMP(0)\n  // backward"),
+    ("  // ---- backward: prediction over every step ----------------------"
+     "----------\n  for (int r = warp; r < KT; r += kCatWarps) {",
+     "  STAMP(0)\n  // backward\n"
+     "  for (int r = warp; r < KT; r += kCatWarps) {"),
     (_LEARNER_END, _LEARNER_END[:-1] + "  STAMP(1)\n}")]
 
 # The search's simulation loop (the initialisation is not stamped); the
@@ -291,7 +310,11 @@ def build_stamped(build, which):
                        lambda s: _stamped(s, TILE_LEARNER_MARKS, False),
                        TILE_LEARNER_SECTIONS),),
           "smz": (("fused_smz_split", "fused_smz", _smz_stamped,
-                   SMZ_SECTIONS),)}
+                   SMZ_SECTIONS),),
+          "wide": (("fused_search_wide", "fused_search", _wide_stamped,
+                    ()),),
+          "wide_learner": (("fused_learner_wide", "fused_learner",
+                            _wide_learner_stamped, ()),)}
   for key in which:
     for name, source, stamp, names[name] in jobs[key]:
       src = (csrc / f"{source}.cu").read_text()
@@ -547,7 +570,8 @@ def mlp_split(res, build):
   for key, fn in cases.items():
     res[key] = {"ms": events_ms(fn, 10)}
     for group in fused.MLP_GROUPS:  # each lane-group size, for the record
-      fused.mlp_search_plan = lambda *a, group=group: chosen(*a, group=group)
+      fused.mlp_search_plan = lambda *a, group=group, **kw: chosen(
+          *a, group=group, **kw)
       try:
         res[key][f"ms_group_{group}"] = events_ms(fn, 10)
       finally:
@@ -556,6 +580,7 @@ def mlp_split(res, build):
   libs, _ = build_stamped(build, ["mlp"])
   for key, fn in cases.items():
     res[key]["sections"] = mlp_shares(fn, libs)
+  wide_split(res, build)
 
 
 def learner_split(res, dev, build):
@@ -586,6 +611,7 @@ def learner_split(res, dev, build):
   libs, names = build_stamped(build, ["learner"])
   out["sections"], out["products"] = shares(
       "fused_learner_mlp", learn, libs, names, "fused_learner")
+  wide_learner_split(res, dev, build)
 
 
 # The MLP learner in a checkout: its ms per launch (CUDA events), each
@@ -604,9 +630,16 @@ fn = lambda: fused_learner._grad_cuda(lw, raw, coef, lay, l2_coef=1e-4,
                                       gradient_scale=0.5)
 digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
                                  for t in fn())).hexdigest()[:16]
+cnet, cparams, craw, ccoef, clay = ks.learner_case(torch.device("cuda", 0))
+spec = fused_learner.extract_categorical_learner_spec(cnet, cparams)
+cfn = lambda: fused_learner._grad_cuda(spec, craw, ccoef, clay,
+                                       l2_coef=1e-4, gradient_scale=0.5)
 print("LEARNER " + json.dumps({"ms": ks.events_ms(fn, 50),
                                "by_kernel_ms": ks.by_kernel_ms(fn, 20),
-                               "outputs_sha256": digest}))
+                               "outputs_sha256": digest,
+                               "categorical_ms": ks.events_ms(cfn, 20),
+                               "categorical_by_kernel_ms":
+                                   ks.by_kernel_ms(cfn, 10)}))
 '''.replace("TOOLS", repr(os.path.dirname(os.path.abspath(__file__))))
 PRIORITY_RUN = r'''
 import json, sys, torch
@@ -715,6 +748,13 @@ def against(other, only=None):
 
   order = ("other", "this", "this", "other")
   out = {}
+  if only not in ("smz", "sampler"):
+    runs = [child(label, DIGEST_RUN, "DIGESTS") for label in roots]
+    out["digests"] = runs
+    out["digests_equal"] = {k: runs[0][k] == runs[1][k]
+                            for k in runs[0] if k != "checkout"}
+    if only == "digests":
+      return out
   if only == "smz":
     trained_smz_params(torch.device("cuda", 0))  # trained once, for both
     code = SMZ_RUN.replace("TRAINED", repr(os.path.abspath(SMZ_TRAINED)))
@@ -1095,7 +1135,8 @@ def main():
   parser.add_argument("--build", default="build/split",
                       help="directory for the stamped copies")
   parser.add_argument("--only", choices=("mlp", "learner", "categorical",
-                                          "smz", "sampler"),
+                                          "smz", "sampler", "wide",
+                                          "digests"),
                       default=None, help="split only the MLP search, the "
                       "MLP learner, the categorical kernels, the Stochastic "
                       "MuZero search or the sampler")
@@ -1116,8 +1157,8 @@ def main():
       capture_output=True, text=True, check=True).stdout.strip()
   res = {"card": card}
   if opts.against:
-    if opts.only == "categorical":
-      parser.error("--against does not compare the categorical kernels")
+    if opts.only in ("categorical", "wide"):
+      parser.error(f"--against does not compare --only {opts.only}")
     res.update(against(opts.against, opts.only))
   else:
     if opts.only in (None, "mlp"):
@@ -1130,10 +1171,338 @@ def main():
       smz_split(res, dev, opts.build)
     if opts.only in (None, "sampler"):
       res["sampler"] = sampler_times(dev)
+    if opts.only == "wide":
+      wide_split(res, opts.build)
+      wide_learner_split(res, dev, opts.build)
+    if opts.only == "digests":
+      parser.error("--only digests goes with --against")
   print(json.dumps(res))
   if opts.out:
     with open(opts.out, "w") as f:
       json.dump(res, f, indent=1)
+
+
+# ---- the wide-tower instances (rows 1, 2 and 5a "wide") ------------------
+#
+# examples/run_2048.py's networks (A = 4, embedding 64, support 300,
+# towers (256, 256): 492,278 search floats, 578,870 learner floats, past a
+# block's shared memory), on the roots of native-pool boards after 24
+# random legal moves under their legal masks (chip_smoke.py phase 30's
+# inputs), at 64 and 1024 boards x 50 simulations, both policies; the
+# learner at the example's batch 256, K = 5, on phase 30's windows.
+WIDE_BOARDS = (64, 1024)
+
+# Per-section stamps of the wide search: thread 0 of each block (or, in a
+# copy of the global-weight instance of a checkout before the tile design,
+# lane 0 of each warp) adds the cycles since its last stamp to its slot.
+WIDE_PRE = r"""
+__device__ unsigned long long g_wsec[16];
+#define WSTAMP_INIT long long _last = clock64(); \
+  unsigned long long _acc[16] = {};
+#define WSTAMP(k) { long long _n = clock64(); _acc[k] += _n - _last; \
+  _last = _n; }
+#define WSTAMP_FLUSH(who) if (who) { \
+  for (int _k = 0; _k < 16; ++_k) atomicAdd(&g_wsec[_k], _acc[_k]); }
+"""
+WIDE_POST = r"""
+extern "C" int split_reset() {
+  void* p;
+  cudaGetSymbolAddress(&p, g_wsec);
+  return cudaMemset(p, 0, sizeof(g_wsec));
+}
+extern "C" int split_read(unsigned long long* out) {
+  return cudaMemcpyFromSymbol(out, g_wsec, sizeof(g_wsec));
+}
+"""
+# The global-weight instance (fused_search_kernel<policy, G, false>, a warp
+# an environment): the walk, the dynamics' hidden layers, the reward head
+# and its decode, the next-state head and normaliser, the prediction's
+# hidden layers, the value head and its decode, the policy head and its
+# softmax, the install and backup; per warp.
+WIDE_LDG_SECTIONS = ("walk", "dyn_hidden", "reward_head_decode",
+                     "state_head_norm", "pred_hidden", "value_head_decode",
+                     "policy_head_softmax", "install_backup")
+WIDE_LDG_MARKS = [
+    ('#include "group_mlp.cuh"\n', '#include "group_mlp.cuh"\n' + WIDE_PRE),
+    ("  for (int sim = 0; sim < args.num_simulations; ++sim) {\n",
+     "  WSTAMP_INIT\n"
+     "  for (int sim = 0; sim < args.num_simulations; ++sim) {\n"),
+    ("    // ---- descent ---", "    WSTAMP(7)\n    // ---- descent ---"),
+    ("    // ---- expansion:", "    WSTAMP(0)\n    // ---- expansion:"),
+    ("    float* ns = bufs[k];  // the reward logits",
+     "    WSTAMP(1)\n    float* ns = bufs[k];  // the reward logits"),
+    ("    p += in * S41 + S41;\n    float lo = INFINITY",
+     "    p += in * S41 + S41;\n    WSTAMP(2)\n    float lo = INFINITY"),
+    ("    p = towers + args.pred_offset;\n",
+     "    WSTAMP(3)\n    p = towers + args.pred_offset;\n"),
+    ("    const float value = decode_head<G, kLdg>(",
+     "    WSTAMP(4)\n    const float value = decode_head<G, kLdg>("),
+    ("    float* prior = t.cpri + slot * A;\n",
+     "    WSTAMP(5)\n    float* prior = t.cpri + slot * A;\n"),
+    ("    // ---- install (running mean)",
+     "    WSTAMP(6)\n    // ---- install (running mean)"),
+    ("    g.sync();\n  }\n\n  // ---- the root summary",
+     "    g.sync();\n  }\n  WSTAMP(7)\n  WSTAMP_FLUSH((threadIdx.x & 31) == 0)"
+     "\n\n  // ---- the root summary")]
+# The tile kernel (fused_search_wide_kernel), per block (thread 0): the
+# walk and its barrier; each phase (the product with its staging waits,
+# the epilogue's stores into the cluster, the barrier), here the 2048
+# net's two hidden layers and heads of each tower; the reward decode and
+# the next state's normaliser; the value decode, install and backup.
+WIDE_TILE_SECTIONS = ("walk", "dyn_hidden_0", "dyn_hidden_1", "dyn_heads",
+                      "pred_hidden_0", "pred_hidden_1", "pred_heads",
+                      "reward_decode_norm", "value_decode_install_backup")
+WIDE_TILE_MARKS = [
+    ('#include "group_mlp.cuh"\n', '#include "group_mlp.cuh"\n' + WIDE_PRE),
+    ("  for (int sim = 0; sim < wa.num_simulations; ++sim) {\n",
+     "  WSTAMP_INIT\n"
+     "  for (int sim = 0; sim < wa.num_simulations; ++sim) {\n"),
+    ("    // ---- walk: each env's descent",
+     "    WSTAMP(8)\n    // ---- walk: each env's descent"),
+    ("    // ---- dynamics: hidden layers, then both heads",
+     "    WSTAMP(0)\n    // ---- dynamics: hidden layers, then both heads"),
+    ("      cluster.sync();  // the dynamics' layer p is whole in every block\n",
+     "      cluster.sync();  // the dynamics' layer p is whole in every block\n"
+     "      WSTAMP(1 + p)\n"),
+    ("    cluster.sync();  // the dynamics' heads are whole where they are "
+     "read\n",
+     "    cluster.sync();  // the dynamics' heads are whole where they are "
+     "read\n    WSTAMP(1 + wa.n_dyn)\n"),
+    ("    // ---- prediction: hidden layers, then the value and policy heads",
+     "    WSTAMP(7)\n"
+     "    // ---- prediction: hidden layers, then the value and policy heads"),
+    ("      cluster.sync();  // the prediction's layer p is whole in every "
+     "block\n",
+     "      cluster.sync();  // the prediction's layer p is whole in every "
+     "block\n      WSTAMP(1 + p)\n"),
+    ("    cluster.sync();  // the prediction's heads are whole where they are "
+     "read\n",
+     "    cluster.sync();  // the prediction's heads are whole where they are "
+     "read\n    WSTAMP(1 + p_heads)\n"),
+    ("  // ---- the root summary of each env\n",
+     "  WSTAMP(8)\n  WSTAMP_FLUSH(threadIdx.x == 0)\n"
+     "  // ---- the root summary of each env\n")]
+
+
+def wide_marks(src):
+  """The wide search's stamps and section names for the source at hand:
+  the tile kernel's (fused_search_wide_kernel), or the global-weight
+  instance's in a checkout that still has it."""
+  if "fused_search_wide_kernel" in src:
+    return WIDE_TILE_MARKS, WIDE_TILE_SECTIONS
+  return WIDE_LDG_MARKS, WIDE_LDG_SECTIONS
+
+
+def _wide_stamped(src):
+  for old, new in wide_marks(src)[0]:
+    src = _one(src, old, new)
+  return src + WIDE_POST
+
+
+def wide_search_case(dev, B, policy):
+  """(launch, net, inputs) of the wide search on B boards: chip_smoke.py
+  phase 30's roots and masks."""
+  import chip_smoke
+  from muax_tpu_torch.examples import run_2048
+  from muax_tpu_torch.replay.buffer import gumbel_noise
+  from muax_tpu_torch.search import fused
+  from muax_tpu_torch.train.inference import make_root_fn
+  _, _, net, _, _ = run_2048.setup(num_envs=1, device=dev)
+  params = net.init_params((4, 4), torch.Generator().manual_seed(0))
+  obs, legal = chip_smoke.host_boards(dev, B, chip_smoke.HOST_BOARD_MOVES)
+  with torch.no_grad():
+    root = make_root_fn(net)(params, obs)
+  invalid = (1.0 - legal).contiguous()
+  logits = torch.where(invalid > 0, -1e9, root.prior_logits).contiguous()
+  weights = fused.extract_fused_weights(net, params)
+  args = (root.embedding.contiguous(), logits, root.value.contiguous(),
+          weights)
+  kw = dict(num_simulations=chip_smoke.HOST_SIMS,
+            support_size=net.support_size, discount=0.999,
+            invalid_actions=invalid, max_depth=None)
+  if policy == "gumbel":
+    noise = gumbel_noise(torch.Generator(device=dev).manual_seed(0),
+                         tuple(logits.shape), dev)
+    kw["root_score"], kw["schedule"] = fused.gumbel_root_inputs(
+        logits, noise, invalid, max_num_considered_actions=16,
+        num_simulations=chip_smoke.HOST_SIMS)
+  return lambda: fused._fused_search_cuda(*args, **kw)
+
+
+def wide_split(res, build):
+  """The wide search at 64 and 1024 boards, both policies: ms (CUDA
+  events), then each section's cycles a simulation and share, from a
+  stamped copy."""
+  from muax_tpu_torch import _build
+  cases = {f"wide_{p}_{B}": wide_search_case(torch.device("cuda", 0), B, p)
+           for B in WIDE_BOARDS for p in ("muzero", "gumbel")}
+  for key, fn in cases.items():
+    res[key] = {"ms": events_ms(fn, 5)}
+  print(json.dumps(res), flush=True)
+  src = (pathlib.Path(_build.__file__).parent / "csrc"
+         / "fused_search.cu").read_text()
+  sections = wide_marks(src)[1]
+  libs, _ = build_stamped(build, ["wide"])
+  for key, fn in cases.items():
+    buf = _stamped_run("fused_search_wide", "fused_search", fn, libs, 16)
+    whole = sum(buf[:len(sections)])
+    res[key]["section_share"] = {s: buf[k] / whole
+                                 for k, s in enumerate(sections)}
+    res[key]["section_cycles"] = {s: buf[k] for k, s in enumerate(sections)}
+
+
+def wide_learner_case(dev):
+  """(net, params, raw, coef, layout) of the wide learner: chip_smoke.py
+  phase 30's windows of 256 boards, K = 5."""
+  import chip_smoke
+  from muax_tpu_torch.examples import run_2048
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.types import Transition
+  _, _, net, _, _ = run_2048.setup(num_envs=1, device=dev)
+  params = net.init_params((4, 4), torch.Generator().manual_seed(0))
+  obs, _ = chip_smoke.host_boards(dev, chip_smoke.HOST_CHECK_ENVS,
+                                  chip_smoke.HOST_BOARD_MOVES)
+  B, K = chip_smoke.HOST_BATCH, chip_smoke.HOST_UNROLL
+  gen = torch.Generator(device=dev).manual_seed(3)
+  pick = torch.randint(0, obs.shape[0], (B, K), generator=gen, device=dev)
+  lengths = torch.randint(1, K + 1, (B,), generator=gen, device=dev)
+  merges = torch.rand((B, K), generator=gen, device=dev) < 0.4
+  batch = Transition(
+      obs=obs.reshape(obs.shape[0], -1)[pick],
+      action=torch.randint(0, 4, (B, K), generator=gen, device=dev),
+      reward=torch.where(merges, 2.0 ** torch.randint(
+          2, 9, (B, K), generator=gen, device=dev).float(), 0.0),
+      done=torch.zeros((B, K), dtype=torch.bool, device=dev),
+      rn=torch.rand((B, K), generator=gen, device=dev) * 400.0,
+      value=torch.zeros((B, K), device=dev),
+      pi=torch.softmax(torch.randn((B, K, 4), generator=gen, device=dev),
+                       -1),
+      weight=torch.rand((B,), generator=gen, device=dev) + 0.5,
+      mask=(torch.arange(K, device=dev)[None] < lengths[:, None]).float())
+  raw, coef, lay = fused_learner.raw_from_batch(batch, K)
+  return net, params, raw, coef, lay
+
+
+# The wide learner's stamps: block stamps at its sections, as
+# TILE_LEARNER_MARKS place them in the tile pass of a checkout whose wide
+# learner is an instance of mlp_tile_kernel.
+# The cluster pass (mlp_cluster_kernel): block stamps at its forward and
+# backward, and each stage of products timed by thread 0 from its start
+# (its copies and products) to its cluster barrier's end; the
+# weight-gradient pass is a kernel of its own, timed by the profiler.
+WIDE_LEARNER_SECTIONS = ("forward", "backward")
+_CLUSTER_STAGE_START = ("                              const Out& o2, "
+                        "float* sm) {\n  namespace cg = cooperative_groups;\n")
+_CLUSTER_STAGE_END = ("hi - n1, sm);\n  cluster.sync();\n}\n")
+_CLUSTER_END = ("  for (int l = l_rhead; l > 0; --l) bwd(l, 0, T);\n}\n\n"
+                "// The linear table")
+WIDE_LEARNER_MARKS = [
+    (_CLUSTER_STAGE_START,
+     _CLUSTER_STAGE_START + "  const long long _g0 = clock64();\n"),
+    (_CLUSTER_STAGE_END, _CLUSTER_STAGE_END[:-2] + "  if (threadIdx.x == 0) "
+     "g_gemm_cycles[blockIdx.x] += clock64() - _g0;\n}\n"),
+    ("  // ---- cluster forward: the start observations",
+     "  STAMP_INIT\n  // ---- cluster forward: the start observations"),
+    ("  // ---- cluster backward: prediction over every step",
+     "  STAMP(0)\n  // ---- cluster backward: prediction over every step"),
+    (_CLUSTER_END, _CLUSTER_END.replace("T);\n}", "T);\n  STAMP(1)\n}"))]
+
+
+def wide_learner_marks(src):
+  """The wide learner's stamps and section names for the source at hand."""
+  if "mlp_cluster_kernel" in src:
+    return WIDE_LEARNER_MARKS, WIDE_LEARNER_SECTIONS
+  return TILE_LEARNER_MARKS, TILE_LEARNER_SECTIONS
+
+
+def _wide_learner_stamped(src):
+  return _stamped(src, wide_learner_marks(src)[0], False)
+
+
+def wide_learner_split(res, dev, build):
+  """The wide learner at batch 256, K = 5: ms (CUDA events), each kernel's
+  device ms (torch.profiler), its plan, then each section's share of the
+  stamped kernel's block-cycles and the products' share within it."""
+  from muax_tpu_torch import _build
+  from muax_tpu_torch.device import device_limits
+  from muax_tpu_torch.models import fused_learner
+  net, params, raw, coef, lay = wide_learner_case(dev)
+  lw = fused_learner.extract_learner_weights(net, params)
+
+  def learn():
+    return fused_learner._grad_cuda(lw, raw, coef, lay, l2_coef=1e-4,
+                                    gradient_scale=0.5)
+
+  plan = fused_learner.mlp_learner_plan(raw.shape[1], lay.K, lw,
+                                        device_limits(dev))
+  out = res["wide_learner"] = {"ms": events_ms(learn, 20),
+                               "by_kernel_ms": by_kernel_ms(learn, 10),
+                               "plan": plan._asdict()}
+  print(json.dumps(res), flush=True)
+  src = (pathlib.Path(_build.__file__).parent / "csrc"
+         / "fused_learner.cu").read_text()
+  sections = wide_learner_marks(src)[1]
+  libs, _ = build_stamped(build, ["wide_learner"])
+  buf = _stamped_run("fused_learner_wide", "fused_learner", learn, libs,
+                     4096 * 8)
+  tot = [sum(buf[b * 8 + k] for b in range(4096)) for k in range(8)]
+  whole = sum(tot[:len(sections)])
+  out["section_share"] = {s: tot[k] / whole for k, s in enumerate(sections)}
+  out["product_share"] = {s: tot[4 + k] / whole
+                          for k, s in enumerate(sections)}
+  out["block_cycles"] = {s: tot[k] for k, s in enumerate(sections)}
+
+
+# Every staged and categorical instance, in a checkout: a digest of its
+# outputs on fixed inputs (the MLP search at 1024 envs with each G, both
+# policies; the categorical search at 512 envs with clusters of 2 and 4,
+# trees in shared memory and in the scratch, both policies; the MLP learner
+# at batch 4096 and on the CartPole notebook's towers at K = 11, whose
+# arena lies in the scratch; the categorical learner at batch 1024).
+DIGEST_RUN = r"""
+import hashlib, json, sys, torch
+sys.path[:0] = [".", TOOLS]
+import kernel_split as ks
+from muax_tpu_torch.models import fused_learner
+from muax_tpu_torch.search import fused
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+def digest(ts):
+  return hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                 for t in ts)).hexdigest()[:16]
+out = {}
+mlp_plan, tiled_plan = fused.mlp_search_plan, fused.tiled_plan
+for policy in ("muzero", "gumbel"):
+  fn = ks.mlp_case(dev, 1024, policy)
+  for group in fused.MLP_GROUPS:
+    fused.mlp_search_plan = lambda *a, g=group, **kw: mlp_plan(
+        *a, group=g, **kw)
+    try:
+      out[f"mlp_{policy}_G{group}"] = digest(fn())
+    finally:
+      fused.mlp_search_plan = mlp_plan
+  fn = ks.search_case(dev, 512, policy)
+  for cluster in (2, 4):
+    for trees in (True, False):
+      fused.tiled_plan = lambda *a, c=cluster, t=trees: tiled_plan(
+          *a)._replace(cluster=c, smem_trees=t)
+      try:
+        out[f"categorical_{policy}_C{cluster}_smem_trees_{trees}"] = (
+            digest(fn()))
+      finally:
+        fused.tiled_plan = tiled_plan
+for name, kw in (("mlp_4096", dict(B=4096, family="mlp")),
+                 ("mlp_notebook_K11", dict(B=1000, K=11, family="mlp",
+                                           embedding_dim=10,
+                                           repr_layers=(),
+                                           layers=(64, 64, 16))),
+                 ("categorical_1024", dict())):
+  net, params, raw, coef, lay = ks.learner_case(dev, **kw)
+  lw = fused_learner.extract_learner(net, params)
+  out[f"learner_{name}"] = digest(fused_learner._grad_cuda(
+      lw, raw, coef, lay, l2_coef=1e-4, gradient_scale=0.5))
+print("DIGESTS " + json.dumps(out))
+""".replace("TOOLS", repr(os.path.dirname(os.path.abspath(__file__))))
 
 
 def categorical_split(res, dev, build):
