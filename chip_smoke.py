@@ -193,17 +193,18 @@ step, its pi changed. (e) The AlphaZero Go tower (``make_az_resnet(362,
 model axis against the replicated apply (rtol 1e-4 / atol 1e-5, TF32
 off), and the ms of both.
 
-Phase 33 holds the Stochastic MuZero kernel's global-weight mode
-(``fused_smz_kernel<smem_tree, false>``: towers past a block's shared
-memory read from device memory) against its plain version at
+Phase 33 holds the Stochastic MuZero search's wide-tower kernel
+(``fused_smz_wide_kernel``: towers past a block's shared memory, tiles of
+environments sharing every tower read) against its plain version at
 ``examples/run_2048.py``'s widths (A = 4, 32 chance outcomes, embedding
 64, support 300, hidden (256, 256): 3.05 MB of towers), on 64 and 1024
 boards of the native pool x 200 simulations under their legal masks, by
 phase 22's rule with phase 21's ulp proof of near-ties
 (``compare_masked_smz``), a repeated launch bit-identical; it prints the
-plan, ms, plain ms, bound and the tower bytes its reads request, and drives
-``make_policy_fn(policy="stochastic")`` over the net with exactly one SMZ
-launch a call. Phase 34 runs the port's example scripts'
+plan, ms, plain ms, the f32 and 3xTF32 bounds and the tower bytes read
+from L2 (modelled per tile and simulation), and drives
+``make_policy_fn(policy="stochastic")`` over the net with exactly one wide
+SMZ launch a call. Phase 34 runs the port's example scripts'
 ``main`` (``muax_tpu_torch/examples``) for two iterations each at their
 default widths (the generic-engine scripts at 8 simulations): the
 fit-based ones (CartPole, the acme regime, 2048 on the native pool, whose
@@ -617,7 +618,7 @@ def reset_counts():
   fused.launches = fused.gumbel_launches = 0
   fused.wide_launches = fused.wide_gumbel_launches = 0
   fused.categorical_launches = fused.categorical_gumbel_launches = 0
-  fused.smz_launches = 0
+  fused.smz_launches = fused.smz_wide_launches = 0
   fused_sampler.launches = 0
   fused_learner.launches = fused_learner.categorical_launches = 0
   fused_learner.wide_launches = 0
@@ -1618,13 +1619,15 @@ def smz_macs(weights):
   return decision, chance
 
 
-def smz_bound_ms(args, kwargs):
+def smz_bound_ms(args, kwargs, tensor_cores=False):
   """Least time for one Stochastic MuZero search launch on these inputs:
-  the larger of its operations over the f32 peak and its bytes over the
-  memory rate. Operations are the branched towers' multiply-adds of the
-  expansions this run makes (the plain version, on the same inputs, counts
-  those under a chance parent); bytes are each input read once (roots,
-  invalid mask, weights) and each output written once."""
+  the larger of its operations over the f32 peak (with ``tensor_cores``,
+  the 3xTF32 peak, and the f32 figure as ``bound_f32_fma_ms``) and its
+  bytes over the memory rate. Operations are the branched towers'
+  multiply-adds of the expansions this run makes (the plain version, on
+  the same inputs, counts those under a chance parent); bytes are each
+  input read once (roots, invalid mask, weights) and each output written
+  once."""
   from muax_tpu_torch.search import fused
 
   emb, logits, _, weights = args
@@ -1637,9 +1640,11 @@ def smz_bound_ms(args, kwargs):
   floats = B * (emb.shape[1] + A + 1) + weights.flat().numel()
   floats += B * A * (kwargs["invalid_actions"] is not None)
   floats += B * (2 * A + 1)
-  t_ops = flops / PEAK_F32_FLOPS * 1e3
+  t_f32 = flops / PEAK_F32_FLOPS * 1e3
+  t_ops = flops / PEAK_3XTF32_FLOPS * 1e3 if tensor_cores else t_f32
   t_bytes = 4.0 * floats / PEAK_BYTES_PER_S * 1e3
-  return {"bound_ms": max(t_ops, t_bytes),
+  extra = {"bound_f32_fma_ms": max(t_f32, t_bytes)} if tensor_cores else {}
+  return {"bound_ms": max(t_ops, t_bytes), **extra,
           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
           "macs_decision_parent": dec_macs, "macs_chance_parent": ch_macs,
           "chance_parent_share": chance / (B * sims)}
@@ -3876,7 +3881,7 @@ def parallel_phase(phase6_ms=None):
   }
 
 
-# ---- phase 33: Stochastic MuZero with towers in device memory (C.4) -------
+# ---- phase 33: Stochastic MuZero with towers past shared memory (C.4) ----
 
 def wide_smz_launch(net, params, obs, legal, gen):
   """One Stochastic MuZero launch of phase 33 on the roots of ``obs``
@@ -3898,19 +3903,67 @@ def wide_smz_launch(net, params, obs, legal, gen):
   return args, kwargs
 
 
+def smz_wide_l2_bytes(plan, lay, batch, sims):
+  """The tower bytes a wide SMZ launch reads from L2 (a model, not a
+  measured count): each tile stages every rank's prefix (biases, one-hot
+  rows, resident parts) once, and streams the rest of every rank's pack
+  once a simulation."""
+  tiles = -(-batch // plan.tile)
+  staged = plan.cluster * lay.res_floats
+  streamed = plan.cluster * (lay.rank_floats - lay.res_floats)
+  return 4 * tiles * (staged + sims * streamed)
+
+
+def smz_forced(plan, args, kwargs):
+  """``fused_smz_search`` on ``plan`` in place of the search's own."""
+  from muax_tpu_torch.search import fused
+  chosen = fused.smz_launch_plan
+  fused.smz_launch_plan = lambda *a, **k: plan
+  try:
+    return fused.fused_smz_search(*args, **kwargs)
+  finally:
+    fused.smz_launch_plan = chosen
+
+
+def wide_smz_kernel(plan, args, kwargs, weights):
+  """The tile kernel of phase 33 on one plan: two launches (bit-identical,
+  each counted once, also as wide), the outputs against the plain version
+  by ``compare_masked_smz``, the ms, and the tower bytes it reads from L2
+  (a model per tile and simulation)."""
+  from muax_tpu_torch.search import fused
+  before, wide_before = search_counts(), fused.smz_wide_launches
+  out = smz_forced(plan, args, kwargs)
+  again = smz_forced(plan, args, kwargs)
+  torch.cuda.synchronize()
+  got = tuple(a - b for a, b in zip(search_counts(), before))
+  check(got == (0, 0, 0, 0, 2)
+        and fused.smz_wide_launches - wide_before == 2,
+        f"two SMZ launches of the tile kernel, not {got}")
+  check(all(torch.equal(a, b) for a, b in zip(out, again)),
+        "a repeated launch gives the same bits")
+  check(bool(torch.isfinite(out[2]).all()), "finite q")
+  _, fig = compare_masked_smz(out, args, kwargs)
+  fig["ms"] = time_ms(lambda: smz_forced(plan, args, kwargs), SMZ_WIDE_REPS)
+  lay = fused.smz_wide_plan_layout(plan, 4, 32, 64, 601, SMZ_SIMS, SMZ_SIMS,
+                                   *fused._smz_widths(weights))
+  fig["weight_bytes_from_l2"] = smz_wide_l2_bytes(plan, lay, args[0].shape[0],
+                                                  SMZ_SIMS)
+  fig["plan"] = dict(plan._asdict(), parts=len(lay.parts),
+                     streamed_pieces_a_sim=lay.n_stream)
+  return fig
+
+
 def wide_smz_phase(device):
-  """Phase 33: the Stochastic MuZero kernel's global-weight mode
-  (``fused_smz_kernel<smem_tree, false>``) at examples/run_2048.py's
-  widths, on the roots of real boards of the native pool under their legal
-  masks, at SMZ_WIDE_ENVS roots x SMZ_SIMS simulations: its plan (towers
-  in device memory), a repeated launch bit-identical, the outputs against
-  the plain version by ``compare_masked_smz``, the ms, the plain
-  version's ms, the bound and the tower bytes the kernel requests (an
-  expansion reads the decision tower under a decision parent, the chance
-  and prediction towers under a chance parent; counted as if every read
-  missed L1, which is not measured); then ``make_policy_fn``
-  with ``policy="stochastic"`` over the same net, one SMZ launch a call
-  and nothing else."""
+  """Phase 33: the Stochastic MuZero search at examples/run_2048.py's
+  widths, towers past a block's shared memory, on the roots of real boards
+  of the native pool under their legal masks, at SMZ_WIDE_ENVS roots x
+  SMZ_SIMS simulations. At each batch the plan takes the tile kernel
+  (``fused_smz_wide_kernel``, tiles of environments sharing every tower
+  read), held by ``wide_smz_kernel``; the plain version's ms, and the
+  bounds of the expansions this run makes: ``bound_ms`` at the 3xTF32
+  rate its products run at, ``bound_f32_fma_ms`` at the f32 rate. Then
+  ``make_policy_fn`` with ``policy="stochastic"`` over the same net at
+  each batch, one launch of the tile kernel a call and nothing else."""
   from muax_tpu_torch.config import MuZeroConfig, SearchConfig
   from muax_tpu_torch.models import make_stochastic_mlp_networks
   from muax_tpu_torch.search import fused
@@ -3930,59 +3983,46 @@ def wide_smz_phase(device):
     n = weights.flat().numel()
     check(n == SMZ_WIDE_FLOATS, f"{n} floats of towers")
     plan = fused.smz_launch_plan(args[0], weights, **kwargs)
-    check(not plan.smem_weights, "the towers are read from device memory")
-    before = search_counts()
-    out = fused.fused_smz_search(*args, **kwargs)
-    again = fused.fused_smz_search(*args, **kwargs)
-    torch.cuda.synchronize()
-    got = tuple(a - b for a, b in zip(search_counts(), before))
-    check(got == (0, 0, 0, 0, 2), f"two SMZ launches, not {got}")
-    check(all(torch.equal(a, b) for a, b in zip(out, again)),
-          "a repeated launch gives the same bits")
-    check(bool(torch.isfinite(out[2]).all()), "finite q")
-    _, fig = compare_masked_smz(out, args, kwargs)
-    fig["ms"] = time_ms(lambda: fused.fused_smz_search(*args, **kwargs),
-                        SMZ_WIDE_REPS)
+    tile = fused.smz_wide_plan(
+        B, 4, 32, 64, 601, SMZ_SIMS, SMZ_SIMS, *fused._smz_widths(weights),
+        fused.device_limits(device), fused.smz_wide_active_clusters(
+            device.index))
+    check(plan == tile, f"the plan at {B} boards takes the tile kernel: "
+          f"{plan}")
+    fig = wide_smz_kernel(plan, args, kwargs, weights)
     fig["plain_ms"] = once_ms(lambda: smz_reference(args, kwargs))
-    fig.update(smz_bound_ms(args, kwargs))
-    dec = sum(w.numel() + b.numel() for w, b in (
-        *weights.dec_layers, weights.dec_state, weights.dec_chance,
-        weights.dec_value))
-    expansions = B * SMZ_SIMS
-    chance = fig["chance_parent_share"] * expansions
-    fig["tower_bytes_requested"] = 4 * ((expansions - chance) * dec
-                                        + chance * (n - dec))
-    fig["tower_tb_per_s_requested"] = (fig["tower_bytes_requested"]
-                                       / fig["ms"] / 1e9)
-    fig["plan"] = dict(plan._asdict(), runtime_blocks_per_sm=(
-        fused.smz_blocks_per_sm(plan, device)))
+    fig.update(smz_bound_ms(args, kwargs, tensor_cores=True))
     figures[f"envs_{B}"] = fig
 
   config = MuZeroConfig(search=SearchConfig(policy="stochastic",
                                             num_simulations=SMZ_SIMS))
   policy_fn = make_policy_fn(net, config, SMZ_WIDE_DISCOUNT, device=device)
-  B = min(SMZ_WIDE_ENVS)
-  invalid = (1.0 - legal[:B]).contiguous()
-  reset_counts()
-  for _ in range(SMZ_WIDE_POLICY_CALLS):
-    action, pi, value = policy_fn(params, gen, obs[:B].contiguous(), 1.0,
-                                  invalid)
-  torch.cuda.synchronize()
-  launches = search_counts()
-  check(launches == (0, 0, 0, 0, SMZ_WIDE_POLICY_CALLS)
-        and all_kernel_launches() == SMZ_WIDE_POLICY_CALLS,
-        f"the stochastic policy launched {launches}")
-  check(bool((legal[:B].gather(1, action.long()[:, None]) == 1).all()),
-        "every action legal")
-  check(bool(torch.allclose(pi.sum(-1), torch.ones_like(value)))
-        and float(pi[invalid > 0].abs().max()) == 0.0,
-        "pi sums to 1 and misses illegal moves")
-  figures["policy"] = {"calls": SMZ_WIDE_POLICY_CALLS,
-                       "smz_launches": launches[4],
-                       "ms": time_ms(lambda: policy_fn(
-                           params, gen, obs[:B].contiguous(), 1.0, invalid),
-                                     SMZ_WIDE_REPS)}
-  return figures, SMZ_WIDE_POLICY_CALLS
+  wide_launches = 0
+  for B in SMZ_WIDE_ENVS:
+    invalid = (1.0 - legal[:B]).contiguous()
+    roots = obs[:B].contiguous()
+    reset_counts()
+    for _ in range(SMZ_WIDE_POLICY_CALLS):
+      action, pi, value = policy_fn(params, gen, roots, 1.0, invalid)
+    torch.cuda.synchronize()
+    launches = search_counts()
+    check(launches == (0, 0, 0, 0, SMZ_WIDE_POLICY_CALLS)
+          and fused.smz_wide_launches == SMZ_WIDE_POLICY_CALLS
+          and all_kernel_launches() == SMZ_WIDE_POLICY_CALLS,
+          f"the stochastic policy at {B} boards launched {launches}, "
+          f"{fused.smz_wide_launches} of them on the tile kernel")
+    wide_launches += fused.smz_wide_launches
+    check(bool((legal[:B].gather(1, action.long()[:, None]) == 1).all()),
+          "every action legal")
+    check(bool(torch.allclose(pi.sum(-1), torch.ones_like(value)))
+          and float(pi[invalid > 0].abs().max()) == 0.0,
+          "pi sums to 1 and misses illegal moves")
+    figures[f"policy_{B}"] = {
+        "calls": SMZ_WIDE_POLICY_CALLS,
+        "smz_wide_launches": fused.smz_wide_launches,
+        "ms": time_ms(lambda: policy_fn(params, gen, roots, 1.0, invalid),
+                      SMZ_WIDE_REPS)}
+  return figures, wide_launches
 
 
 # ---- phase 34: the example scripts on the card -------------------------
@@ -4722,7 +4762,8 @@ def run(device):
   t0 = time.perf_counter()
   wide_smz, wide_smz_launches = wide_smz_phase(device)
   print(f"phase 33 Stochastic MuZero at examples/run_2048.py's width (A=4 "
-        f"C=32 E=64 S=300, hidden (256, 256), towers in device memory): "
+        f"C=32 E=64 S=300, hidden (256, 256), tiles sharing every tower "
+        f"read): "
         f"kernel vs plain at {' and '.join(map(str, SMZ_WIDE_ENVS))} boards "
         f"x {SMZ_SIMS} sims under legal masks, make_policy_fn(policy="
         f"'stochastic') {SMZ_WIDE_POLICY_CALLS} calls: "
@@ -4867,18 +4908,31 @@ def run(device):
       "name": "fused_smz_search", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_smz.cu",
       "replaces": "muax_tpu/search/fused.py:1369",
-      "launches": smz_train_launches[0] + wide_smz_launches,
+      "launches": smz_train_launches[0],
       "max_abs_err": smz_main["max_abs_err"],
       "ms": smz_roll["search_ms"], "plain_ms": smz_roll["plain_search_ms"],
       "bound_ms": smz_roll["bound_ms"], "bound_by": smz_roll["bound_by"],
       "library_ms": None, "plan": smz_roll["plan"],
       "theoretical_warps_per_sm": smz_roll["theoretical_warps_per_sm"],
       "instances": {k.split(":", 1)[1]: v for k, v in ptxas.items()
-                    if k.startswith("fused_smz:")},
+                    if k.startswith("fused_smz:fused_smz_kernel")},
+  }, {
+      "name": "fused_smz_wide_search", "route": "cuda",
+      "source": "muax_tpu_torch/csrc/fused_smz.cu",
+      "replaces": "muax_tpu/search/fused.py:1369 (towers past a block's "
+                  "shared memory)",
+      "launches": wide_smz_launches,
+      # The 3xTF32 bound (the rate its products run at), the f32 one beside.
+      **{k: wide_smz[f"envs_{max(SMZ_WIDE_ENVS)}"][k] for k in (
+          "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+          "bound_f32_fma_ms")},
+      "library_ms": None,
       "wide_towers_2048": {k: {f: v for f, v in fig.items()
-                               if f in WIDE_KEYS}
+                               if f in WIDE_KEYS + ("bound_f32_fma_ms",)}
                            for k, fig in wide_smz.items()
                            if k.startswith("envs_")},
+      "instances": {k.split(":", 1)[1]: v for k, v in ptxas.items()
+                    if k.startswith("fused_smz:fused_smz_wide_kernel")},
   }, {
       "name": "fused_sample_group_per_step_obs", "route": "cuda",
       "source": "muax_tpu_torch/csrc/fused_sampler.cu",

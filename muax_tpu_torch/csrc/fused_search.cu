@@ -80,6 +80,7 @@
 #include "tc_tile.cuh"
 #include "warp_mlp.cuh"
 #include "group_mlp.cuh"
+#include "wide_tile.cuh"
 
 // Returned when the shapes do not fit the kernel (too many layers, or one
 // environment's tree does not fit the shared memory of a block).
@@ -89,6 +90,11 @@ namespace {
 
 using namespace mz_group;
 using namespace mz_warp;
+using mz_wide::bulk_copy;
+using mz_wide::mbar_expect_tx;
+using mz_wide::mbar_fence_init;
+using mz_wide::mbar_init;
+using mz_wide::mbar_wait;
 
 constexpr int kErrShape = MZ_ERR_SHAPE;
 constexpr int kMaxLayers = 8;
@@ -1420,8 +1426,8 @@ __device__ __forceinline__ Forest wide_forest(float* base, int N, int A) {
   return f;
 }
 
-constexpr int kWideThreads = 256;
-constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideWarps = mz_wide::kWarps;
+constexpr int kWideThreads = 32 * kWideWarps;
 constexpr int kMaxPhases = 2 * kMaxLayers + 2;
 constexpr int kPieceRows = 32;   // weight rows of a streamed piece
 constexpr int kMaxRing = 8;      // slots of the ring of pieces
@@ -1457,68 +1463,13 @@ struct WideArgs {
       s_inval, s_slots, s_trees, smem_floats;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from device memory into this block's shared memory, completing
-// on `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // The weight pieces of a launch: piece q = sim n_pieces + i is the i-th of
 // a simulation's sequence, phase after phase, each phase's slice in rows
 // of kPieceRows.
 struct WidePieces {
   const float* pack;  // this rank's pack in device memory
   float* spack;       // the pack (resident) or the biases, in shared memory
-  float* ring;
-  uint64_t* full;     // [ring] a slot's piece has landed
-  uint64_t* empty;    // [ring] every warp has released a slot's piece
+  mz_wide::Ring ring;
   long total;         // pieces in the launch
 
   // Piece q's phase p and index i in it, its rows and its place in the
@@ -1543,16 +1494,9 @@ struct WidePieces {
   // Thread 0: the copy of piece q into its slot, once every warp has
   // released the slot's previous piece.
   __device__ void issue(const WideArgs& wa, long q) const {
-    const int slot = static_cast<int>(q % wa.ring);
-    const long round = q / wa.ring;
-    if (round > 0)
-      mbar_wait(empty + slot, static_cast<uint32_t>((round - 1) & 1));
     int p, i;
     locate(wa, q, &p, &i);
-    const uint32_t bytes = 4u * rows(wa, p, i) * wa.nb[p];
-    mbar_expect_tx(full + slot, bytes);
-    bulk_copy(ring + static_cast<long>(slot) * wa.slot_floats,
-              pack + offset(wa, p, i), bytes, full + slot);
+    ring.issue(q, pack + offset(wa, p, i), 4u * rows(wa, p, i) * wa.nb[p]);
   }
 
   // Piece i of phase p (sequence number q), in shared memory: waits for
@@ -1560,17 +1504,14 @@ struct WidePieces {
   __device__ __forceinline__ const float* acquire(const WideArgs& wa, long q,
                                                   int p, int i) const {
     if (wa.resident) return spack + offset(wa, p, i);
-    const int slot = static_cast<int>(q % wa.ring);
-    mbar_wait(full + slot, static_cast<uint32_t>((q / wa.ring) & 1));
-    return ring + static_cast<long>(slot) * wa.slot_floats;
+    return ring.wait(q);
   }
 
   // The warp is done with piece q: it releases the slot, and thread 0
   // refills it with piece q + ring.
   __device__ __forceinline__ void release(const WideArgs& wa, long q) const {
     if (wa.resident) return;
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + q % wa.ring);
+    ring.arrive(q);
     if (threadIdx.x == 0 && q + wa.ring < total) issue(wa, q + wa.ring);
     __syncwarp();
   }
@@ -1583,125 +1524,48 @@ struct WidePieces {
 enum WideKind { kWideHidden, kWideDynHeads, kWidePredHeads };
 
 // One phase: acc = X [kT, in] W[:, this block's columns] over the phase's
-// pieces, the warps' split-k partial sums added in order, the bias added
-// and the sums stored as `kind` says; the caller ends it with a cluster
-// barrier. X lies in shared memory with rows of ldx floats; columns at or
-// past `in` read 0.
+// pieces (mz_wide::tile_product), the bias added and the sums stored as
+// `kind` says; the caller ends it with a cluster barrier. X lies in shared
+// memory with rows of ldx floats; columns at or past `in` read 0.
 template <int kT, int kC, int kNTW>
 __device__ void wide_phase(const WideArgs& wa, const WidePieces& st, int p,
                            long q0, const float* X, int ldx, int kind,
                            float* out, int ldo, float* red, float* logit,
                            float* pol, int rank, int warp, int lane) {
   namespace cg = cooperative_groups;
-  constexpr int FM = kT / 16;
   constexpr int kRankEnvs = kT / kC;
-  const int gq = lane >> 2, t = lane & 3;
-  const int nbs = wa.nb[p], nt = nbs / 8, in = wa.in[p];
-  // Warps split the k-steps S ways where there are fewer column tiles than
-  // warps: warp w takes the tiles w / S + (8 / S) j and the k-steps
-  // congruent to w mod S.
-  int S = 1;
-  while (nt * S * 2 <= kWideWarps) S *= 2;
-  const int groups = kWideWarps / S, ng = warp / S, ks0 = warp % S;
-  float acc[FM][kNTW][4];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < kNTW; ++j)
-#pragma unroll
-      for (int h = 0; h < 4; ++h) acc[i][j][h] = 0.f;
-
-  const int pieces = wa.piece0[p + 1] - wa.piece0[p];
-  for (int pi = 0; pi < pieces; ++pi) {
-    const long q = q0 + pi;
-    const float* B = st.acquire(wa, q, p, pi);
-    const int steps = st.rows(wa, p, pi) / 8;
-    for (int s = ks0; s < steps; s += S) {
-      const int k = pi * kPieceRows + 8 * s;
-      uint32_t ab[FM][4], as[FM][4];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          const int row = 16 * i + gq + 8 * (h & 1);
-          const int col = k + t + 4 * (h >> 1);
-          mz_tc::split(col < in ? X[row * ldx + col] : 0.f, ab[i][h],
-                       as[i][h]);
-        }
-      const float* brow = B + (8 * s + t) * nbs + gq;
-#pragma unroll
-      for (int j = 0; j < kNTW; ++j) {
-        const int tile = ng + groups * j;
-        if (tile >= nt) break;
-        uint32_t bb0, bs0, bb1, bs1;
-        mz_tc::split(brow[8 * tile], bb0, bs0);
-        mz_tc::split(brow[8 * tile + 4 * nbs], bb1, bs1);
-#pragma unroll
-        for (int i = 0; i < FM; ++i) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mz_tc::mma(part, as[i], bb0, bb1);
-          mz_tc::mma(part, ab[i], bs0, bs1);
-          mz_tc::mma(part, ab[i], bb0, bb1);
-#pragma unroll
-          for (int h = 0; h < 4; ++h) acc[i][j][h] += part[h];
-        }
-      }
-    }
-    st.release(wa, q);
-  }
-
-  if (S > 1) {  // one column tile a warp: the S partial sums, in order
-    float* mine = red + warp * FM * 128;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int h = 0; h < 4; ++h) mine[(i * 4 + h) * 32 + lane] = acc[i][0][h];
-    __syncthreads();
-    if (ks0 == 0) {
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          float v = 0.f;
-          for (int u = 0; u < S; ++u)
-            v += red[(warp + u) * FM * 128 + (i * 4 + h) * 32 + lane];
-          acc[i][0][h] = v;
-        }
-    }
-  }
-  if (ks0 != 0) return;
+  const int nbs = wa.nb[p];
+  float acc[kT / 16][kNTW][4];
+  int ng, groups;
+  mz_wide::tile_product<kT, kNTW>(
+      X, ldx, wa.in[p], nbs, wa.piece0[p + 1] - wa.piece0[p], wa.in8[p],
+      kPieceRows,
+      [&](int pi) { return st.acquire(wa, q0 + pi, p, pi); },
+      [&](int pi) { st.release(wa, q0 + pi); }, red, acc, &ng, &groups);
+  if (warp % mz_wide::k_split(nbs / 8) != 0) return;  // one warp of a split
 
   cg::cluster_group cluster = cg::this_cluster();
   const float* bias = st.spack + wa.b_off[p];
   const int c0 = rank * nbs, width = wa.width[p], S41 = wa.S41;
-#pragma unroll
-  for (int j = 0; j < kNTW; ++j) {
-    const int tile = ng + groups * j;
-    if (tile >= nt) break;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const int m = 16 * i + gq + 8 * (h >> 1);
-        const int n = 8 * tile + 2 * t + (h & 1);
-        const int col = c0 + n;
-        if (col >= width) continue;
-        const float v = acc[i][j][h] + bias[n];
-        const int owner = m / kRankEnvs, row = m % kRankEnvs;
-        if (kind == kWideHidden) {
-          const float y = elu(v);
-          for (int r = 0; r < kC; ++r)
-            cluster.map_shared_rank(out, r)[m * ldo + col] = y;
-        } else if (col < S41) {
-          cluster.map_shared_rank(logit, owner)[row * wa.ld_l + col] = v;
-        } else if (kind == kWideDynHeads) {
-          for (int r = 0; r < kC; ++r)
-            cluster.map_shared_rank(out, r)[m * ldo + col - S41] = v;
-        } else {
-          cluster.map_shared_rank(pol, owner)[row * wa.ld_p + col - S41] = v;
-        }
-      }
-  }
+  mz_wide::for_owned<kT, kNTW>(acc, ng, groups, nbs / 8, [&](int m, int n,
+                                                             float sum) {
+    const int col = c0 + n;
+    if (col >= width) return;
+    const float v = sum + bias[n];
+    const int owner = m / kRankEnvs, row = m % kRankEnvs;
+    if (kind == kWideHidden) {
+      const float y = elu(v);
+      for (int r = 0; r < kC; ++r)
+        cluster.map_shared_rank(out, r)[m * ldo + col] = y;
+    } else if (col < S41) {
+      cluster.map_shared_rank(logit, owner)[row * wa.ld_l + col] = v;
+    } else if (kind == kWideDynHeads) {
+      for (int r = 0; r < kC; ++r)
+        cluster.map_shared_rank(out, r)[m * ldo + col - S41] = v;
+    } else {
+      cluster.map_shared_rank(pol, owner)[row * wa.ld_p + col - S41] = v;
+    }
+  });
 }
 
 template <bool kGumbel, int kT, int kC, int kNTW>
@@ -1731,9 +1595,8 @@ fused_search_wide_kernel(const float* __restrict__ root_emb,
   WidePieces st;
   st.pack = pack + static_cast<long>(rank) * wa.rank_floats;
   st.spack = smem + wa.s_pack;
-  st.ring = smem + wa.s_ring;
-  st.full = bars + 1;
-  st.empty = bars + 1 + kMaxRing;
+  st.ring = {smem + wa.s_ring, bars + 1, bars + 1 + kMaxRing, wa.ring,
+             wa.slot_floats};
   st.total = static_cast<long>(wa.num_simulations) * wa.n_pieces;
   float* D[2] = {smem + wa.s_d0, smem + wa.s_d1};
   float* X0 = smem + wa.s_x0;     // the dynamics input [kT, ld_x]
@@ -1755,10 +1618,10 @@ fused_search_wide_kernel(const float* __restrict__ root_emb,
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
     for (int s = 0; s < wa.ring; ++s) {
-      mbar_init(st.full + s, 1);
-      mbar_init(st.empty + s, kWideWarps);
+      mbar_init(st.ring.full + s, 1);
+      mbar_init(st.ring.empty + s, kWideWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
     const int first = wa.resident ? wa.rank_floats : wa.bias_floats;
     mbar_expect_tx(bars, 4u * first);
     for (int off = 0; off < first; off += kCopyFloats)
@@ -1991,10 +1854,7 @@ int wide_layout(WideArgs* wa, int B, int A, int E, int S41, int support,
   phase(S41 + A);
   int bias = 0, weights = 0, pieces = 0, slot = 0;
   for (int p = 0; p < n; ++p) {
-    const int nt = wa->nb[p] / 8;
-    int S = 1;
-    while (nt * S * 2 <= kWideWarps) S *= 2;
-    if ((nt + kWideWarps / S - 1) / (kWideWarps / S) > ntw) return kErrShape;
+    if (mz_wide::warp_tiles(wa->nb[p]) > ntw) return kErrShape;
     wa->b_off[p] = bias;
     bias += wa->nb[p];
     wa->piece0[p] = pieces;

@@ -57,11 +57,9 @@
 //   scratch, held in L2). Each environment has four warps and a named
 //   barrier of its own.
 // - Towers wider than a block's shared memory (the 2048 example's widths:
-//   embedding 64, 601 bins, hidden (256, 256), 3.05 MB) are not staged:
-//   the instance <kSmemTree, false> reads every weight from device memory
-//   through the read-only cache (L1, then L2, which holds them) and keeps
-//   the trees in shared memory. An expansion then reads 1-2 MB of towers,
-//   so that mode waits on those reads, not on the tree walks.
+//   embedding 64, 601 bins, hidden (256, 256), 3.05 MB) take the tile
+//   kernel below (fused_smz_wide_kernel), whose environments share every
+//   tower read.
 // - The first warp walks the tree: lanes split the slots of a node, every
 //   load of a level is issued at once, and shuffle rounds (or redux.sync
 //   on order-keyed integers, past 4 lanes) find the first maximum with the
@@ -82,6 +80,7 @@
 //   takes a slow path (a subroutine call) for it.
 // - No atomics: two launches on the same inputs give the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -89,6 +88,7 @@
 #include <stdint.h>
 
 #include "warp_mlp.cuh"
+#include "wide_tile.cuh"
 
 // Returned when the shapes do not fit the kernel (too many layers, a tree
 // past int16 indices, weights that do not fit the flat buffer or shared
@@ -351,6 +351,107 @@ __device__ int select_chance(const Tree& t, int cur, int K, int C,
   return first_max(best, best_a, best_c, child_out);
 }
 
+// ---- one simulation's walk in the wide kernel ------------------------------
+//
+// The same lines as the staged kernel's descent and its install and backup,
+// which keeps its own copy: through these functions, ptxas gives its
+// <true> instance 122 registers a thread against 119.
+
+// Where a descent stopped: the leaf's parent, the action into the leaf (a,
+// or A + o for an outcome o), the child already there (-1 if none) and the
+// depth.
+struct Leaf {
+  int parent, act, child, depth;
+};
+
+// One simulation's descent on one warp: from the root, each decision node
+// by PUCT and each chance node by its visit rule, to an unexpanded child or
+// to g.max_depth; lane 0 records the path's nodes below the root. G: the
+// kernel's arguments (Args or WideArgs), read where they are used.
+template <typename G>
+__device__ __forceinline__ Leaf descend(const Tree& t, int A, int C, int K,
+                                        const G& g, const float* inval,
+                                        int lane) {
+  const Split split_a(A, lane), split_c(C, lane);
+  int depth = 0, cur = 0, parent = 0, act = 0, child;
+  while (true) {
+    const bool decision = (depth & 1) == 0;
+    const int s =
+        decision ? select_decision(t, cur, K, A, split_a, depth, inval,
+                                   &child)
+                 : select_chance(t, cur, K, C, split_c, &child);
+    parent = cur;
+    act = decision ? s : A + s;
+    cur = child;
+    ++depth;
+    if (child < 0 || depth >= g.max_depth) break;
+    if (lane == 0) t.path[depth] = static_cast<int16_t>(child);
+  }
+  return Leaf{parent, act, child, depth};
+}
+
+// One warp: the install of `value` at `slot` (the leaf at depth d_leaf
+// under `parent` by `act`; a running mean, *reward on the edge into it),
+// then the backup from the raw value along the recorded path with each
+// edge's discount. G as descend's.
+template <typename G>
+__device__ __forceinline__ void install_backup(
+    const Tree& t, int slot, int parent, int act, int d_leaf, float value,
+    const float* reward, int A, int K, const G& g, int lane) {
+  if (lane == 0) {
+    float4 n = t.node[slot];
+    const float count = n.x;
+    n.y = div0(n.y * count + value, count + 1.f);
+    n.x = count + 1.f;
+    n.z = *reward;
+    // A decision node's prior scale follows its visits; a chance
+    // node's children (w) are not touched by its own install.
+    if ((d_leaf & 1) == 0)
+      n.w = puct_scale(count + 1.f, g.pb_c_init, g.pb_c_base);
+    t.node[slot] = n;
+    t.cidx[static_cast<size_t>(parent) * K + (act < A ? act : act - A)] =
+        static_cast<int16_t>(slot);
+    t.path[d_leaf] = static_cast<int16_t>(slot);
+  }
+  __syncwarp();
+  // Levels top, top - 1, ... of the path, 32 at a time: lane l loads
+  // the reward into the node at level top - l, every lane runs the
+  // chain of returns (the same instructions, so the same bits) with the
+  // rewards shuffled in, lane l keeps the return into the parent of
+  // level top - l, then each lane updates its parent's running mean; a
+  // path holds each node once.
+  float v = value;
+  for (int top = d_leaf; top >= 1; top -= 32) {
+    const int low = top > 32 ? top - 32 : 0;
+    const int d = top - lane;
+    const float r = d > low ? t.node[t.path[d]].z : 0.f;
+    float into = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < top - low; ++k) {
+      // A node at an odd depth is a chance node: a decision edge (r = 0,
+      // gamma = 1) leads to it.
+      const float gamma = ((top - k) & 1) ? 1.f : g.discount;
+      const float vnew = __shfl_sync(kFull, r, k) + gamma * v;
+      if (lane == k) into = vnew;
+      v = vnew;
+    }
+    if (d > low) {
+      const int par = t.path[d - 1];
+      float4 n = t.node[par];
+      const float cnt = n.x;
+      n.y = div0(n.y * cnt + into, cnt + 1.f);
+      n.x = cnt + 1.f;
+      // At depth d - 1: a decision node's prior scale, or one more
+      // visit among a chance node's children.
+      n.w = ((d - 1) & 1) == 0
+                ? puct_scale(cnt + 1.f, g.pb_c_init, g.pb_c_base)
+                : n.w + 1.f;
+      t.node[par] = n;
+    }
+    __syncwarp();
+  }
+}
+
 // ---- one environment's four warps ---------------------------------------
 
 __device__ __forceinline__ void env_sync(int barrier) {
@@ -358,22 +459,9 @@ __device__ __forceinline__ void env_sync(int barrier) {
                : "memory");
 }
 
-// A weight (or bias) of a tower: a plain load from shared memory where the
-// block staged the towers, else from device memory through the read-only
-// cache (`__ldg`), where L2 holds them.
-template <bool kSmemWeights>
-__device__ __forceinline__ float weight(const float* w) {
-  if constexpr (kSmemWeights) {
-    return *w;
-  } else {
-    return __ldg(w);
-  }
-}
-
 // y[out] = x[in] @ W[rows, out] + b (+ extra, one row of W for a one-hot
 // input after x), ELU if `elu_out`: the environment's lanes split the
 // outputs, each sums its inputs in order.
-template <bool kSmemWeights>
 __device__ __forceinline__ void env_dense(const float* W, const float* b,
                                           const float* x, float* y, int in,
                                           int out, const float* extra,
@@ -384,15 +472,15 @@ __device__ __forceinline__ void env_dense(const float* W, const float* b,
 #pragma unroll 4
     for (int i = 0; i < in4; i += 4) {
       const float4 xv = *reinterpret_cast<const float4*>(x + i);
-      acc = fmaf(xv.x, weight<kSmemWeights>(W + i * out + j), acc);
-      acc = fmaf(xv.y, weight<kSmemWeights>(W + (i + 1) * out + j), acc);
-      acc = fmaf(xv.z, weight<kSmemWeights>(W + (i + 2) * out + j), acc);
-      acc = fmaf(xv.w, weight<kSmemWeights>(W + (i + 3) * out + j), acc);
+      acc = fmaf(xv.x, W[i * out + j], acc);
+      acc = fmaf(xv.y, W[(i + 1) * out + j], acc);
+      acc = fmaf(xv.z, W[(i + 2) * out + j], acc);
+      acc = fmaf(xv.w, W[(i + 3) * out + j], acc);
     }
     for (int i = in4; i < in; ++i)
-      acc = fmaf(x[i], weight<kSmemWeights>(W + i * out + j), acc);
-    if (extra != nullptr) acc += weight<kSmemWeights>(extra + j);
-    acc += weight<kSmemWeights>(b + j);
+      acc = fmaf(x[i], W[i * out + j], acc);
+    if (extra != nullptr) acc += extra[j];
+    acc += b[j];
     y[j] = elu_out ? elu(acc) : acc;
   }
 }
@@ -400,7 +488,6 @@ __device__ __forceinline__ void env_dense(const float* W, const float* b,
 // Up to three heads on h[in], laid out one after the other in the flat
 // weights from p (W [in, w] then b [w] each), as one layer: y holds their
 // outputs side by side.
-template <bool kSmemWeights>
 __device__ __forceinline__ void env_heads(const float* p, const float* h,
                                           int in, int w0, int w1, int w2,
                                           float* y, int tid) {
@@ -423,14 +510,14 @@ __device__ __forceinline__ void env_heads(const float* p, const float* h,
 #pragma unroll 4
     for (int i = 0; i < in4; i += 4) {
       const float4 hv = *reinterpret_cast<const float4*>(h + i);
-      acc = fmaf(hv.x, weight<kSmemWeights>(W + i * out + j), acc);
-      acc = fmaf(hv.y, weight<kSmemWeights>(W + (i + 1) * out + j), acc);
-      acc = fmaf(hv.z, weight<kSmemWeights>(W + (i + 2) * out + j), acc);
-      acc = fmaf(hv.w, weight<kSmemWeights>(W + (i + 3) * out + j), acc);
+      acc = fmaf(hv.x, W[i * out + j], acc);
+      acc = fmaf(hv.y, W[(i + 1) * out + j], acc);
+      acc = fmaf(hv.z, W[(i + 2) * out + j], acc);
+      acc = fmaf(hv.w, W[(i + 3) * out + j], acc);
     }
     for (int i = in4; i < in; ++i)
-      acc = fmaf(h[i], weight<kSmemWeights>(W + i * out + j), acc);
-    y[o] = acc + weight<kSmemWeights>(W + in * out + j);
+      acc = fmaf(h[i], W[i * out + j], acc);
+    y[o] = acc + W[in * out + j];
   }
 }
 
@@ -438,7 +525,6 @@ __device__ __forceinline__ void env_heads(const float* p, const float* h,
 // one-hot row `hot` of W when hot >= 0), through bufs[0], bufs[1], ...;
 // `p` walks the flat weights. Returns the last hidden activation and leaves
 // its width in *width. Ends with the environment's barrier.
-template <bool kSmemWeights>
 __device__ const float* env_hidden(const float*& p, const float* x, int in,
                                    int hot_rows, int hot, const int* widths,
                                    int n, float* bufs0, float* bufs1,
@@ -447,9 +533,8 @@ __device__ const float* env_hidden(const float*& p, const float* x, int in,
     const int out = widths[l];
     const int rows = l == 0 ? in + hot_rows : in;
     float* y = (l & 1) ? bufs1 : bufs0;
-    env_dense<kSmemWeights>(
-        p, p + rows * out, x, y, in, out,
-        l == 0 && hot >= 0 ? p + (in + hot) * out : nullptr, true, tid);
+    env_dense(p, p + rows * out, x, y, in, out,
+              l == 0 && hot >= 0 ? p + (in + hot) * out : nullptr, true, tid);
     p += rows * out + out;
     x = y;
     in = out;
@@ -513,10 +598,9 @@ __device__ void warp_normalize(float* y, float* to, int E, int lane) {
 enum Ctl { kParent, kAct, kSlot, kExisting, kDepth, kDecisionParent,
            kValue, kReward };
 
-// kSmemWeights: the towers staged once per block in shared memory, else
-// read from device memory (towers wider than a block's shared memory: the
-// 2048 example's are 3.05 MB), the same sums in the same order.
-template <bool kSmemTree, bool kSmemWeights>
+// The towers are staged once per block in shared memory; towers wider than
+// that take fused_smz_wide_kernel below.
+template <bool kSmemTree>
 __global__ void __launch_bounds__(kEnvThreads * kMaxEnvs, 1)
 fused_smz_kernel(const float* __restrict__ root_emb,
                  const float* __restrict__ root_logits,
@@ -527,21 +611,19 @@ fused_smz_kernel(const float* __restrict__ root_emb,
                  float* __restrict__ out_value, float* __restrict__ out_q,
                  const __grid_constant__ Args g) {
   extern __shared__ __align__(16) float smem[];
-  if constexpr (kSmemWeights) {
-    if ((reinterpret_cast<uintptr_t>(weights) & 15) == 0) {
-      const int n4 = g.n_weights / 4;
-      for (int i = threadIdx.x; i < n4; i += blockDim.x)
-        reinterpret_cast<float4*>(smem)[i] =
-            reinterpret_cast<const float4*>(weights)[i];
-      for (int i = 4 * n4 + threadIdx.x; i < g.n_weights; i += blockDim.x)
-        smem[i] = weights[i];
-    } else {
-      for (int i = threadIdx.x; i < g.n_weights; i += blockDim.x)
-        smem[i] = weights[i];
-    }
-    __syncthreads();
+  if ((reinterpret_cast<uintptr_t>(weights) & 15) == 0) {
+    const int n4 = g.n_weights / 4;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      reinterpret_cast<float4*>(smem)[i] =
+          reinterpret_cast<const float4*>(weights)[i];
+    for (int i = 4 * n4 + threadIdx.x; i < g.n_weights; i += blockDim.x)
+      smem[i] = weights[i];
+  } else {
+    for (int i = threadIdx.x; i < g.n_weights; i += blockDim.x)
+      smem[i] = weights[i];
   }
-  const float* towers = kSmemWeights ? smem : weights;
+  __syncthreads();
+  const float* towers = smem;
 
   const int local = threadIdx.x / kEnvThreads;
   const int env = blockIdx.x * g.envs_per_block + local;
@@ -641,10 +723,10 @@ fused_smz_kernel(const float* __restrict__ root_emb,
     int hw;
     if (ctl[kDecisionParent]) {
       const float* p = towers;
-      const float* h = env_hidden<kSmemWeights>(
-          p, X, E, A, act, g.dec_width, g.n_dec, H0, H1, &hw, tid, barrier);
+      const float* h = env_hidden(p, X, E, A, act, g.dec_width, g.n_dec, H0,
+                                  H1, &hw, tid, barrier);
       // afterstate [E], chance prior [C], afterstate value [S41]
-      env_heads<kSmemWeights>(p, h, hw, E, C, S41, Y, tid);
+      env_heads(p, h, hw, E, C, S41, Y, tid);
       env_sync(barrier);
       if (warp == 0) {
         warp_normalize(Y, to, E, lane);
@@ -659,10 +741,10 @@ fused_smz_kernel(const float* __restrict__ root_emb,
       }
     } else {
       const float* p = towers + g.ch_offset;
-      const float* h = env_hidden<kSmemWeights>(
-          p, X, E, C, act - A, g.ch_width, g.n_ch, H0, H1, &hw, tid, barrier);
+      const float* h = env_hidden(p, X, E, C, act - A, g.ch_width, g.n_ch,
+                                  H0, H1, &hw, tid, barrier);
       // next state [E], reward [S41]
-      env_heads<kSmemWeights>(p, h, hw, E, S41, 0, Y, tid);
+      env_heads(p, h, hw, E, S41, 0, Y, tid);
       env_sync(barrier);
       if (warp == 0) {
         warp_normalize(Y, to, E, lane);
@@ -672,10 +754,10 @@ fused_smz_kernel(const float* __restrict__ root_emb,
       }
       env_sync(barrier);
       p = towers + g.pred_offset;
-      h = env_hidden<kSmemWeights>(p, Y, E, 0, -1, g.pred_width, g.n_pred, H0,
-                                   H1, &hw, tid, barrier);
+      h = env_hidden(p, Y, E, 0, -1, g.pred_width, g.n_pred, H0, H1, &hw, tid,
+                     barrier);
       // policy [A], value [S41]
-      env_heads<kSmemWeights>(p, h, hw, A, S41, 0, Z, tid);
+      env_heads(p, h, hw, A, S41, 0, Z, tid);
       env_sync(barrier);
       if (warp == 0) {
         warp_softmax(Z, srow, A, lane);
@@ -770,15 +852,659 @@ long tower_floats(int in, const int* widths, int n, const int* heads,
   return floats;
 }
 
-using SMZKernel = decltype(&fused_smz_kernel<true, true>);
+using SMZKernel = decltype(&fused_smz_kernel<true>);
 
-// The instance of a plan: trees and towers in shared memory or not.
-SMZKernel smz_instance(int smem_tree, int smem_weights) {
-  if (smem_weights)
-    return smem_tree ? fused_smz_kernel<true, true>
-                     : fused_smz_kernel<false, true>;
-  return smem_tree ? fused_smz_kernel<true, false>
-                   : fused_smz_kernel<false, false>;
+// The instance of a plan: the trees in shared memory or not.
+SMZKernel smz_instance(int smem_tree) {
+  return smem_tree ? fused_smz_kernel<true> : fused_smz_kernel<false>;
+}
+
+// ---- towers wider than a block's shared memory: tiles of environments ----
+//
+// Towers past a block's shared memory (examples/run_2048.py's widths: A =
+// 4, C = 32, E = 64, hidden (256, 256), 601 bins; 762,031 floats, 3.05 MB)
+// take fused_smz_wide_kernel. As in fused_search.cu's wide kernel, a tile
+// of kT environments (16 or 48) shares every read of the towers: each
+// simulation walks every tree of the tile (a warp an environment), then
+// expands the tile's leaves at once, part by part, each part one [kT, in]
+// x [in, cols] product on the tensor cores (3xTF32,
+// wide_tile.cuh) ended by a cluster barrier. A tile belongs to a cluster
+// of kC blocks (16 or 4); each block computes a kC-th of every product's
+// columns for all kT rows and writes them where they are read (distributed
+// shared memory, four columns a 16-byte store, the warps of a split of
+// the k-steps each storing to their share of the blocks): a hidden layer
+// and the chance tower's next state into every block of the cluster, a
+// head's logits into the block that walks the environment, which
+// normalises, runs the softmax and decodes with whole rows.
+//
+// Every row goes through all three towers, and each head's output is kept
+// where the row's parent type wants it (the TPU kernel's both-branches
+// idiom): a decision parent keeps the decision tower's afterstate, chance
+// prior and value; a chance parent the chance tower's next state and
+// reward, then the prediction tower's policy and value on that state. That
+// is 758 K multiply-adds a row against about 450 K of the towers a row
+// needs (80 % chance parents at 200 simulations), for one chain of parts
+// where rows sorted by parent type would need two kinds of tiles. The
+// one-hot input (the action, or the outcome) stays one row of W added to a
+// row's sums after the state's, as in the staged kernel.
+//
+// The weights reach a block cut to its columns: the wrapper packs the flat
+// towers into one run per cluster rank (search/fused.py
+// `pack_smz_wide_towers`): the biases and one-hot rows of every part, then
+// each part's [in8, nb] slice in the parts' order. The plan keeps a prefix
+// of the parts resident (staged once by TMA bulk copies with the biases)
+// and streams the rest through a ring of slots (one copy for all the
+// block's warps, issued ahead across parts and simulations by thread 0
+// once every warp released a slot), in pieces of as many rows as fill a
+// slot; a warp's k-steps do not depend on where the pieces end, so every
+// layout gives the same bits. The compact trees and the embeddings lie in
+// the device scratch (held in L2), which leaves the block's shared memory
+// to the towers.
+//
+// What bounds it: per row and simulation 758 K multiply-adds, so 1024
+// boards x 200 simulations are 310 GFLOP: 4.6 ms at the f32 FMA peak, 1.9
+// ms at the TF32 tensor-core peak taken three times; and 3.05 MB of towers
+// a tile and simulation from L2. Its real limit is the chain of dependent
+// parts, each ended by a cluster barrier, the walks and the decodes
+// between them.
+
+constexpr int kWideWarps = mz_wide::kWarps;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kMaxParts = 3 * (kMaxLayers + 1);
+constexpr int kPieceRows = 32;      // rows of the widest streamed part's piece
+constexpr int kMaxRing = 8;
+constexpr int kBarrierFloats = 64;  // the mbarriers, at the start
+constexpr int kCopyFloats = 8192;   // floats of one staging bulk copy
+
+// What a part's sums become: a hidden layer's ELU in every block; the
+// decision tower's heads (afterstate, chance logits, value logits), the
+// chance tower's (next state into every block, reward logits) or the
+// prediction tower's (policy, value logits), each head's logits into the
+// owning block's row where the row's parent type keeps them.
+enum WideKind { kHidden, kDecHeads, kChHeads, kPredHeads };
+// A part's input: X (the parents' embeddings, later the next states) or a
+// hidden buffer, which is also a hidden part's output.
+enum WideBuf { kBufX, kBufH0, kBufH1 };
+// The one-hot row a part adds: none, the action (decision parents), the
+// outcome (chance parents).
+enum WideHot { kHotNone, kHotAction, kHotOutcome };
+
+struct WideArgs {
+  int B, A, C, K, E, S41, support;
+  int num_simulations, max_depth, num_nodes;
+  float discount, pb_c_init, pb_c_base;
+  // Parts in the order they run; after part `mid` the decision and chance
+  // heads are whole.
+  int n_parts, mid;
+  // Part p: its input width (in8 rows in the pack, a multiple of 8), its
+  // output width, the columns nb of every block (block r computes [r nb,
+  // r nb + nb)); its input buffer, what its sums become, the hidden buffer
+  // of a hidden part, its one-hot row; its weights', biases' and one-hot
+  // rows' offsets in a rank's pack; the rows of its pieces and its first
+  // streamed piece in a simulation.
+  int in[kMaxParts], in8[kMaxParts], width[kMaxParts], nb[kMaxParts];
+  int src[kMaxParts], kind[kMaxParts], dst[kMaxParts], hot[kMaxParts];
+  int w_off[kMaxParts], b_off[kMaxParts], h_off[kMaxParts];
+  int prow[kMaxParts], spiece0[kMaxParts + 1];
+  int n_resident;   // parts [0, n_resident) stay in shared memory
+  int n_stream;     // streamed pieces a simulation
+  int res_floats;   // floats of a rank's pack staged at the start
+  int rank_floats;  // floats of a rank's pack
+  int ring, slot_floats;
+  // Floats per row of X, of the hidden buffers and of an environment's
+  // logits: each 4 more than a multiple of 32.
+  int ld_x, ld, ld_l;
+  long tree_bytes;  // bytes of one compact tree
+  long tree_base;   // scratch bytes before the trees: the B N E embeddings
+  // Shared memory (floats from its start): the barriers, the staged pack,
+  // the ring, X, the two hidden buffers, the block's logits, the warps'
+  // partial sums, the invalid masks, the per-env control words, the
+  // tile's one-hot indices.
+  int s_ring, s_x, s_h0, s_h1, s_l, s_red, s_inval, s_ctl, s_hot,
+      smem_floats;
+};
+
+// An environment's control words in the wide kernel.
+enum WideCtl { kWParent, kWAct, kWSlot, kWDepth, kWValue, kWReward };
+constexpr int kCtlWords = 8;
+
+// The pieces of a launch: the streamed piece q = sim n_stream + i is the
+// i-th of a simulation's sequence, part after part.
+struct WidePieces {
+  const float* pack;  // this rank's pack in device memory
+  const float* spack;  // its staged prefix in shared memory
+  mz_wide::Ring ring;
+  long total;  // streamed pieces in the launch
+
+  // Thread 0: the copy of streamed piece q into its slot.
+  __device__ void issue(const WideArgs& wa, long q) const {
+    const int local = static_cast<int>(q % wa.n_stream);
+    int p = wa.n_resident;
+    while (local >= wa.spiece0[p + 1]) ++p;
+    const int i = local - wa.spiece0[p];
+    const int rows = min(wa.prow[p], wa.in8[p] - wa.prow[p] * i);
+    ring.issue(q, pack + wa.w_off[p] + static_cast<long>(wa.prow[p]) * i *
+                             wa.nb[p],
+               4u * rows * wa.nb[p]);
+  }
+};
+
+// One part: acc = X [kT, in] W[:, this block's columns] over its pieces,
+// the one-hot row and the bias added to each sum in that order, and the
+// sums stored as its kind says. q0: the part's first streamed piece.
+template <int kT, int kC, int kNTW>
+__device__ void wide_part(const WideArgs& wa, const WidePieces& st, int p,
+                          long q0, float* X, float* const* H, float* L,
+                          float* red, const int* hot, int rank) {
+  namespace cg = cooperative_groups;
+  constexpr int kRankEnvs = kT / kC;
+  const int nbs = wa.nb[p], prow = wa.prow[p], in8 = wa.in8[p];
+  const bool res = p < wa.n_resident;
+  const float* x = wa.src[p] == kBufX ? X : H[wa.src[p] - kBufH0];
+  const int ldx = wa.src[p] == kBufX ? wa.ld_x : wa.ld;
+  float acc[kT / 16][kNTW][4];
+  int ng, groups;
+  mz_wide::tile_product<kT, kNTW>(
+      x, ldx, wa.in[p], nbs, (in8 + prow - 1) / prow, in8, prow,
+      [&](int pi) {
+        return res ? st.spack + wa.w_off[p] + prow * pi * nbs
+                   : st.ring.wait(q0 + pi);
+      },
+      [&](int pi) {
+        if (res) return;
+        st.ring.arrive(q0 + pi);
+        if (threadIdx.x == 0 && q0 + pi + wa.ring < st.total)
+          st.issue(wa, q0 + pi + wa.ring);
+        __syncwarp();
+      },
+      red, acc, &ng, &groups);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const float* bias = st.spack + wa.b_off[p];
+  const float* hrow = st.spack + wa.h_off[p];
+  const int c0 = rank * nbs, width = wa.width[p], kind = wa.kind[p];
+  const int hk = wa.hot[p], A = wa.A, E = wa.E;
+  const int nt = nbs / 8, S = mz_wide::k_split(nt);
+  const int ks0 = (threadIdx.x >> 5) % S, lane = threadIdx.x & 31;
+  float* out = kind == kHidden ? H[wa.dst[p] - kBufH0] : X;
+  // The sum of column n of row m with its one-hot row and bias.
+  auto finish = [&](float v, int m, int n) {
+    const int h = hot[m];  // -1 past the batch, a < A, or A + o
+    if (hk == kHotAction && h >= 0 && h < A) v += hrow[h * nbs + n];
+    if (hk == kHotOutcome && h >= A) v += hrow[(h - A) * nbs + n];
+    return v + bias[n];
+  };
+  // The first `valid` of four columns into dst[idx] of block `to` of the
+  // cluster (where this warp of the split stores the owner's rows), or, to
+  // < 0, of the blocks congruent to this warp mod S: one 16-byte store
+  // where all four go to a multiple of 4.
+  auto put = [&](float* dst, int idx, float4 q, int valid, int to) {
+    if (valid <= 0 || (to >= 0 && to % S != ks0)) return;
+    for (int r = to < 0 ? ks0 : to; r < (to < 0 ? kC : to + 1); r += S) {
+      float* d = cluster.map_shared_rank(dst, r) + idx;
+      if (valid == 4 && (idx & 3) == 0) {
+        *reinterpret_cast<float4*>(d) = q;
+      } else {
+        const float e[4] = {q.x, q.y, q.z, q.w};
+        for (int k = 0; k < valid; ++k) d[k] = e[k];
+      }
+    }
+  };
+  // Each warp of a split holds every sum of its column tiles: a lane's
+  // columns n0, n0 + 1 of rows g and g + 8 (mma's C fragment). Lanes t and
+  // t ^ 1 swap halves, so that an even lane holds four columns of row g and
+  // an odd one four of row g + 8, one store each.
+  const int g = lane >> 2, t = lane & 3;
+  const bool even = (t & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < kNTW; ++j) {
+    const int tile = ng + groups * j;
+    if (tile >= nt) break;
+#pragma unroll
+    for (int i = 0; i < kT / 16; ++i) {
+      const int n0 = 8 * tile + 2 * t;
+      float v[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int n = n0 + (h & 1);
+        v[h] = c0 + n < width ? finish(acc[i][j][h], 16 * i + g + 8 * (h >> 1),
+                                       n)
+                              : 0.f;
+        if (kind == kHidden) v[h] = elu(v[h]);
+      }
+      const float x0 = __shfl_xor_sync(kFull, even ? v[2] : v[0], 1);
+      const float x1 = __shfl_xor_sync(kFull, even ? v[3] : v[1], 1);
+      const float4 q = even ? make_float4(v[0], v[1], x0, x1)
+                            : make_float4(x0, x1, v[2], v[3]);
+      const int m = 16 * i + g + (even ? 0 : 8);
+      const int col = c0 + (even ? n0 : n0 - 2);  // four columns from here
+      const int valid = min(4, width - col);
+      const int h = hot[m], owner = m / kRankEnvs, row = m % kRankEnvs;
+      if (kind == kHidden) {
+        put(out, m * wa.ld + col, q, valid, -1);
+      } else if (kind == kChHeads && col < E) {
+        // The next state into every block; reward logits past it.
+        put(out, m * wa.ld_x + col, q, min(valid, E - col), -1);
+        if (col + valid > E && h >= A) {
+          const float e[4] = {q.x, q.y, q.z, q.w};
+          for (int k = E - col; k < valid; ++k)
+            put(L, row * wa.ld_l + col + k - E,
+                make_float4(e[k], 0.f, 0.f, 0.f), 1, owner);
+        }
+      } else if (kind == kDecHeads ? (h >= 0 && h < A) : h >= A) {
+        put(L, row * wa.ld_l + col - (kind == kChHeads ? E : 0), q, valid,
+            owner);
+      }
+    }
+  }
+}
+
+template <int kT, int kC, int kNTW>
+__global__ void __launch_bounds__(kWideThreads, 1)
+fused_smz_wide_kernel(const float* __restrict__ root_emb,
+                      const float* __restrict__ root_logits,
+                      const float* __restrict__ root_value,
+                      const float* __restrict__ invalid,
+                      const float* __restrict__ pack, char* scratch,
+                      float* __restrict__ out_visits,
+                      float* __restrict__ out_value,
+                      float* __restrict__ out_q,
+                      const __grid_constant__ WideArgs wa) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float wide_smem[];
+  constexpr int kRankEnvs = kT / kC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int A = wa.A, C = wa.C, K = wa.K, E = wa.E, N = wa.num_nodes;
+  const int S41 = wa.S41;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = rank * kRankEnvs;  // this block's rows of the tile
+  const int env0 = static_cast<int>(blockIdx.x) / kC * kT + row0;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wide_smem);
+  float* spack = wide_smem + kBarrierFloats;
+  WidePieces st;
+  st.pack = pack + static_cast<long>(rank) * wa.rank_floats;
+  st.spack = spack;
+  st.ring = {wide_smem + wa.s_ring, bars + 1, bars + 1 + kMaxRing, wa.ring,
+             wa.slot_floats};
+  st.total = static_cast<long>(wa.num_simulations) * wa.n_stream;
+  float* X = wide_smem + wa.s_x;  // parents' embeddings, then next states
+  float* H[2] = {wide_smem + wa.s_h0, wide_smem + wa.s_h1};
+  float* L = wide_smem + wa.s_l;  // the block's logits [kRankEnvs, ld_l]
+  float* red = wide_smem + wa.s_red;
+  float* inval = wide_smem + wa.s_inval;  // [kRankEnvs, A]
+  int* ctl = reinterpret_cast<int*>(wide_smem + wa.s_ctl);
+  int* hot = reinterpret_cast<int*>(wide_smem + wa.s_hot);  // [kT]
+  char* trees = scratch + wa.tree_base + env0 * wa.tree_bytes;
+  float* embs = reinterpret_cast<float*>(scratch);  // [B, N, E]
+  auto tree = [&](int i) {
+    Tree t;
+    t.place(trees + i * wa.tree_bytes, N, K);
+    return t;
+  };
+  auto emb = [&](int i, int node) {
+    return embs + (static_cast<long>(env0 + i) * N + node) * E;
+  };
+
+  // ---- staging: the biases, one-hot rows and resident parts, the first
+  // streamed pieces; the buffers zeroed; each env's root
+  if (threadIdx.x == 0) {
+    mz_wide::mbar_init(bars, 1);
+    for (int s = 0; s < wa.ring; ++s) {
+      mz_wide::mbar_init(st.ring.full + s, 1);
+      mz_wide::mbar_init(st.ring.empty + s, kWideWarps);
+    }
+    mz_wide::mbar_fence_init();
+    mz_wide::mbar_expect_tx(bars, 4u * wa.res_floats);
+    for (int off = 0; off < wa.res_floats; off += kCopyFloats)
+      mz_wide::bulk_copy(spack + off, st.pack + off,
+                         4u * min(kCopyFloats, wa.res_floats - off), bars);
+    for (long q = 0; q < wa.ring && q < st.total; ++q) st.issue(wa, q);
+  }
+  for (int k = threadIdx.x; k < wa.s_l - wa.s_x; k += kWideThreads)
+    X[k] = 0.f;  // X, H0 and H1: rows past the batch stay finite
+  for (int m = threadIdx.x; m < kT; m += kWideThreads) hot[m] = -1;
+  for (int i = warp; i < kRankEnvs; i += kWideWarps) {
+    const int env = env0 + i;
+    for (int a = lane; a < A; a += 32)
+      inval[i * A + a] =
+          (env < wa.B && invalid) ? invalid[static_cast<size_t>(env) * A + a]
+                                  : 0.f;
+    if (env >= wa.B) continue;
+    const Tree t = tree(i);
+    const float rv = root_value[env];
+    for (int j = lane; j < N; j += 32)
+      t.node[j] = j == 0 ? make_float4(1.f, rv, 0.f,
+                                       puct_scale(1.f, wa.pb_c_init,
+                                                  wa.pb_c_base))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = lane; s < K; s += 32) t.cidx[s] = -1;
+    for (int j = lane; j < E; j += 32)
+      emb(i, 0)[j] = root_emb[static_cast<size_t>(env) * E + j];
+    warp_softmax(root_logits + static_cast<size_t>(env) * A, t.cpri, A,
+                 lane);
+    if (lane == 0) t.path[0] = 0;
+  }
+  cluster.sync();  // the barriers initialised; every block of the cluster runs
+  mz_wide::mbar_wait(bars, 0);
+
+  for (int sim = 0; sim < wa.num_simulations; ++sim) {
+    // ---- walk: each env's descent, then its parent's embedding and the
+    // leaf's one-hot index into every block of the cluster
+    for (int i = warp; i < kRankEnvs; i += kWideWarps) {
+      const int env = env0 + i, m = row0 + i;
+      if (env >= wa.B) continue;
+      const Tree t = tree(i);
+      const Leaf leaf = descend(t, A, C, K, wa, inval + i * A, lane);
+      // Fresh node sim+1, unless the depth cap stopped on an existing child.
+      const int slot = leaf.child < 0 ? sim + 1 : leaf.child;
+      if (leaf.child < 0)
+        for (int s = lane; s < K; s += 32)
+          t.cidx[static_cast<size_t>(slot) * K + s] = -1;
+      const float* pe = emb(i, leaf.parent);
+      for (int j = lane; j < E; j += 32) {
+        const float v = pe[j];
+        for (int r = 0; r < kC; ++r)
+          cluster.map_shared_rank(X, r)[m * wa.ld_x + j] = v;
+      }
+      if (lane < kC) cluster.map_shared_rank(hot, lane)[m] = leaf.act;
+      if (lane == 0) {
+        int* c = ctl + kCtlWords * i;
+        c[kWParent] = leaf.parent;
+        c[kWAct] = leaf.act;
+        c[kWSlot] = slot;
+        c[kWDepth] = leaf.depth;
+      }
+    }
+    cluster.sync();
+
+    // ---- the parts: the decision and chance towers, then the prediction
+    long q = static_cast<long>(sim) * wa.n_stream;
+    for (int p = 0; p < wa.n_parts; ++p) {
+      wide_part<kT, kC, kNTW>(wa, st, p, q, X, H, L, red, hot, rank);
+      if (p >= wa.n_resident) q += (wa.in8[p] + wa.prow[p] - 1) / wa.prow[p];
+      cluster.sync();  // part p is whole where it is read
+      if (p != wa.mid) continue;
+      // ---- the towers' heads: under a decision parent the afterstate's
+      // normaliser, the chance prior's softmax and the value's decode;
+      // under a chance parent the reward's decode; the next state's
+      // normaliser on every row, in every block
+      for (int k = warp; k < 3 * kRankEnvs + kT; k += kWideWarps) {
+        if (k >= 3 * kRankEnvs) {
+          const int m = k - 3 * kRankEnvs, i = m - row0;
+          float* ns = X + m * wa.ld_x;
+          const bool mine = i >= 0 && i < kRankEnvs && env0 + i < wa.B &&
+                            ctl[kCtlWords * i + kWAct] >= A;
+          warp_normalize(ns, mine ? emb(i, ctl[kCtlWords * i + kWSlot]) : ns,
+                         E, lane);
+          continue;
+        }
+        const int i = k / 3, sub = k % 3;
+        if (env0 + i >= wa.B) continue;
+        int* c = ctl + kCtlWords * i;
+        float* cf = reinterpret_cast<float*>(c);
+        float* l = L + i * wa.ld_l;
+        const int slot = c[kWSlot];
+        if (c[kWAct] < A) {
+          if (sub == 0) {
+            warp_normalize(l, emb(i, slot), E, lane);
+          } else if (sub == 1) {
+            warp_softmax(l + E, tree(i).cpri + static_cast<size_t>(slot) * K,
+                         C, lane);
+          } else {
+            const float value = warp_decode(l + E + C, S41, wa.support, lane);
+            if (lane == 0) {
+              cf[kWValue] = value;
+              cf[kWReward] = 0.f;
+            }
+          }
+        } else if (sub == 0) {
+          const float reward = warp_decode(l, S41, wa.support, lane);
+          if (lane == 0) cf[kWReward] = reward;
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- the prediction's decodes, the install and the backup
+    for (int k = warp; k < 2 * kRankEnvs; k += kWideWarps) {
+      const int i = k % kRankEnvs;
+      if (env0 + i >= wa.B) continue;
+      int* c = ctl + kCtlWords * i;
+      float* cf = reinterpret_cast<float*>(c);
+      const Tree t = tree(i);
+      const int act = c[kWAct], slot = c[kWSlot];
+      if (k < kRankEnvs) {
+        const float value =
+            act < A ? cf[kWValue]
+                    : warp_decode(L + i * wa.ld_l + A, S41, wa.support, lane);
+        install_backup(t, slot, c[kWParent], act, c[kWDepth], value,
+                       &cf[kWReward], A, K, wa, lane);
+      } else if (act >= A) {
+        warp_softmax(L + i * wa.ld_l, t.cpri + static_cast<size_t>(slot) * K,
+                     A, lane);
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- the root summary of each env
+  for (int i = warp; i < kRankEnvs; i += kWideWarps) {
+    const int env = env0 + i;
+    if (env >= wa.B) continue;
+    const Tree t = tree(i);
+    const size_t e = static_cast<size_t>(env);
+    for (int a = lane; a < A; a += 32) {
+      const int c = t.cidx[a];
+      out_visits[e * A + a] = c >= 0 ? t.node[c].x : 0.f;
+      out_q[e * A + a] = c >= 0 ? t.node[c].y : 0.f;
+    }
+    if (lane == 0) out_value[env] = t.node[0].y;
+  }
+  cluster.sync();  // no block exits while another may still write into it
+}
+
+// ---- the wide kernel's launch ----------------------------------------------
+
+// The instances: tile rows kT, blocks kC a cluster, and the column tiles a
+// warp can own in a part (kNTW).
+using WideKernel = void (*)(const float*, const float*, const float*,
+                            const float*, const float*, char*, float*, float*,
+                            float*, const WideArgs);
+
+WideKernel wide_kernel(int tile, int cluster, int* ntw) {
+  if (tile == 16 && cluster == 16) {
+    *ntw = 1;
+    return fused_smz_wide_kernel<16, 16, 1>;
+  }
+  if (tile == 48 && cluster == 4) {
+    *ntw = 3;
+    return fused_smz_wide_kernel<48, 4, 3>;
+  }
+  return nullptr;
+}
+
+// Fills the parts, the pack's layout and the shared memory's from the
+// shapes and the plan (tile rows, cluster blocks, the resident prefix of
+// parts, the ring's slots); returns 0, or kErrShape where a part has more
+// column tiles than the instance's warps can own or the shapes pass the
+// kernel's limits. search/fused.py `smz_wide_layout` repeats the
+// arithmetic for the plan.
+int wide_layout(WideArgs* wa, int B, int A, int C, int E, int S41,
+                int num_simulations, int max_depth, int n_dec,
+                const int* dec_width, int n_ch, const int* ch_width,
+                int n_pred, const int* pred_width, int tile, int cluster,
+                int ntw, int n_resident, int ring) {
+  if (n_dec < 1 || n_dec > kMaxLayers || n_ch < 1 || n_ch > kMaxLayers ||
+      n_pred < 1 || n_pred > kMaxLayers || B < 1 || A < 1 || C < 1 ||
+      E < 1 || S41 < 1 || num_simulations < 1 ||
+      num_simulations + 1 > kMaxNodes || A > kMaxNodes || C > kMaxNodes ||
+      max_depth < 1 || ring < 0 || ring > kMaxRing)
+    return kErrShape;
+  wa->B = B;
+  wa->A = A;
+  wa->C = C;
+  wa->K = A > C ? A : C;
+  wa->E = E;
+  wa->S41 = S41;
+  wa->num_simulations = num_simulations;
+  wa->max_depth = max_depth;
+  wa->num_nodes = num_simulations + 1;
+  // Each tower's parts in turn: the decision tower, the
+  // chance tower, the prediction tower. Hidden layer l reads X (l = 0) or
+  // the buffer layer l - 1 wrote; the heads read the last hidden layer's.
+  int n = 0, hidden = 1;
+  auto tower = [&](int nl, const int* widths, int heads, int kind, int hot) {
+    for (int l = 0; l <= nl; ++l) {
+      const int in = l == 0 ? E : widths[l - 1];
+      wa->in[n] = in;
+      wa->in8[n] = (in + 7) / 8 * 8;
+      wa->width[n] = l < nl ? widths[l] : heads;
+      wa->nb[n] = ((wa->width[n] + cluster - 1) / cluster + 7) / 8 * 8;
+      wa->src[n] = l == 0 ? kBufX : kBufH0 + (l - 1) % 2;
+      wa->kind[n] = l < nl ? kHidden : kind;
+      wa->dst[n] = kBufH0 + l % 2;
+      wa->hot[n] = l == 0 ? hot : kHotNone;
+      if (l < nl && widths[l] > hidden) hidden = widths[l];
+      ++n;
+    }
+  };
+  tower(n_dec, dec_width, E + C + S41, kDecHeads, kHotAction);
+  tower(n_ch, ch_width, E + S41, kChHeads, kHotOutcome);
+  wa->mid = n - 1;
+  tower(n_pred, pred_width, A + S41, kPredHeads, kHotNone);
+  wa->n_parts = n;
+  if (n_resident < 0 || n_resident > n || (n_resident < n && ring < 2))
+    return kErrShape;
+  // The pack of a rank: each part's biases and one-hot rows, then each
+  // part's weights; the staged prefix ends after the resident parts'.
+  int fixed = 0, slot_nb = 0;
+  for (int p = 0; p < n; ++p) {
+    if (mz_wide::warp_tiles(wa->nb[p]) > ntw) return kErrShape;
+    wa->b_off[p] = fixed;
+    fixed += wa->nb[p];
+    wa->h_off[p] = fixed;
+    fixed += wa->nb[p] * (wa->hot[p] == kHotAction    ? A
+                          : wa->hot[p] == kHotOutcome ? C
+                                                      : 0);
+    if (p >= n_resident && wa->nb[p] > slot_nb) slot_nb = wa->nb[p];
+  }
+  long weights = (fixed + 7) / 8 * 8;
+  for (int p = 0; p < n; ++p) {
+    if (weights > INT_MAX / 2) return kErrShape;
+    wa->w_off[p] = static_cast<int>(weights);
+    weights += static_cast<long>(wa->in8[p]) * wa->nb[p];
+  }
+  if (weights > INT_MAX / 2) return kErrShape;
+  wa->rank_floats = static_cast<int>(weights);
+  wa->res_floats = n_resident < n ? wa->w_off[n_resident] : wa->rank_floats;
+  wa->n_resident = n_resident;
+  // A slot holds kPieceRows rows of the widest streamed part; a narrower
+  // part's pieces take as many rows (a multiple of 8) as fill it.
+  wa->slot_floats = kPieceRows * slot_nb;
+  wa->ring = n_resident < n ? ring : 0;
+  int pieces = 0;
+  for (int p = 0; p <= n; ++p) {
+    wa->spiece0[p] = pieces;
+    if (p == n) break;
+    wa->prow[p] = wa->in8[p];
+    if (slot_nb > 0) {
+      const int rows = wa->slot_floats / wa->nb[p] / 8 * 8;
+      wa->prow[p] = rows < 8 ? 8 : (rows < wa->in8[p] ? rows : wa->in8[p]);
+    }
+    if (p >= n_resident) pieces += (wa->in8[p] + wa->prow[p] - 1) / wa->prow[p];
+  }
+  wa->n_stream = pieces;
+  auto row = [](int k) { return (k + 31) / 32 * 32 + 4; };
+  wa->ld_x = row(E);
+  wa->ld = row(hidden);
+  const int logits = E + C + S41 > A + S41 ? E + C + S41 : A + S41;
+  wa->ld_l = row(logits);
+  const int N = num_simulations + 1;
+  const int P = (max_depth < num_simulations ? max_depth : num_simulations) + 1;
+  wa->tree_bytes = tree_bytes_of(N, wa->K, P);
+  wa->tree_base = round16(4L * B * N * E);
+  const int envs = tile / cluster;
+  bool split = false;  // a part whose warps split its k-steps
+  for (int p = 0; p < n; ++p) split |= mz_wide::k_split(wa->nb[p] / 8) > 1;
+  long cur = kBarrierFloats;
+  auto take = [&](long floats) {
+    const long at = cur;
+    cur += (floats + 3) / 4 * 4;
+    return static_cast<int>(at);
+  };
+  take(wa->res_floats);
+  wa->s_ring = take(static_cast<long>(wa->ring) * wa->slot_floats);
+  wa->s_x = take(static_cast<long>(tile) * wa->ld_x);
+  wa->s_h0 = take(static_cast<long>(tile) * wa->ld);
+  wa->s_h1 = take(static_cast<long>(tile) * wa->ld);
+  wa->s_l = take(static_cast<long>(envs) * wa->ld_l);
+  wa->s_red = take(split ? kWideWarps * (tile / 16) * 128L : 0);
+  wa->s_inval = take(static_cast<long>(envs) * A);
+  wa->s_ctl = take(static_cast<long>(envs) * kCtlWords);
+  wa->s_hot = take(tile);
+  if (cur > INT_MAX / 4) return kErrShape;
+  wa->smem_floats = static_cast<int>(cur);
+  return 0;
+}
+
+// Sets the wide kernel's attributes for `smem` bytes of shared memory and
+// fills a launch configuration of `grid` blocks in clusters of `cluster`.
+int wide_config(WideKernel kernel, int cluster, size_t smem, int grid,
+                cudaStream_t stream, cudaLaunchConfig_t* config,
+                cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *config = {};
+  config->gridDim = dim3(grid);
+  config->blockDim = dim3(kWideThreads);
+  config->dynamicSmemBytes = smem;
+  config->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config->attrs = attr;
+  config->numAttrs = 1;
+  return 0;
+}
+
+// The launch of the wide kernel over ceil(B / tile) clusters.
+int launch_wide(const WideArgs& wa, int tile, int cluster,
+                const float* root_emb, const float* root_logits,
+                const float* root_value, const float* invalid,
+                const float* pack, char* scratch, float* out_visits,
+                float* out_value, float* out_q, int device, void* stream) {
+  int ntw = 0;
+  const WideKernel kernel = wide_kernel(tile, cluster, &ntw);
+  if (kernel == nullptr) return kErrShape;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = static_cast<size_t>(wa.smem_floats) * sizeof(float);
+  if (smem > static_cast<size_t>(max_smem)) return kErrShape;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  const int bad = wide_config(kernel, cluster, smem,
+                              (wa.B + tile - 1) / tile * cluster,
+                              static_cast<cudaStream_t>(stream), &config,
+                              &attr);
+  if (bad) return bad;
+  err = cudaLaunchKernelEx(&config, kernel, root_emb, root_logits, root_value,
+                           invalid, pack, scratch, out_visits, out_value,
+                           out_q, wa);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -810,17 +1536,17 @@ void mz_smz_env_bytes(int A, int C, int E, int S41, int num_simulations,
 // head [H, A], value head [H, S41]. The launch plan (search/fused.py
 // `smz_search_plan`): envs_per_block environments a block, the trees in
 // shared memory or not (smem_tree), the embeddings in shared memory or not
-// (smem_emb), the towers staged in shared memory or read from device memory
-// (smem_weights), smem_bytes of shared memory a block and scratch_bytes of
-// device scratch (scratch, per environment the tree where it is not in
-// shared memory, then the embeddings where they are not). Outputs: visits
+// (smem_emb), smem_bytes of shared memory a block (the towers, staged once,
+// then each environment's) and scratch_bytes of device scratch (scratch,
+// per environment the tree where it is not in shared memory, then the
+// embeddings where they are not). Outputs: visits
 // [B, A], value [B], q [B, A]. Returns a cudaError_t, or MZ_ERR_SHAPE when
 // the shapes or the plan do not fit the kernel.
 int mz_fused_smz_search(const float* root_emb, const float* root_logits,
                         const float* root_value, const float* invalid,
                         const float* weights, int n_weights, void* scratch,
                         long scratch_bytes, int envs_per_block, int smem_tree,
-                        int smem_emb, int smem_weights, long smem_bytes,
+                        int smem_emb, long smem_bytes,
                         float* out_visits, float* out_value, float* out_q,
                         int B, int A, int C,
                         int E, int S41, int support, int num_simulations,
@@ -876,7 +1602,7 @@ int mz_fused_smz_search(const float* root_emb, const float* root_logits,
   g.ch_offset = static_cast<int>(dec);
   g.pred_offset = static_cast<int>(dec + ch);
   g.n_weights = n_weights;
-  g.weights_stride = smem_weights ? (n_weights + 3) / 4 * 4 : 0;
+  g.weights_stride = (n_weights + 3) / 4 * 4;
   g.max_hidden = max_hidden;
   long parts[3];
   mz_smz_env_bytes(A, C, E, S41, num_simulations, max_depth, max_hidden,
@@ -902,7 +1628,7 @@ int mz_fused_smz_search(const float* root_emb, const float* root_logits,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   if (smem > max_smem) return kErrShape;
-  auto kernel = smz_instance(smem_tree, smem_weights);
+  auto kernel = smz_instance(smem_tree);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -917,11 +1643,11 @@ int mz_fused_smz_search(const float* root_emb, const float* root_logits,
 
 // Blocks of the plan that one SM of `device` holds at once, as the CUDA
 // runtime reckons it from the compiled kernel (its registers included).
-int mz_smz_blocks_per_sm(int envs_per_block, int smem_tree, int smem_weights,
-                         long smem_bytes, int device, int* out) {
+int mz_smz_blocks_per_sm(int envs_per_block, int smem_tree, long smem_bytes,
+                         int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  auto kernel = smz_instance(smem_tree, smem_weights);
+  auto kernel = smz_instance(smem_tree);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_bytes));
@@ -929,6 +1655,92 @@ int mz_smz_blocks_per_sm(int envs_per_block, int smem_tree, int smem_weights,
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, kernel, kEnvThreads * envs_per_block,
       static_cast<size_t>(smem_bytes));
+}
+
+// Launch the Stochastic MuZero search with towers wider than a block's
+// shared memory (fused_smz_wide_kernel) on `stream`. Inputs and outputs as
+// mz_fused_smz_search; pack: the towers cut by columns for each of the
+// `cluster` ranks (search/fused.py `pack_smz_wide_towers`; pack_floats =
+// cluster x mz_smz_wide_layout's out[1]); scratch: the embeddings [B, N,
+// E], then the compact trees. The plan (search/fused.py `smz_wide_plan`):
+// tiles of `tile` envs on clusters of `cluster` blocks (16 x 16 or 48 x 4),
+// the first n_resident parts staged in shared memory and the rest streamed
+// through `ring` slots. Returns a cudaError_t, or MZ_ERR_SHAPE.
+int mz_fused_smz_wide_search(
+    const float* root_emb, const float* root_logits, const float* root_value,
+    const float* invalid, const float* pack, long pack_floats, void* scratch,
+    long scratch_bytes, int tile, int cluster, int n_resident, int ring,
+    float* out_visits, float* out_value,
+    float* out_q, int B, int A, int C, int E, int S41, int support,
+    int num_simulations, int max_depth, float discount, float pb_c_init,
+    float pb_c_base, int n_dec, const int* dec_width, int n_ch,
+    const int* ch_width, int n_pred, const int* pred_width, int device,
+    void* stream) {
+  int ntw = 0;
+  if (wide_kernel(tile, cluster, &ntw) == nullptr) return kErrShape;
+  WideArgs wa;
+  const int bad = wide_layout(&wa, B, A, C, E, S41, num_simulations,
+                              max_depth, n_dec, dec_width, n_ch, ch_width,
+                              n_pred, pred_width, tile, cluster, ntw,
+                              n_resident, ring);
+  if (bad) return bad;
+  if (pack_floats != static_cast<long>(cluster) * wa.rank_floats ||
+      scratch == nullptr || scratch_bytes < wa.tree_base + B * wa.tree_bytes)
+    return kErrShape;
+  wa.support = support;
+  wa.discount = discount;
+  wa.pb_c_init = pb_c_init;
+  wa.pb_c_base = pb_c_base;
+  return launch_wide(wa, tile, cluster, root_emb, root_logits, root_value,
+                     invalid, pack, static_cast<char*>(scratch), out_visits,
+                     out_value, out_q, device, stream);
+}
+
+// The wide kernel's layout for the plan (arguments as
+// mz_fused_smz_wide_search): out = {shared memory bytes a block, floats of
+// a rank's pack, floats of its staged prefix, streamed pieces a
+// simulation, floats of a ring slot, bytes of a tree, parts, the part after
+// which the decision and chance heads are whole}.
+int mz_smz_wide_layout(int B, int A, int C, int E, int S41,
+                       int num_simulations, int max_depth, int n_dec,
+                       const int* dec_width, int n_ch, const int* ch_width,
+                       int n_pred, const int* pred_width, int tile,
+                       int cluster, int n_resident, int ring, long* out) {
+  int ntw = 0;
+  if (wide_kernel(tile, cluster, &ntw) == nullptr) return kErrShape;
+  WideArgs wa;
+  const int bad = wide_layout(&wa, B, A, C, E, S41, num_simulations,
+                              max_depth, n_dec, dec_width, n_ch, ch_width,
+                              n_pred, pred_width, tile, cluster, ntw,
+                              n_resident, ring);
+  if (bad) return bad;
+  out[0] = 4L * wa.smem_floats;
+  out[1] = wa.rank_floats;
+  out[2] = wa.res_floats;
+  out[3] = wa.n_stream;
+  out[4] = wa.slot_floats;
+  out[5] = wa.tree_bytes;
+  out[6] = wa.n_parts;
+  out[7] = wa.mid;
+  return 0;
+}
+
+// Clusters of the wide kernel (tile rows x cluster blocks, smem_bytes of
+// shared memory a block) that the card holds at once, as the CUDA runtime
+// reckons it (cudaOccupancyMaxActiveClusters); into *out.
+int mz_smz_wide_active_clusters(int tile, int cluster, long smem_bytes,
+                                int device, int* out) {
+  int ntw = 0;
+  const WideKernel kernel = wide_kernel(tile, cluster, &ntw);
+  if (kernel == nullptr) return kErrShape;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  const int bad = wide_config(kernel, cluster, static_cast<size_t>(smem_bytes),
+                              cluster, nullptr, &config, &attr);
+  if (bad) return bad;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &config);
 }
 
 const char* mz_smz_error_string(int code) {

@@ -65,6 +65,8 @@ wide_gumbel_launches = 0         # policy="gumbel"
 categorical_launches = 0         # categorical family, policy="muzero"
 categorical_gumbel_launches = 0  # categorical family, policy="gumbel"
 smz_launches = 0                 # Stochastic MuZero forest (csrc/fused_smz.cu)
+# Of those, the launches of its wide-tower kernel (fused_smz_wide_kernel).
+smz_wide_launches = 0
 
 Linear = Tuple[torch.Tensor, torch.Tensor]  # (W [in, out], b [out])
 
@@ -1683,38 +1685,37 @@ def fused_smz_search_reference(
       max_depth=max_depth, pb_c_init=pb_c_init, pb_c_base=pb_c_base)[:3]
 
 
-# The Stochastic MuZero launch (``fused_smz_kernel<smem_tree,
-# smem_weights>``): four warps an environment and one to three environments
-# a block (its ``__launch_bounds__(384, 1)``: at most 168 registers a
-# thread; ``ptxas`` gives each instance fewer, ``_SMZ_REGISTERS``), the
-# three towers staged once per block in shared memory where
-# they fit beside one environment, else read from device memory (the 2048
-# example's widths: 762,031 floats). Each environment's compact
-# tree (a float4 per node: visits, value, reward, and the PUCT prior scale
-# or the children's visits; per slot of a row of max(A, C) the child index
-# and prior; the last descent's path) and its embeddings [N, E] lie in
-# shared memory where the block has room, else in a device scratch; the
-# work buffers always in shared memory.
+# The Stochastic MuZero launch (``fused_smz_kernel<smem_tree>``): four warps
+# an environment and one to three environments a block (its
+# ``__launch_bounds__(384, 1)``: at most 168 registers a thread; ``ptxas``
+# gives each instance fewer, ``_SMZ_REGISTERS``), the three towers staged
+# once per block in shared memory where they fit beside one environment;
+# wider towers (the 2048 example's widths: 762,031 floats) take the tile
+# kernel, ``fused_smz_wide_kernel`` (``smz_wide_plan``). Each environment's
+# compact tree (a float4 per node: visits, value, reward, and the PUCT
+# prior scale or the children's visits; per slot of a row of max(A, C) the
+# child index and prior; the last descent's path) and its embeddings [N, E]
+# lie in shared memory where the block has room, else in a device scratch;
+# the work buffers always in shared memory.
 SMZ_ENV_THREADS = 128
 SMZ_MAX_ENVS = 3
-# Registers a thread of each instance, by (smem_tree, smem_weights), as
+# Registers a thread of each instance, by smem_tree, as
 # ``ptxas`` reports them for sm_90a (chip_smoke.py phase 0); an SM allocates
 # them in steps of 8 a thread. ``smz_blocks_per_sm`` reads the CUDA
 # runtime's count for the compiled kernel, and the gpu tests hold the two
 # to agree.
-_SMZ_REGISTERS = {(True, True): 119, (True, False): 128, (False, True): 128,
-                  (False, False): 146}
+_SMZ_REGISTERS = {True: 119, False: 128}
 _SMZ_MAX_NODES = 32767  # int16 node indices
 
 
 class SMZPlan(NamedTuple):
-  """How a Stochastic MuZero launch runs: ``envs_per_block`` environments a
-  block, the trees (``smem_tree``) and the embeddings (``smem_emb``) in
-  shared memory or in the device scratch; ``grid`` blocks, of which an SM
-  holds ``blocks_per_sm`` at once, in ``waves`` waves; ``smem_bytes`` of
-  shared memory a block and ``scratch_bytes`` of device scratch an
-  environment; the towers staged in shared memory (``smem_weights``) or
-  read from device memory."""
+  """How a Stochastic MuZero launch of ``fused_smz_kernel`` runs:
+  ``envs_per_block`` environments a block, the trees (``smem_tree``) and
+  the embeddings (``smem_emb``) in shared memory or in the device scratch;
+  ``grid`` blocks, of which an SM holds ``blocks_per_sm`` at once, in
+  ``waves`` waves; ``smem_bytes`` of shared memory a block and
+  ``scratch_bytes`` of device scratch an environment. The towers are
+  staged in shared memory, once a block."""
   envs_per_block: int
   smem_tree: bool
   smem_emb: bool
@@ -1723,26 +1724,33 @@ class SMZPlan(NamedTuple):
   waves: int
   smem_bytes: int
   scratch_bytes: int
-  smem_weights: bool = True
 
 
 def _round16(n: int) -> int:
   return -(-n // 16) * 16
 
 
+def smz_tree_bytes(num_actions: int, num_outcomes: int, num_simulations: int,
+                   max_depth: int) -> int:
+  """Bytes of one compact tree (the kernel's ``tree_bytes_of``): float4
+  nodes (4 N floats) and priors (N K), int16 children (N K) and path
+  (min(max_depth, sims) + 1), K = max(A, C)."""
+  n, k = num_simulations + 1, max(num_actions, num_outcomes)
+  path = min(max_depth, num_simulations) + 1
+  return _round16(4 * (4 * n + n * k) + 2 * (n * k + path))
+
+
 def smz_env_bytes(num_actions: int, num_outcomes: int, embedding_dim: int,
                   bins: int, num_simulations: int, max_depth: int,
                   max_hidden: int) -> Tuple[int, int, int]:
   """Bytes of one environment's compact tree, work buffers and embeddings
-  (the kernel's ``mz_smz_env_bytes``): the tree's float4 nodes (4 N
-  floats) and priors (N K), int16 children (N K) and path (min(max_depth, sims) +
-  1); the buffers X [E], two hidden [max_hidden], Y [E + C + bins], Z [A +
-  bins] and the invalid mask [A], each rounded up to 4 floats, and 8
-  control words; the embeddings [N, E]."""
+  (the kernel's ``mz_smz_env_bytes``): the tree (``smz_tree_bytes``); the
+  buffers X [E], two hidden [max_hidden], Y [E + C + bins], Z [A + bins]
+  and the invalid mask [A], each rounded up to 4 floats, and 8 control
+  words; the embeddings [N, E]."""
   A, C, E = num_actions, num_outcomes, embedding_dim
-  n, k = num_simulations + 1, max(num_actions, num_outcomes)
-  path = min(max_depth, num_simulations) + 1
-  tree = _round16(4 * (4 * n + n * k) + 2 * (n * k + path))
+  n = num_simulations + 1
+  tree = smz_tree_bytes(A, C, num_simulations, max_depth)
   floats = sum(-(-f // 4) * 4 for f in (
       E, max_hidden, max_hidden, E + C + bins, A + bins, A)) + 8
   return tree, 4 * floats, _round16(4 * n * E)
@@ -1751,27 +1759,44 @@ def smz_env_bytes(num_actions: int, num_outcomes: int, embedding_dim: int,
 def smz_search_plan(batch: int, num_actions: int, num_outcomes: int,
                     embedding_dim: int, bins: int, num_simulations: int,
                     max_depth: int, n_weights: int, max_hidden: int,
-                    limits: DeviceLimits) -> SMZPlan:
-  """The Stochastic MuZero launch plan. The towers staged in shared memory
-  where some plan fits them there beside one environment's work buffers;
-  else every plan reads them from device memory (``smem_weights`` False)
-  and the same rules choose among those: the trees in shared memory where
-  one fits a block (a level of a walk is then a shared-memory access, not
-  an L2 round trip), then the fewest waves, then the embeddings in shared
-  memory, then the fewest environments a block (the most SMs at work).
-  Raises RuntimeError where one environment's work buffers alone exceed a
-  block's shared memory (its tree can go to the device scratch), or the
-  tree's nodes pass int16, as the kernel would. The plan of a shape is
+                    limits: DeviceLimits, towers=None,
+                    clusters: Optional[Callable] = None
+                    ) -> Union[SMZPlan, "SMZWidePlan"]:
+  """The Stochastic MuZero launch plan. Where some plan stages the towers
+  in shared memory beside one environment's work buffers, an ``SMZPlan``:
+  the trees in shared memory where one fits a block (a level of a walk is
+  then a shared-memory access, not an L2 round trip), then the fewest
+  waves, then the embeddings in shared memory, then the fewest
+  environments a block (the most SMs at work). Towers wider than that
+  take the tile kernel, ``smz_wide_plan``'s ``SMZWidePlan``, for which
+  ``towers`` gives the (decision, chance, prediction) hidden widths (by
+  default one layer of ``max_hidden`` each) and ``clusters`` the card's
+  count of clusters it holds at once (``smz_wide_active_clusters``), at
+  every batch. The tile kernel replaced an instance of
+  ``fused_smz_kernel`` that read the towers from device memory through
+  ``__ldg``. At 200 simulations of the 2048 example's widths, medians of
+  ten launches each in alternating processes (``tools/kernel_split.py
+  --against <parent> --only wide_smz``, H100 80GB HBM3, 700 W, two
+  calls): 1024 boards 36.53 and 36.57 ms against its 47.71 and 47.68, 112
+  boards 14.23 and 14.30 against 14.32 and 14.39; on phase 33's 64 roots
+  14.42 and 14.52 against 14.27 and 14.31, the old instance faster; on
+  two other sets of 64 roots 14.30 and 14.25 against 14.33 and 14.29.
+  Which kernel wins at 64 boards follows the roots, not the batch, so no
+  batch cut-off would pick the faster one. Raises RuntimeError where the
+  tree's nodes pass int16, as the kernels would. The plan of a shape is
   worked out once and kept."""
+  if towers is None:
+    towers = ((max_hidden,),) * 3
+  towers = tuple(tuple(w) for w in towers)
   return _smz_search_plan(batch, num_actions, num_outcomes, embedding_dim,
                           bins, num_simulations, max_depth, n_weights,
-                          max_hidden, limits)
+                          max_hidden, limits, towers, clusters)
 
 
 @functools.lru_cache(maxsize=None)
 def _smz_search_plan(batch, num_actions, num_outcomes, embedding_dim, bins,
                      num_simulations, max_depth, n_weights, max_hidden,
-                     limits) -> SMZPlan:
+                     limits, towers, clusters):
   if num_simulations + 1 > _SMZ_MAX_NODES:
     raise RuntimeError("fused SMZ search kernel: shapes do not fit the "
                        f"kernel ({num_simulations} simulations pass its "
@@ -1779,33 +1804,365 @@ def _smz_search_plan(batch, num_actions, num_outcomes, embedding_dim, bins,
   tree, work, emb = smz_env_bytes(num_actions, num_outcomes, embedding_dim,
                                   bins, num_simulations, max_depth,
                                   max_hidden)
-  best = None
-  for smem_weights in (True, False):
-    weights = 16 * -(-n_weights // 4) if smem_weights else 0
-    for smem_tree, smem_emb in ((True, True), (True, False), (False, False)):
-      env_smem = work + tree * smem_tree + emb * smem_emb
-      for envs in range(1, SMZ_MAX_ENVS + 1):
-        size = weights + envs * env_smem
-        if size > limits.smem_per_block:
-          break
-        threads = envs * SMZ_ENV_THREADS
-        regs = -(-_SMZ_REGISTERS[smem_tree, smem_weights] // 8) * 8
-        per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
-                     limits.regs_per_sm // (regs * threads),
-                     limits.smem_per_sm // (size + limits.smem_reserved))
-        grid = -(-batch // envs)
-        waves = -(-grid // (per_sm * limits.sms))
-        plan = SMZPlan(envs, smem_tree, smem_emb, grid, per_sm, waves, size,
-                       tree * (not smem_tree) + emb * (not smem_emb),
-                       smem_weights)
-        key = (not smem_tree, waves, not smem_emb, envs)
-        if best is None or key < best[0]:
-          best = (key, plan)
-    if best is not None:
-      return best[1]
-  raise RuntimeError("fused SMZ search kernel: shapes do not fit the "
-                     "kernel (one environment's work buffers exceed a "
-                     "block's shared memory)")
+
+  weights = 16 * -(-n_weights // 4)
+  found = None
+  for smem_tree, smem_emb in ((True, True), (True, False), (False, False)):
+    env_smem = work + tree * smem_tree + emb * smem_emb
+    for envs in range(1, SMZ_MAX_ENVS + 1):
+      size = weights + envs * env_smem
+      if size > limits.smem_per_block:
+        break
+      threads = envs * SMZ_ENV_THREADS
+      regs = -(-_SMZ_REGISTERS[smem_tree] // 8) * 8
+      per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
+                   limits.regs_per_sm // (regs * threads),
+                   limits.smem_per_sm // (size + limits.smem_reserved))
+      grid = -(-batch // envs)
+      waves = -(-grid // (per_sm * limits.sms))
+      plan = SMZPlan(envs, smem_tree, smem_emb, grid, per_sm, waves, size,
+                     tree * (not smem_tree) + emb * (not smem_emb))
+      key = (not smem_tree, waves, not smem_emb, envs)
+      if found is None or key < found[0]:
+        found = (key, plan)
+  if found is not None:
+    return found[1]
+  if clusters is None:
+    raise ValueError("the wide SMZ plan needs clusters: the card's count of "
+                     "clusters it holds at once")
+  return smz_wide_plan(batch, num_actions, num_outcomes, embedding_dim, bins,
+                       num_simulations, max_depth, *towers, limits, clusters)
+
+
+# The wide launch (``fused_smz_wide_kernel<tile, cluster, ntw>``): a tile
+# of ``tile`` environments on a cluster of ``cluster`` blocks of 256
+# threads, each block a ``cluster``-th of every product's columns, at most
+# ``ntw`` tiles of 8 columns a warp. The instances, in the order the plan
+# prefers them: 16 x 16 for a small batch (64 boards: four clusters), 48 x
+# 4 for a large one (1024 boards: 22 clusters, one wave of the card's 30).
+SMZ_WIDE_INSTANCES = ((16, 16, 1), (48, 4, 3))
+SMZ_WIDE_PIECE_ROWS = 32  # rows of a piece of the widest streamed part
+SMZ_WIDE_MAX_RING = 8
+SMZ_WIDE_MIN_RING = 4     # slots the plan keeps where parts stream, if it can
+_SMZ_WIDE_CTL = 8         # control words of an environment
+# What a part's sums become (the kernel's WideKind), its input buffer
+# (WideBuf) and its one-hot row (WideHot).
+_HIDDEN, _DEC_HEADS, _CH_HEADS, _PRED_HEADS = range(4)
+_BUF_X, _BUF_H0, _BUF_H1 = range(3)
+_HOT_NONE, _HOT_ACTION, _HOT_OUTCOME = range(3)
+
+
+class SMZWidePart(NamedTuple):
+  """One product of the wide kernel (its ``wide_layout``): the tower
+  ("dec", "ch", "pred") and layer (the heads at the tower's depth), input
+  width and rows in the pack, output width, columns ``nb`` a block, input
+  buffer, kind, hidden output buffer, one-hot row, its offsets in a rank's
+  pack and the rows of its pieces."""
+  tower: str
+  layer: int
+  ins: int
+  in8: int
+  width: int
+  nb: int
+  src: int
+  kind: int
+  dst: int
+  hot: int
+  w_off: int
+  b_off: int
+  h_off: int
+  prow: int
+
+
+class SMZWideLayout(NamedTuple):
+  """The wide kernel's layout: its parts in the order they run, the part
+  after which the decision and chance heads are whole; floats of a rank's
+  pack and of its staged prefix, streamed pieces a simulation, floats of a
+  ring slot, bytes of a tree and of a block's shared memory."""
+  parts: Tuple[SMZWidePart, ...]
+  mid: int
+  rank_floats: int
+  res_floats: int
+  n_stream: int
+  slot_floats: int
+  tree_bytes: int
+  smem_bytes: int
+
+
+def _warp_tiles(nb: int, warps: int = 8) -> int:
+  """Column tiles a warp owns at most in a product of nb columns
+  (``mz_wide::warp_tiles``)."""
+  nt, split = nb // 8, 1
+  while nt * split * 2 <= warps:
+    split *= 2
+  return -(-nt // (warps // split))
+
+
+def smz_wide_layout(tile: int, cluster: int, ntw: int, num_actions: int,
+                    num_outcomes: int, embedding_dim: int, bins: int,
+                    num_simulations: int, max_depth: int, dec_widths,
+                    ch_widths, pred_widths, n_resident: int, ring: int
+                    ) -> Optional[SMZWideLayout]:
+  """The layout of one wide launch, or None where a part has more column
+  tiles than the instance's warps can own or the plan's resident parts and
+  ring do not go together. A copy of the kernel's ``wide_layout``
+  (``mz_smz_wide_layout``), so that the CPU tests size the plan without the
+  library; a ``gpu`` test ties the two."""
+  A, C, E, S = num_actions, num_outcomes, embedding_dim, bins
+  raw = []
+  for tower, widths, heads, kind, hot in (
+      ("dec", dec_widths, E + C + S, _DEC_HEADS, _HOT_ACTION),
+      ("ch", ch_widths, E + S, _CH_HEADS, _HOT_OUTCOME),
+      ("pred", pred_widths, A + S, _PRED_HEADS, _HOT_NONE)):
+    for l in range(len(widths) + 1):
+      ins = E if l == 0 else widths[l - 1]
+      width = widths[l] if l < len(widths) else heads
+      raw.append((tower, l, ins, _round(ins, 8), width,
+                  _round(-(-width // cluster), 8),
+                  _BUF_X if l == 0 else _BUF_H0 + (l - 1) % 2,
+                  _HIDDEN if l < len(widths) else kind, _BUF_H0 + l % 2,
+                  hot if l == 0 else _HOT_NONE))
+  mid = len(dec_widths) + len(ch_widths) + 1
+  n = len(raw)
+  if not 0 <= n_resident <= n or (n_resident < n and ring < 2):
+    return None
+  if any(_warp_tiles(r[5]) > ntw for r in raw):
+    return None
+  fixed, b_off, h_off = 0, [], []
+  for r in raw:
+    b_off.append(fixed)
+    fixed += r[5]
+    h_off.append(fixed)
+    fixed += r[5] * {_HOT_ACTION: A, _HOT_OUTCOME: C}.get(r[9], 0)
+  w_off, weights = [], _round(fixed, 8)
+  for r in raw:
+    w_off.append(weights)
+    weights += r[3] * r[5]
+  res_floats = w_off[n_resident] if n_resident < n else weights
+  slot_nb = max([0] + [r[5] for r in raw[n_resident:]])
+  slot = SMZ_WIDE_PIECE_ROWS * slot_nb
+  ring = ring if n_resident < n else 0
+  prow = [r[3] if slot_nb == 0 else max(8, min(r[3], slot // r[5] // 8 * 8))
+          for r in raw]
+  n_stream = sum(-(-r[3] // pr) for r, pr in zip(raw[n_resident:],
+                                                  prow[n_resident:]))
+  parts = tuple(SMZWidePart(*r, w, b, h, pr)
+                for r, w, b, h, pr in zip(raw, w_off, b_off, h_off, prow))
+  row = _padded_row
+  hidden = max([1, *dec_widths, *ch_widths, *pred_widths])
+  envs = tile // cluster
+  split = any(r[5] // 8 * 2 <= 8 for r in raw)
+  floats = 64 + sum(_round(f, 4) for f in (
+      res_floats, ring * slot, tile * row(E), tile * row(hidden),
+      tile * row(hidden), envs * row(max(E + C + S, A + S)),
+      8 * (tile // 16) * 128 if split else 0, envs * A,
+      envs * _SMZ_WIDE_CTL, tile))
+  return SMZWideLayout(parts, mid, weights, res_floats, n_stream, slot,
+                       smz_tree_bytes(A, C, num_simulations, max_depth),
+                       4 * floats)
+
+
+class SMZWidePlan(NamedTuple):
+  """How a wide Stochastic MuZero launch runs: tiles of ``tile``
+  environments on clusters of ``cluster`` blocks; the first ``n_resident``
+  parts staged in shared memory for the launch and the rest streamed
+  through a ring of ``ring`` slots; ``smem_bytes`` a block; ``grid``
+  blocks; ``active_clusters`` clusters the card holds at once (the CUDA
+  runtime's count) and whether every tile is resident in one wave;
+  ``scratch_bytes`` of device scratch an environment (its embeddings and
+  its compact tree)."""
+  tile: int
+  cluster: int
+  n_resident: int
+  ring: int
+  smem_bytes: int
+  grid: int
+  active_clusters: int
+  one_wave: bool
+  scratch_bytes: int
+
+
+def smz_wide_plan(batch: int, num_actions: int, num_outcomes: int,
+                  embedding_dim: int, bins: int, num_simulations: int,
+                  max_depth: int, dec_widths, ch_widths, pred_widths,
+                  limits: DeviceLimits, clusters: Callable) -> SMZWidePlan:
+  """The wide plan. For each instance (``SMZ_WIDE_INSTANCES``): the
+  longest prefix of parts resident beside a ring of ``SMZ_WIDE_MIN_RING``
+  slots (of two where four do not fit), the ring then grown into what is
+  left, up to ``SMZ_WIDE_MAX_RING``: at 64 boards all parts but the
+  prediction heads resident beside four slots took 14.03 ms a launch,
+  six beside eight 14.71 and none beside eight 18.35
+  (``tools/kernel_split.py --only wide_smz``, H100 80GB HBM3, 700 W). The
+  first instance whose tiles are all resident
+  in one wave of clusters wins, else the one with the most environments in
+  flight (then the larger tile). ``clusters(tile, cluster, smem_bytes)``
+  gives the clusters the card holds at once (``smz_wide_active_clusters``:
+  the CUDA runtime's count). Raises RuntimeError where no instance fits."""
+  args = (num_actions, num_outcomes, embedding_dim, bins, num_simulations,
+          max_depth, tuple(dec_widths), tuple(ch_widths), tuple(pred_widths))
+  plans = []
+  for tile, cluster, ntw in SMZ_WIDE_INSTANCES:
+    def fit(k, ring):
+      lay = smz_wide_layout(tile, cluster, ntw, *args, k, ring)
+      return lay if lay and lay.smem_bytes <= limits.smem_per_block else None
+
+    n = len(dec_widths) + len(ch_widths) + len(pred_widths) + 3
+    chosen = None
+    for least in (SMZ_WIDE_MIN_RING, 2):
+      k = next((k for k in range(n, -1, -1) if fit(k, least)), None)
+      if k is not None:
+        ring = least if k < n else 0
+        while 0 < ring < SMZ_WIDE_MAX_RING and fit(k, ring + 1):
+          ring += 1
+        chosen = (k, ring)
+        break
+    if chosen is None:
+      continue
+    lay = fit(*chosen)
+    active = clusters(tile, cluster, lay.smem_bytes)
+    tiles = -(-batch // tile)
+    scratch = _round16(4 * (num_simulations + 1) * embedding_dim) + (
+        lay.tree_bytes)
+    plans.append(SMZWidePlan(tile, cluster, *chosen, lay.smem_bytes,
+                             tiles * cluster, active, 0 < tiles <= active,
+                             scratch))
+  plans = [p for p in plans if p.active_clusters > 0]
+  if not plans:
+    raise RuntimeError("fused SMZ search kernel: shapes do not fit the "
+                       "kernel (no wide instance fits a block's shared "
+                       "memory)")
+  for p in plans:
+    if p.one_wave:
+      return p
+  return max(plans, key=lambda p: (p.active_clusters * p.tile, p.tile))
+
+
+def smz_wide_plan_layout(plan: SMZWidePlan, num_actions: int,
+                         num_outcomes: int, embedding_dim: int, bins: int,
+                         num_simulations: int, max_depth: int, dec_widths,
+                         ch_widths, pred_widths) -> SMZWideLayout:
+  """The layout of ``plan`` (its instance's ``smz_wide_layout``)."""
+  ntw = {(t, c): n for t, c, n in SMZ_WIDE_INSTANCES}[plan.tile,
+                                                      plan.cluster]
+  return smz_wide_layout(plan.tile, plan.cluster, ntw, num_actions,
+                         num_outcomes, embedding_dim, bins, num_simulations,
+                         max_depth, dec_widths, ch_widths, pred_widths,
+                         plan.n_resident, plan.ring)
+
+
+@functools.lru_cache(maxsize=None)
+def smz_wide_active_clusters(index: int) -> Callable:
+  """``clusters`` for ``smz_wide_plan`` on card ``index``: the CUDA
+  runtime's ``cudaOccupancyMaxActiveClusters`` for the compiled instance
+  (one function a card, so that plans stay cached)."""
+  @functools.lru_cache(maxsize=None)
+  def clusters(tile, cluster, smem_bytes):
+    out = ctypes.c_int(0)
+    lib = _load_smz_kernel()
+    err = lib.mz_smz_wide_active_clusters(tile, cluster, smem_bytes, index,
+                                          ctypes.byref(out))
+    if err != 0:
+      raise RuntimeError("fused SMZ search kernel: "
+                         + lib.mz_smz_error_string(err).decode())
+    return out.value
+  return clusters
+
+
+@functools.lru_cache(maxsize=None)
+def _smz_wide_pack_index(cluster: int, num_actions: int, num_outcomes: int,
+                         embedding_dim: int, bins: int, dec_widths,
+                         ch_widths, pred_widths) -> np.ndarray:
+  """Indices into the flat towers with one zero appended (index n_weights)
+  of every float of the packs of ``cluster`` ranks
+  (``pack_smz_wide_towers``)."""
+  A, C, E, S = num_actions, num_outcomes, embedding_dim, bins
+  lay = smz_wide_layout(16, cluster, 1 << 20, A, C, E, S, 1, 1, dec_widths,
+                        ch_widths, pred_widths, 0, 2)
+  # Each tower's linears as (W offset, in, out) in the flat buffer, in the
+  # kernel's order; a tower's heads lie side by side in its heads part.
+  off = 0
+
+  def take(d_in, d_out):
+    nonlocal off
+    at = off
+    off += d_in * d_out + d_out
+    return (at, d_in, d_out)
+
+  linears = {}
+  for tower, in0, widths, heads in (
+      ("dec", E + A, dec_widths, (E, C, S)), ("ch", E + C, ch_widths, (E, S)),
+      ("pred", E, pred_widths, (A, S))):
+    d_in = in0
+    for l, w in enumerate(widths):
+      linears[tower, l] = [take(d_in, w)]
+      d_in = w
+    linears[tower, len(widths)] = [take(d_in, h) for h in heads]
+  zero = off
+  idx = np.full((cluster, lay.rank_floats), zero, dtype=np.int64)
+  for part in lay.parts:
+    col_w, col_b, col_out = [], [], []  # per output column
+    for at, d_in, d_out in linears[part.tower, part.layer]:
+      col_w += [at + c for c in range(d_out)]
+      col_b += [at + d_in * d_out + c for c in range(d_out)]
+      col_out += [d_out] * d_out
+    col_w, col_b, col_out = map(np.asarray, (col_w, col_b, col_out))
+    nb = part.nb
+    n_hot = {_HOT_ACTION: A, _HOT_OUTCOME: C}.get(part.hot, 0)
+    for r in range(cluster):
+      cols = r * nb + np.arange(nb)
+      ok = cols < part.width
+      c = np.where(ok, cols, 0)
+      idx[r, part.b_off:part.b_off + nb] = np.where(ok, col_b[c], zero)
+      k = np.arange(part.in8)[:, None]
+      w = col_w[c][None, :] + k * col_out[c][None, :]
+      w = np.where(ok[None, :] & (k < part.ins), w, zero)
+      idx[r, part.w_off:part.w_off + part.in8 * nb] = w.reshape(-1)
+      if n_hot:  # rows E.. of the first layer's W: the one-hot input
+        k = part.ins + np.arange(n_hot)[:, None]
+        w = np.where(ok[None, :], col_w[c][None, :] + k * col_out[c][None, :],
+                     zero)
+        idx[r, part.h_off:part.h_off + n_hot * nb] = w.reshape(-1)
+  return idx.reshape(-1)
+
+
+@functools.lru_cache(maxsize=8)
+def _smz_wide_pack_index_on(device: torch.device, *key) -> torch.Tensor:
+  return torch.from_numpy(_smz_wide_pack_index(*key)).to(device)
+
+
+def pack_smz_wide_towers(flat: torch.Tensor, cluster: int, num_actions: int,
+                         num_outcomes: int, embedding_dim: int, bins: int,
+                         dec_widths, ch_widths, pred_widths) -> torch.Tensor:
+  """The flat towers cut for the wide kernel: for each of the ``cluster``
+  ranks every part's biases and one-hot rows, then each part's [in8, nb]
+  slice of its columns (zeros past the input rows and the part's width):
+  one gather a launch."""
+  index = _smz_wide_pack_index_on(flat.device, cluster, num_actions,
+                                  num_outcomes, embedding_dim, bins,
+                                  tuple(dec_widths), tuple(ch_widths),
+                                  tuple(pred_widths))
+  return torch.cat((flat, flat.new_zeros(1)))[index]
+
+
+def smz_wide_kernel_layout(plan: SMZWidePlan, batch: int, num_actions: int,
+                           num_outcomes: int, embedding_dim: int, bins: int,
+                           num_simulations: int, max_depth: int, dec_widths,
+                           ch_widths, pred_widths) -> Tuple[int, ...]:
+  """The kernel's own layout of ``plan`` (``mz_smz_wide_layout``): shared
+  memory bytes a block, floats of a rank's pack, of its staged prefix,
+  streamed pieces a simulation, floats of a ring slot, bytes of a tree,
+  parts, the part after which the decision and chance heads are whole."""
+  lib = _load_smz_kernel()
+  out = (ctypes.c_long * 8)()
+  err = lib.mz_smz_wide_layout(
+      batch, num_actions, num_outcomes, embedding_dim, bins, num_simulations,
+      max_depth, len(dec_widths), _ints(dec_widths), len(ch_widths),
+      _ints(ch_widths), len(pred_widths), _ints(pred_widths), plan.tile,
+      plan.cluster, plan.n_resident, plan.ring, out)
+  if err != 0:
+    raise RuntimeError("fused SMZ search kernel: "
+                       + lib.mz_smz_error_string(err).decode())
+  return tuple(out)
 
 
 def _smz_widths(weights: "FusedSMZWeights"):
@@ -1814,7 +2171,8 @@ def _smz_widths(weights: "FusedSMZWeights"):
 
 
 def smz_launch_plan(root_embedding: torch.Tensor, weights: "FusedSMZWeights",
-                    *, num_simulations: int, max_depth=None, **_) -> SMZPlan:
+                    *, num_simulations: int, max_depth=None, **_
+                    ) -> Union[SMZPlan, SMZWidePlan]:
   """The plan that ``fused_smz_search`` launches these inputs with (on
   ``root_embedding``'s card)."""
   B, E = root_embedding.shape
@@ -1823,9 +2181,14 @@ def smz_launch_plan(root_embedding: torch.Tensor, weights: "FusedSMZWeights",
   bins = weights.pred_value[0].shape[1]
   max_depth = num_simulations if max_depth is None else max_depth
   n_weights = sum(w.numel() + b.numel() for w, b in weights.layers())
+  widths = _smz_widths(weights)
+  device = root_embedding.device
+  index = device.index if device.index is not None else (
+      torch.cuda.current_device())
   return smz_search_plan(B, A, C, E, bins, num_simulations, max_depth,
-                         n_weights, max(max(w) for w in _smz_widths(weights)),
-                         device_limits(root_embedding.device))
+                         n_weights, max(max(w) for w in widths),
+                         device_limits(device), towers=widths,
+                         clusters=smz_wide_active_clusters(index))
 
 
 def smz_blocks_per_sm(plan: SMZPlan, device: torch.device) -> int:
@@ -1836,8 +2199,7 @@ def smz_blocks_per_sm(plan: SMZPlan, device: torch.device) -> int:
   out = ctypes.c_int(0)
   lib = _load_smz_kernel()
   err = lib.mz_smz_blocks_per_sm(plan.envs_per_block, int(plan.smem_tree),
-                                 int(plan.smem_weights), plan.smem_bytes,
-                                 index, ctypes.byref(out))
+                                 plan.smem_bytes, index, ctypes.byref(out))
   if err != 0:
     raise RuntimeError("fused SMZ search kernel: "
                        + lib.mz_smz_error_string(err).decode())
@@ -1850,14 +2212,24 @@ def _load_smz_kernel():
   if fn.argtypes is None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64 = ctypes.c_long
+    towers = [i32, ptr, i32, ptr, i32, ptr, i32, ptr]  # widths, device, stream
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, i64, i32, i32, i32,
-                   i32, i64, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                   i32, i32, f32, f32, f32, i32, ptr, i32, ptr, i32, ptr,
-                   i32, ptr]
+                   i64, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                   i32, i32, f32, f32, f32] + towers
     fn.restype = i32
+    lib.mz_fused_smz_wide_search.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i64, ptr, i64, i32, i32, i32, i32,
+        ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, f32, f32,
+        f32] + towers
+    lib.mz_smz_wide_layout.argtypes = [i32] * 7 + [i32, ptr] * 3 + [i32] * 4 \
+        + [ptr]
+    lib.mz_smz_wide_active_clusters.argtypes = [i32, i32, i64, i32, ptr]
+    for f in (lib.mz_fused_smz_wide_search, lib.mz_smz_wide_layout,
+              lib.mz_smz_wide_active_clusters):
+      f.restype = i32
     lib.mz_smz_env_bytes.argtypes = [i32] * 7 + [ptr]
     lib.mz_smz_env_bytes.restype = None
-    lib.mz_smz_blocks_per_sm.argtypes = [i32, i32, i32, i64, i32, ptr]
+    lib.mz_smz_blocks_per_sm.argtypes = [i32, i32, i64, i32, ptr]
     lib.mz_smz_blocks_per_sm.restype = i32
     lib.mz_smz_error_string.argtypes = [i32]
     lib.mz_smz_error_string.restype = ctypes.c_char_p
@@ -1869,8 +2241,9 @@ def _fused_smz_search_cuda(root_embedding, root_prior_logits, root_value,
                            support_size, discount, invalid_actions,
                            max_depth, pb_c_init, pb_c_base):
   """Launch ``csrc/fused_smz.cu`` on the current stream, laid out by
-  ``smz_search_plan``."""
-  global smz_launches
+  ``smz_search_plan``: ``fused_smz_kernel``, or for towers wider than a
+  block's shared memory the tile kernel on the towers packed by rank."""
+  global smz_launches, smz_wide_launches
   device = root_embedding.device
   B, E = root_embedding.shape
   A = root_prior_logits.shape[-1]
@@ -1902,29 +2275,36 @@ def _fused_smz_search_cuda(root_embedding, root_prior_logits, root_value,
   plan = smz_launch_plan(root_embedding, weights,
                          num_simulations=num_simulations, max_depth=max_depth)
   max_depth = num_simulations if max_depth is None else max_depth
+  wide = isinstance(plan, SMZWidePlan)
   n_scratch = B * plan.scratch_bytes
   scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=device)
-  err = lib.mz_fused_smz_search(
-      root_embedding.data_ptr(), root_prior_logits.data_ptr(),
-      root_value.data_ptr(),
-      None if invalid_actions is None else invalid_actions.data_ptr(),
-      flat.data_ptr(), flat.numel(),
-      scratch.data_ptr() if n_scratch else None, n_scratch,
-      plan.envs_per_block, int(plan.smem_tree), int(plan.smem_emb),
-      int(plan.smem_weights), plan.smem_bytes, visits.data_ptr(),
-      value.data_ptr(),
-      qvalues.data_ptr(),
-      B, A, C, E, S41, support_size, num_simulations, max_depth, discount,
-      pb_c_init, pb_c_base,
-      len(widths[0]), _ints(widths[0]), len(widths[1]), _ints(widths[1]),
-      len(widths[2]), _ints(widths[2]),
-      device.index if device.index is not None
-      else torch.cuda.current_device(),
-      torch.cuda.current_stream(device).cuda_stream)
+  roots = (root_embedding.data_ptr(), root_prior_logits.data_ptr(),
+           root_value.data_ptr(),
+           None if invalid_actions is None else invalid_actions.data_ptr())
+  outs = (visits.data_ptr(), value.data_ptr(), qvalues.data_ptr(),
+          B, A, C, E, S41, support_size, num_simulations, max_depth, discount,
+          pb_c_init, pb_c_base,
+          len(widths[0]), _ints(widths[0]), len(widths[1]), _ints(widths[1]),
+          len(widths[2]), _ints(widths[2]),
+          device.index if device.index is not None
+          else torch.cuda.current_device(),
+          torch.cuda.current_stream(device).cuda_stream)
+  if wide:
+    pack = pack_smz_wide_towers(flat, plan.cluster, A, C, E, S41, *widths)
+    err = lib.mz_fused_smz_wide_search(
+        *roots, pack.data_ptr(), pack.numel(), scratch.data_ptr(), n_scratch,
+        plan.tile, plan.cluster, plan.n_resident, plan.ring, *outs)
+  else:
+    err = lib.mz_fused_smz_search(
+        *roots, flat.data_ptr(), flat.numel(),
+        scratch.data_ptr() if n_scratch else None, n_scratch,
+        plan.envs_per_block, int(plan.smem_tree), int(plan.smem_emb),
+        plan.smem_bytes, *outs)
   if err != 0:
     raise RuntimeError("fused SMZ search kernel: "
                        + lib.mz_smz_error_string(err).decode())
   smz_launches += 1
+  smz_wide_launches += wide
   return visits, value, qvalues
 
 

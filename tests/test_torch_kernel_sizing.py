@@ -588,7 +588,7 @@ def test_smz_plan_takes_every_shape_the_warp_kernel_took(widths):
     parent = _smz_parent_accepts(A, C, E, hidden, bins, sims, H100)
     try:
       fused.smz_search_plan(256, A, C, E, bins, sims, sims, n_weights,
-                            hidden, H100)
+                            hidden, H100, clusters=smz_clusters)
       ok = True
     except RuntimeError as err:
       assert "do not fit" in str(err)
@@ -598,22 +598,26 @@ def test_smz_plan_takes_every_shape_the_warp_kernel_took(widths):
 
 def test_smz_plan_refuses_what_the_kernel_cannot_take():
   # Towers past a block's shared memory (hidden 256 at C = 64: 67 K
-  # floats) are read from device memory, the trees kept in shared memory;
-  # only trees past int16 node indices are refused.
+  # floats) take the tile kernel, the trees kept in shared memory where
+  # they fit; only trees past int16 node indices are refused.
   wide = dict(A=2, C=64, E=64, hidden=256, bins=101)
   n_weights = _smz_n_weights(**wide)
   assert 4 * n_weights > H100.smem_per_block
   plan = fused.smz_search_plan(256, 2, 64, 64, 101, 200, 200, n_weights,
-                               256, H100)
-  assert not plan.smem_weights and plan.smem_tree
-  tree, work, emb = fused.smz_env_bytes(2, 64, 64, 101, 200, 200, 256)
-  assert plan.smem_bytes == plan.envs_per_block * (
-      work + tree + emb * plan.smem_emb) <= H100.smem_per_block
+                               256, H100, clusters=smz_clusters)
+  assert isinstance(plan, fused.SMZWidePlan)
+  lay = fused.smz_wide_plan_layout(plan, 2, 64, 64, 101, 200, 200, (256,),
+                                   (256,), (256,))
+  assert plan.smem_bytes == lay.smem_bytes <= H100.smem_per_block
   with pytest.raises(RuntimeError, match="do not fit"):
     fused.smz_search_plan(256, 2, 32, 32, 41, 32767, 32767,
                           _smz_n_weights(**SMZ_MLP), 64, H100)
   with pytest.raises(RuntimeError, match="do not fit"):
     fused.smz_search_plan(256, 2, 32, 32, 41, 32767, 32767, n_weights, 256,
+                          H100, clusters=smz_clusters)
+  # The wide plan takes the card's count of clusters; without it, none.
+  with pytest.raises(ValueError, match="clusters"):
+    fused.smz_search_plan(256, 2, 64, 64, 101, 200, 200, n_weights, 256,
                           H100)
 
 
@@ -627,30 +631,97 @@ def test_smz_env_bytes_at_2048_widths():
       42224, 4 * 1896, 4 * 201 * 64)
 
 
-@pytest.mark.parametrize("batch,envs,smem_emb,grid,per_sm,waves", [
-    # 64 boards: one env a block with its tree and embeddings, two blocks
-    # an SM, every env resident.
-    (64, 1, True, 64, 2, 1),
-    # 1024 boards: the embeddings go to the scratch so that four blocks
-    # fit an SM (the limit of the instance's 128 registers a thread), two
-    # waves instead of four.
-    (1024, 1, False, 1024, 4, 2),
+WIDE_2048_TOWERS = ((256, 256),) * 3
+
+
+def smz_clusters(tile, cluster, smem_bytes):
+  """The clusters of 16 and 4 blocks the H100 holds at once with one block
+  an SM, as ``runtime_clusters`` (the wide SMZ kernel's blocks, like the
+  MLP search's, fill an SM's shared memory)."""
+  return runtime_clusters(False, tile, cluster, smem_bytes)
+
+
+def _smz_plan(batch, sims=200, clusters=smz_clusters):
+  return fused.smz_search_plan(batch, 4, 32, 64, 601, sims, sims,
+                               _smz_n_weights(**WIDE_2048), 256, H100,
+                               towers=WIDE_2048_TOWERS, clusters=clusters)
+
+
+def _smz_wide(batch, sims=200, clusters=smz_clusters):
+  return fused.smz_wide_plan(batch, 4, 32, 64, 601, sims, sims,
+                             *WIDE_2048_TOWERS, H100, clusters)
+
+
+@pytest.mark.parametrize("batch,sims,cluster", [
+    # Up to seven tiles of 16 (the card's seven clusters of 16 at once) the
+    # tile kernel takes clusters of 16 blocks; past them, clusters of 4.
+    (64, 200, 16), (112, 200, 16), (113, 200, 4), (1024, 200, 4),
+    # Trees past shared memory (4000 simulations): the same kernel.
+    (64, 4000, 16),
 ])
-def test_smz_plan_reads_wide_towers_from_device_memory(batch, envs, smem_emb,
-                                                       grid, per_sm, waves):
-  A, C, E, hidden, bins = 4, 32, 64, 256, 601
+def test_smz_plan_reads_wide_towers_from_device_memory(batch, sims, cluster):
+  # Towers past a block's shared memory take the tile kernel at every
+  # batch, also where the trees would fit a block.
+  plan = _smz_plan(batch, sims)
+  assert isinstance(plan, fused.SMZWidePlan)
+  assert plan == _smz_wide(batch, sims) and plan.cluster == cluster
   n_weights = _smz_n_weights(**WIDE_2048)
   assert 4 * n_weights > H100.smem_per_block
-  plan = fused.smz_search_plan(batch, A, C, E, bins, 200, 200, n_weights,
-                               hidden, H100)
-  tree, work, emb = fused.smz_env_bytes(A, C, E, bins, 200, 200, hidden)
-  assert plan == fused.SMZPlan(
-      envs, True, smem_emb, grid, per_sm, waves,
-      envs * (work + tree + emb * smem_emb), emb * (not smem_emb), False)
-  # Two environments' trees, work buffers and embeddings fit a block; a
-  # third does not.
-  assert 2 * (tree + work + emb) <= H100.smem_per_block
-  assert 3 * (tree + work + emb) > H100.smem_per_block
+
+
+@pytest.mark.parametrize("batch,sims,tile,cluster,n_resident,ring,grid", [
+    # 64 boards: four tiles of 16 on clusters of 16 blocks, every part but
+    # the prediction heads resident beside four ring slots.
+    (64, 200, 16, 16, 8, 4, 64),
+    # 1024 boards: 64 tiles of 16 would need 64 clusters of 16 at once,
+    # past the card's 7; 22 tiles of 48 on clusters of 4 (88 blocks, one
+    # wave of 30 clusters), a rank's columns of the towers 748 KB: the
+    # first part resident, the rest streamed through two slots.
+    (1024, 200, 48, 4, 1, 2, 88),
+    # 4000 simulations: the same plans, the trees (840 KB) in the scratch
+    # as always.
+    (64, 4000, 16, 16, 8, 4, 64),
+    (1024, 4000, 48, 4, 1, 2, 88),
+])
+def test_smz_wide_plan_tile_cluster_and_residency(batch, sims, tile, cluster,
+                                                  n_resident, ring, grid):
+  plan = _smz_wide(batch, sims)
+  assert (plan.tile, plan.cluster, plan.n_resident, plan.ring,
+          plan.grid) == (tile, cluster, n_resident, ring, grid)
+  assert plan.one_wave and plan.active_clusters == {16: 7, 4: 30}[cluster]
+  lay = fused.smz_wide_plan_layout(plan, 4, 32, 64, 601, sims, sims,
+                                   *WIDE_2048_TOWERS)
+  assert plan.smem_bytes == lay.smem_bytes <= H100.smem_per_block
+  # Nine parts, the decision and chance heads whole after the sixth.
+  assert (len(lay.parts), lay.mid) == (9, 5)
+  # One more resident part, or one more slot, does not fit.
+  ntw = {(t, c): n for t, c, n in fused.SMZ_WIDE_INSTANCES}[tile, cluster]
+  for k, slots in ((n_resident + 1, max(ring, 2)), (n_resident, ring + 1)):
+    more = fused.smz_wide_layout(tile, cluster, ntw, 4, 32, 64, 601, sims,
+                                 sims, *WIDE_2048_TOWERS, k, slots)
+    assert more.smem_bytes > H100.smem_per_block
+  # The resident prefix is staged with the biases and one-hot rows; the
+  # rest streams.
+  assert lay.res_floats == lay.parts[n_resident].w_off and lay.n_stream > 0
+  # The towers' 762,031 floats over the cluster's ranks, each part's
+  # columns padded to 8 a rank and its rows to 8.
+  assert cluster * lay.rank_floats > _smz_n_weights(**WIDE_2048)
+  tree = fused.smz_tree_bytes(4, 32, sims, sims)
+  assert plan.scratch_bytes == 4 * (sims + 1) * 64 + tree
+  if sims == 4000:
+    assert tree == 840224 and tree > H100.smem_per_block
+
+
+def test_smz_wide_plan_follows_the_runtime_cluster_count():
+  # Where the card holds too few clusters of 16 for every tile, the plan
+  # takes clusters of 4; where it holds neither in one wave, the most
+  # environments in flight.
+  def few(tile, cluster, smem_bytes):
+    return {16: 2, 4: 30}[cluster]
+  assert _smz_wide(32, clusters=few).cluster == 16
+  assert _smz_wide(64, clusters=few).cluster == 4
+  plan = _smz_wide(8192, clusters=few)
+  assert (plan.tile, plan.cluster, plan.one_wave) == (48, 4, False)
 
 
 def test_smz_plan_at_smz_mlp_keeps_its_staged_towers():
@@ -658,4 +729,4 @@ def test_smz_plan_at_smz_mlp_keeps_its_staged_towers():
   # before the towers could stay in device memory.
   plan = fused.smz_search_plan(256, 2, 32, 32, 41, 200, 200,
                                _smz_n_weights(**SMZ_MLP), 64, H100)
-  assert plan == fused.SMZPlan(2, True, True, 128, 1, 1, 230016, 0, True)
+  assert plan == fused.SMZPlan(2, True, True, 128, 1, 1, 230016, 0)

@@ -16,9 +16,11 @@ made to dominate, so that the simulations extend one chain) with and
 without the depth cap, and trees that go to the device scratch (800
 simulations, or 256 chance outcomes), whose memory is filled with NaN
 before each launch; and the towers of examples/run_2048.py's widths (3.05
-MB, read from device memory) on masked roots, held by the rule of
-``chip_smoke.py``'s phase 33. Sampler: where both pick the same start,
-every raw row is exactly equal (both copy the same values).
+MB, past a block's shared memory: read from device memory at 64 boards, the
+tile kernel fused_smz_wide_kernel at 64 and 1024 boards and at 4000
+simulations) on masked roots, held by the rule of ``chip_smoke.py``'s phase
+33. Sampler: where both pick the same
+start, every raw row is exactly equal (both copy the same values).
 """
 import pytest
 import torch
@@ -68,12 +70,12 @@ def _search_inputs(device, B, A, C, E, hidden, support, with_invalid,
            fused.extract_smz_fused_weights(net, params)), invalid)
 
 
-def _poison_scratch(args, kwargs):
-  """Leaves NaN in the memory that the launch's scratch is handed next
-  (the caching allocator gives a freed block of the same size back
-  first), so that a tree or embedding the kernel reads before it writes
-  shows in the outputs."""
-  plan = fused.smz_launch_plan(args[0], args[3], **kwargs)
+def _poison_scratch(args, kwargs, plan=None):
+  """Leaves NaN in the memory that the launch's scratch (on ``plan``, by
+  default the search's own) is handed next (the caching allocator gives a
+  freed block of the same size back first), so that a tree or embedding
+  the kernel reads before it writes shows in the outputs."""
+  plan = plan or fused.smz_launch_plan(args[0], args[3], **kwargs)
   n = args[0].shape[0] * plan.scratch_bytes
   if n:
     torch.full((n // 4,), float("nan"), device=args[0].device)
@@ -147,25 +149,50 @@ def wide_smz_inputs(device, batch, seed=0):
            fused.extract_smz_fused_weights(net, params)), invalid)
 
 
-@pytest.mark.parametrize("batch", [64, 1024])
-def test_wide_towers_read_from_device_memory(cuda, batch):
-  # 64 boards (and 1024) x 200 simulations: the towers stay in device
-  # memory (the plan's smem_weights is False), the trees in shared memory;
-  # a repeated launch gives the same bits, and the outputs hold against
-  # the plain version by phase 33's rule (chip_smoke.compare_masked_smz).
+def _tile_plan(args, sims):
+  """The tile kernel's plan for these roots (``smz_wide_plan``)."""
+  dev = args[0].device
+  return fused.smz_wide_plan(args[0].shape[0], 4, 32, 64, 601, sims, sims,
+                             *fused._smz_widths(args[3]),
+                             fused.device_limits(dev),
+                             fused.smz_wide_active_clusters(dev.index))
+
+
+def _launch(args, kwargs, plan):
+  """fused_smz_search on ``plan`` in place of smz_search_plan's."""
+  chosen = fused.smz_launch_plan
+  fused.smz_launch_plan = lambda *a, **kw: plan
+  try:
+    return fused.fused_smz_search(*args, **kwargs)
+  finally:
+    fused.smz_launch_plan = chosen
+
+
+@pytest.mark.parametrize("batch,sims", [(64, 200), (1024, 200),
+                                        (16, 4000)])
+def test_wide_towers_read_from_device_memory(cuda, batch, sims):
+  # The plan takes the tile kernel (fused_smz_wide_kernel): 64 boards on
+  # clusters of 16, 1024 boards on clusters of 4, and 4000 simulations
+  # (trees of 840 KB in the scratch). The scratch filled with NaN before
+  # each launch, a repeated launch gives the same bits, and the outputs
+  # hold against the plain version by phase 33's rule
+  # (chip_smoke.compare_masked_smz).
   from chip_smoke import compare_masked_smz
 
   args, invalid = wide_smz_inputs(cuda, batch)
-  kwargs = dict(num_simulations=200, support_size=300, discount=0.999,
+  kwargs = dict(num_simulations=sims, support_size=300, discount=0.999,
                 invalid_actions=invalid, max_depth=None)
   plan = _poison_scratch(args, kwargs)
-  assert not plan.smem_weights and plan.smem_tree
-  before = fused.smz_launches
-  out = fused.fused_smz_search(*args, **kwargs)
-  _poison_scratch(args, kwargs)
-  again = fused.fused_smz_search(*args, **kwargs)
+  assert plan == _tile_plan(args, sims)
+  assert (plan.tile, plan.cluster) == ((16, 16) if batch <= 64 else (48, 4))
+  before, wide = fused.smz_launches, fused.smz_wide_launches
+  _poison_scratch(args, kwargs, plan)
+  out = _launch(args, kwargs, plan)
+  _poison_scratch(args, kwargs, plan)
+  again = _launch(args, kwargs, plan)
   torch.cuda.synchronize()
   assert fused.smz_launches == before + 2
+  assert fused.smz_wide_launches == wide + 2
   for a, b in zip(out, again):
     assert torch.equal(a, b)
   assert bool(torch.isfinite(out[2]).all())
@@ -173,9 +200,10 @@ def test_wide_towers_read_from_device_memory(cuda, batch):
 
 
 def test_smz_plan_agrees_with_the_kernel(cuda):
-  """The plan's Python copy of an environment's layout against the
-  kernel's own (``mz_smz_env_bytes``), and its blocks per SM against the
-  CUDA runtime's count for the compiled kernel."""
+  """The plans' Python copies of the layouts against the kernels' own
+  (``mz_smz_env_bytes``, ``mz_smz_wide_layout``), the plans' blocks per SM
+  and the wide plan's clusters against the CUDA runtime's counts for the
+  compiled kernels."""
   import ctypes
   lib = fused._load_smz_kernel()
   for A, C, E, bins, sims, depth, hidden in (
@@ -185,22 +213,64 @@ def test_smz_plan_agrees_with_the_kernel(cuda):
     lib.mz_smz_env_bytes(A, C, E, bins, sims, depth, hidden, out)
     assert tuple(out) == fused.smz_env_bytes(A, C, E, bins, sims, depth,
                                              hidden)
-  # Each instance: smz_mlp's towers staged with the trees in shared memory
-  # (200 simulations) or in the scratch (800); the 2048 widths' towers in
-  # device memory with the trees in shared memory (64 and 1024 boards) or
-  # in the scratch (4000 simulations).
+  # Each instance of fused_smz_kernel: smz_mlp's towers staged with the
+  # trees in shared memory (200 simulations) or in the scratch (800).
   args, _ = _search_inputs(cuda, 256, 2, 32, 32, (64,), 20, False)
-  wide = {batch: wide_smz_inputs(cuda, batch)[0] for batch in (64, 1024)}
-  for args, sims, smem_tree, smem_weights in (
-      (args, 200, True, True), (args, 800, False, True),
-      (wide[64], 200, True, False), (wide[1024], 200, True, False),
-      (wide[64], 4000, False, False)):
+  for sims, smem_tree in ((200, True), (800, False)):
     plan = fused.smz_launch_plan(args[0], args[3], num_simulations=sims)
-    assert (plan.smem_tree, plan.smem_weights) == (smem_tree, smem_weights)
+    assert plan.smem_tree == smem_tree
     assert fused.smz_blocks_per_sm(plan, cuda) == plan.blocks_per_sm, plan
+  wide = {batch: wide_smz_inputs(cuda, batch)[0] for batch in (64, 1024)}
   out = (ctypes.c_long * 3)()
   lib.mz_smz_env_bytes(4, 32, 64, 601, 200, 200, 256, out)
   assert tuple(out) == fused.smz_env_bytes(4, 32, 64, 601, 200, 200, 256)
+  # The tile kernel at the 2048 widths: 64 and 1024 boards, and 4000
+  # simulations (trees in the scratch), with other layouts of each plan.
+  for batch, sims in ((64, 200), (1024, 200), (64, 4000)):
+    args = wide[batch]
+    plan = _tile_plan(args, sims)
+    assert plan.one_wave
+    assert plan.active_clusters == fused.smz_wide_active_clusters(
+        cuda.index)(plan.tile, plan.cluster, plan.smem_bytes) > 0
+    assert fused.smz_launch_plan(args[0], args[3],
+                                 num_simulations=sims) == plan
+    widths = fused._smz_widths(args[3])
+    for n_resident in (0, 1, 4, 8, 9):
+      variant = plan._replace(n_resident=n_resident, ring=2)
+      lay = fused.smz_wide_plan_layout(variant, 4, 32, 64, 601, sims, sims,
+                                       *widths)
+      assert fused.smz_wide_kernel_layout(
+          variant, batch, 4, 32, 64, 601, sims, sims, *widths) == (
+              lay.smem_bytes, lay.rank_floats, lay.res_floats, lay.n_stream,
+              lay.slot_floats, lay.tree_bytes, len(lay.parts), lay.mid)
+
+
+def test_wide_layouts_give_the_same_bits(cuda):
+  # Every layout of the tile kernel that fits a block at 64 boards (from
+  # none of the parts resident to all but the prediction heads, beside two
+  # to eight ring slots) gives its plan's outputs bit for bit: a warp's
+  # k-steps and the order of every sum do not depend on where the pieces
+  # of the towers end.
+  args, invalid = wide_smz_inputs(cuda, 64)
+  kwargs = dict(num_simulations=200, support_size=300, discount=0.999,
+                invalid_actions=invalid, max_depth=None)
+  plan = _tile_plan(args, 200)
+  want = _launch(args, kwargs, plan)
+  widths = fused._smz_widths(args[3])
+  limit = fused.device_limits(cuda).smem_per_block
+  tried = 0
+  for n_resident in (0, 2, 5, plan.n_resident):
+    for ring in (2, 8):
+      variant = plan._replace(n_resident=n_resident, ring=ring)
+      lay = fused.smz_wide_plan_layout(variant, 4, 32, 64, 601, 200, 200,
+                                       *widths)
+      if lay.smem_bytes > limit:
+        continue
+      tried += 1
+      variant = variant._replace(smem_bytes=lay.smem_bytes)
+      for a, b in zip(_launch(args, kwargs, variant), want):
+        assert torch.equal(a, b), (n_resident, ring)
+  assert tried >= 5
 
 
 def test_smz_wrapper_rejects_bad_inputs(cuda):

@@ -28,7 +28,7 @@ import torch
 from muax_tpu.models import fused_learner as jfl
 from muax_tpu.search import fused as jfused
 from muax_tpu.train.inference import make_smz_fns as j_make_smz_fns
-from muax_tpu_torch.models import fused_learner
+from muax_tpu_torch.models import fused_learner, make_stochastic_mlp_networks
 from muax_tpu_torch.models.convert import mlp_grads_to_numpy
 from muax_tpu_torch.search import fused
 from tests.test_torch_fused_learner import KW, _assert_metrics_close
@@ -163,3 +163,96 @@ def test_wide_pack_holds_every_weight_once_at_2048_widths(tile, cluster,
                        for r in range(cluster)], 1)[:, :width]
     torch.testing.assert_close(parts + b, x[:, :d_in] @ W + b, rtol=0,
                                atol=0)
+
+
+def _rank_cols(pack, off, rows, nb, width):
+  """A part's [rows, width] block put back together over the ranks."""
+  return torch.cat([pack[r, off:off + rows * nb].view(rows, nb)
+                    for r in range(pack.shape[0])], 1)[:, :width]
+
+
+# The SMZ tile kernel's instances (fused.SMZ_WIDE_INSTANCES).
+@pytest.mark.parametrize("tile,cluster,ntw", [(16, 16, 1), (48, 4, 3)])
+def test_smz_wide_parts_compute_the_towers_at_2048_widths(tile, cluster,
+                                                          ntw):
+  # The SMZ tile kernel's parts run in the layout's order on its buffers
+  # (X, the two hidden buffers, the owners' logits), each part's weights,
+  # one-hot rows and biases read from every rank's pack
+  # (pack_smz_wide_towers): under a decision parent the decision tower's
+  # heads, under a chance parent the chance tower's next state and reward,
+  # then the prediction tower's policy and value on the normalised next
+  # state, as the plain version computes them (f32 products summed in
+  # another order: rtol = atol = 1e-5).
+  A, C, E, S = 4, 32, 64, 601
+  net = make_stochastic_mlp_networks(device="cpu", **SMZ_WIDE)
+  params = net.init_params((16,), torch.Generator().manual_seed(3))
+  weights = fused.extract_smz_fused_weights(net, params)
+  widths = fused._smz_widths(weights)
+  lay = fused.smz_wide_layout(tile, cluster, ntw, A, C, E, S, 200, 200,
+                              *widths, 0, 2)
+  pack = fused.pack_smz_wide_towers(weights.flat(), cluster, A, C, E, S,
+                                    *widths).view(cluster, -1)
+  assert pack.shape[1] == lay.rank_floats
+  rng = np.random.default_rng(5)
+  x = torch.from_numpy(rng.uniform(0, 1, (tile, E)).astype(np.float32))
+  hot = torch.from_numpy(rng.integers(0, A + C, tile))
+  dec, ch = hot < A, hot >= A
+  X = x.clone()
+  H = [torch.zeros(tile, 256), torch.zeros(tile, 256)]
+  L = torch.zeros(tile, E + C + S)
+  heads = {}
+  for k, part in enumerate(lay.parts):
+    src = X if part.src == fused._BUF_X else H[part.src - fused._BUF_H0]
+    W = _rank_cols(pack, part.w_off, part.in8, part.nb, part.width)
+    b = _rank_cols(pack, part.b_off, 1, part.nb, part.width)[0]
+    v = src[:, :part.ins] @ W[:part.ins]
+    if part.hot != fused._HOT_NONE:
+      rows = A if part.hot == fused._HOT_ACTION else C
+      hot_w = _rank_cols(pack, part.h_off, rows, part.nb, part.width)
+      keep = dec if part.hot == fused._HOT_ACTION else ch
+      v[keep] += hot_w[(hot - (0 if part.hot == fused._HOT_ACTION else A))
+                       [keep]]
+    v = v + b
+    if part.kind == fused._HIDDEN:
+      H[part.dst - fused._BUF_H0][:, :part.width] = (
+          torch.nn.functional.elu(v))
+    elif part.kind == fused._DEC_HEADS:
+      L[dec, :part.width] = v[dec]
+    elif part.kind == fused._CH_HEADS:
+      X[:, :E] = v[:, :E]
+      L[ch, :S] = v[ch, E:]
+    else:
+      heads["pred"] = v
+    if k == lay.mid:
+      heads["dec"], heads["reward"] = L[dec].clone(), L[ch, :S].clone()
+      lo, hi = X.amin(-1, keepdim=True), X.amax(-1, keepdim=True)
+      X = (X - lo) / torch.clamp(hi - lo, min=1e-8)
+      heads["state"] = X[ch].clone()
+
+  def tower(inp, layers):
+    for w, bias in layers:
+      inp = torch.nn.functional.elu(inp @ w + bias)
+    return inp
+
+  def head(h, linear):
+    return h @ linear[0] + linear[1]
+
+  one_hot = torch.nn.functional.one_hot
+  h = tower(torch.cat([x, one_hot(hot.clamp(max=A - 1), A).float()], -1),
+            weights.dec_layers)[dec]
+  want = torch.cat([head(h, weights.dec_state), head(h, weights.dec_chance),
+                    head(h, weights.dec_value)], -1)
+  close = dict(rtol=1e-5, atol=1e-5)
+  torch.testing.assert_close(heads["dec"], want, **close)
+  h = tower(torch.cat([x, one_hot((hot - A).clamp(min=0), C).float()], -1),
+            weights.ch_layers)[ch]
+  state = head(h, weights.ch_state)
+  lo, hi = state.amin(-1, keepdim=True), state.amax(-1, keepdim=True)
+  state = (state - lo) / torch.clamp(hi - lo, min=1e-8)
+  torch.testing.assert_close(heads["state"], state, **close)
+  torch.testing.assert_close(heads["reward"], head(h, weights.ch_reward),
+                             **close)
+  g = tower(state, weights.pred_layers)
+  torch.testing.assert_close(
+      heads["pred"][ch], torch.cat([head(g, weights.pred_policy),
+                                    head(g, weights.pred_value)], -1), **close)

@@ -1,10 +1,11 @@
-"""Phases 33 and 34 of ``chip_smoke.py`` alone: the Stochastic MuZero search
-kernel with its towers in device memory at ``examples/run_2048.py``'s
-widths (33), and the port's example scripts on the card (34).
+"""Phases 33 and 34 of ``chip_smoke.py`` alone: the Stochastic MuZero
+search's wide-tower kernel (tiles of environments sharing every tower read)
+at ``examples/run_2048.py``'s widths (33), and the port's example scripts
+on the card (34).
 
 Builds every kernel (printing the ``ptxas`` figures of the SMZ search's
-instances), then runs the phases, printing one JSON line each. Needs a
-CUDA card; run from the repository's root:
+instances, staged and wide), then runs the phases, printing one JSON line
+each. Needs a CUDA card; run from the repository's root:
 
   python3 tools/examples_phase.py [--only 33|34] [--out FILE]
 """
@@ -36,9 +37,9 @@ def main():
   print(card)
   ptxas = cs.ptxas_figures(_build.build_all())
   for label, fig in ptxas.items():
-    if "fused_smz_kernel" in label:
+    if label.startswith("fused_smz:"):
       print(f"  ptxas {label}: {json.dumps(fig)}")
-  out = {"card": card}
+  out = {"card": card, "ptxas": ptxas}
   if opts.only in (None, "33"):
     t0 = time.perf_counter()
     out["33"], _ = cs.wide_smz_phase(dev)

@@ -4,7 +4,7 @@ Run from the root of a checkout (its ``muax_tpu_torch`` package and
 ``csrc/`` are the ones measured):
 
   python3 tools/kernel_split.py [--out FILE]
-      [--only mlp|learner|categorical|smz|sampler|wide|digests]
+      [--only mlp|learner|categorical|smz|sampler|wide|wide_smz|digests]
       [--against OTHER]
 
 The MLP search (``fused_search_kernel``, both policies) is timed at 8192
@@ -37,7 +37,12 @@ a kernel of its own, timed by the profiler. Then the wide learner (batch
 256, K = 5, phase 30's windows): CUDA events, each kernel's device time,
 and the shares of a stamped copy (the cluster pass's forward and
 backward, or the older tile pass's sections). ``--only wide`` runs the two
-wide cases alone.
+wide cases alone, and the Stochastic MuZero search's wide towers
+(``--only wide_smz`` alone): chip_smoke.py phase 33's launches at 64 and
+1024 boards x 200 simulations, the search's own plan, the tile kernel's
+plan and every other layout of it that fits (CUDA events and a digest of
+the outputs each), then a stamped copy's cycles a simulation of the walk,
+each part (and of its product and epilogue) and the decodes.
 
 For the categorical family it times the learner at batch 1024 (``categorical_training``'s
 batch, bench widths: embedding 64, towers (256, 256, 256), 51 bins) and the
@@ -81,7 +86,8 @@ With ``--against OTHER`` (the root of another checkout, such as the parent
 commit unpacked with ``git archive``) it instead compares the two
 checkouts, each run a fresh process with its checkout's own package (and
 ``chip_smoke.py``), after both have built their kernels: first a digest of
-the outputs of every staged and categorical instance (``DIGEST_RUN``;
+the outputs of every staged and categorical instance, the staged SMZ
+search's, the wide MLP search's and both sampler modes' (``DIGEST_RUN``;
 ``digests_equal`` says which agree; ``--only digests`` stops there), then
 the MLP learner
 as above (CUDA events, each kernel, a digest of its outputs) and the
@@ -97,7 +103,10 @@ card at once (8192 envs, 18 actions x 64 simulations and 2 x 400, the
 kernel's outputs that shows whether the two kernels round alike, in place
 of the learner; ``--only smz`` and ``--only sampler`` time those kernels
 alone at the points above (the SMZ search with a digest of its outputs),
-in the same order.
+in the same order; ``--only wide_smz`` times the wide SMZ search as each
+checkout's plan launches it on phase 33's roots at 64, 112 and 1024
+boards x 200 simulations, and at 64 boards on two other sets of roots, in
+five rounds of that order (ten runs of each checkout).
 """
 import argparse
 import copy
@@ -314,7 +323,9 @@ def build_stamped(build, which):
           "wide": (("fused_search_wide", "fused_search", _wide_stamped,
                     ()),),
           "wide_learner": (("fused_learner_wide", "fused_learner",
-                            _wide_learner_stamped, ()),)}
+                            _wide_learner_stamped, ()),),
+          "wide_smz": (("fused_smz_wide", "fused_smz", _wide_smz_stamped,
+                        ()),)}
   for key in which:
     for name, source, stamp, names[name] in jobs[key]:
       src = (csrc / f"{source}.cu").read_text()
@@ -727,9 +738,12 @@ def against(other, only=None):
   a digest of the kernel's outputs), once per checkout; then, unless
   ``only`` is "learner", phases 6 and 10. With ``only="smz"`` the SMZ
   search at SMZ_POINTS (``smz_times``, on the net trained once here), with
-  ``only="sampler"`` both sampler modes (``sampler_times``), and nothing
-  else. Every timed run goes in the order other, this, this, other, and is
-  labelled with its checkout."""
+  ``only="sampler"`` both sampler modes (``sampler_times``), with
+  ``only="wide_smz"`` the wide SMZ search as its plan launches it at
+  WIDE_SMZ_AB_POINTS (``wide_smz_times``; WIDE_SMZ_ROUNDS rounds, each
+  checkout's figures also sorted by point), and nothing else. Every timed
+  run goes in the order other, this, this, other, and is labelled with its
+  checkout."""
   roots = {"other": os.path.abspath(other), "this": os.getcwd()}
   builds = [subprocess.Popen([sys.executable, "-c", BUILD_RUN], cwd=root)
             for root in roots.values()]
@@ -748,7 +762,7 @@ def against(other, only=None):
 
   order = ("other", "this", "this", "other")
   out = {}
-  if only not in ("smz", "sampler"):
+  if only not in ("smz", "sampler", "wide_smz"):
     runs = [child(label, DIGEST_RUN, "DIGESTS") for label in roots]
     out["digests"] = runs
     out["digests_equal"] = {k: runs[0][k] == runs[1][k]
@@ -763,6 +777,14 @@ def against(other, only=None):
   if only == "sampler":
     out["sampler"] = [child(label, SAMPLER_RUN, "SAMPLER")
                       for label in order]
+    return out
+  if only == "wide_smz":
+    runs = [child(label, WIDE_SMZ_RUN, "WIDE_SMZ")
+            for _ in range(WIDE_SMZ_ROUNDS) for label in order]
+    out["wide_smz"] = runs
+    out["wide_smz_ms"] = {
+        label: {p: sorted(r[p]["ms"] for r in runs if r["checkout"] == label)
+                for p in runs[0] if p != "checkout"} for label in roots}
     return out
   if only in (None, "learner"):
     out["learner"] = [child(label, LEARNER_RUN, "LEARNER") for label in order]
@@ -1136,16 +1158,17 @@ def main():
                       help="directory for the stamped copies")
   parser.add_argument("--only", choices=("mlp", "learner", "categorical",
                                           "smz", "sampler", "wide",
-                                          "digests"),
+                                          "wide_smz", "digests"),
                       default=None, help="split only the MLP search, the "
                       "MLP learner, the categorical kernels, the Stochastic "
-                      "MuZero search or the sampler")
+                      "MuZero search, the sampler, the wide modes or the "
+                      "wide SMZ search")
   parser.add_argument("--against", default=None, metavar="OTHER",
                       help="compare the checkout at OTHER with this one "
                       "(the MLP learner and training iterations; with "
                       "--only mlp the large MLP search trees and the "
-                      "iterations; with --only smz or sampler those "
-                      "kernels) instead")
+                      "iterations; with --only smz, sampler or wide_smz "
+                      "those kernels) instead")
   opts = parser.parse_args()
   sys.path.insert(0, os.getcwd())  # the checkout measured is the cwd's
   if not torch.cuda.is_available():
@@ -1174,6 +1197,8 @@ def main():
     if opts.only == "wide":
       wide_split(res, opts.build)
       wide_learner_split(res, dev, opts.build)
+    if opts.only in ("wide", "wide_smz"):
+      wide_smz_split(res, opts.build)
     if opts.only == "digests":
       parser.error("--only digests goes with --against")
   print(json.dumps(res))
@@ -1458,9 +1483,13 @@ def wide_learner_split(res, dev, build):
 # policies; the categorical search at 512 envs with clusters of 2 and 4,
 # trees in shared memory and in the scratch, both policies; the MLP learner
 # at batch 4096 and on the CartPole notebook's towers at K = 11, whose
-# arena lies in the scratch; the categorical learner at batch 1024).
+# arena lies in the scratch; the categorical learner at batch 1024; the
+# staged SMZ search on the fresh and deep-tree smz_mlp nets, and with its
+# trees in the scratch at 800 simulations; the MLP search's wide mode at 64
+# and 1024 boards, both policies; the sampler's two modes as phases 4 and
+# 18 call them).
 DIGEST_RUN = r"""
-import hashlib, json, sys, torch
+import copy, hashlib, json, sys, torch
 sys.path[:0] = [".", TOOLS]
 import kernel_split as ks
 from muax_tpu_torch.models import fused_learner
@@ -1501,8 +1530,235 @@ for name, kw in (("mlp_4096", dict(B=4096, family="mlp")),
   lw = fused_learner.extract_learner(net, params)
   out[f"learner_{name}"] = digest(fused_learner._grad_cuda(
       lw, raw, coef, lay, l2_coef=1e-4, gradient_scale=0.5))
+fresh = ks.smz_network(dev).init_params((4,), torch.Generator().manual_seed(0))
+deep = ks.deep_tree_params(copy.deepcopy(fresh))
+for name, params, B, depth, sims in (
+    ("fresh_256", fresh, 256, None, 200), ("fresh_64", fresh, 64, None, 200),
+    ("deep_64_depth32", deep, 64, 32, 200),
+    ("fresh_48_sims800", fresh, 48, None, 800)):  # trees in the scratch
+  args, kw = ks.smz_inputs(dev, params, B, depth)
+  kw["num_simulations"] = sims
+  out[f"smz_{name}"] = digest(fused._fused_smz_search_cuda(
+      *args, pb_c_init=1.25, pb_c_base=19652.0, **kw))
+for policy in ("muzero", "gumbel"):
+  for B in ks.WIDE_BOARDS:
+    out[f"mlp_wide_{policy}_{B}"] = digest(ks.wide_search_case(dev, B,
+                                                               policy)())
+for name, (fn, _, _) in ks.sampler_cases(dev).items():
+  out[f"sampler_{name}"] = digest(fn()[:1])
 print("DIGESTS " + json.dumps(out))
 """.replace("TOOLS", repr(os.path.dirname(os.path.abspath(__file__))))
+
+
+# ---- the Stochastic MuZero search's wide-tower kernel (row 4 "wide") -----
+#
+# chip_smoke.py phase 33's launches: examples/run_2048.py's widths in
+# make_stochastic_mlp_networks (A = 4, 32 chance outcomes, embedding 64,
+# support 300, hidden (256, 256): 762,031 floats), on the roots of
+# native-pool boards after 24 random legal moves under their legal masks,
+# at 64 and 1024 boards x 200 simulations. Thread 0 of each block stamps
+# the walk (with its cluster barrier), each part (its product with its
+# ring waits, the epilogue's stores into the cluster, the barrier), the
+# decodes after the decision and chance heads (with the next state's
+# normaliser), and the prediction's decodes with the install and backup;
+# and, summed over the parts, each part's product and its epilogue.
+WIDE_SMZ_BOARDS = (64, 1024)
+WIDE_SMZ_SECTIONS = ("walk", *(f"part_{p}" for p in range(12)),
+                     "tower_decodes", "prediction_decodes_install_backup")
+WIDE_SMZ_PART_PRE = r"""
+__device__ unsigned long long g_wpart[2];  // products, epilogues
+"""
+WIDE_SMZ_PART_POST = r"""
+extern "C" int split_part_read(unsigned long long* out) {
+  return cudaMemcpyFromSymbol(out, g_wpart, sizeof(g_wpart));
+}
+extern "C" int split_part_reset() {
+  void* p;
+  cudaGetSymbolAddress(&p, g_wpart);
+  return cudaMemset(p, 0, sizeof(g_wpart));
+}
+"""
+WIDE_SMZ_MARKS = [
+    ('#include "wide_tile.cuh"\n',
+     '#include "wide_tile.cuh"\n' + WIDE_PRE + WIDE_SMZ_PART_PRE),
+    # Thread 0's cycles in each part's product (its ring waits and the
+    # split's partial sums included) and in its epilogue.
+    ("  float acc[kT / 16][kNTW][4];\n  int ng, groups;\n"
+     "  mz_wide::tile_product<kT, kNTW>(",
+     "  float acc[kT / 16][kNTW][4];\n  int ng, groups;\n"
+     "  const long long _p0 = clock64();\n"
+     "  mz_wide::tile_product<kT, kNTW>("),
+    ("      red, acc, &ng, &groups);\n\n  cg::cluster_group cluster",
+     "      red, acc, &ng, &groups);\n  const long long _p1 = clock64();\n\n"
+     "  cg::cluster_group cluster"),
+    ("    }\n  }\n}\n\ntemplate <int kT, int kC, int kNTW>\n__global__",
+     "    }\n  }\n  if (threadIdx.x == 0) {\n"
+     "    atomicAdd(&g_wpart[0], _p1 - _p0);\n"
+     "    atomicAdd(&g_wpart[1], clock64() - _p1);\n  }\n}\n\n"
+     "template <int kT, int kC, int kNTW>\n__global__"),
+    ("  for (int sim = 0; sim < wa.num_simulations; ++sim) {\n"
+     "    // ---- walk:",
+     "  WSTAMP_INIT\n"
+     "  for (int sim = 0; sim < wa.num_simulations; ++sim) {\n"
+     "    // ---- walk:"),
+    ("    cluster.sync();\n\n    // ---- the parts:",
+     "    cluster.sync();\n    WSTAMP(0)\n\n    // ---- the parts:"),
+    ("      cluster.sync();  // part p is whole where it is read\n",
+     "      cluster.sync();  // part p is whole where it is read\n"
+     "      WSTAMP(1 + (p < 12 ? p : 11))\n"),
+    ("      __syncthreads();\n    }\n\n    // ---- the prediction's decodes",
+     "      __syncthreads();\n      WSTAMP(13)\n    }\n\n"
+     "    // ---- the prediction's decodes"),
+    ("    __syncthreads();\n  }\n\n  // ---- the root summary of each env\n",
+     "    __syncthreads();\n    WSTAMP(14)\n  }\n"
+     "  WSTAMP_FLUSH(threadIdx.x == 0)\n\n"
+     "  // ---- the root summary of each env\n")]
+
+
+def _wide_smz_stamped(src):
+  for old, new in WIDE_SMZ_MARKS:
+    src = _one(src, old, new)
+  return src + WIDE_POST + WIDE_SMZ_PART_POST
+
+
+def wide_smz_case(dev, B, skip=0):
+  """(launch, args, kwargs) of the wide SMZ search on B boards:
+  chip_smoke.py phase 33's roots and masks (with ``skip``, the boards after
+  the first ``skip`` of a pool of skip + B)."""
+  import chip_smoke
+  from muax_tpu_torch.models import make_stochastic_mlp_networks
+  from muax_tpu_torch.search import fused
+  net = make_stochastic_mlp_networks(4, device=dev, **chip_smoke.SMZ_WIDE_NET)
+  params = net.init_params((4, 4), torch.Generator().manual_seed(
+      chip_smoke.SEED))
+  obs, legal = chip_smoke.host_boards(dev, skip + B,
+                                      chip_smoke.HOST_BOARD_MOVES)
+  gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+  args, kwargs = chip_smoke.wide_smz_launch(
+      net, params, obs[skip:].contiguous(), legal[skip:].contiguous(), gen)
+  return (lambda: fused._fused_smz_search_cuda(
+      *args, pb_c_init=1.25, pb_c_base=19652.0, **kwargs)), args, kwargs
+
+
+# --against's rounds of the wide SMZ search: each round runs both
+# checkouts in the order other, this, this, other, a fresh process a run,
+# at each point: (boards, boards skipped) of wide_smz_case, 64 boards also
+# on two other sets of roots.
+WIDE_SMZ_AB_POINTS = {"64": (64, 0), "64_skip64": (64, 64),
+                      "64_skip128": (64, 128), "112": (112, 0),
+                      "1024": (1024, 0)}
+WIDE_SMZ_ROUNDS = 5
+WIDE_SMZ_RUN = r"""
+import json, sys, torch
+sys.path[:0] = [".", TOOLS]
+import kernel_split as ks
+torch.backends.cuda.matmul.allow_tf32 = False
+print("WIDE_SMZ " + json.dumps(ks.wide_smz_times(torch.device("cuda", 0))))
+""".replace("TOOLS", repr(os.path.dirname(os.path.abspath(__file__))))
+
+
+def wide_smz_times(dev, reps=5):
+  """The wide SMZ search in a checkout (``--against``), at each of
+  WIDE_SMZ_AB_POINTS: the kernel its plan takes, the ms a launch (CUDA
+  events over ``reps`` launches) and a digest of the outputs."""
+  import hashlib
+  from muax_tpu_torch.search import fused
+  out = {}
+  for name, (B, skip) in WIDE_SMZ_AB_POINTS.items():
+    fn, args, kwargs = wide_smz_case(dev, B, skip)
+    plan = fused.smz_launch_plan(args[0], args[3], **kwargs)
+    out[name] = {"plan": type(plan).__name__, **plan._asdict(),
+              "ms": events_ms(fn, reps),
+              "outputs_sha256": hashlib.sha256(b"".join(
+                  t.cpu().numpy().tobytes() for t in fn())).hexdigest()[:16]}
+  return out
+
+
+def wide_smz_variants(plan, B, args, kwargs):
+  """The tile kernel's plan and the other layouts of its instance that fit
+  a block at B boards: the most parts resident beside two, four and eight
+  ring slots, and none resident beside eight."""
+  from muax_tpu_torch.device import device_limits
+  from muax_tpu_torch.search import fused
+  limit = device_limits(args[0].device).smem_per_block
+  widths = fused._smz_widths(args[3])
+  sims = kwargs["num_simulations"]
+
+  def variant(k, ring):
+    v = plan._replace(n_resident=k, ring=ring)
+    lay = fused.smz_wide_plan_layout(v, 4, 32, 64, 601, sims, sims, *widths)
+    if lay is None or lay.smem_bytes > limit:
+      return None
+    return v._replace(ring=ring if k < len(lay.parts) else 0,
+                      smem_bytes=lay.smem_bytes)
+
+  out = {"plan": plan}
+  for ring in (2, 4, 8):
+    k = next(k for k in range(27, -1, -1) if variant(k, ring) or k == 0)
+    if variant(k, ring):
+      out[f"resident_{k}_ring_{ring}"] = variant(k, ring)
+  if variant(0, 8):
+    out["resident_0_ring_8"] = variant(0, 8)
+  return out
+
+
+def wide_smz_split(res, build):
+  """The wide SMZ search at 64 and 1024 boards: ms (CUDA events) of the
+  search's own plan (the tile kernel's) and of each other layout of it
+  that fits (``wide_smz_variants``), with a digest of the outputs; then
+  each section's cycles a simulation and share of the plan, from a
+  stamped copy."""
+  import hashlib
+  from muax_tpu_torch.search import fused
+  dev = torch.device("cuda", 0)
+  cases = {}
+  chosen = fused.smz_launch_plan
+
+  def forced(fn, plan):
+    def run():
+      fused.smz_launch_plan = lambda *a, **k: plan
+      try:
+        return fn()
+      finally:
+        fused.smz_launch_plan = chosen
+    return run
+
+  for B in WIDE_SMZ_BOARDS:
+    fn, args, kwargs = wide_smz_case(dev, B)
+    tile = chosen(args[0], args[3], **kwargs)
+    cases[B] = forced(fn, tile)
+    out = res[f"wide_smz_{B}"] = {"plan": tile._asdict(), "variants": {}}
+    variants = wide_smz_variants(tile, B, args, kwargs)
+    for name, variant in variants.items():
+      run = forced(fn, variant)
+      digest = hashlib.sha256(b"".join(
+          t.cpu().numpy().tobytes() for t in run())).hexdigest()[:16]
+      out["variants"][name] = {"ms": events_ms(run, 3),
+                               "outputs_sha256": digest}
+      print(json.dumps({f"wide_smz_{B}": {name: out["variants"][name]}}),
+            flush=True)
+    out["ms"] = out["variants"]["plan"]["ms"]
+  libs, _ = build_stamped(build, ["wide_smz"])
+  lib = libs["fused_smz_wide"]
+  lib.split_part_read.argtypes = [ctypes.c_void_p]
+  for B, fn in cases.items():
+    lib.split_part_reset()
+    buf = _stamped_run("fused_smz_wide", "fused_smz", fn, libs, 16)
+    part = (ctypes.c_ulonglong * 2)()
+    lib.split_part_read(ctypes.addressof(part))
+    plan = res[f"wide_smz_{B}"]["plan"]
+    blocks = -(-B // plan["tile"]) * plan["cluster"]
+    per_sim = blocks * 200
+    whole = sum(buf[:len(WIDE_SMZ_SECTIONS)])
+    res[f"wide_smz_{B}"]["section_share"] = {
+        s: buf[k] / whole for k, s in enumerate(WIDE_SMZ_SECTIONS) if buf[k]}
+    res[f"wide_smz_{B}"]["cycles_a_sim"] = {
+        s: buf[k] / per_sim for k, s in enumerate(WIDE_SMZ_SECTIONS)
+        if buf[k]}
+    # Of the parts' cycles: their products and their epilogues (the rest
+    # is the cluster barriers).
+    res[f"wide_smz_{B}"]["parts_cycles_a_sim"] = {
+        "products": part[0] / per_sim, "epilogues": part[1] / per_sim}
 
 
 def categorical_split(res, dev, build):
