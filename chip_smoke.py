@@ -215,6 +215,18 @@ against its plain version; the AlphaZero and MCTS scripts with none;
 LunarLander only where gymnasium with Box2D imports.
 ``tools/examples_phase.py`` runs both alone.
 
+Phase 35 shows that a training run repeats its bits for one seed: ``fit``
+at the quickstart's configuration (``run_cartpole``'s ``setup``: 16 envs x
+25 steps, 64 updates of batch 256, the notebook triplet) for
+REPRO_ITERATIONS iterations after its warm-up, twice in this process, each
+call fresh with the same seed. ``tools/repro_fit.py`` digests the state
+after every stage of every iteration (the rollout, the ring, each
+group's draws and sampler output, each update's gradient, optimizer state
+and parameters, the priority refresh, the evaluation); every digest, and
+the final parameters, optimizer state, ring and episodes, must agree. It
+prints both runs' final digests. ``tools/examples_phase.py --only 35``
+runs it alone.
+
 Every failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card, or without the package beside it, it fails the same way.
 The line before the last lists every kernel with its launches, error, times
@@ -385,6 +397,9 @@ SMZ_WIDE_REPS, SMZ_WIDE_POLICY_CALLS = 3, 2
 # simulation of host-bound launches) at EXAMPLE_GENERIC_SIMS simulations,
 # so that the phase stays within a minute.
 EXAMPLE_ITERATIONS, EXAMPLE_GENERIC_SIMS = 2, 8
+# Phase 35, one seed's training run twice: the quickstart for
+# REPRO_ITERATIONS iterations after its 4 of warm-up, seed REPRO_SEED.
+REPRO_ITERATIONS, REPRO_SEED = 6, 42
 
 
 def check(cond, message):
@@ -566,25 +581,40 @@ def ulp_sensitive(args, kwargs, idx, trials=8, weights=True, runs=None):
   return found
 
 
-def f64_disagrees(args, kwargs, idx):
-  """Which of the envs ``idx`` of a recorded MLP search launch the plain
-  version computes differently in f32 and in f64 (root value or a root q
-  past rtol = atol = 1e-3), their inputs alone as a batch of their own:
-  f32 rounding alone decides their trees."""
+def f64_disagrees(args, kwargs, idx, out):
+  """Which of the envs ``idx`` of a recorded MLP search launch, whose
+  kernel outputs were ``out``, f32 rounding alone decides, their inputs
+  alone as a batch of their own: the plain version's root value or a root
+  q in f32, where the launch ran, leaves rtol = atol = 1e-3 of its f64
+  run; or it does so in f32 on the CPU, whose products round otherwise,
+  and the kernel's value and q lie within rtol = atol = 1e-3 of that CPU
+  run (the kernel took that f32 rounding's tree)."""
   sub_args, sub_kwargs = sub_launch(args, kwargs, idx)
-  _, v32, q32 = fused_reference(sub_args, sub_kwargs)
   _, v64, q64 = fused_reference(tensor_map(torch.Tensor.double, sub_args),
                                 sub_kwargs)
-  return outside(v32.double(), v64) | outside(q32.double(), q64).any(-1)
+
+  def parts_from_f64(v32, q32):
+    return outside(v32.double(), v64) | outside(q32.double(), q64).any(-1)
+
+  _, v32, q32 = fused_reference(sub_args, sub_kwargs)
+  found = parts_from_f64(v32, q32)
+  cpu = {k: v.cpu() if torch.is_tensor(v) else v
+         for k, v in sub_kwargs.items()}
+  _, v32, q32 = (x.to(v64.device) for x in fused_reference(
+      tensor_map(torch.Tensor.cpu, sub_args), cpu))
+  value, q = out[1][idx], out[2][idx]
+  kernel_as_cpu = ~outside(value, v32) & ~outside(q, q32).any(-1)
+  return found | (parts_from_f64(v32, q32) & kernel_as_cpu)
 
 
-
-def tie_proof(args, kwargs):
-  """Phase 21's proof that an env of a recorded MLP search launch is a
-  near-tie: an ulp of its inputs moves it (``ulp_sensitive``), or f32
-  rounding alone does (``f64_disagrees``)."""
+def tie_proof(args, kwargs, out):
+  """Phase 21's proof that an env of a recorded MLP search launch, whose
+  kernel outputs were ``out``, is a near-tie: an ulp of its inputs moves
+  it (``ulp_sensitive``), or f32 rounding alone does
+  (``f64_disagrees``)."""
   return lambda idx: (ulp_sensitive(args, kwargs, idx)
-                      | f64_disagrees(args, kwargs, idx))
+                      | f64_disagrees(args, kwargs, idx, out))
+
 
 def make_net(device, family="mlp", num_actions=2, **widths):
   """The flagship MLP triplet (bench.py:69-71), the acme categorical family
@@ -1839,7 +1869,7 @@ def reanalyze_phase(device, t):
     args, kwargs, out = rec.calls[0]
     check(kwargs["num_simulations"] == sims, "the reanalyze budget")
     cmp = compare_search(out, fused_reference(args, kwargs), sims,
-                         tie_proof=tie_proof(args, kwargs))
+                         tie_proof=tie_proof(args, kwargs, out))
     check(torch.equal(out[0][:L], out[0][L:2 * L])
           and torch.equal(out[1][:L], out[1][L:2 * L]),
           "a segment drawn twice gives bit-identical rows")
@@ -2807,7 +2837,7 @@ def wide_search_against_plain(device, net, params, obs, legal, policy):
   # version, so a tie below a root can break the other way where an ulp
   # of the root embedding alone (phase 22's proof) does not move it.
   ref, figures = compare_masked_search(out, args, kwargs,
-                                       proof=tie_proof(args, kwargs))
+                                       proof=tie_proof(args, kwargs, out))
   if gumbel:
     def act(res):
       visits, _, cq = res
@@ -3696,7 +3726,7 @@ def reanalyze_across_ranks(program, ts, rs):
   args, kwargs, out = rec.calls[0]
   cmp = compare_search(out, fused_reference(args, kwargs),
                        kwargs["num_simulations"],
-                       tie_proof=tie_proof(args, kwargs))
+                       tie_proof=tie_proof(args, kwargs, out))
   check(int(metrics["reanalyzed_segments"]) == PAR_REANALYZE_SEGMENTS,
         f"{float(metrics['reanalyzed_segments'])} segments reanalyzed, not "
         f"{PAR_REANALYZE_SEGMENTS}")
@@ -3743,7 +3773,7 @@ def rank_kernels_against_plain(device, net, program, ts, rs, carry):
   torch.cuda.synchronize()
   check(search_counts()[0] == before + 1, "the search launched once")
   own = compare_search(out, fused_reference(args, kwargs), MAIN_SIMS,
-                       tie_proof=tie_proof(args, kwargs))
+                       tie_proof=tie_proof(args, kwargs, out))
   sampler, (_, _, raw, lay) = sampler_launch_against_plain(
       device, gen, rs, TRAIN_GROUP * batch)
   learner = learner_launch_against_plain(
@@ -4141,7 +4171,7 @@ def example_launches_against_plain(rec, sampled, learned):
     figures[f"search_{batch}"] = compare_search(
         out, fused_reference(args, kwargs), kwargs["num_simulations"],
         invalid=kwargs.get("invalid_actions"),
-        tie_proof=tie_proof(args, kwargs))
+        tie_proof=tie_proof(args, kwargs, out))
   args, kwargs, (raw, lay) = sampled
   ref, _ = fused_sampler.fused_sample_group_reference(*args, **kwargs)
   figures["sampler"] = dict(compare_raw(raw, ref, lay), windows=raw.shape[1])
@@ -4224,6 +4254,39 @@ def kernel_free_example(name, argv, iterations):
         f"{name}: launched {counts}")
   return ret, {"launches": 0, "main_s": seconds,
                "ms_per_iteration": seconds / iterations * 1e3}
+
+
+def repro_phase(root):
+  """Phase 35: two fresh ``fit`` runs of the quickstart with one seed, in
+  this process, digested after every stage by ``tools/repro_fit.py``,
+  with the search, sampler and learner kernels' launches counted over
+  both; a check fails at the first stage where they differ."""
+  import importlib.util
+
+  from muax_tpu_torch.models import fused_learner
+  from muax_tpu_torch.replay import fused_sampler
+
+  spec = importlib.util.spec_from_file_location(
+      "repro_fit", os.path.join(root, "tools", "repro_fit.py"))
+  tool = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(tool)
+  reset_counts()
+  runs = [tool.run_digests("quickstart", "muzero", "cuda",
+                           seed=REPRO_SEED, iterations=REPRO_ITERATIONS)
+          for _ in range(2)]
+  launches = {"search": search_counts()[0], "sampler": fused_sampler.launches,
+              "learner": fused_learner.launches}
+  check(all(launches.values()), f"phase 35 ran every kernel: {launches}")
+  diff = tool.first_difference(*runs)
+  check(runs[0]["records"], "phase 35 recorded no stage")
+  check(diff is None, f"phase 35: two runs of one seed differ first at "
+        f"{diff}")
+  check(runs[0]["final"] == runs[1]["final"],
+        "phase 35: two runs of one seed end in different states")
+  keys = ("params", "opt_state", "ring", "episodes")
+  return {"iterations": REPRO_ITERATIONS, "seed": REPRO_SEED,
+          "launches": launches, "stages_digested": len(runs[0]["records"]),
+          "final": [{k: run["final"][k] for k in keys} for run in runs]}
 
 
 def examples_phase(root):
@@ -4783,6 +4846,11 @@ def run(device):
         f"({time.perf_counter() - t0:.1f} s)")
   if isinstance(examples["run_lunarlander"], str):
     print(f"phase 34 run_lunarlander: {examples['run_lunarlander']}")
+  t0 = time.perf_counter()
+  repro = repro_phase(os.path.dirname(os.path.abspath(__file__)))
+  print(f"phase 35 fit at the quickstart, {REPRO_ITERATIONS} iterations, "
+        f"twice with seed {REPRO_SEED}, bit-identical at every stage: "
+        f"{json.dumps(repro)} ({time.perf_counter() - t0:.1f} s)")
   # The wide kernels' launches on the main paths that run them: phase 30's
   # fit and phase 34's run_2048 (MuZero; no path runs the wide Gumbel
   # mode, which phase 30 holds against its plain version).

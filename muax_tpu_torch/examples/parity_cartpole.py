@@ -101,23 +101,31 @@ def card() -> str:
   return out.stdout.strip().splitlines()[0]
 
 
+def make_run(policy: str, route: str, device: str,
+             config: str = "parity"):
+  """(env, networks, config, optimizer, eval_every) of the notebook config
+  (``config="parity"``) or of the quickstart's (``"quickstart"``) on
+  ``route``."""
+  if config == "quickstart":
+    env, networks, cfg, optimizer = run_cartpole.setup(policy=policy,
+                                                       device=device)
+    return env, networks, on_route(cfg, route), optimizer, 10
+  networks = make_mlp_networks(num_actions=2, embedding_dim=10,
+                               support_size=20, repr_layers=(),
+                               pred_layers=(64, 64, 16),
+                               dyn_layers=(64, 64, 16), device=device)
+  optimizer = muzero_optimizer(peak_lr=2e-2, end_lr=1e-4,
+                               warmup_steps=2000, transition_steps=10000,
+                               decay_rate=0.8)
+  return CartPole(), networks, parity_config(policy, route), optimizer, 5
+
+
 def solve(policy: str, route: str, seed: int, num_iterations: int,
           device: str, model_dir: str, config: str = "parity") -> dict:
   """One CartPole run of the notebook config (``config="parity"``) or of
   the quickstart's (``"quickstart"``); its entry of the JSON."""
-  if config == "quickstart":
-    env, networks, cfg, optimizer = run_cartpole.setup(policy=policy,
-                                                       device=device)
-    cfg, eval_every = on_route(cfg, route), 10
-  else:
-    env, cfg, eval_every = CartPole(), parity_config(policy, route), 5
-    networks = make_mlp_networks(num_actions=2, embedding_dim=10,
-                                 support_size=20, repr_layers=(),
-                                 pred_layers=(64, 64, 16),
-                                 dyn_layers=(64, 64, 16), device=device)
-    optimizer = muzero_optimizer(peak_lr=2e-2, end_lr=1e-4,
-                                 warmup_steps=2000, transition_steps=10000,
-                                 decay_rate=0.8)
+  env, networks, cfg, optimizer, eval_every = make_run(policy, route, device,
+                                                       config)
   t0 = time.time()
   with tempfile.TemporaryDirectory(dir=model_dir) as d:
     _, results = fit(env, networks, cfg, optimizer,

@@ -214,12 +214,30 @@ def replay_sample(state: ReplayState, generator: torch.Generator,
   return replay_sample_from_draws(state, uniforms, gumbel, offsets, k_steps)
 
 
+def last_writers(keys: torch.Tensor, size: int) -> torch.Tensor:
+  """For each position i of ``keys`` (int64 in [0, size)), the last
+  position j with ``keys[j] == keys[i]``.
+
+  A scatter of rows at repeated indices keeps, on the CPU, the row written
+  last in index order, and on the card whichever thread lands last. Writing
+  ``rows[last_writers(keys, size)]`` instead gives every copy of a slot the
+  same row, the last one, so the result is that of the CPU on any device.
+  The positions are reduced by an integer max, which is exact."""
+  pos = torch.arange(keys.numel(), device=keys.device)
+  last = torch.zeros(size, dtype=torch.int64, device=keys.device)
+  last.scatter_reduce_(0, keys, pos, reduce="amax", include_self=False)
+  return last[keys]
+
+
 def replay_update_priorities(state: ReplayState, seg_idx: torch.Tensor,
                              starts: torch.Tensor,
                              new_priorities: torch.Tensor) -> ReplayState:
   """Refresh the sampled windows' start-step priorities in place, floored
-  at 1e-9. A window drawn twice gets one of its values, which one is
-  unspecified (on the card as in the JAX package's scatter)."""
-  state.step_priorities[seg_idx, starts] = torch.clamp(new_priorities,
-                                                       min=1e-9)
+  at 1e-9. A window drawn more than once gets the value of its last
+  occurrence in index order, on every device (the JAX package leaves the
+  winner unspecified; any fixed one is its semantics)."""
+  L = state.segment_length
+  prios = torch.clamp(new_priorities, min=1e-9)
+  winners = last_writers(seg_idx * L + starts, state.capacity * L)
+  state.step_priorities[seg_idx, starts] = prios[winners]
   return state

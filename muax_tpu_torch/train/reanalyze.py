@@ -19,7 +19,7 @@ import torch
 from muax_tpu_torch.config import MuZeroConfig
 from muax_tpu_torch.device import resolve_device
 from muax_tpu_torch.ops import segment_n_step_returns
-from muax_tpu_torch.replay.buffer import ReplayState
+from muax_tpu_torch.replay.buffer import ReplayState, last_writers
 from muax_tpu_torch.train.actor import make_policy_fn
 
 
@@ -51,7 +51,7 @@ def make_reanalyze_fn(networks, config: MuZeroConfig, num_segments: int,
   ``uniforms`` [num_segments] in [0, 1) are the stalest-first draws; when
   None they come from ``generator``, which also feeds the search.
   Segments are drawn with replacement; a segment drawn twice keeps the
-  rows of one of its draws.
+  rows of its last draw, on every device.
   """
   if config.search.reanalyze_simulations is not None:
     config = dataclasses.replace(config, search=dataclasses.replace(
@@ -88,10 +88,12 @@ def make_reanalyze_fn(networks, config: MuZeroConfig, num_segments: int,
     old_values = replay_state.value[seg_idx]
     age = (step - replay_state.target_step[seg_idx]).to(torch.float32)
 
-    replay_state.pi[seg_idx] = pi
-    replay_state.value[seg_idx] = values
-    replay_state.rn[seg_idx] = rn
-    replay_state.step_priorities[seg_idx] = priorities
+    # A segment drawn twice keeps the rows of its last draw on every device.
+    last = last_writers(seg_idx, replay_state.capacity)
+    replay_state.pi[seg_idx] = pi[last]
+    replay_state.value[seg_idx] = values[last]
+    replay_state.rn[seg_idx] = rn[last]
+    replay_state.step_priorities[seg_idx] = priorities[last]
     replay_state.target_step[seg_idx] = int(step)
     metrics = {
         "reanalyzed_segments": torch.tensor(num_segments),

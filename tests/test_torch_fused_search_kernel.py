@@ -103,8 +103,9 @@ def assert_matches_plain_masked(out, ref, sims, invalid, args, kwargs):
   shown by ``chip_smoke.tie_proof`` (phase 21's proof: one-ulp nudges of
   its root embedding and of the weights move it past the tolerance in the
   kernel or the plain version, or the plain version in f32 and f64
-  disagree on it). ``args`` and ``kwargs`` are the launch's, as
-  ``fused._fused_search_cuda`` takes them. The towers' 256-input sums
+  disagree on it, where the launch ran or, with the kernel's values
+  within tolerance of that run, on the CPU). ``args`` and ``kwargs`` are
+  the launch's, as ``fused._fused_search_cuda`` takes them. The towers' 256-input sums
   round apart in the kernel (input by input) and in the plain version
   (torch's products), so a tie below a root breaks differently on about
   one env in a thousand of these random boards, which an ulp of the root
@@ -122,7 +123,7 @@ def assert_matches_plain_masked(out, ref, sims, invalid, args, kwargs):
   assert float(off.float().mean()) <= 0.01
   idx = torch.nonzero(off & (dv == 0))[:, 0]
   if len(idx):
-    assert bool(tie_proof(args, kwargs)(idx).all()), idx
+    assert bool(tie_proof(args, kwargs, out)(idx).all()), idx
 
 
 def _run_and_compare(args, invalid, sims, max_depth, apart=0):

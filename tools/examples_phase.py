@@ -1,13 +1,14 @@
-"""Phases 33 and 34 of ``chip_smoke.py`` alone: the Stochastic MuZero
+"""Phases 33, 34 and 35 of ``chip_smoke.py`` alone: the Stochastic MuZero
 search's wide-tower kernel (tiles of environments sharing every tower read)
-at ``examples/run_2048.py``'s widths (33), and the port's example scripts
-on the card (34).
+at ``examples/run_2048.py``'s widths (33), the port's example scripts on
+the card (34), and two runs of the quickstart's ``fit`` with one seed,
+bit-identical at every stage (35).
 
 Builds every kernel (printing the ``ptxas`` figures of the SMZ search's
 instances, staged and wide), then runs the phases, printing one JSON line
 each. Needs a CUDA card; run from the repository's root:
 
-  python3 tools/examples_phase.py [--only 33|34] [--out FILE]
+  python3 tools/examples_phase.py [--only 33|34|35] [--out FILE]
 """
 import argparse
 import json
@@ -25,7 +26,7 @@ def main():
   from muax_tpu_torch import _build
 
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  parser.add_argument("--only", choices=("33", "34"), default=None)
+  parser.add_argument("--only", choices=("33", "34", "35"), default=None)
   parser.add_argument("--out", default=None, help="also write the JSON here")
   opts = parser.parse_args()
   if not torch.cuda.is_available():
@@ -52,6 +53,11 @@ def main():
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     if isinstance(out["34"]["run_lunarlander"], str):
       print(f"phase 34 run_lunarlander: {out['34']['run_lunarlander']}")
+  if opts.only in (None, "35"):
+    t0 = time.perf_counter()
+    out["35"] = cs.repro_phase(os.getcwd())
+    print(f"phase 35: {json.dumps(out['35'])} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
   if opts.out:
     with open(opts.out, "w") as f:
       json.dump(out, f)

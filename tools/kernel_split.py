@@ -4,7 +4,8 @@ Run from the root of a checkout (its ``muax_tpu_torch`` package and
 ``csrc/`` are the ones measured):
 
   python3 tools/kernel_split.py [--out FILE]
-      [--only mlp|learner|categorical|smz|sampler|wide|wide_smz|digests]
+      [--only mlp|learner|categorical|smz|sampler|wide|wide_smz|digests|
+              iterations|refresh]
       [--against OTHER]
 
 The MLP search (``fused_search_kernel``, both policies) is timed at 8192
@@ -96,7 +97,9 @@ learner's
 priorities at embedding 32 against the plain version in float32 and in
 float64 (``priority_probe``, once per checkout), then the MLP
 training iterations, ``chip_smoke.py``'s phases 6 and 10, each in the order
-other, this, this, other. ``--only learner`` keeps the learner alone;
+other, this, this, other. ``--only learner`` keeps the learner alone,
+``--only iterations`` phases 6 and 10 alone, ``--only refresh`` phase 6's
+priority refresh alone with CUDA events (and reanalyze's ring write);
 ``--only mlp`` takes the MLP search on trees too large for many to fit the
 card at once (8192 envs, 18 actions x 64 simulations and 2 x 400, the
 ``gpu`` tests' inputs) against the plain version, with a digest of the
@@ -676,6 +679,75 @@ for policy in ("muzero", "gumbel"):
   out[policy]["device_idle_share"] = fig["profile"].get("device_idle_share")
 print("ITERATION " + json.dumps(out))
 '''
+# The learner's priority refresh alone (``replay_update_priorities``), on
+# the (segment, start) windows and priorities of phase 6's refreshes
+# (recorded from one ``drive_training`` of the MLP MuZero regime, 10
+# refreshes of W = 65,536 windows an iteration, ring of 2048 x 20), timed
+# with CUDA events, REFRESH_REPS times over each; in a checkout with
+# ``last_writers``, also reanalyze's ring write at phase 21's 64 segments
+# with and without it (both forms of the write in this process).
+REFRESH_REPS = 50
+REFRESH_RUN = r'''
+import json, statistics, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke
+from muax_tpu_torch.replay import buffer, fused_sampler
+from muax_tpu_torch.train import learner
+torch.backends.cuda.matmul.allow_tf32 = False
+device = torch.device("cuda", 0)
+t = chip_smoke.training_setup(device, "muzero")
+chip_smoke.fill_ring(t)
+update, calls = learner.replay_update_priorities, []
+def recording(rs, seg_idx, starts, prios):
+  calls.append((seg_idx.clone(), starts.clone(), prios.clone()))
+  return update(rs, seg_idx, starts, prios)
+learner.replay_update_priorities = recording
+chip_smoke.drive_training(device, t)
+learner.replay_update_priorities = update
+per_iteration = chip_smoke.TRAIN_UPDATES // chip_smoke.TRAIN_GROUP
+assert calls and len(calls) % per_iteration == 0, len(calls)
+calls = calls[-per_iteration:]
+L = t.rs.segment_length
+
+def timed(fn):
+  for _ in range(3):
+    fn()
+  ms = []
+  for _ in range(REPS):
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    ms.append(a.elapsed_time(b))
+  return statistics.median(ms)
+
+refresh = [timed(lambda c=c: update(t.rs, *c)) for c in calls]
+out = {"refreshes_per_iteration": per_iteration,
+       "windows": int(calls[0][0].numel()),
+       "distinct_slots": [int(torch.unique(c[0] * L + c[1]).numel())
+                          for c in calls],
+       "refresh_ms": refresh, "refresh_ms_per_iteration": sum(refresh)}
+if hasattr(buffer, "last_writers"):
+  K, C, rs = chip_smoke.REANALYZE_SEGMENTS, t.rs.capacity, t.rs
+  seg = fused_sampler.draw_segments(rs, t.gen, K)
+  rows = [rs.pi[seg].clone(), rs.value[seg].clone(), rs.rn[seg].clone(),
+          rs.step_priorities[seg].clone()]
+  fields = (rs.pi, rs.value, rs.rn, rs.step_priorities)
+
+  def write_any():
+    for field, row in zip(fields, rows):
+      field[seg] = row
+
+  def write_last():
+    last = buffer.last_writers(seg, C)
+    for field, row in zip(fields, rows):
+      field[seg] = row[last]
+
+  out["reanalyze_write_ms"] = {"index_put": timed(write_any),
+                               "last_writers": timed(write_last)}
+print("REFRESH " + json.dumps(out))
+'''.replace("REPS", str(REFRESH_REPS))
 LARGE_TREE_RUN = r'''
 import hashlib, json, sys, torch
 sys.path.insert(0, ".")
@@ -736,7 +808,9 @@ def against(other, only=None):
   64 simulations and 2 actions x 400, both policies, against the plain
   version (the share within 2 visits, the envs whose value or q are apart,
   a digest of the kernel's outputs), once per checkout; then, unless
-  ``only`` is "learner", phases 6 and 10. With ``only="smz"`` the SMZ
+  ``only`` is "learner", phases 6 and 10 (alone with
+  ``only="iterations"``). With ``only="refresh"`` phase 6's priority
+  refresh alone (``REFRESH_RUN``), two rounds, and nothing else. With ``only="smz"`` the SMZ
   search at SMZ_POINTS (``smz_times``, on the net trained once here), with
   ``only="sampler"`` both sampler modes (``sampler_times``), with
   ``only="wide_smz"`` the wide SMZ search as its plan launches it at
@@ -762,7 +836,7 @@ def against(other, only=None):
 
   order = ("other", "this", "this", "other")
   out = {}
-  if only not in ("smz", "sampler", "wide_smz"):
+  if only not in ("smz", "sampler", "wide_smz", "iterations", "refresh"):
     runs = [child(label, DIGEST_RUN, "DIGESTS") for label in roots]
     out["digests"] = runs
     out["digests_equal"] = {k: runs[0][k] == runs[1][k]
@@ -793,7 +867,11 @@ def against(other, only=None):
   if only == "mlp":
     out["large_trees"] = [child(label, LARGE_TREE_RUN, "LARGE")
                           for label in roots]
-  if only in (None, "mlp"):
+  if only == "refresh":
+    out["refresh"] = [child(label, REFRESH_RUN, "REFRESH")
+                      for _ in range(2) for label in order]
+    return out
+  if only in (None, "mlp", "iterations"):
     out["iterations"] = [child(label, ITERATION_RUN, "ITERATION")
                          for label in order]
   return out
@@ -1158,7 +1236,8 @@ def main():
                       help="directory for the stamped copies")
   parser.add_argument("--only", choices=("mlp", "learner", "categorical",
                                           "smz", "sampler", "wide",
-                                          "wide_smz", "digests"),
+                                          "wide_smz", "digests",
+                                          "iterations", "refresh"),
                       default=None, help="split only the MLP search, the "
                       "MLP learner, the categorical kernels, the Stochastic "
                       "MuZero search, the sampler, the wide modes or the "
@@ -1179,6 +1258,8 @@ def main():
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
       capture_output=True, text=True, check=True).stdout.strip()
   res = {"card": card}
+  if opts.only in ("iterations", "refresh") and not opts.against:
+    parser.error(f"--only {opts.only} goes with --against")
   if opts.against:
     if opts.only in ("categorical", "wide"):
       parser.error(f"--against does not compare --only {opts.only}")
